@@ -1,0 +1,77 @@
+"""Weight bridge from the JAX package: Flax param trees -> this port's
+state_dict.
+
+The counterpart of `efficientteacher_tpu/utils/torch_import.py:246
+export_to_torch_state_dict`, rewritten in numpy without jax (that module's
+package imports jax). The Flax modules keep the reference's state_dict
+names, so the map is mechanical:
+
+  - kernels HWIO -> OIHW, `scale`/`kernel` -> `weight`;
+  - batch stats `mean`/`var` -> `running_mean`/`running_var`;
+  - `m_0` -> `m.0`, except modules whose reference name literally holds
+    `_<digit>` (`stage2_1`, ...);
+  - plus `num_batches_tracked` for every BatchNorm, which
+    `nn.BatchNorm2d` registers and `load_state_dict(strict=True)` requires.
+
+The trees are nested dicts whose leaves are arrays (numpy, or anything
+`np.asarray` takes).
+"""
+
+from __future__ import annotations
+
+from typing import Dict
+
+import numpy as np
+import torch
+
+# Module attributes whose names LITERALLY contain _<digit> in the reference
+# source; a copy of torch_import._LITERAL_UNDERSCORE.
+_LITERAL_UNDERSCORE = frozenset(
+    [f"ERBlock_{i}" for i in range(2, 6)]
+    + [f"c_{i}" for i in range(4)]
+    + [f"elan_{i}" for i in range(4)]
+    + [f"stage{s}_{i}" for s in range(2, 6) for i in (1, 2)]
+    + ["stem_1", "stem_3"]
+)
+
+
+def _torch_path(path) -> list:
+    parts = []
+    for p in path:
+        if ("_" in p and p.rsplit("_", 1)[-1].isdigit()
+                and p not in _LITERAL_UNDERSCORE):
+            parts.extend(p.rsplit("_", 1))
+        else:
+            parts.append(p)
+    return parts
+
+
+def _walk(node, path, out):
+    if isinstance(node, dict):
+        for k, v in node.items():
+            _walk(v, path + [k], out)
+    else:
+        out.append((path, np.asarray(node)))
+
+
+def state_dict_from_jax(params, batch_stats) -> Dict[str, torch.Tensor]:
+    """Flax `params` and `batch_stats` trees -> this port's state_dict."""
+    out: Dict[str, torch.Tensor] = {}
+    leaves = []
+    _walk(params, [], leaves)
+    for path, arr in leaves:
+        leaf = {"scale": "weight", "kernel": "weight"}.get(path[-1], path[-1])
+        if arr.ndim == 4:
+            arr = arr.transpose(3, 2, 0, 1)               # HWIO -> OIHW
+        elif arr.ndim == 2:
+            arr = arr.T
+        key = ".".join(_torch_path(path[:-1]) + [leaf])
+        out[key] = torch.tensor(arr, dtype=torch.float32)
+    leaves = []
+    _walk(batch_stats, [], leaves)
+    for path, arr in leaves:
+        prefix = ".".join(_torch_path(path[:-1]))
+        leaf = {"mean": "running_mean", "var": "running_var"}[path[-1]]
+        out[f"{prefix}.{leaf}"] = torch.tensor(arr, dtype=torch.float32)
+        out[f"{prefix}.num_batches_tracked"] = torch.tensor(0)
+    return out

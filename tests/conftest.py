@@ -47,6 +47,8 @@ SLOW_PATTERNS = (
 def pytest_configure(config):
     config.addinivalue_line(
         "markers", "slow: excluded by ./run_tests.sh --quick")
+    config.addinivalue_line(
+        "markers", "cuda: needs a CUDA card; skips without one")
 
 
 def pytest_collection_modifyitems(config, items):

@@ -1,0 +1,61 @@
+"""The PyTorch port imports neither jax nor flax: the GPU machine it runs on
+has neither. Checked in a fresh interpreter, since this test process has
+both loaded."""
+
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+REPO = Path(__file__).resolve().parents[1]
+
+MODULES = [
+    "efficientteacher_torch",
+    "efficientteacher_torch.models",
+    "efficientteacher_torch.models.common",
+    "efficientteacher_torch.models.detector",
+    "efficientteacher_torch.models.spec",
+    "efficientteacher_torch.models.backbones.yolov5",
+    "efficientteacher_torch.models.necks.yolov5",
+    "efficientteacher_torch.models.heads.yolov5",
+    "efficientteacher_torch.ops.boxes",
+    "efficientteacher_torch.ops._build",
+    "efficientteacher_torch.ops.nms",
+    "efficientteacher_torch.ops.nms_cuda",
+    "efficientteacher_torch.ops.select_cuda",
+    "efficientteacher_torch.eval.validator",
+    "efficientteacher_torch.utils.eval_regimes",
+    "efficientteacher_torch.utils.jax_import",
+    "chip_smoke",
+]
+
+
+def test_port_and_chip_smoke_import_without_jax():
+    code = (
+        "import importlib, sys\n"
+        f"for m in {MODULES!r}:\n"
+        "    importlib.import_module(m)\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'flax', 'efficientteacher_tpu'))\n"
+        "assert not bad, bad\n"
+    )
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+
+
+def test_chip_smoke_refuses_to_run_without_a_card(tmp_path):
+    """Without CUDA (as here) it exits non-zero and prints no result line;
+    alone in a directory it cannot import the port and fails too."""
+    env = dict(os.environ, PYTHONPATH=str(REPO), CUDA_VISIBLE_DEVICES="")
+    proc = subprocess.run([sys.executable, str(REPO / "chip_smoke.py")],
+                          cwd=REPO, env=env, capture_output=True, text=True,
+                          timeout=120)
+    assert proc.returncode != 0 and '"ok"' not in proc.stdout
+    lone = tmp_path / "chip_smoke.py"
+    lone.write_text((REPO / "chip_smoke.py").read_text())
+    env.pop("PYTHONPATH")
+    proc = subprocess.run([sys.executable, str(lone)], cwd=tmp_path, env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode != 0 and '"ok"' not in proc.stdout
