@@ -36,13 +36,20 @@ class Model(nn.Module):
         return self.head(self.neck(self.backbone(x)), decode=decode)
 
 
-def build_model(cfg, dtype: torch.dtype = torch.float32, device=None,
+def build_model(cfg, dtype: torch.dtype = torch.float32,
+                device: torch.device | str = "cuda",
                 generator: torch.Generator | None = None) -> Model:
-    """Build a Model from a ModelSpec or a config tree, on `device`.
+    """Build a Model from a ModelSpec or a config tree, on `device`: the
+    CUDA card unless the caller asks for another device (`device="cpu"`).
+    Raises RuntimeError for a CUDA device when no card is present.
 
     Weights are made on the CPU from `generator` (flax's default conv init,
     the head's focal-prior bias), then moved, so one seed gives the same
     model on every device."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("build_model: no CUDA card is present; pass "
+                           "device='cpu' to build on the CPU")
     spec = cfg if isinstance(cfg, ModelSpec) else spec_from_cfg(cfg)
     model = Model(spec)
     with torch.no_grad():

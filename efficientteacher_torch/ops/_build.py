@@ -41,12 +41,17 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # C entry -> argument types; pointers and the stream as c_void_p so ctypes
 # never truncates them to 32 bits
 _SIGNATURES = {
-    # boxes, valid, keep, B, K, tile, iou_thres, stop_at (-1: none), stream
-    "et_nms_keep": (_P, _P, _P, _I, _I, _I, _F, _I, _P),
-    # scores, B, N, tau_lo, tau_hi, counts scratch, cap, out_scores,
-    # out_idx, stream
+    # boxes, valid, keep, B, K, tile, iou_thres, stop_at (-1: none),
+    # spill scratch (or null), spill rows, stream
+    "et_nms_keep": (_P, _P, _P, _I, _I, _I, _F, _I, _P, _I, _P),
+    "et_nms_list_cap": (),
+    # scores, B, N, tau_lo, tau_hi, ticket + look-back scratch, cap,
+    # out_scores, out_idx, stream
     "et_threshold_compact": (_P, _I, _I, _P, _P, _P, _I, _P, _P, _P),
     "et_compact_chunk": (),
+    # scores, B, N, taus, T, counts, stream
+    "et_count_ge": (_P, _I, _I, _P, _I, _P, _P),
+    "et_count_ge_max_t": (),
 }
 
 

@@ -93,12 +93,21 @@ def greedy_nms_keep_cuda(boxes: torch.Tensor, valid: torch.Tensor,
         raise ValueError("boxes must be 16-byte aligned (float4 loads)")
     if not 1 <= tile <= 256 or k % tile:
         raise ValueError(f"need 1 <= tile <= 256 dividing K={k}, got {tile}")
+    if not 0 <= b * 4 < 2 ** 31 or k >= 2 ** 31:  # 4 blocks per image
+        raise ValueError(f"unsupported sizes B={b}, K={k}")
     keep = torch.empty((b, k), dtype=torch.bool, device=boxes.device)
     lib = library().lib
+    # the kept list holds at most min(K, stop_at - 1 + tile) boxes; what
+    # shared memory cannot hold spills to a scratch region per image
+    most = k if stop_at is None else min(k, max(stop_at, 0) - 1 + tile)
+    spill_rows = max(0, most - lib.et_nms_list_cap())
+    spill = (torch.empty((b, spill_rows, 4), dtype=torch.float32,
+                         device=boxes.device) if spill_rows else None)
     with torch.cuda.device(boxes.device):
         code = lib.et_nms_keep(
             boxes.data_ptr(), valid.data_ptr(), keep.data_ptr(), b, k, tile,
             float(iou_thres), -1 if stop_at is None else int(stop_at),
+            spill.data_ptr() if spill is not None else None, spill_rows,
             torch.cuda.current_stream().cuda_stream)
     check(code, "et_nms_keep")
     greedy_nms_keep_cuda.launches += 1

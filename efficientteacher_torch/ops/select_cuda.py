@@ -12,10 +12,12 @@ eval NMS (reference utils/general.py:1024,1061: the max_nms=30000 cap):
     value threshold tau so that count(s >= tau) lies in [k, cap], compact
     the elements s >= tau, and run a small top-k.
 
-Both hand `threshold_compact_cuda` their compaction. Counting passes, the
-row gather and the small top-k stay plain PyTorch, as they were XLA code
-outside the Pallas kernel. Counting loops over the thresholds: eager
-PyTorch would materialise the (B, N, T) compare that XLA fused.
+Both hand `threshold_compact_cuda` their compaction. The element engine's
+counts (the candidate total and each bisection pass's T <= 8 thresholds)
+go through `count_ge_cuda`, one read of the lattice per pass, as XLA fused
+the JAX package's (B, N, T) compare into its sum. The row gather and the
+small top-k stay plain PyTorch, as they were XLA code outside the Pallas
+kernel. `tier_counts` records which tier each call took.
 
 Exactness contract (both engines, as in JAX): the scores are bit-identical
 to `torch.topk`'s over the whole lattice, every returned index is a
@@ -31,6 +33,8 @@ cap is lost, so the buffer needs no slab slack: cap = round_up(k + slack).
 
 from __future__ import annotations
 
+import collections
+
 import torch
 
 from ._build import check, library
@@ -38,6 +42,18 @@ from ._build import check, library
 _T_BISECT = 8   # thresholds counted per bisection pass
 _P_BISECT = 5   # max bisection passes before conceding to plain top-k
 _SLACK = 32768  # capacity beyond k: a wide count window => few passes
+# the smallest positive float (a subnormal; neither the kernels nor the
+# plain versions flush subnormals to zero)
+_TINY = float.fromhex("0x1p-149")
+
+# engine:tier -> calls, over the process (reset it to count one run):
+#   rows:r1 / rows:r2       row compaction at rows_cap r1 / 4 * r1
+#   rows:topk, elems:topk   lattice too small to compact: torch.topk
+#   rows:to_elems           too many live rows: the element engine
+#   elems:tau0              all candidates fit the buffer: no bisection
+#   elems:bisect            the bisection found tau
+#   elems:fallback_topk     it did not (> cap equal scores): torch.topk
+tier_counts: collections.Counter = collections.Counter()
 
 
 def _cdiv(a: int, b: int) -> int:
@@ -81,18 +97,20 @@ def threshold_compact_cuda(scores: torch.Tensor, tau_lo: torch.Tensor,
                          f"{tuple(tau_hi.shape)} for scores {(b, n)}")
     if not all(x.is_contiguous() for x in (scores, tau_lo, tau_hi)):
         raise ValueError("scores, tau_lo and tau_hi must be contiguous")
-    if not 0 < n < 2 ** 31 or not 0 < cap < 2 ** 31 or b >= 65536:
+    lib = library().lib
+    nchunks = _cdiv(n, lib.et_compact_chunk()) if n > 0 else 0
+    if not 0 < n < 2 ** 31 or not 0 < cap < 2 ** 31 or b >= 65536 \
+            or not 0 < b * nchunks < 2 ** 31:
         raise ValueError(f"unsupported sizes B={b}, N={n}, cap={cap}")
-    built = library()
-    nchunks = _cdiv(n, built.lib.et_compact_chunk())
     dev = scores.device
-    counts = torch.empty((b, nchunks), dtype=torch.int32, device=dev)
+    # ticket counter, then one look-back status word per chunk
+    scratch = torch.empty(1 + b * nchunks, dtype=torch.int64, device=dev)
     out_s = torch.empty((b, cap), dtype=torch.float32, device=dev)
     out_i = torch.empty((b, cap), dtype=torch.int32, device=dev)
     with torch.cuda.device(dev):
-        code = built.lib.et_threshold_compact(
+        code = lib.et_threshold_compact(
             scores.data_ptr(), b, n, tau_lo.data_ptr(), tau_hi.data_ptr(),
-            counts.data_ptr(), cap, out_s.data_ptr(), out_i.data_ptr(),
+            scratch.data_ptr(), cap, out_s.data_ptr(), out_i.data_ptr(),
             torch.cuda.current_stream().cuda_stream)
     check(code, "et_threshold_compact")
     threshold_compact_cuda.launches += 1
@@ -107,20 +125,55 @@ def _compact(use_kernel: bool):
 
 
 def _count_ge(scores: torch.Tensor, taus: torch.Tensor) -> torch.Tensor:
-    """counts[b, t] = #{n : scores[b, n] >= taus[b, t]}, one threshold at a
-    time (no (B, N, T) tensor). int32 sums: a bool -> int64 sum converts
-    the mask in a separate pass (measured 4.7 vs 3.8 ms for 8 thresholds at
-    (32, 2,016,000) on an H100)."""
+    """Plain PyTorch count: counts[b, t] = #{n : scores[b, n] >=
+    taus[b, t]} as int32, one threshold at a time (no (B, N, T) tensor)."""
     return torch.stack([(scores >= taus[:, t, None]).sum(1, dtype=torch.int32)
                         for t in range(taus.shape[1])], 1)
+
+
+def count_ge_cuda(scores: torch.Tensor, taus: torch.Tensor) -> torch.Tensor:
+    """`_count_ge` through the CUDA kernel for CUDA tensors (plain version
+    for CPU tensors only): scores (B, N) f32, taus (B, T) f32 with
+    T <= 8 -> (B, T) int32, in one read of the scores."""
+    if scores.device.type == "cpu" and taus.device.type == "cpu":
+        return _count_ge(scores, taus)
+    b, n = scores.shape
+    if scores.device.type != "cuda" or taus.device != scores.device:
+        raise ValueError("scores and taus must be on one CUDA device (or "
+                         "both on the CPU)")
+    if scores.dtype != torch.float32 or taus.dtype != torch.float32:
+        raise TypeError("scores and taus must be float32")
+    lib = library().lib
+    if taus.dim() != 2 or taus.shape[0] != b \
+            or not 1 <= taus.shape[1] <= lib.et_count_ge_max_t():
+        raise ValueError(f"taus {tuple(taus.shape)} for scores {(b, n)}: "
+                         f"need (B, T), 1 <= T <= {lib.et_count_ge_max_t()}")
+    if not (scores.is_contiguous() and taus.is_contiguous()):
+        raise ValueError("scores and taus must be contiguous")
+    if n >= 2 ** 31 or b >= 65536:
+        raise ValueError(f"unsupported sizes B={b}, N={n}")
+    t = taus.shape[1]
+    counts = torch.empty((b, t), dtype=torch.int32, device=scores.device)
+    with torch.cuda.device(scores.device):
+        code = lib.et_count_ge(scores.data_ptr(), b, n, taus.data_ptr(), t,
+                               counts.data_ptr(),
+                               torch.cuda.current_stream().cuda_stream)
+    check(code, "et_count_ge")
+    count_ge_cuda.launches += 1
+    return counts
+
+
+count_ge_cuda.launches = 0
 
 
 def _elems_impl(scores: torch.Tensor, k: int, use_kernel: bool = True):
     b, n = scores.shape
     cap = _cdiv(k + _SLACK, 128) * 128
     if n <= cap + 4096:  # compaction can't beat sorting the lattice
+        tier_counts["elems:topk"] += 1
         return torch.topk(scores, k, 1)
     compact = _compact(use_kernel)
+    count = count_ge_cuda if use_kernel else _count_ge
     inf = torch.full((b,), float("inf"), device=scores.device)
 
     def compact_tier(tau):
@@ -129,8 +182,11 @@ def _elems_impl(scores: torch.Tensor, k: int, use_kernel: bool = True):
         idx = buf_i.gather(1, pos).long()
         return ts, torch.where(ts > 0.0, idx, 0)
 
-    total = (scores > 0.0).sum(1, dtype=torch.int32)
+    # candidates: s > 0 <=> s >= the smallest positive float
+    tiny = torch.full((b, 1), _TINY, device=scores.device)
+    total = count(scores, tiny)[:, 0]
     if int(total.max()) <= cap:
+        tier_counts["elems:tau0"] += 1
         return compact_tier(torch.zeros(b, device=scores.device))
 
     # per-image value bisection for tau with count(s >= tau) in [kmin, cap];
@@ -147,7 +203,7 @@ def _elems_impl(scores: torch.Tensor, k: int, use_kernel: bool = True):
         if bool(found.all()):
             break
         taus = lo[:, None] + fr[None, :] * (hi - lo)[:, None]
-        counts = _count_ge(scores, taus)                        # (B, T)
+        counts = count(scores, taus)                            # (B, T)
         ok = (counts >= kmin[:, None]) & (counts <= cap)
         any_ok = ok.any(1)
         first = ok.int().argmax(1)           # first True (first max index)
@@ -168,9 +224,11 @@ def _elems_impl(scores: torch.Tensor, k: int, use_kernel: bool = True):
         hi = torch.where(upd, new_hi, hi)
         found |= any_ok
     if bool(found.all()):
+        tier_counts["elems:bisect"] += 1
         return compact_tier(tau)
     # degenerate spectra (> cap candidates within one ulp): plain top-k,
     # still exact
+    tier_counts["elems:fallback_topk"] += 1
     return torch.topk(scores, k, 1)
 
 
@@ -197,14 +255,17 @@ def exact_topk_rows(scores: torch.Tensor, k: int, use_kernel: bool = True):
     r1 = min(_cdiv(max(_cdiv(k, 128) + 8, 256), 128) * 128, rpad)
     r2 = min(4 * r1, rpad)
     if r1 * 128 >= n:
+        tier_counts["rows:topk"] += 1
         return torch.topk(scores, k, 1)
     s3 = torch.nn.functional.pad(scores, (0, r * 128 - n),
                                  value=-1.0).view(b, r, 128)
     rowlive = (s3 > 0.0).any(-1)                                 # (B, r)
     nmax = int(rowlive.sum(-1).max())
     if nmax > r2 or (nmax > r1 and r2 == r1):
+        tier_counts["rows:to_elems"] += 1
         return _elems_impl(scores, k, use_kernel)
     rows_cap = r1 if nmax <= r1 else r2
+    tier_counts["rows:r1" if rows_cap == r1 else "rows:r2"] += 1
     rowscore = rowlive.float()
     half = torch.full((b,), 0.5, device=scores.device)
     inf = torch.full((b,), float("inf"), device=scores.device)

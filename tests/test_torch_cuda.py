@@ -14,8 +14,8 @@ import torch
 from efficientteacher_torch.ops.nms_cuda import (greedy_nms_keep,
                                                  greedy_nms_keep_cuda)
 from efficientteacher_torch.ops.select_cuda import (
-    check_exact_topk, exact_topk_elems, exact_topk_rows, threshold_compact,
-    threshold_compact_cuda)
+    _count_ge, check_exact_topk, count_ge_cuda, exact_topk_elems,
+    exact_topk_rows, threshold_compact, threshold_compact_cuda)
 
 pytestmark = pytest.mark.cuda
 
@@ -38,17 +38,70 @@ def _fields(rng, k, n_valid):
     return torch.from_numpy(boxes), torch.from_numpy(valid)
 
 
-@pytest.mark.parametrize("k,n_valid", [(2048, 700), (30208, 3000)])
+def _check_nms(boxes, valid, tile, stop_at, thr=0.6):
+    """The kernel against the plain version; returns the mask."""
+    ref = greedy_nms_keep(boxes, valid, thr, tile, stop_at)
+    before = greedy_nms_keep_cuda.launches
+    got = greedy_nms_keep_cuda(boxes, valid, thr, tile, stop_at)
+    assert greedy_nms_keep_cuda.launches == before + 1
+    assert torch.equal(got, ref), (tile, stop_at)
+    return ref
+
+
+@pytest.mark.parametrize("k,n_valid", [(2048, 700), (30208, 3000),
+                                       (2048, 0), (30208, 30208)])
 def test_nms_kernel_matches_plain(card, k, n_valid):
     boxes, valid = _fields(np.random.default_rng(k), k, n_valid)
     boxes, valid = boxes.to(card), valid.to(card)
     for tile in (128, 256):
         for stop_at in (None, 300):
-            before = greedy_nms_keep_cuda.launches
-            got = greedy_nms_keep_cuda(boxes, valid, 0.6, tile, stop_at)
-            assert greedy_nms_keep_cuda.launches == before + 1
-            ref = greedy_nms_keep(boxes, valid, 0.6, tile, stop_at)
-            assert torch.equal(got, ref)
+            _check_nms(boxes, valid, tile, stop_at)
+
+
+def test_nms_kernel_dense_field_spills_the_kept_list(card):
+    """stop_at None on a dense, class-offset K = 30208 field: thousands of
+    kept rows, beyond the 1536 the kernel holds in shared memory."""
+    rng = np.random.default_rng(5)
+    k = 30208
+    xy = rng.uniform(0, 600, (2, k, 2))
+    wh = rng.uniform(10, 200, (2, k, 2))
+    cls = rng.integers(0, 80, (2, k, 1)) * 7680.0
+    boxes = torch.from_numpy(
+        (np.concatenate([xy, xy + wh], -1) + cls).astype(np.float32))
+    valid = torch.from_numpy(rng.uniform(size=(2, k)) > 0.2)
+    keep = _check_nms(boxes.to(card), valid.to(card), 256, None)
+    assert int(keep.sum(1).min()) > 1536
+
+
+def _near_threshold_pairs():
+    """Pairs of equal-width boxes, pair p on its own strip y in [2p, 2p+1]:
+    a = [0, W], b = [x, x + W] with W - x = n and W + x = d integers, so
+    inter = n and union = d exactly, and IoU = fl(n / d) with n / d within
+    a few ulps of 0.6 (n = round(0.6 d) + e, e in -3..3). Returns boxes
+    (1, K, 4) and the float32 IoU of each pair."""
+    rows, ious = [], []
+    for p in range(512):
+        d = 2_000_000 + 6 * p + p % 5
+        n = round(0.6 * d) + p % 7 - 3
+        wd, x = (n + d) / 2, (d - n) / 2          # halves: exact in float32
+        rows += [[0.0, 2 * p, wd, 2 * p + 1], [x, 2 * p, x + wd, 2 * p + 1]]
+        ious.append(np.float32(n) / np.float32(d))
+    k = -(-len(rows) // 256) * 256
+    boxes = np.zeros((1, k, 4), np.float32)
+    boxes[0, :len(rows)] = rows
+    return torch.from_numpy(boxes), np.array(ious, np.float32)
+
+
+def test_nms_kernel_near_threshold_pairs(card):
+    boxes, ious = _near_threshold_pairs()
+    thr = np.float32(0.6)
+    assert np.abs(ious - thr).max() < 64 * np.spacing(thr)
+    assert (ious > thr).any() and (ious <= thr).any()
+    valid = torch.zeros(boxes.shape[:2], dtype=torch.bool)
+    valid[0, :2 * len(ious)] = True
+    keep = _check_nms(boxes.to(card), valid.to(card), 256, None)
+    np.testing.assert_array_equal(keep[0, 1:2 * len(ious):2].cpu().numpy(),
+                                  ious <= thr)
 
 
 def test_nms_kernel_rejects_bad_input(card):
@@ -62,16 +115,20 @@ def test_nms_kernel_rejects_bad_input(card):
         greedy_nms_keep_cuda(boxes, valid.cpu(), 0.5)
 
 
-def test_compact_kernel_matches_plain(card):
+@pytest.mark.parametrize("n", [300001, 300000])
+def test_compact_kernel_matches_plain(card, n):
+    """N not a multiple of the 8192-element chunk, with (300000) and
+    without (300001) 16-byte rows; zero survivors, some, and all."""
     rng = np.random.default_rng(2)
-    sc = np.full((3, 300001), -1.0, np.float32)
+    sc = np.full((4, n), -1.0, np.float32)
     for i, npos in enumerate((0, 7000, 250000)):
         pos = rng.choice(sc.shape[1], npos, replace=False)
         sc[i, pos] = rng.uniform(1e-4, 1.0, npos)
+    sc[3] = rng.uniform(1e-4, 1.0, n)
     scores = torch.from_numpy(sc).to(card)
-    lo = torch.tensor([0.0, 0.3, 0.0], device=card)
-    hi = torch.full((3,), float("inf"), device=card)
-    for cap in (1, 4096, 62848):
+    lo = torch.tensor([0.0, 0.3, 0.0, 0.0], device=card)
+    hi = torch.full((4,), float("inf"), device=card)
+    for cap in (1, 4096, 62848, n + 5):
         before = threshold_compact_cuda.launches
         ks, ki = threshold_compact_cuda(scores, lo, hi, cap)
         assert threshold_compact_cuda.launches == before + 1
@@ -80,3 +137,24 @@ def test_compact_kernel_matches_plain(card):
     for engine in (exact_topk_rows, exact_topk_elems):
         ts, ti = engine(scores, 30000)
         check_exact_topk(scores, 30000, ts, ti)
+
+
+@pytest.mark.parametrize("n", [300001, 300000])
+def test_count_ge_kernel_matches_plain(card, n):
+    """T = 1..8, thresholds on tie classes and on the -1 padding."""
+    rng = np.random.default_rng(n)
+    sc = np.full((3, n), -1.0, np.float32)
+    sc[1, ::3] = rng.uniform(1e-4, 1.0, sc[1, ::3].size)
+    sc[2] = rng.uniform(1e-4, 1.0, n)
+    sc[1, :1000] = sc[2, :1000] = 0.5
+    scores = torch.from_numpy(sc).to(card)
+    for t in range(1, 9):
+        taus = np.sort(rng.uniform(0, 1, (3, t)).astype(np.float32), 1)
+        taus[:, 0] = 0.5 if t % 2 else -1.0
+        taus = torch.from_numpy(taus).to(card)
+        before = count_ge_cuda.launches
+        got = count_ge_cuda(scores, taus)
+        assert count_ge_cuda.launches == before + 1
+        assert torch.equal(got, _count_ge(scores, taus))
+    with pytest.raises(ValueError):
+        count_ge_cuda(scores, torch.zeros(3, 9, device=card))

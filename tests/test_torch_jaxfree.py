@@ -27,6 +27,7 @@ MODULES = [
     "efficientteacher_torch.utils.eval_regimes",
     "efficientteacher_torch.utils.jax_import",
     "chip_smoke",
+    "ab_kernels",
 ]
 
 

@@ -52,7 +52,7 @@ def test_forward_and_decode_match_jax(small):
 
 
 def test_train_mode_returns_raw_maps():
-    port = build_model(spec_from_cfg(yolov5_cfg()),
+    port = build_model(spec_from_cfg(yolov5_cfg()), device="cpu",
                        generator=torch.Generator().manual_seed(0)).train()
     raw = port(torch.zeros(2, 3, 64, 64))
     assert [tuple(r.shape) for r in raw] == [
@@ -112,8 +112,10 @@ def test_yolov5l_spec_is_jax_default():
 
 def test_seeded_init_is_reproducible_and_has_focal_prior_bias():
     spec = spec_from_cfg(yolov5_cfg())
-    a = build_model(spec, generator=torch.Generator().manual_seed(3))
-    b = build_model(spec, generator=torch.Generator().manual_seed(3))
+    a = build_model(spec, device="cpu",
+                    generator=torch.Generator().manual_seed(3))
+    b = build_model(spec, device="cpu",
+                    generator=torch.Generator().manual_seed(3))
     for (ka, va), (kb, vb) in zip(a.state_dict().items(),
                                   b.state_dict().items()):
         assert ka == kb and torch.equal(va, vb), ka
@@ -122,3 +124,17 @@ def test_seeded_init_is_reproducible_and_has_focal_prior_bias():
                                rtol=1e-6)
     np.testing.assert_allclose(bias[:, 5:].numpy(), np.log(0.6 / 7.01),
                                rtol=1e-6)
+
+
+def test_build_model_defaults_to_the_card():
+    """Without a card, the default raises and device="cpu" builds; with
+    one, the default builds on it."""
+    spec = spec_from_cfg(yolov5_cfg())
+    if torch.cuda.is_available():
+        model = build_model(spec)
+        assert next(model.parameters()).device.type == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            build_model(spec)
+    model = build_model(spec, device="cpu")
+    assert next(model.parameters()).device.type == "cpu"

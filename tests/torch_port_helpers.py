@@ -37,7 +37,7 @@ def jax_and_port_models(cfg, seed=0):
         key, jnp.zeros((1, img, img, 3)), train=False))(
             jax.random.PRNGKey(seed))
     variables = jax.tree_util.tree_map(np.asarray, variables)
-    port = build_model(spec_from_cfg(cfg))
+    port = build_model(spec_from_cfg(cfg), device="cpu")
     port.load_state_dict(
         state_dict_from_jax(variables["params"], variables["batch_stats"]),
         strict=True)
