@@ -18,8 +18,7 @@ import numpy as np
 import torch
 
 from ..ops.nms import NMSOutput, batched_nms
-
-_AUTOCAST = (torch.bfloat16, torch.float16)
+from ..utils.precision import autocast
 
 
 def _scale_to_native(boxes: np.ndarray, letterbox_hw: Tuple[int, int],
@@ -73,8 +72,7 @@ class InferFn:
         was_training = self.model.training
         self.model.eval()
         try:
-            with torch.autocast(x.device.type, dtype=self.compute_dtype,
-                                enabled=self.compute_dtype in _AUTOCAST):
+            with autocast(x.device, self.compute_dtype):
                 decoded, _ = self.model(x, decode=True)
         finally:
             self.model.train(was_training)

@@ -8,7 +8,9 @@ Only the blocks the YOLOv5 serving slice runs are ported so far.
     `m.0`, ...), so a checkpoint exported from the JAX package
     (`utils/jax_import.py`) loads with `strict=True`.
   - BatchNorm uses the reference's overrides eps 1e-3 and momentum 0.03
-    (utils/torch_utils.py:167-169; JAX common.py:85-86).
+    (utils/torch_utils.py:167-169; JAX common.py:85-86), and in train mode
+    updates its running variance with the biased batch variance, as flax
+    does (`BatchNorm2d` below).
   - Torch modules need their input channels up front, where Flax infers
     them; every block takes `c1`.
   - SPPF pools with `F.max_pool2d(k, 1, k // 2)`. The JAX package's
@@ -66,6 +68,36 @@ def split_c3_act(act):
     return pairs.get(act, (act, act))
 
 
+class BatchNorm2d(nn.BatchNorm2d):
+    """`nn.BatchNorm2d` whose train-mode running-variance update uses the
+    biased batch variance, as flax's `nn.BatchNorm` does (JAX
+    common.py:101-105); PyTorch's uses the unbiased one, n/(n-1) larger
+    (14% at n = 8, a 2x2 map of a batch of 2). Both normalize with the
+    biased statistics, so outputs are unchanged.
+
+    PyTorch's update `(1-m) r + m v n/(n-1)` is made on a copy of the
+    running variance scaled by n/(n-1) (the copy is the tensor autograd
+    saves), which gives `((1-m) r0 + m v) n/(n-1)`; one multiply by
+    (n-1)/n writes that back into the buffer. Two per-channel ops, no
+    second pass over the activations. `momentum=None` (the cumulative
+    average of `utils/eval_regimes.calibrate_bn`) uses m = 1 /
+    num_batches_tracked, as PyTorch does."""
+
+    def forward(self, x):
+        if not (self.training and self.track_running_stats):
+            return super().forward(x)
+        self._check_input_dim(x)
+        self.num_batches_tracked.add_(1)
+        m = (self.momentum if self.momentum is not None
+             else 1.0 / float(self.num_batches_tracked))
+        n = x.numel() // x.shape[1]
+        var = self.running_var * (n / (n - 1))
+        out = F.batch_norm(x, self.running_mean, var, self.weight, self.bias,
+                           True, m, self.eps)
+        torch.mul(var, (n - 1) / n, out=self.running_var)
+        return out
+
+
 class ConvBase(nn.Module):
     """Conv2d + BatchNorm + activation (reference Conv, common.py:471)."""
 
@@ -74,7 +106,7 @@ class ConvBase(nn.Module):
         super().__init__()
         self.conv = nn.Conv2d(c1, c2, k, s, autopad(k, p), groups=g,
                               bias=False)
-        self.bn = nn.BatchNorm2d(c2, eps=1e-3, momentum=0.03)
+        self.bn = BatchNorm2d(c2, eps=1e-3, momentum=0.03)
         self.act = get_activation(act)
 
     def forward(self, x):

@@ -1,0 +1,101 @@
+"""Supervised train step: forward, loss, backward, accumulated Nesterov SGD
+and the EMA (counterpart of `efficientteacher_tpu/train/supervised.py`;
+reference trainer/trainer.py:413-440).
+
+Images arrive uint8 NHWC and are scaled on the device. The forward runs in
+`compute_dtype`: bf16 by autocast on the card (float32 master weights, no
+GradScaler needed for bf16), float32 in the parity tests. The loss runs in
+float32 outside autocast. RepOpt gradient masks (`grad_masks`) are not
+ported yet.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple, Optional
+
+import torch
+
+from ..losses.yolov5_loss import YoloV5LossConfig, compute_loss
+from ..models.detector import SSODModel
+from ..utils.precision import autocast
+from .optim import OptimizerConfig
+from .train_state import TrainState, apply_gradients_accumulating
+
+
+class Schedule(NamedTuple):
+    """Per-iteration scalars, computed on the host."""
+
+    lr_bias: float
+    lr_rest: float
+    momentum: float
+    accumulate: int
+    ema_decay: float = 0.9999
+
+    @classmethod
+    def make(cls, lr_bias, lr_rest, momentum, accumulate, ema_decay=0.9999):
+        return cls(float(lr_bias), float(lr_rest), float(momentum),
+                   int(accumulate), float(ema_decay))
+
+
+def to_input(images_u8: torch.Tensor, compute_dtype: torch.dtype,
+             norm_scale: float) -> torch.Tensor:
+    """uint8 NHWC -> NCHW in `compute_dtype`, divided by `norm_scale` on the
+    device (a view: channels-last strides)."""
+    return images_u8.permute(0, 3, 1, 2).to(compute_dtype) / norm_scale
+
+
+def forward_train(model, x, compute_dtype, **kwargs):
+    """The model in train mode on `x`, under autocast for bf16 / fp16."""
+    model.train()
+    with autocast(x.device, compute_dtype):
+        return model(x, decode=False, **kwargs)
+
+
+def grads_of(loss: torch.Tensor, state: TrainState):
+    """d loss / d params, one per parameter; None for parameters the loss
+    does not reach, which count as zero gradients, as `jax.grad` gives
+    them: decay and momentum still move them on a fired step."""
+    return torch.autograd.grad(loss, state.params, allow_unused=True)
+
+
+def apply_grads(state: TrainState, grads, oc: OptimizerConfig,
+                sched: Schedule, semi_decay: Optional[float] = None) -> None:
+    """`apply_gradients_accumulating` with the schedule's scalars."""
+    apply_gradients_accumulating(
+        state, grads, oc, lr_bias=sched.lr_bias, lr_rest=sched.lr_rest,
+        momentum=sched.momentum, accumulate=sched.accumulate,
+        ema_decay=sched.ema_decay, semi_decay=semi_decay)
+
+
+def make_supervised_train_step(
+        loss_cfg: YoloV5LossConfig, anchors_grid, opt_cfg: OptimizerConfig,
+        norm_scale: float = 255.0,
+        compute_dtype: torch.dtype = torch.bfloat16):
+    """(state, images_u8, labels, label_mask, sched) -> (state, parts): the
+    YOLOv5 `compute_loss` with `loss_cfg` and anchors_grid (nl, na, 2), a
+    tensor on the step's device (or an array, for CPU steps). An SSODModel
+    trains here without its discriminators. The model is the state's. (The
+    JAX step's `detection_loss` hook for other loss families is not ported
+    with them.)"""
+
+    def train_step(state: TrainState, images, labels, label_mask,
+                   sched: Schedule):
+        model = state.model
+        ssod = isinstance(model, SSODModel)
+        raw = forward_train(model, to_input(images, compute_dtype,
+                                            norm_scale), compute_dtype,
+                            **({"with_domain": False} if ssod else {}))
+        if ssod:
+            raw = raw[0]
+        loss, parts = compute_loss(raw, labels, label_mask, anchors_grid,
+                                   loss_cfg)
+        apply_grads(state, grads_of(loss, state), opt_cfg, sched)
+        return state, detached(parts)
+
+    return train_step
+
+
+def detached(parts: dict) -> dict:
+    """A loss's parts, cut from the graph (they are returned as metrics)."""
+    return {k: v.detach() if torch.is_tensor(v) else v
+            for k, v in parts.items()}

@@ -40,9 +40,10 @@ from typing import Dict
 
 import torch
 
-from ..eval.validator import _AUTOCAST, InferFn
+from ..eval.validator import InferFn
 from ..models.spec import ModelSpec
 from ..ops.nms import _pair_scores
+from .precision import autocast
 
 # Objectness-bias shift of the mid regime, chosen on an H100 for the seed-0
 # YOLOv5l init of `build_model`, calibrated on chip_smoke.py's batch (8
@@ -93,8 +94,7 @@ def calibrate_bn(model, images_u8, compute_dtype=torch.bfloat16) -> None:
     model.train()
     try:
         x = images_u8.permute(0, 3, 1, 2).to(compute_dtype) / 255.0
-        with torch.autocast(x.device.type, dtype=compute_dtype,
-                            enabled=compute_dtype in _AUTOCAST):
+        with autocast(x.device, compute_dtype):
             model(x, decode=False)
     finally:
         model.train(was_training)

@@ -1,5 +1,5 @@
 """Weight bridge from the JAX package: Flax param trees -> this port's
-state_dict.
+state_dict (the whole train state: `train/from_jax.py`).
 
 The counterpart of `efficientteacher_tpu/utils/torch_import.py:246
 export_to_torch_state_dict`, rewritten in numpy without jax (that module's
@@ -9,7 +9,8 @@ names, so the map is mechanical:
   - kernels HWIO -> OIHW, `scale`/`kernel` -> `weight`;
   - batch stats `mean`/`var` -> `running_mean`/`running_var`;
   - `m_0` -> `m.0`, except modules whose reference name literally holds
-    `_<digit>` (`stage2_1`, ...);
+    `_<digit>` (`stage2_1`, ...) and the SSOD model's discriminators
+    `det_8/16/32`, which the port names as the JAX package does;
   - plus `num_batches_tracked` for every BatchNorm, which
     `nn.BatchNorm2d` registers and `load_state_dict(strict=True)` requires.
 
@@ -19,15 +20,17 @@ The trees are nested dicts whose leaves are arrays (numpy, or anything
 
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, List
 
 import numpy as np
 import torch
 
 # Module attributes whose names LITERALLY contain _<digit> in the reference
-# source; a copy of torch_import._LITERAL_UNDERSCORE.
+# source (a copy of torch_import._LITERAL_UNDERSCORE), plus the port's
+# SSODModel discriminators.
 _LITERAL_UNDERSCORE = frozenset(
-    [f"ERBlock_{i}" for i in range(2, 6)]
+    ["det_8", "det_16", "det_32"]
+    + [f"ERBlock_{i}" for i in range(2, 6)]
     + [f"c_{i}" for i in range(4)]
     + [f"elan_{i}" for i in range(4)]
     + [f"stage{s}_{i}" for s in range(2, 6) for i in (1, 2)]
@@ -75,3 +78,15 @@ def state_dict_from_jax(params, batch_stats) -> Dict[str, torch.Tensor]:
         out[f"{prefix}.{leaf}"] = torch.tensor(arr, dtype=torch.float32)
         out[f"{prefix}.num_batches_tracked"] = torch.tensor(0)
     return out
+
+
+def params_from_jax(model: torch.nn.Module, tree) -> List[torch.Tensor]:
+    """A params-shaped tree (momentum, accumulated gradients, gradients)
+    as one float32 tensor per `model.parameters()` entry, on its device."""
+    sd = state_dict_from_jax(tree, {})
+    named = list(model.named_parameters())
+    differ = set(sd) ^ {n for n, _ in named}
+    if differ:
+        raise KeyError(f"tree and model differ at {sorted(differ)}")
+    return [torch.empty_like(p, dtype=torch.float32).copy_(sd[n])
+            for n, p in named]

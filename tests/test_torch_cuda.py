@@ -158,3 +158,103 @@ def test_count_ge_kernel_matches_plain(card, n):
         assert torch.equal(got, _count_ge(scores, taus))
     with pytest.raises(ValueError):
         count_ge_cuda(scores, torch.zeros(3, 9, device=card))
+
+
+def _decoded_field(rng, b, n, nc, img):
+    """Decoded teacher predictions (b, n, 5 + nc) with spread scores."""
+    pred = np.zeros((b, n, 5 + nc), np.float32)
+    pred[..., 0:2] = rng.uniform(0, img, (b, n, 2))
+    pred[..., 2:4] = rng.uniform(4, 120, (b, n, 2))
+    pred[..., 4] = rng.uniform(0, 1, (b, n)) ** 3
+    pred[..., 5:] = rng.uniform(0, 1, (b, n, nc)) ** 4
+    return torch.from_numpy(pred)
+
+
+def test_pseudo_labels_through_k1_match_plain(card):
+    """The SSOD path's NMS at its main-path shape: 16 images of 25,200
+    YOLOv5l rows at 640 px, max_nms 2048 -> K1 at (16, 2048), conf 0.1,
+    IoU 0.65, 100 labels; identity and scale + flip warps."""
+    from efficientteacher_torch.ssod.pseudo_label import create_pseudo_labels
+
+    rng = np.random.default_rng(16)
+    decoded = _decoded_field(rng, 16, 25200, 80, 640).to(card)
+    m_s = torch.zeros(16, 13)
+    m_s[:, 1:10] = torch.eye(3).flatten()
+    m_s[:, 10] = 1.0
+    m_s[8:, 1:10] = torch.tensor([[0.5, 0, 160], [0, 0.5, 160],
+                                  [0, 0, 1.0]]).flatten()
+    m_s[8:, 10], m_s[8:, 12] = 0.5, 1.0
+    kw = dict(img_size=640, nc=80, conf_thres=0.1, iou_thres=0.65,
+              max_pl=100)
+    before = greedy_nms_keep_cuda.launches
+    got = create_pseudo_labels(decoded, m_s.to(card), **kw)
+    assert greedy_nms_keep_cuda.launches == before + 1
+    ref = create_pseudo_labels(decoded, m_s.to(card), use_kernels=False,
+                               **kw)
+    for a, b in zip(got, ref):
+        assert torch.equal(a, b)
+    assert int(got.mask.sum(1).min()) > 0
+
+
+def test_ssod_step_on_the_card(card):
+    """One burn-in and two SSOD steps (held, fired) of a width-0.25 SSOD
+    model, 2 + 2 images at 256 px (4032 rows: K1 at (2, 2048)), bf16
+    autocast: finite losses, one K1 launch per SSOD step, parameters
+    moved by the fired step only."""
+    from efficientteacher_torch.losses.ssod_loss import SSODLossConfig
+    from efficientteacher_torch.losses.yolov5_loss import YoloV5LossConfig
+    from efficientteacher_torch.models import ModelSpec, build_model
+    from efficientteacher_torch.train.optim import OptimizerConfig
+    from efficientteacher_torch.train.ssod_step import (
+        create_ssod_train_state, make_burn_in_train_step,
+        make_ssod_train_step, seed_teacher_from_ema)
+    from efficientteacher_torch.train.supervised import Schedule
+
+    spec = ModelSpec(width_multiple=0.25, depth_multiple=0.33, img_size=256,
+                     train_domain=True)
+    model = build_model(spec, device=card,
+                        generator=torch.Generator().manual_seed(0))
+    with torch.no_grad():  # a teacher that gives pseudo labels
+        for conv in model.head.m:
+            conv.bias.view(3, 85)[:, 4] += 4.0
+            conv.bias.view(3, 85)[:, 5:] += 5.0
+    anchors = (torch.tensor(spec.anchors).view(3, 3, 2)
+               / torch.tensor(spec.strides).view(3, 1, 1)).to(card)
+    oc = OptimizerConfig(lr0=0.01, lrf=1.0)
+    state = create_ssod_train_state(model, oc)
+    g = torch.Generator().manual_seed(1)
+    img = lambda: torch.randint(0, 256, (2, 256, 256, 3), generator=g,  # noqa
+                                dtype=torch.uint8).to(card)
+    sup, strong, weak = img(), img(), img()
+    labels = torch.tensor([[[3, 0.5, 0.5, 0.2, 0.3], [7, 0.3, 0.6, 0.1,
+                                                      0.1]]] * 2).to(card)
+    mask = torch.ones(2, 2, dtype=torch.bool, device=card)
+    m_s = torch.zeros(2, 13)
+    m_s[:, 1:10] = torch.eye(3).flatten()
+    m_s[:, 10] = 1.0
+    sched = Schedule.make(0.01, 0.01, 0.937, 2)
+    sup_cfg = YoloV5LossConfig(nc=80, obj_w=0.7, cls_w=0.3)
+    burn = make_burn_in_train_step(sup_cfg, anchors, oc)
+    state, parts = burn(state, sup, labels, mask, weak,
+                        Schedule.make(0.01, 0.01, 0.937, 1))
+    assert all(torch.isfinite(v) for v in parts.values())
+    seed_teacher_from_ema(state)
+    step = make_ssod_train_step(
+        sup_cfg, SSODLossConfig(nc=80, obj_w=0.7, cls_w=0.3,
+                                uncertain_aug=True,
+                                pseudo_label_with_obj=True), anchors, oc,
+        spec, nms_conf_thres=0.1, nms_iou_thres=0.65, max_pl=100,
+        multi_label=False, teacher_loss_weight=3.0, da_loss_weight=0.01,
+        with_da_loss=False)
+    thr = (torch.full((80,), 0.6, device=card),
+           torch.full((80,), 0.1, device=card))
+    for fired in (False, True):
+        before = [p.detach().clone() for p in state.params]
+        launches = greedy_nms_keep_cuda.launches
+        state, out = step(state, sup, labels, mask, strong, weak,
+                          m_s.to(card), *thr, sched, 0.999)
+        assert greedy_nms_keep_cuda.launches == launches + 1
+        assert all(torch.isfinite(v) for v in out.metrics.values())
+        assert int(out.pseudo_count) > 0
+        same = [torch.equal(a, b) for a, b in zip(before, state.params)]
+        assert (not any(same)) if fired else all(same)

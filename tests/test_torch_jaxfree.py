@@ -1,6 +1,6 @@
-"""The PyTorch port imports neither jax nor flax: the GPU machine it runs on
-has neither. Checked in a fresh interpreter, since this test process has
-both loaded."""
+"""The PyTorch port imports neither jax, flax, yaml nor cv2 (the GPU
+machine it runs on has none of them), nor the JAX package. Checked in a
+fresh interpreter, since this test process has them loaded."""
 
 import os
 import subprocess
@@ -26,6 +26,18 @@ MODULES = [
     "efficientteacher_torch.eval.validator",
     "efficientteacher_torch.utils.eval_regimes",
     "efficientteacher_torch.utils.jax_import",
+    "efficientteacher_torch.utils.precision",
+    "efficientteacher_torch.assigners.yolo_anchor",
+    "efficientteacher_torch.losses.common",
+    "efficientteacher_torch.losses.domain_loss",
+    "efficientteacher_torch.losses.yolov5_loss",
+    "efficientteacher_torch.losses.ssod_loss",
+    "efficientteacher_torch.ssod.pseudo_label",
+    "efficientteacher_torch.train.optim",
+    "efficientteacher_torch.train.train_state",
+    "efficientteacher_torch.train.supervised",
+    "efficientteacher_torch.train.ssod_step",
+    "efficientteacher_torch.train.from_jax",
     "chip_smoke",
     "ab_kernels",
 ]
@@ -37,7 +49,7 @@ def test_port_and_chip_smoke_import_without_jax():
         f"for m in {MODULES!r}:\n"
         "    importlib.import_module(m)\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
-        "('jax', 'jaxlib', 'flax', 'efficientteacher_tpu'))\n"
+        "('jax', 'jaxlib', 'flax', 'yaml', 'cv2', 'efficientteacher_tpu'))\n"
         "assert not bad, bad\n"
     )
     env = dict(os.environ, PYTHONPATH=str(REPO))

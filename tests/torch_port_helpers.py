@@ -63,3 +63,71 @@ def images_u8(rng, b, img):
 
 def port_tensor(x):
     return torch.from_numpy(np.ascontiguousarray(x))
+
+
+# grid-unit anchors of test_yolov5_loss.py / test_ssod.py
+ANCHORS_GRID = np.array(
+    [[[1.25, 1.625], [2.0, 3.75], [4.125, 2.875]],
+     [[1.875, 3.8125], [3.875, 2.8125], [3.6875, 7.4375]],
+     [[3.625, 2.8125], [4.875, 6.1875], [11.65625, 10.1875]]], np.float32)
+
+
+def anchors_grid_of(cfg):
+    """(nl, na, 2) anchors in grid units of the config's strides."""
+    spec = spec_from_cfg(cfg)
+    return (np.asarray(spec.anchors, np.float32).reshape(spec.nl, spec.na, 2)
+            / np.asarray(spec.strides, np.float32)[:, None, None])
+
+
+def make_labels(rng, b, m, n_per_img, nc=8, extra=0):
+    """Padded normalized labels (b, m, 5 + extra) [cls, cx, cy, w, h, ...]
+    with n_per_img[i] rows set, and their mask."""
+    labels = np.zeros((b, m, 5 + extra), np.float32)
+    mask = np.zeros((b, m), bool)
+    for bi, n in enumerate(n_per_img):
+        labels[bi, :n, 0] = rng.integers(0, nc, n)
+        labels[bi, :n, 1:3] = rng.uniform(0.05, 0.95, (n, 2))
+        labels[bi, :n, 3:5] = rng.uniform(0.02, 0.4, (n, 2))
+        labels[bi, :n, 5:] = rng.uniform(0, 1, (n, extra))
+        mask[bi, :n] = True
+    return labels, mask
+
+
+def assert_states(got, want, tol, grad_tol=None):
+    """Every tensor of two port train states: parameters and BatchNorm
+    statistics, momentum buffers, accumulated gradients, the EMA and the
+    semi-EMA (where both have one), and the counters. Each tensor is held
+    to `tol` times max(1, its largest entry in `want`); the gradient-made
+    buffers (momentum, accumulators) to `grad_tol` times theirs, if
+    given."""
+    def close(a, b, what, scale=tol):
+        b = b.detach().numpy()
+        atol = scale * max(1.0, float(np.abs(b).max()))
+        np.testing.assert_allclose(a.detach().numpy(), b, rtol=0, atol=atol,
+                                   err_msg=what)
+
+    def modules(a, b, what):
+        sb = b.state_dict()
+        for k, v in a.state_dict().items():
+            if not k.endswith("num_batches_tracked"):
+                close(v, sb[k], f"{what} {k}")
+
+    modules(got.model, want.model, "model")
+    names = [n for n, _ in got.model.named_parameters()]
+    for what in ("momentum_buf", "acc_grads"):
+        for n, a, b in zip(names, getattr(got, what), getattr(want, what)):
+            close(a, b, f"{what} {n}", grad_tol or tol)
+    for what in ("ema", "semi_ema"):
+        a, b = getattr(got, what, None), getattr(want, what, None)
+        if a is not None or b is not None:
+            modules(a.module, b.module, what)
+            assert a.updates == b.updates, what
+    assert (got.acc_count, got.step, got.opt_step) == (
+        want.acc_count, want.step, want.opt_step)
+
+
+def jax_maps(maps):
+    """The port's raw maps (B, na, ny, nx, no) in the JAX layout
+    (B, ny, nx, na, no), as jax arrays."""
+    return [jnp.asarray(m.detach().numpy().transpose(0, 2, 3, 1, 4))
+            for m in maps]
