@@ -1,11 +1,11 @@
 #!/usr/bin/env python3
-"""Smoke run of the PyTorch port on one CUDA card: YOLOv5l eval serving and
-the YOLOv5l mean-teacher training step.
+"""Smoke run of the PyTorch port on one CUDA card: YOLOv5l eval serving, the
+YOLOv5l mean-teacher training step and the SSOD trainer around it.
 
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from `efficientteacher_torch/csrc/`, checks
-each against its plain PyTorch version, then drives the port's two main
+each against its plain PyTorch version, then drives the port's three main
 paths, each with the kernels' launch counts set to 0 just before it and
 read just after:
 
@@ -19,7 +19,16 @@ read just after:
     at accumulate 2, with K1 in every step's pseudo-label NMS at
     (16, 2048); then it profiles a held + fired pair, times the step with
     PyTorch's own BatchNorm forward beside the port's, and times the
-    pseudo labels and K1 at the run's load and at a sparser one.
+    pseudo labels and K1 at the run's load and at a sparser one;
+  - trainer: `SSODTrainer` on the main YAML's config (`ssod_cfg`) and
+    batch, 32 + 32, over in-memory loaders (`trainer_data`): 1 burn-in
+    and 2 mean-teacher epochs of 4 steps, 3 val batches of 32 at each
+    epoch end (the val detections held against the plain NMS), last/best
+    checkpoints, then a trainer resumed from last.ckpt for one epoch
+    (its epoch, best fitness, EMA updates and weights held against the
+    checkpoint); it times the loop's steps against the same step function
+    called bare, the input copy, validator.run (device wait and host
+    metrics), the save() calls and the steps during a checkpoint write.
 
 It times the forward, the NMS, the selection engine against `torch.topk`,
 the training steps and their phases (CUDA events), and each kernel
@@ -46,7 +55,6 @@ import statistics
 import subprocess
 import sys
 import time
-from types import SimpleNamespace as NS
 
 B, IMG, NC = 32, 640, 80
 CONF, IOU, MAX_NMS, MAX_DET = 0.001, 0.6, 30000, 300
@@ -56,26 +64,75 @@ HBM_BYTES_S = 3.35e12    # H100 SXM device memory
 FP32_OPS_S = 67e12       # H100 SXM fp32 outside the tensor cores
 IOU_OPS = 12             # fp32 operations of one IoU test (ops/boxes.py)
 
-# The training phase: configs/ssod/coco-standard/yolov5l_coco_ssod_10_percent
-# .yaml over the defaults of efficientteacher_tpu/configs/defaults.py (the
-# card's machine has no yaml), as an attribute tree for the from_cfg
-# factories; batch 16 labelled + 16 unlabelled, as bench.py runs it.
-SSOD_CFG = NS(
-    single_cls=False, adam=False, epochs=60, linear_lr=False,
-    Dataset=NS(nc=NC, np=0, img_size=IMG),
-    hyp=NS(lr0=0.01, lrf=1.0, momentum=0.937, warmup_epochs=0,
-           warmup_momentum=0.8, warmup_bias_lr=0.1),
-    Loss=NS(box=0.05, cls=0.3, obj=0.7, cls_pw=1.0, obj_pw=1.0,
-            fl_gamma=0.0, label_smoothing=0.0, anchor_t=4.0,
-            single_targets=False, kp_loss_weight=10.0),
-    SSOD=NS(nms_conf_thres=0.1, nms_iou_thres=0.65, teacher_loss_weight=3.0,
-            box_loss_weight=0.05, obj_loss_weight=0.7, cls_loss_weight=0.3,
-            ignore_thres_high=0.6, ignore_thres_low=0.1, focal_loss=0.0,
-            uncertain_aug=True, ignore_obj=False, multi_label=False,
-            pseudo_label_with_obj=True, pseudo_label_with_bbox=True,
-            pseudo_label_with_cls=False, with_da_loss=False,
-            da_loss_weights=0.01, ema_rate=0.999, max_pseudo_labels=100,
-            multi_step_lr=False, milestones=[10, 20]))
+# configs/ssod/coco-standard/yolov5l_coco_ssod_10_percent.yaml as a dotted
+# override list over the port's `get_cfg()` (the card's machine has no
+# yaml); tests/test_torch_config.py holds it equal to the YAML.
+COCO_NAMES = [
+    "person", "bicycle", "car", "motorcycle", "airplane", "bus", "train",
+    "truck", "boat", "traffic light", "fire hydrant", "stop sign",
+    "parking meter", "bench", "bird", "cat", "dog", "horse", "sheep", "cow",
+    "elephant", "bear", "zebra", "giraffe", "backpack", "umbrella",
+    "handbag", "tie", "suitcase", "frisbee", "skis", "snowboard",
+    "sports ball", "kite", "baseball bat", "baseball glove", "skateboard",
+    "surfboard", "tennis racket", "bottle", "wine glass", "cup", "fork",
+    "knife", "spoon", "bowl", "banana", "apple", "sandwich", "orange",
+    "broccoli", "carrot", "hot dog", "pizza", "donut", "cake", "chair",
+    "couch", "potted plant", "bed", "dining table", "toilet", "tv",
+    "laptop", "mouse", "remote", "keyboard", "cell phone", "microwave",
+    "oven", "toaster", "sink", "refrigerator", "book", "clock", "vase",
+    "scissors", "teddy bear", "hair drier", "toothbrush"]
+MAIN_YAML_OVERRIDES = [
+    "project", "runs/ssod_10p", "epochs", 60, "weights", "",
+    "hyp.lr0", 0.01, "hyp.lrf", 1.0, "hyp.momentum", 0.937,
+    "hyp.weight_decay", 0.0005, "hyp.burn_epochs", 10, "hyp.hsv_h", 0.015,
+    "hyp.hsv_s", 0.7, "hyp.hsv_v", 0.4, "hyp.translate", 0.1,
+    "hyp.scale", 0.9, "hyp.fliplr", 0.5, "hyp.mosaic", 1.0,
+    "Model.depth_multiple", 1.0, "Model.width_multiple", 1.0,
+    "Model.Backbone.name", "YoloV5", "Model.Backbone.activation", "SiLU",
+    "Model.Neck.name", "YoloV5", "Model.Neck.in_channels", [256, 512, 1024],
+    "Model.Neck.out_channels", [256, 512, 1024],
+    "Model.Neck.activation", "SiLU", "Model.Head.name", "YoloV5",
+    "Model.Head.activation", "SiLU",
+    "Model.anchors", [[10, 13, 16, 30, 33, 23], [30, 61, 62, 45, 59, 119],
+                      [116, 90, 156, 198, 373, 326]],
+    "Loss.type", "ComputeLoss", "Loss.cls", 0.3, "Loss.obj", 0.7,
+    "Loss.anchor_t", 4.0,
+    "Dataset.data_name", "coco_standard_10",
+    "Dataset.train", "data/coco_standard/labeled_10percent.txt",
+    "Dataset.val", "data/val2017.txt",
+    "Dataset.target", "data/coco_standard/unlabeled_10percent.txt",
+    "Dataset.nc", 80, "Dataset.np", 0, "Dataset.names", COCO_NAMES,
+    "Dataset.img_size", 640, "Dataset.batch_size", 32,
+    "Dataset.sampler_type", "normal",
+    "SSOD.train_domain", True, "SSOD.nms_conf_thres", 0.1,
+    "SSOD.nms_iou_thres", 0.65, "SSOD.teacher_loss_weight", 3.0,
+    "SSOD.cls_loss_weight", 0.3, "SSOD.box_loss_weight", 0.05,
+    "SSOD.obj_loss_weight", 0.7, "SSOD.loss_type", "ComputeStudentMatchLoss",
+    "SSOD.ignore_thres_low", 0.1, "SSOD.ignore_thres_high", 0.6,
+    "SSOD.uncertain_aug", True, "SSOD.use_ota", False,
+    "SSOD.multi_label", False, "SSOD.ignore_obj", False,
+    "SSOD.pseudo_label_with_obj", True, "SSOD.pseudo_label_with_bbox", True,
+    "SSOD.pseudo_label_with_cls", False, "SSOD.with_da_loss", False,
+    "SSOD.da_loss_weights", 0.01, "SSOD.epoch_adaptor", True,
+    "SSOD.resample_high_percent", 0.25, "SSOD.resample_low_percent", 0.99,
+    "SSOD.ema_rate", 0.999, "SSOD.cosine_ema", True,
+    "SSOD.ssod_hyp.with_gt", False, "SSOD.ssod_hyp.mosaic", 1.0,
+    "SSOD.ssod_hyp.cutout", 0.5, "SSOD.ssod_hyp.autoaugment", 0.5,
+    "SSOD.ssod_hyp.scale", 0.8, "SSOD.ssod_hyp.degrees", 0.0,
+    "SSOD.ssod_hyp.shear", 0.0]
+
+
+def ssod_cfg(*overrides):
+    """The main SSOD config (the port's get_cfg() with MAIN_YAML_OVERRIDES),
+    then `overrides` (dotted key, value pairs)."""
+    from efficientteacher_torch.configs import get_cfg
+
+    cfg = get_cfg()
+    cfg.merge_from_list(MAIN_YAML_OVERRIDES + list(overrides))
+    return cfg
+
+
+# The train phase's batch: 16 labelled + 16 unlabelled, as bench.py runs it
 B_SUP = B_UN = 16
 ACCUMULATE = 2           # nominal batch 64 / 32 images per step
 WEIGHT_DECAY = 0.0005    # hyp.weight_decay * 32 * ACCUMULATE / 64
@@ -173,6 +230,113 @@ def nms_iou_tests(torch, box_iou, boxes, valid, keep, tile, stop_at, thr):
         first = sup.int().argmax(1) + 1
         total += int(torch.where(sup.any(1), first, before.sum(1)).sum())
     return total, swept
+
+
+def lattice_checks(torch, decoded, name):
+    """K2 (element and row buffers) and the count (a bisection pass's
+    thresholds and the candidate total) against their plain versions on
+    the multi-label lattice of `decoded` at the eval gate. Returns (flat
+    lattice, its boxes, the bisection thresholds, K2's and the count's
+    largest error)."""
+    from efficientteacher_torch.ops.nms import _pair_scores
+    from efficientteacher_torch.ops.select_cuda import (
+        _SLACK, _T_BISECT, _TINY, _count_ge, count_ge_cuda, threshold_compact,
+        threshold_compact_cuda)
+
+    dev = decoded.device
+    flat, boxes_xyxy, _ = _pair_scores(decoded, NC, CONF, False, 0, False,
+                                       None)
+    b = flat.shape[0]
+    cap = -(-(MAX_NMS + _SLACK) // 128) * 128
+    # the first bisection pass's thresholds, as the element engine forms them
+    fr = torch.arange(1, _T_BISECT + 1, dtype=torch.float32,
+                      device=dev) / (_T_BISECT + 1)
+    taus = (fr[None, :] * flat.max(1).values[:, None]).contiguous()
+    live = (torch.nn.functional.pad(flat, (0, (-flat.shape[1]) % 128),
+                                    value=-1.0)
+            .view(b, -1, 128) > 0).any(-1).float().contiguous()
+    zero = torch.zeros(b, device=dev)
+    half = torch.full((b,), 0.5, device=dev)
+    inf = torch.full((b,), float("inf"), device=dev)
+    k2_err = count_err = 0
+    for what, args in (("elements", (flat, zero, inf, cap)),
+                       ("rows", (live, half, inf, 1024))):
+        ks, ki = threshold_compact_cuda(*args)
+        ps, pi = threshold_compact(*args)
+        k2_err = max(k2_err, float((ks - ps).abs().max()),
+                     float((ki - pi).abs().max()))
+        require(torch.equal(ks, ps) and torch.equal(ki, pi),
+                f"K2 {what} buffer differs in {name}")
+        print(f"[k2] {name}: {what} buffer {tuple(ks.shape)} bit-equal, "
+              f"{int((ks > 0).sum(1).max())} survivors kept (max/img)")
+    tiny = torch.full((b, 1), _TINY, device=dev)
+    for what, t in (("bisection pass", taus), ("total", tiny)):
+        got, ref = count_ge_cuda(flat, t), _count_ge(flat, t)
+        count_err = max(count_err, int((got - ref).abs().max()))
+        require(torch.equal(got, ref), f"count_ge differs ({what}, {name})")
+    require(torch.equal(count_ge_cuda(flat, tiny)[:, 0],
+                        (flat > 0).sum(1, dtype=torch.int32)),
+            f"count_ge total != (s > 0).sum in {name}")
+    print(f"[count] {name}: T={taus.shape[1]} bisection pass and the "
+          f"candidate total bit-equal to the plain count")
+    return flat, boxes_xyxy, taus, k2_err, float(count_err)
+
+
+def kernel_rows(torch, flat, boxes_xyxy, taus):
+    """Each kernel of the eval NMS on one lattice: ((kernel, its range),
+    plain, (bound, bound_by), library or None) by name, with K1 on the
+    rows engine's candidates; also K1's arguments, its IoU tests and the
+    rows where its mask differs from the plain one (required 0)."""
+    from efficientteacher_torch.ops.boxes import box_iou
+    from efficientteacher_torch.ops.nms import _finish_pairs
+    from efficientteacher_torch.ops.nms_cuda import (greedy_nms_keep,
+                                                     greedy_nms_keep_cuda)
+    from efficientteacher_torch.ops.select_cuda import (
+        _SLACK, _count_ge, count_ge_cuda, exact_topk_rows, threshold_compact,
+        threshold_compact_cuda)
+
+    b, dev = flat.shape[0], flat.device
+    cap = -(-(MAX_NMS + _SLACK) // 128) * 128
+    zero = torch.zeros(b, device=dev)
+    inf = torch.full((b,), float("inf"), device=dev)
+    ts, ti = exact_topk_rows(flat, MAX_NMS)
+    nms_boxes, cand_valid, _ = _finish_pairs(ts, ti, boxes_xyxy, None, NC,
+                                             False, 256)
+    k1 = (nms_boxes, cand_valid, IOU, 256, MAX_DET)
+    k2 = (flat, zero, inf, cap)
+    keep = greedy_nms_keep(*k1)
+    k1_err = int((greedy_nms_keep_cuda(*k1) != keep).sum())
+    require(k1_err == 0, f"K1 at {tuple(keep.shape)} differs in {k1_err} "
+            f"rows")
+    n_b, n_k = b * nms_boxes.shape[1], flat.numel()
+    tests, swept = nms_iou_tests(torch, box_iou, nms_boxes, cand_valid, keep,
+                                 256, MAX_DET, IOU)
+    rows = {
+        "greedy_nms_keep": (
+            event_ms(torch, lambda: greedy_nms_keep_cuda(*k1), graph=True),
+            event_ms(torch, lambda: greedy_nms_keep(*k1)),
+            bound(n_b * 2 + swept * 16, IOU_OPS * tests), None),
+        "threshold_compact": (
+            event_ms(torch, lambda: threshold_compact_cuda(*k2), graph=True),
+            event_ms(torch, lambda: threshold_compact(*k2)),
+            bound(n_k * 4 + b * cap * 8),
+            event_ms(torch, lambda: torch.topk(flat, MAX_NMS, 1))),
+        "count_ge": (
+            event_ms(torch, lambda: count_ge_cuda(flat, taus), graph=True),
+            event_ms(torch, lambda: _count_ge(flat, taus)),
+            bound(n_k * 4 + taus.numel() * 8, 2 * n_k * taus.shape[1]),
+            None),
+    }
+    return rows, k1, tests, k1_err
+
+
+def print_kernel_rows(name, rows, card):
+    for kname, (t, tp, (b_ms, b_by), lib) in rows.items():
+        print(f"[time] {name}: {kname} kernel {t[0]:.4f} ms "
+              f"[{t[1]:.4f}, {t[2]:.4f}], plain {tp[0]:.4f} ms, bound "
+              f"{b_ms:.4f} ms ({b_by}, {b_ms / t[0]:.0%} of it)"
+              + (f", torch.topk {lib[0]:.4f} ms" if lib else "")
+              + f" | {card}")
 
 
 def time_ms(torch, fn, reps=5, warmup=1):
@@ -421,8 +585,8 @@ def teacher_decoded(torch, teacher, weak):
 
 
 def pseudo_label_load(torch, decoded, m_s):
-    """Pseudo labels of `decoded` through K1 against the plain path (bit
-    for bit), K1 at (16, 2048) on its candidates against
+    """Pseudo labels of `decoded` (B images) through K1 against the plain
+    path (bit for bit), K1 at (B, 2048) on its candidates against
     `greedy_nms_keep`, and the times: `create_pseudo_labels` (eager, CUDA
     events), K1 (CUDA graph), its plain version and its bound."""
     from efficientteacher_torch.ops.boxes import box_iou
@@ -431,7 +595,7 @@ def pseudo_label_load(torch, decoded, m_s):
                                                      greedy_nms_keep_cuda)
     from efficientteacher_torch.ssod.pseudo_label import create_pseudo_labels
 
-    s = SSOD_CFG.SSOD
+    s = ssod_cfg().SSOD
     kw = dict(img_size=IMG, nc=NC, conf_thres=s.nms_conf_thres,
               iou_thres=s.nms_iou_thres, max_pl=s.max_pseudo_labels)
     got = create_pseudo_labels(decoded, m_s, **kw)
@@ -440,23 +604,24 @@ def pseudo_label_load(torch, decoded, m_s):
             "pseudo labels through K1 differ from the plain path")
     nms_boxes, cand_valid, _ = _prep_candidates_single(
         decoded.float(), NC, s.nms_conf_thres, 2048, True, 256, False)
-    require(nms_boxes.shape == (B_UN, 2048, 4),
+    b = decoded.shape[0]
+    require(nms_boxes.shape == (b, 2048, 4),
             f"K1's SSOD input is {tuple(nms_boxes.shape)}")
     k1 = (nms_boxes, cand_valid, s.nms_iou_thres, 256, s.max_pseudo_labels)
     keep = greedy_nms_keep(*k1)
     k1_err = int((greedy_nms_keep_cuda(*k1) != keep).sum())
-    require(k1_err == 0, f"K1 at (16, 2048) differs in {k1_err} rows")
+    require(k1_err == 0, f"K1 at ({b}, 2048) differs in {k1_err} rows")
     tests, swept = nms_iou_tests(torch, box_iou, nms_boxes, cand_valid, keep,
                                  256, s.max_pseudo_labels, s.nms_iou_thres)
     return {
-        "pl_img": float(got.mask.sum()) / B_UN,
+        "pl_img": float(got.mask.sum()) / b,
         "valid_img": float(cand_valid.sum(1).float().mean()),
         "kept": int(keep.sum()), "tests": tests, "k1_err": k1_err,
         "pl_ms": event_ms(torch, lambda: create_pseudo_labels(
             decoded, m_s, **kw), launches=20),
         "k1": event_ms(torch, lambda: greedy_nms_keep_cuda(*k1), graph=True),
         "k1_plain": event_ms(torch, lambda: greedy_nms_keep(*k1)),
-        "bound": bound(B_UN * 2048 * 2 + swept * 16, IOU_OPS * tests)}
+        "bound": bound(b * 2048 * 2 + swept * 16, IOU_OPS * tests)}
 
 
 def shift_teacher_obj(torch, teacher, delta):
@@ -473,7 +638,7 @@ def sparse_teacher(torch, teacher, weak, m_s, iters=12):
     labels per image) of the nearest."""
     from efficientteacher_torch.ssod.pseudo_label import create_pseudo_labels
 
-    s = SSOD_CFG.SSOD
+    s = ssod_cfg().SSOD
     kw = dict(img_size=IMG, nc=NC, conf_thres=s.nms_conf_thres,
               iou_thres=s.nms_iou_thres, max_pl=s.max_pseudo_labels)
     lo, hi, at, best = -12.0, 0.0, 0.0, None
@@ -482,7 +647,7 @@ def sparse_teacher(torch, teacher, weak, m_s, iters=12):
         shift_teacher_obj(torch, teacher, mid - at)
         at = mid
         pl = float(create_pseudo_labels(teacher_decoded(torch, teacher, weak),
-                                        m_s, **kw).mask.sum()) / B_UN
+                                        m_s, **kw).mask.sum()) / weak.shape[0]
         if best is None or abs(pl - PL_SPARSE) < abs(best[1] - PL_SPARSE):
             best = (mid, pl)
         lo, hi = (mid, hi) if pl < PL_SPARSE else (lo, mid)
@@ -491,8 +656,9 @@ def sparse_teacher(torch, teacher, weak, m_s, iters=12):
 
 
 def train_phase(torch, dev, card):
-    """The training main path (see the module docstring), its checks and
-    times. Returns K1's kernels-line entry at the SSOD shape (16, 2048)."""
+    """The training step's path (see the module docstring), its checks and
+    times. Returns K1's kernels-line entry at the SSOD shape (16, 2048) and
+    the bare steps' img/s: {"ssod": ..., "burn_in": ...}."""
     from efficientteacher_torch.losses.ssod_loss import SSODLossConfig
     from efficientteacher_torch.losses.yolov5_loss import YoloV5LossConfig
     from efficientteacher_torch.models import build_model
@@ -505,7 +671,8 @@ def train_phase(torch, dev, card):
     from efficientteacher_torch.train.train_state import cosine_ema_decay
     from efficientteacher_torch.utils.eval_regimes import yolov5l_spec
 
-    cfg, s = SSOD_CFG, SSOD_CFG.SSOD
+    cfg = ssod_cfg()
+    s = cfg.SSOD
     t_setup = time.perf_counter()
     spec = dataclasses.replace(yolov5l_spec(), train_domain=True)
     model = build_model(spec, device=dev,
@@ -687,15 +854,551 @@ def train_phase(torch, dev, card):
               f"{b_ms / t[0]:.1%} of it) | {card}")
     ld = loads["dense"]
     t, (b_ms, b_by) = ld["k1"], ld["bound"]
-    return {"name": "greedy_nms_keep", "route": "cuda",
-            "source": "efficientteacher_torch/csrc/nms.cu",
-            "replaces": "efficientteacher_tpu/ops/nms_pallas.py:138",
-            "launches": k1_launches,
-            "max_abs_err": float(max(d["k1_err"] for d in loads.values())),
-            "ms": t[0], "ms_min": t[1], "ms_max": t[2],
-            "plain_ms": ld["k1_plain"][0], "bound_ms": b_ms,
-            "bound_by": b_by, "library_ms": None, "path": "train",
-            "shape": [B_UN, 2048]}
+    entry = {"name": "greedy_nms_keep", "route": "cuda",
+             "source": "efficientteacher_torch/csrc/nms.cu",
+             "replaces": "efficientteacher_tpu/ops/nms_pallas.py:138",
+             "launches": k1_launches,
+             "max_abs_err": float(max(d["k1_err"] for d in loads.values())),
+             "ms": t[0], "ms_min": t[1], "ms_max": t[2],
+             "plain_ms": ld["k1_plain"][0], "bound_ms": b_ms,
+             "bound_by": b_by, "library_ms": None, "path": "train",
+             "shape": [B_UN, 2048]}
+    return entry, {"ssod": (B_SUP + B_UN) / per_step * 1e3,
+                   "burn_in": B_SUP / burn_warm * 1e3}
+
+# The trainer phase: SSODTrainer at the YAML's own batch (32 + 32, so
+# accumulate 2), 1 burn-in epoch + 2 mean-teacher epochs, then a resumed
+# trainer for one more; T_STEPS labelled and T_STEPS target batches per
+# epoch (the target loader drives the SSOD epochs: epoch_adaptor) and
+# T_VAL val batches of 32 at each epoch end.
+T_BATCH, T_STEPS, T_VAL = 32, 4, 3
+T_EPOCHS, T_BURN = 3, 1
+# val images: 640 x 640 letterboxes of 480 x 640 natives, 80 px pads
+VAL_SHAPE, VAL_RATIO_PAD = (480, 640), ((1.0, 1.0), (0.0, 80.0))
+
+
+class MemoryLoader(list):
+    """Batches held in memory, with the surface of the JAX `BatchLoader`
+    the trainers read (`len`, `.ds`)."""
+
+    def __init__(self, batches, ds=None):
+        super().__init__(batches)
+        self.ds = ds
+
+
+def trainer_data(torch, g, b):
+    """(train, target, val) loaders of numpy batch dicts drawn from `g`, to
+    the contract of `Trainer.build_dataloader`: noise images, bench-style
+    labels, the target views with `m_s_records`, val `shapes` and
+    `ratio_pad`."""
+    import types
+
+    import numpy as np
+
+    def images():
+        return torch.randint(0, 256, (b, IMG, IMG, 3), dtype=torch.uint8,
+                             generator=g).numpy()
+
+    def labelled(**extra):
+        labels, mask = synthetic_labels(torch, g, b)
+        return {"images": images(), "labels": labels.numpy(),
+                "mask": mask.numpy(), **extra}
+
+    train = [labelled() for _ in range(T_STEPS)]
+    per_img = [lab[m] for bt in train
+               for lab, m in zip(bt["labels"], bt["mask"])]
+    cls = np.concatenate([lab[:, 0] for lab in per_img]).astype(int)
+    ds = types.SimpleNamespace(
+        labels=per_img, mosaic=True,
+        label_num_per_image=len(cls) / len(per_img),
+        cls_ratio_gt=np.bincount(cls, minlength=NC) / len(cls))
+    target = [{"images": images(), "images_ori": images(),
+               "M_s": m_s_records(torch, b).numpy()} for _ in range(T_STEPS)]
+    val = [labelled(shapes=[VAL_SHAPE] * b, ratio_pad=[VAL_RATIO_PAD] * b)
+           for _ in range(T_VAL)]
+    return MemoryLoader(train, ds), MemoryLoader(target), MemoryLoader(val)
+
+
+class RecordingInfer:
+    """An eval InferFn that keeps each batch's decoded predictions and its
+    NMS output, so they can be held against the plain NMS afterwards."""
+
+    def __init__(self, infer, records):
+        self.infer, self.records = infer, records
+
+    def __call__(self, images_u8):
+        decoded = self.infer.forward(images_u8)
+        out = self.infer.nms(decoded)
+        self.records.append((decoded, out))
+        return out
+
+
+def smoke_trainer(torch, data):
+    """The SSODTrainer class of the phase: in-memory loaders, the train
+    phase's teacher helper, and a log of its steps, epochs, validations and
+    checkpoint saves."""
+    import logging
+
+    from efficientteacher_torch.eval import validator
+    from efficientteacher_torch.ops.nms import _pair_scores
+    from efficientteacher_torch.ops.nms_cuda import greedy_nms_keep_cuda
+    from efficientteacher_torch.ops.select_cuda import (count_ge_cuda,
+                                                        threshold_compact_cuda)
+    from efficientteacher_torch.parallel.distributed import to_device
+    from efficientteacher_torch.train.ssod_trainer import SSODTrainer
+
+    wrappers = {"greedy_nms_keep": greedy_nms_keep_cuda,
+                "threshold_compact": threshold_compact_cuda,
+                "count_ge": count_ge_cuda}
+
+    class SpeedLog(logging.Handler):
+        """Keeps the args of validator.run's "Speed" line: ms per image
+        waiting on the device, ms per image of host metrics."""
+
+        def __init__(self):
+            super().__init__()
+            self.last = None
+
+        def emit(self, record):
+            if record.getMessage().startswith("Speed"):
+                self.last = record.args[:2]
+
+    class SmokeTrainer(SSODTrainer):
+        def build_dataloader(self, cfg):
+            self.train_loader, self.target_loader, self.val_loader = data
+            self.dataset = self.train_loader.ds
+            self.nb = len(self.train_loader)
+            self.log = {"steps": [], "epochs": [], "vals": [], "saves": []}
+            self.helped = False
+
+        def build_step(self):
+            super().build_step()
+            self.raw_burn_step, self.raw_ssod_step = (self.burn_step,
+                                                      self.ssod_step)
+            self.burn_step = self._timed(self.burn_step, "burn-in")
+            self.ssod_step = self._timed(self.ssod_step, "ssod")
+            save = self.checkpointer.save
+
+            def timed_save(path, **kw):
+                t0 = time.perf_counter()
+                save(path, **kw)
+                self.log["saves"].append(
+                    (str(path).rsplit("/", 1)[-1], self.epoch,
+                     (time.perf_counter() - t0) * 1e3))
+
+            self.checkpointer.save = timed_save
+
+        def _timed(self, step, kind):
+            """The step, logged without a sync: the host time from its
+            call to the next step's (the loop's iteration), whether a
+            checkpoint write was in flight, its K1 launches, and its
+            losses and pseudo labels as device tensors (read after the
+            epoch)."""
+            def run(state, *args):
+                now = time.perf_counter()
+                steps = self.log["steps"]
+                if steps and steps[-1]["epoch"] == self.epoch:
+                    steps[-1]["ms"] = (now - steps[-1]["t0"]) * 1e3
+                k0 = greedy_nms_keep_cuda.launches
+                row = {"kind": kind, "epoch": self.epoch, "t0": now,
+                       "in_flight": self.checkpointer.in_flight()}
+                state, out = step(state, *args)
+                row["k1"] = greedy_nms_keep_cuda.launches - k0
+                row["losses"] = out if kind == "burn-in" else out.metrics
+                if kind == "ssod":
+                    row["pseudo"] = out.pseudo_count
+                steps.append(row)
+                return state, out
+            return run
+
+        def _train_with_unlabeled(self):
+            if not self.helped and self.start_epoch <= self.burn_epochs:
+                # in the run that seeds: the train phase's teacher helper
+                # on the pseudo-label teacher (the EMA), and the serving
+                # phase's mid density at the eval gate for the semi-EMA
+                # (the validated teacher); a resumed run takes both from
+                # last.ckpt
+                weak = to_device(self.target_loader[0]["images_ori"],
+                                 self.device)
+                pseudo_label_teacher(torch, self.state, weak)
+                calib = torch.randint(
+                    0, 256, (8, IMG, IMG, 3), dtype=torch.uint8,
+                    generator=torch.Generator().manual_seed(1))
+                self.val_shift = mid_val_teacher(
+                    torch, self.state.semi_ema.module, calib.to(self.device))
+            self.helped = True
+            super()._train_with_unlabeled()
+
+        def train_in_epoch(self):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            n0 = len(self.log["steps"])
+            super().train_in_epoch()
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+            steps = self.log["steps"][n0:]
+            steps[-1]["ms"] = (time.perf_counter() - steps[-1]["t0"]) * 1e3
+            for r in steps:
+                r["losses"] = {k: float(v) for k, v in r["losses"].items()}
+                if "pseudo" in r:
+                    r["pseudo"] = int(r["pseudo"])
+            self.log["epochs"].append({"epoch": self.epoch, "ms": ms,
+                                       "kind": steps[0]["kind"],
+                                       "steps": len(steps)})
+
+        def _validate(self, ema):
+            records = []
+            speed = SpeedLog()
+            vlog = logging.getLogger(validator.__name__)
+            level = vlog.level
+            vlog.setLevel(logging.INFO)
+            vlog.addHandler(speed)
+            make = validator.make_infer_fn
+            validator.make_infer_fn = \
+                lambda *a, **k: RecordingInfer(make(*a, **k), records)
+            c0 = {n: w.launches for n, w in wrappers.items()}
+            try:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                results = super()._validate(ema)
+                ms = (time.perf_counter() - t0) * 1e3
+            finally:
+                validator.make_infer_fn = make
+                vlog.removeHandler(speed)
+                vlog.setLevel(level)
+            launches = {n: w.launches - c0[n] for n, w in wrappers.items()}
+            # each batch's detections against the plain NMS on its own
+            # decoded tensor (outside the timed call)
+            infer = make(ema.module, NC, CONF, IOU, MAX_DET, MAX_NMS, 255.0,
+                         self.compute_dtype)
+            cands = []
+            for bi, (decoded, out) in enumerate(records):
+                ref = infer.nms(decoded, use_kernels=False)
+                require(torch.equal(ref.detections, out.detections)
+                        and torch.equal(ref.valid, out.valid),
+                        f"epoch {self.epoch} val batch {bi}: detections "
+                        f"differ from the plain NMS")
+                score = _pair_scores(decoded, NC, CONF, False, 0, False,
+                                     None)[0]
+                cands.append(float((score > 0).sum()) / decoded.shape[0])
+            self.log["vals"].append({
+                "epoch": self.epoch, "ms": ms, "batches": len(records),
+                "launches": launches, "speed": speed.last, "cands": cands,
+                "dets": float(sum(int(o.valid.sum()) for _, o in records))
+                / sum(o.valid.shape[0] for _, o in records),
+                "results": results})
+            self.val_decoded = records[0][0]
+            return results
+
+    return SmokeTrainer
+
+
+def mid_val_teacher(torch, module, calib, target=3300.0, iters=12):
+    """Give `module` (the validated teacher) the serving phase's mid
+    density at the eval gate: BatchNorm calibrated on `calib`, then every
+    objectness bias shifted, by bisection, until the candidates per image
+    on `calib` come nearest `target` (on a log scale). The trainer's
+    burn-in moves the weights away from the init that MID_OBJ_SHIFT was
+    chosen for (its objectness loss on noise images silences the head),
+    so the shift is searched here. Returns (shift, candidates/img)."""
+    import math
+
+    from efficientteacher_torch.utils.eval_regimes import (calibrate_bn,
+                                                           make_density_fn)
+
+    calibrate_bn(module, calib)
+    density = make_density_fn(module, NC, CONF)
+    lo, hi, at, best = -12.0, 12.0, 0.0, None
+    for _ in range(iters):
+        mid = (lo + hi) / 2
+        shift_teacher_obj(torch, module, mid - at)
+        at = mid
+        cands = density(calib)[0]
+        miss = abs(math.log(cands + 1.0) - math.log(target))
+        if best is None or miss < best[2]:
+            best = (mid, cands, miss)
+        lo, hi = (mid, hi) if cands < target else (lo, mid)
+    shift_teacher_obj(torch, module, best[0] - at)
+    return best[:2]
+
+
+def bare_trainer_steps(torch, trainer, data, pairs=3):
+    """The trainer's own step functions called directly, `pairs` held +
+    fired pairs each, on one batch already on the card, each step ended by
+    a synchronize: the bare steps at the trainer's batch, beside its loop.
+    Also the loop's input copy for one SSOD step (six arrays, 118 MB at
+    32 + 32 @ 640): host ms of the calls, and ms until the copies land.
+    Returns medians {"ssod", "burn_in", "copy_host", "copy_done"} and
+    the copy's "copy_mb"."""
+    t = trainer
+    sb, tb = data[0][0], data[1][0]
+    copies = []
+    for _ in range(4):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        sup = t._to_device(sb["images"], sb["labels"], sb["mask"])
+        un = t._to_device(tb["images"], tb["images_ori"], tb["M_s"])
+        t1 = time.perf_counter()
+        torch.cuda.synchronize()
+        copies.append(((t1 - t0) * 1e3, (time.perf_counter() - t0) * 1e3))
+    sched = t._schedule(t.global_step)
+    semi = t._semi_decay()
+    out = {}
+    for kind, step, args in (
+            ("ssod", t.raw_ssod_step,
+             (*sup, *un, t.cls_thr_high, t.cls_thr_low, sched, semi)),
+            ("burn_in", t.raw_burn_step, (*sup, None, sched, semi))):
+        ms = []
+        for _ in range(2 * pairs):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            t.state, _ = step(t.state, *args)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+        out[kind] = statistics.median(ms[2:])  # after a warm pair
+    out["copy_mb"] = sum(a.nbytes for a in (*sup, *un)) / 1e6
+    out["copy_host"] = statistics.median(c[0] for c in copies[1:])
+    out["copy_done"] = statistics.median(c[1] for c in copies[1:])
+    return out
+
+
+def trainer_phase(torch, dev, card, bare):
+    """The trainer main path: SSODTrainer (the main YAML's config and batch)
+    through burn-in, seeding, two mean-teacher epochs with epoch-end
+    validation and last/best checkpoints, then resume for one more epoch.
+    Checks and prints its numbers beside the bare step's (`bare`, img/s);
+    returns the kernels-line entries of this path."""
+    import gc
+    import tempfile
+
+    from efficientteacher_torch.ops.nms_cuda import greedy_nms_keep_cuda
+    from efficientteacher_torch.ops.select_cuda import (count_ge_cuda,
+                                                        threshold_compact_cuda)
+    from efficientteacher_torch.utils.checkpoint import load_checkpoint
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    t_setup = time.perf_counter()
+    data = trainer_data(torch, torch.Generator().manual_seed(3), T_BATCH)
+    wrappers = {"greedy_nms_keep": greedy_nms_keep_cuda,
+                "threshold_compact": threshold_compact_cuda,
+                "count_ge": count_ge_cuda}
+    with tempfile.TemporaryDirectory() as tmp:
+        cls = smoke_trainer(torch, data)
+        cfg = ssod_cfg("epochs", T_EPOCHS, "hyp.burn_epochs", T_BURN,
+                       "project", tmp, "name", "ssod")
+        trainer = cls(cfg, device=dev)
+        require(trainer.accumulate == max(round(64 / T_BATCH), 1)
+                and trainer.batch_size == T_BATCH,
+                f"accumulate {trainer.accumulate}, batch "
+                f"{trainer.batch_size}")
+        print(f"[trainer] SSODTrainer on the main config (YOLOv5l, nc {NC}, "
+              f"{IMG} px, bf16), batch {T_BATCH} + {T_BATCH}, accumulate "
+              f"{trainer.accumulate}; {T_BURN} burn-in + "
+              f"{T_EPOCHS - T_BURN} SSOD epochs of {T_STEPS} steps, "
+              f"{T_VAL} val batches; set-up "
+              f"{time.perf_counter() - t_setup:.1f} s")
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        torch.backends.cudnn.benchmark = True
+        for fn in wrappers.values():
+            fn.launches = 0
+        t0 = time.perf_counter()
+        trainer.train()
+        t_train = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
+        weights = trainer.save_dir / "weights"
+        last = load_checkpoint(weights / "last.ckpt")
+        best = load_checkpoint(weights / "best.ckpt")
+        meta = last["meta"]
+        require(meta["epoch"] == T_EPOCHS - 1 and meta["has_ema"]
+                and meta["has_optimizer"], f"last.ckpt meta {meta}")
+        require(set(last) == {"model", "ema", "student_ema", "optimizer",
+                              "meta"}, f"last.ckpt holds {sorted(last)}")
+        require(set(best) == {"model", "ema", "meta"},
+                f"best.ckpt holds {sorted(best)}")
+        csv_rows = trainer.results_csv.read_text().splitlines()[1:]
+        require([int(r.split(",")[0]) for r in csv_rows]
+                == list(range(T_EPOCHS)), f"results.csv rows {csv_rows}")
+
+        # resume from last.ckpt for one more epoch
+        t0 = time.perf_counter()
+        cfg2 = ssod_cfg("epochs", T_EPOCHS + 1, "hyp.burn_epochs", T_BURN,
+                        "project", tmp, "name", "resumed", "resume", True,
+                        "weights", str(weights / "last.ckpt"))
+        resumed = cls(cfg2, device=dev)
+        st, was = resumed.state, trainer.state
+        require(resumed.start_epoch == T_EPOCHS
+                and resumed.best_fitness == meta["best_fitness"]
+                == trainer.best_fitness
+                and st.semi_ema.updates == meta["ema_updates"]
+                == was.semi_ema.updates
+                and st.ema.updates == last["student_ema"]["updates"]
+                == was.ema.updates
+                and st.opt_step == was.opt_step
+                and resumed.teacher_seeded,
+                f"resume: epoch {resumed.start_epoch}, best "
+                f"{resumed.best_fitness} / {meta['best_fitness']}, semi-EMA "
+                f"updates {st.semi_ema.updates} / {meta['ema_updates']}, "
+                f"EMA updates {st.ema.updates} / {was.ema.updates}, "
+                f"optimizer steps {st.opt_step} / {was.opt_step}")
+        for what, module in (("model", st.model),
+                             ("student_ema", st.ema.module),
+                             ("ema", st.semi_ema.module)):
+            for name, p in module.named_parameters():
+                require(torch.equal(p.cpu(),
+                                    last[what]["params"][name].float()),
+                        f"resume: {what} {name} is not the saved tensor")
+        for (name, _), buf in zip(st.model.named_parameters(),
+                                  st.momentum_buf):
+            require(torch.equal(buf.cpu(),
+                                last["optimizer"]["momentum_buf"][name]),
+                    f"resume: momentum of {name} is not the saved tensor")
+        resumed.train()
+        t_resume = time.perf_counter() - t0
+        rows2 = resumed.results_csv.read_text().splitlines()[1:]
+        require([int(r.split(",")[0]) for r in rows2] == [T_EPOCHS],
+                f"resumed results.csv rows {rows2}")
+        launches = {n: w.launches for n, w in wrappers.items()}
+        print(f"[trainer] launches on the trainer path (train + resume): "
+              f"{', '.join(f'{n} {c}' for n, c in launches.items())}; the "
+              f"validated semi-EMA's objectness shifted "
+              f"{trainer.val_shift[0]:+.3f} ({trainer.val_shift[1]:.0f} "
+              f"candidates/img on its calibration batch)")
+        log = {k: trainer.log[k] + resumed.log[k] for k in trainer.log}
+        own = bare_trainer_steps(torch, resumed, data)
+
+    # checks over both runs
+    for r in log["steps"]:
+        require(all(v == v and abs(v) != float("inf")
+                    for v in r["losses"].values()),
+                f"epoch {r['epoch']} {r['kind']} step: losses {r['losses']}")
+    ssod = [r for r in log["steps"] if r["kind"] == "ssod"]
+    k1_steps = sum(r["k1"] for r in ssod)
+    require(all(r["k1"] == 1 for r in ssod),
+            f"K1 launches per SSOD step {[r['k1'] for r in ssod]}")
+    require(all(r["k1"] == 0 for r in log["steps"] if r["kind"] != "ssod"),
+            "K1 launched in a burn-in step")
+    require(all(r["pseudo"] > 0 for r in ssod),
+            f"pseudo labels per SSOD step {[r['pseudo'] for r in ssod]}")
+    vals = log["vals"]
+    require(len(vals) == T_EPOCHS + 1 and all(
+        v["launches"]["greedy_nms_keep"] >= v["batches"] == T_VAL
+        and v["launches"]["threshold_compact"] >= 1 for v in vals),
+        f"val launches {[v['launches'] for v in vals]}")
+    for r in log["epochs"]:
+        imgs = r["steps"] * T_BATCH * (2 if r["kind"] == "ssod" else 1)
+        steps = [x for x in log["steps"] if x["epoch"] == r["epoch"]]
+        print(f"[trainer] epoch {r['epoch']} {r['kind']}: {r['steps']} "
+              f"steps in {r['ms']:.1f} ms, {imgs / r['ms'] * 1e3:.1f} img/s; "
+              f"step ms (host, call to call) "
+              + ", ".join(f"{x['ms']:.1f}{'*' if x['in_flight'] else ''}"
+                          for x in steps)
+              + "; losses " + ", ".join(
+                  f"{x['losses'].get('total', x['losses'].get('loss')):.3f}"
+                  for x in steps)
+              + ("; pseudo labels/img " + ", ".join(
+                  f"{x['pseudo'] / T_BATCH:.1f}" for x in steps)
+                 if r["kind"] == "ssod" else "") + f" | {card}")
+    warm = {k: [x["ms"] for x in log["steps"] if x["kind"] == k
+                and x["epoch"] != T_BURN and not x["in_flight"]]
+            for k in ("burn-in", "ssod")}
+    flight = [x["ms"] for x in ssod if x["in_flight"]]
+    med = {k: statistics.median(v) for k, v in warm.items() if v}
+    ssod_rate = 2 * T_BATCH / med["ssod"] * 1e3
+    burn_rate = T_BATCH / med["burn-in"] * 1e3
+    print(f"[time] trainer: SSOD step {med['ssod']:.1f} ms in the loop "
+          f"(median of {len(warm['ssod'])} steps outside the first SSOD "
+          f"epoch, no write in flight), {ssod_rate:.1f} img/s; the same "
+          f"step function called bare at {T_BATCH} + {T_BATCH} "
+          f"{own['ssod']:.1f} ms ({2 * T_BATCH / own['ssod'] * 1e3:.1f} "
+          f"img/s), so the loop adds {med['ssod'] - own['ssod']:+.1f} ms; "
+          f"the train phase's bare step at 16 + 16 {bare['ssod']:.1f} "
+          f"img/s | {card}")
+    print(f"[time] trainer: burn-in step {med['burn-in']:.1f} ms in the loop "
+          f"({len(warm['burn-in'])} steps), {burn_rate:.1f} img/s; bare at "
+          f"{T_BATCH} {own['burn_in']:.1f} ms "
+          f"({T_BATCH / own['burn_in'] * 1e3:.1f} img/s), loop "
+          f"{med['burn-in'] - own['burn_in']:+.1f} ms; the train phase's "
+          f"bare step at 16 {bare['burn_in']:.1f} img/s | {card}")
+    print(f"[time] trainer: one SSOD step's input copy (6 arrays, "
+          f"{own['copy_mb']:.0f} MB, pinned, non-blocking): "
+          f"{own['copy_host']:.1f} ms of host calls, "
+          f"{own['copy_done']:.1f} ms until on the card | {card}")
+    print(f"[time] trainer: SSOD steps while a checkpoint write is in "
+          f"flight: {', '.join(f'{t:.1f}' for t in flight) or 'none'} ms "
+          f"(median without {med['ssod']:.1f}) | {card}")
+    print(f"[time] trainer: AsyncCheckpointer.save blocks the loop "
+          + ", ".join(f"{n} (epoch {e}) {t:.1f} ms"
+                      for n, e, t in log["saves"]) + f" | {card}")
+    for v in vals:
+        wait, host = v["speed"]
+        print(f"[time] trainer: epoch {v['epoch']} validator.run "
+              f"{v['ms'] / v['batches']:.1f} ms/batch ({v['batches']} x "
+              f"{T_BATCH}): device wait {wait * T_BATCH:.1f}, host metrics "
+              f"{host * T_BATCH:.1f} ms/batch; candidates/img "
+              f"{', '.join(f'{c:.0f}' for c in v['cands'])}, detections/img "
+              f"{v['dets']:.1f}; P/R/mAP50/mAP "
+              f"{'/'.join(f'{x:.4f}' for x in v['results'])}; launches "
+              f"{v['launches']}; detections == plain NMS | {card}")
+    print(f"[trainer] peak memory {peak / 2**30:.2f} GiB "
+          f"(max_memory_allocated; {(peak - base) / 2**30:.2f} GiB above "
+          f"the {base / 2**30:.2f} GiB live before the phase); "
+          f"train {t_train:.1f} s, resume + 1 epoch {t_resume:.1f} s; "
+          f"results.csv {T_EPOCHS} + 1 rows, last/best reload, resumed "
+          f"epoch / best_fitness / EMA and semi-EMA updates / weights / "
+          f"momentum == saved | {card}")
+
+    # the kernels of this path at its own shapes: K1 at (32, 2048) on the
+    # final teacher's weak-view output, the val NMS's kernels on the last
+    # validation's first lattice
+    teacher = resumed.state.ema.module
+    weak = data[1][0]
+    weak_t = torch.from_numpy(weak["images_ori"]).to(dev)
+    m_s = torch.from_numpy(weak["M_s"]).to(dev)
+    ld = pseudo_label_load(torch, teacher_decoded(torch, teacher, weak_t),
+                           m_s)
+    flat, boxes_xyxy, taus, k2_err, count_err = lattice_checks(
+        torch, resumed.val_decoded, "trainer val")
+    rows, k1_val, _, k1_val_err = kernel_rows(torch, flat, boxes_xyxy, taus)
+    print_kernel_rows("trainer val", rows, card)
+    t, (b_ms, b_by) = ld["k1"], ld["bound"]
+    print(f"[time] trainer: greedy_nms_keep ({T_BATCH}, 2048) on the final "
+          f"teacher ({ld['pl_img']:.1f} pseudo labels/img) kernel "
+          f"{t[0]:.4f} ms, plain {ld['k1_plain'][0]:.4f} ms, bound "
+          f"{b_ms:.5f} ms ({b_by}) | {card}")
+    src = {"greedy_nms_keep": ("efficientteacher_torch/csrc/nms.cu",
+                               "efficientteacher_tpu/ops/nms_pallas.py:138"),
+           "threshold_compact": ("efficientteacher_torch/csrc/select.cu",
+                                 "efficientteacher_tpu/ops/select_pallas.py:218"),
+           "count_ge": ("efficientteacher_torch/csrc/select.cu",
+                        "efficientteacher_tpu/ops/select_pallas.py:247")}
+    val_launches = {n: sum(v["launches"][n] for v in vals) for n in src}
+    entries = [{
+        "name": "greedy_nms_keep", "route": "cuda",
+        "source": src["greedy_nms_keep"][0],
+        "replaces": src["greedy_nms_keep"][1], "launches": k1_steps,
+        "max_abs_err": float(ld["k1_err"]), "ms": t[0], "ms_min": t[1],
+        "ms_max": t[2], "plain_ms": ld["k1_plain"][0], "bound_ms": b_ms,
+        "bound_by": b_by, "library_ms": None, "path": "trainer: SSOD steps",
+        "shape": [T_BATCH, 2048]}]
+    errs = {"greedy_nms_keep": k1_val_err, "threshold_compact": k2_err,
+            "count_ge": count_err}
+    for name, (tk, tp, (b_ms, b_by), lib) in rows.items():
+        if not val_launches[name]:
+            print(f"[trainer] {name} not launched in the epoch-end "
+                  f"validations at this density")
+            continue
+        entries.append({
+            "name": name, "route": "cuda", "source": src[name][0],
+            "replaces": src[name][1], "launches": val_launches[name],
+            "max_abs_err": float(errs[name]), "ms": tk[0], "ms_min": tk[1],
+            "ms_max": tk[2], "plain_ms": tp[0], "bound_ms": b_ms,
+            "bound_by": b_by, "library_ms": lib[0] if lib else None,
+            "path": "trainer: epoch-end val",
+            "shape": list((k1_val[0] if name == "greedy_nms_keep"
+                           else flat).shape[:2])})
+    return entries
 
 
 def main() -> int:
@@ -707,13 +1410,10 @@ def main() -> int:
         return 2
 
     from efficientteacher_torch.ops import _build, select_cuda
-    from efficientteacher_torch.ops.boxes import box_iou
-    from efficientteacher_torch.ops.nms import _finish_pairs, _pair_scores
     from efficientteacher_torch.ops.nms_cuda import (greedy_nms_keep,
                                                      greedy_nms_keep_cuda)
     from efficientteacher_torch.ops.select_cuda import (
-        _SLACK, _T_BISECT, _TINY, _count_ge, check_exact_topk,
-        count_ge_cuda, exact_topk_elems, exact_topk_rows, threshold_compact,
+        check_exact_topk, count_ge_cuda, exact_topk_elems, exact_topk_rows,
         threshold_compact_cuda)
     from efficientteacher_torch.utils.eval_regimes import make_density_fn
 
@@ -823,45 +1523,12 @@ def main() -> int:
 
     # K2 and the count against their plain versions, on the real
     # (32, 2,016,000) lattices
-    cap = -(-(MAX_NMS + _SLACK) // 128) * 128
-    zero = torch.zeros(B, device=dev)
-    half = torch.full((B,), 0.5, device=dev)
-    inf = torch.full((B,), float("inf"), device=dev)
-    fr = torch.arange(1, _T_BISECT + 1, dtype=torch.float32,
-                      device=dev) / (_T_BISECT + 1)
     flats = {}
     k2_err = count_err = 0
     for name, decoded in lattices.items():
-        flat, boxes_xyxy, _ = _pair_scores(decoded, NC, CONF, False, 0, False,
-                                           None)
-        # the first bisection pass's thresholds, as the element engine
-        # forms them
-        taus = (fr[None, :] * flat.max(1).values[:, None]).contiguous()
+        flat, boxes_xyxy, taus, e2, ec = lattice_checks(torch, decoded, name)
         flats[name] = (flat, boxes_xyxy, taus)
-        live = (torch.nn.functional.pad(flat, (0, (-flat.shape[1]) % 128),
-                                        value=-1.0)
-                .view(B, -1, 128) > 0).any(-1).float().contiguous()
-        for what, args in (("elements", (flat, zero, inf, cap)),
-                           ("rows", (live, half, inf, 1024))):
-            ks, ki = threshold_compact_cuda(*args)
-            ps, pi = threshold_compact(*args)
-            k2_err = max(k2_err, float((ks - ps).abs().max()),
-                         float((ki - pi).abs().max()))
-            require(torch.equal(ks, ps) and torch.equal(ki, pi),
-                    f"K2 {what} buffer differs in regime {name}")
-            print(f"[k2] {name}: {what} buffer {tuple(ks.shape)} bit-equal, "
-                  f"{int((ks > 0).sum(1).max())} survivors kept (max/img)")
-        tiny = torch.full((B, 1), _TINY, device=dev)
-        for what, t in (("bisection pass", taus), ("total", tiny)):
-            got, ref = count_ge_cuda(flat, t), _count_ge(flat, t)
-            count_err = max(count_err, int((got - ref).abs().max()))
-            require(torch.equal(got, ref),
-                    f"count_ge differs ({what}, {name})")
-        require(torch.equal(count_ge_cuda(flat, tiny)[:, 0],
-                            (flat > 0).sum(1, dtype=torch.int32)),
-                f"count_ge total != (s > 0).sum in regime {name}")
-        print(f"[count] {name}: T={taus.shape[1]} bisection pass and the "
-              f"candidate total bit-equal to the plain count")
+        k2_err, count_err = max(k2_err, e2), max(count_err, ec)
         for engine in (exact_topk_rows, exact_topk_elems):
             ts, ti = engine(flat, MAX_NMS)
             check_exact_topk(flat, MAX_NMS, ts, ti)
@@ -880,47 +1547,17 @@ def main() -> int:
         decoded = lattices[name]
         t_k = time_ms(torch, lambda: infer.nms(decoded))
         t_p = time_ms(torch, lambda: infer.nms(decoded, use_kernels=False))
-        flat, boxes_xyxy, taus = flats[name]
-        ts, ti = exact_topk_rows(flat, MAX_NMS)
-        nms_boxes, cand_valid, _ = _finish_pairs(ts, ti, boxes_xyxy, None,
-                                                 NC, False, 256)
-        k1 = (nms_boxes, cand_valid, IOU, 256, MAX_DET)
-        k2 = (flat, zero, inf, cap)
-        keep = greedy_nms_keep(*k1)
-        n_b, n_k = B * nms_boxes.shape[1], flat.numel()
-        tests, swept = nms_iou_tests(torch, box_iou, nms_boxes, cand_valid,
-                                     keep, 256, MAX_DET, IOU)
-        rows[name] = {
-            "greedy_nms_keep": (
-                event_ms(torch, lambda: greedy_nms_keep_cuda(*k1), graph=True),
-                event_ms(torch, lambda: greedy_nms_keep(*k1)),
-                bound(n_b * 2 + swept * 16, IOU_OPS * tests), None),
-            "threshold_compact": (
-                event_ms(torch, lambda: threshold_compact_cuda(*k2),
-                         graph=True),
-                event_ms(torch, lambda: threshold_compact(*k2)),
-                bound(n_k * 4 + B * cap * 8),
-                event_ms(torch, lambda: torch.topk(flat, MAX_NMS, 1))),
-            "count_ge": (
-                event_ms(torch, lambda: count_ge_cuda(flat, taus),
-                         graph=True),
-                event_ms(torch, lambda: _count_ge(flat, taus)),
-                bound(n_k * 4 + taus.numel() * 8,
-                      2 * n_k * taus.shape[1]), None),
-        }
+        flat = flats[name][0]
+        rows[name], k1, tests, err = kernel_rows(torch, *flats[name])
+        k1_err = max(k1_err, err)
         t_eager = event_ms(torch, lambda: greedy_nms_keep_cuda(*k1))
         t_engine = event_ms(torch, lambda: exact_topk_rows(flat, MAX_NMS))
         print(f"[time] {name}: NMS kernels {t_k:.3f} ms, plain {t_p:.3f} ms"
               f" | selection engine {t_engine[0]:.3f} ms, torch.topk "
               f"{rows[name]['threshold_compact'][3][0]:.3f} ms | "
-              f"greedy_nms_keep (32, {nms_boxes.shape[1]}) called eagerly "
+              f"greedy_nms_keep (32, {k1[0].shape[1]}) called eagerly "
               f"{t_eager[0]:.4f} ms/call; {tests} IoU tests needed | {card}")
-        for kname, (t, tp, (b_ms, b_by), lib) in rows[name].items():
-            print(f"[time] {name}: {kname} kernel {t[0]:.4f} ms "
-                  f"[{t[1]:.4f}, {t[2]:.4f}], plain {tp[0]:.4f} ms, bound "
-                  f"{b_ms:.4f} ms ({b_by}, {b_ms / t[0]:.0%} of it)"
-                  + (f", torch.topk {lib[0]:.4f} ms" if lib else "")
-                  + f" | {card}")
+        print_kernel_rows(name, rows[name], card)
 
     # the regime in which each kernel does its main-path work: K1 and the
     # element compaction in mid, the bisection's count in saturated
@@ -949,8 +1586,11 @@ def main() -> int:
             "library_ms": lib[0] if lib else None, "path": "eval",
             "regime": regime})
 
-    # 7. the training main path
-    kernels.append(train_phase(torch, dev, card))
+    # 7. the training step's path
+    entry, bare = train_phase(torch, dev, card)
+    kernels.append(entry)
+    # 8. the trainer's path: epochs, validation, checkpoints, resume
+    kernels += trainer_phase(torch, dev, card, bare)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

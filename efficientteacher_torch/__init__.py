@@ -8,5 +8,9 @@ the standard library only, never jax or flax.
 Ported so far: the eval serving slice — YOLOv5 forward, decode and
 multi-label batched NMS, with hand-written CUDA kernels for greedy NMS
 (`ops/nms_cuda.py`, `csrc/nms.cu`) and threshold compaction
-(`ops/select_cuda.py`, `csrc/select.cu`).
+(`ops/select_cuda.py`, `csrc/select.cu`); the supervised and mean-teacher
+train steps (`train/`); and the trainers around them
+(`train/trainer.py`, `train/ssod_trainer.py`) with epoch-end validation
+(`eval/validator.run`), checkpoints (`utils/checkpoint.py`) and the
+config tree (`configs/`).
 """

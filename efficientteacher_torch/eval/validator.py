@@ -1,24 +1,39 @@
-"""Eval inference: uint8 images -> forward -> decode -> NMS (counterpart of
-`efficientteacher_tpu/eval/validator.py`).
+"""Validation runner: forward + NMS on the device, mAP accumulation on the
+host (counterpart of `efficientteacher_tpu/eval/validator.py`).
 
-Parity with reference val.py:148-465: multi-label NMS at conf 0.001 /
-IoU 0.6 (val.py:335); detections are rescaled to native image space before
-matching (val.py:340-376, `_scale_to_native`).
+Parity with reference val.py:148-465 `val.run`:
+  - multi-label NMS at conf 0.001 / iou 0.6 (val.py:335)
+  - detections rescaled to native image space before matching
+    (val.py:340-376, `_scale_to_native`)
+  - IoU@[.5:.95] TP matrix via process_batch
+  - returns ((P, R, mAP50, mAP), per-class maps, cls_thr) where cls_thr are
+    the per-class best-F1 thresholds the SSOD trainer consumes (val.py:462-465)
 
-Ported so far: `make_infer_fn` and `_scale_to_native`. `run` (the mAP
-accumulation) follows with the metrics. The JAX version's `mesh` argument
-is dropped: the port runs on one card; data parallelism comes with DDP.
+Only the compact (max_det, 6) detections and their `valid` mask cross to
+the host, one batch behind the device (see `run`). The JAX version's `mesh`
+argument is dropped: the port runs on one card; data parallelism comes with
+DDP. Not ported yet, so they raise NotImplementedError: COCO JSON output and
+COCOeval (`save_json`, ROADMAP Queue 1 item 6), keypoint validation
+(`num_points`, `val_kp`, Queue 1 item 7) and the PR-curve plots
+(`plots_dir`, Queue 1 item 6).
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+import logging
+import time
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
 
+from ..models.detector import SSODModel
 from ..ops.nms import NMSOutput, batched_nms
+from ..parallel.distributed import to_device
 from ..utils.precision import autocast
+from .metrics import ConfusionMatrix, ap_per_class, process_batch
+
+LOGGER = logging.getLogger(__name__)
 
 
 def _scale_to_native(boxes: np.ndarray, letterbox_hw: Tuple[int, int],
@@ -73,7 +88,11 @@ class InferFn:
         self.model.eval()
         try:
             with autocast(x.device, self.compute_dtype):
-                decoded, _ = self.model(x, decode=True)
+                if isinstance(self.model, SSODModel):
+                    (decoded, _), _ = self.model(x, decode=True,
+                                                 with_domain=False)
+                else:
+                    decoded, _ = self.model(x, decode=True)
         finally:
             self.model.train(was_training)
         return decoded
@@ -102,3 +121,139 @@ def make_infer_fn(model, nc: int, conf_thres: float, iou_thres: float,
         nc=nc, conf_thres=conf_thres, iou_thres=iou_thres,
         multi_label=num_points == 0, max_nms=max_nms, max_det=max_det,
         n_extra=2 * num_points, obj_gate=num_points > 0, selection=selection))
+
+
+def run(
+    model,
+    loader,
+    nc: int,
+    conf_thres: float = 0.001,
+    iou_thres: float = 0.6,
+    max_det: int = 300,
+    max_nms: int = 30000,
+    norm_scale: float = 255.0,
+    compute_dtype: torch.dtype = torch.bfloat16,
+    save_json: Optional[str] = None,
+    coco_gt_json: Optional[str] = None,
+    confusion: bool = False,
+    is_coco: bool = False,
+    plots_dir=None,
+    num_points: int = 0,
+    val_kp: bool = False,
+):
+    """Evaluate `model` (its own weights, on its own device) over `loader`,
+    an iterable of batch dicts: "images" uint8 (B, H, W, 3), "labels"
+    (B, M, 5) [cls, xywh normalised to the letterboxed frame], "mask"
+    (B, M) bool, "shapes" (B,) native (h, w) or None, and optionally
+    "ratio_pad" (B,) ((rh, rw), (dw, dh)). Returns ((mp, mr, map50, map),
+    per_class_maps, cls_thr), plus the ConfusionMatrix with `confusion`.
+
+    The host folds batch i into the mAP accumulators while the device
+    works on batch i + 1 (`_host_batch` runs one batch behind); only
+    `detections` and `valid` are copied to the host. The time spent
+    waiting on the device and the host metrics' time are logged per image
+    ("Speed: ..."), as the JAX version does."""
+    if save_json is not None or coco_gt_json or is_coco:
+        raise NotImplementedError(
+            "COCO JSON output and COCOeval are not ported yet (ROADMAP, "
+            "Queue 1 item 6: save_json/COCOeval)")
+    if num_points or val_kp:
+        raise NotImplementedError(
+            "keypoint validation is not ported yet (ROADMAP, Queue 1 item 7:"
+            " the keypoint path)")
+    if plots_dir is not None:
+        raise NotImplementedError(
+            "validation plots are not ported yet (ROADMAP, Queue 1 item 6: "
+            "loggers and plots)")
+    device = next(model.parameters()).device
+    infer = make_infer_fn(model, nc, conf_thres, iou_thres, max_det, max_nms,
+                          norm_scale, compute_dtype)
+    iouv = np.linspace(0.5, 0.95, 10)
+    stats = []
+    cm = ConfusionMatrix(nc) if confusion else None
+    t_infer = 0.0
+    t_host = 0.0
+    n_images = 0
+    shape = None
+
+    def _host_batch(out: NMSOutput, batch, bs, lh, lw):
+        """Materialize one batch's device output and fold it into the mAP
+        accumulators."""
+        nonlocal t_infer, t_host
+        t0 = time.perf_counter()
+        dets = out.detections.cpu().numpy()[:bs]
+        valid = out.valid.cpu().numpy()[:bs]
+        t_infer += time.perf_counter() - t0  # device wait, if any
+        t0 = time.perf_counter()
+
+        for bi in range(bs):
+            det = dets[bi][valid[bi]]
+            lab = batch["labels"][bi][batch["mask"][bi]]  # (n, 5) cls+xywhn
+            shapes = batch["shapes"][bi]
+            native_hw = shapes if shapes is not None else (lh, lw)
+            rp = batch.get("ratio_pad")
+            rp = rp[bi] if rp is not None else None
+            # labels: normalized xywh on the letterboxed frame -> native xyxy
+            if len(lab):
+                lxyxy = np.zeros((len(lab), 5), np.float32)
+                lxyxy[:, 0] = lab[:, 0]
+                cx, cy, w, h = lab[:, 1] * lw, lab[:, 2] * lh, \
+                    lab[:, 3] * lw, lab[:, 4] * lh
+                lxyxy[:, 1], lxyxy[:, 2] = cx - w / 2, cy - h / 2
+                lxyxy[:, 3], lxyxy[:, 4] = cx + w / 2, cy + h / 2
+                lxyxy[:, 1:] = _scale_to_native(
+                    lxyxy[:, 1:], (lh, lw), native_hw, ratio_pad=rp)
+            else:
+                lxyxy = np.zeros((0, 5), np.float32)
+            if len(det):
+                det = det.copy()
+                det[:, :4] = _scale_to_native(
+                    det[:, :4], (lh, lw), native_hw, ratio_pad=rp)
+            if cm is not None:
+                cm.process_batch(det, lxyxy)
+            stats.append((
+                process_batch(det, lxyxy, iouv),
+                det[:, 4] if len(det) else np.zeros(0),
+                det[:, 5] if len(det) else np.zeros(0),
+                lxyxy[:, 0],
+            ))
+        t_host += time.perf_counter() - t0
+
+    pending = None
+    for batch in loader:
+        images = batch["images"]
+        bs = images.shape[0]
+        n_images += bs
+        shape = shape or images.shape[:3]
+        t0 = time.perf_counter()
+        out = infer(to_device(images, device))
+        t_infer += time.perf_counter() - t0  # dispatch, and the NMS's syncs
+        if pending is not None:
+            _host_batch(*pending)
+        pending = (out, batch, bs, images.shape[1], images.shape[2])
+    if pending is not None:
+        _host_batch(*pending)
+
+    if n_images:
+        LOGGER.info(
+            "Speed: %.1f ms inference+NMS (device wait), %.1f ms host "
+            "metrics per image at shape (%d, %d, %d)",
+            t_infer / n_images * 1e3, t_host / n_images * 1e3,
+            *shape)
+
+    stats = [np.concatenate(x, 0) for x in zip(*stats)]
+    if len(stats) and stats[0].any():
+        p, r, ap, f1, ap_class, cls_thr = ap_per_class(*stats)
+        ap50, ap_all = ap[:, 0], ap.mean(1)
+        mp, mr, map50, map_ = p.mean(), r.mean(), ap50.mean(), ap_all.mean()
+        maps = np.zeros(nc)
+        for i, c in enumerate(ap_class):
+            maps[c] = ap_all[i]
+    else:
+        mp = mr = map50 = map_ = 0.0
+        maps = np.zeros(nc)
+        cls_thr = [conf_thres] * nc
+    out = ((float(mp), float(mr), float(map50), float(map_)), maps, cls_thr)
+    if cm is not None:
+        return out + (cm,)
+    return out

@@ -1,0 +1,416 @@
+"""Supervised Trainer: lifecycle orchestration around the train step
+(counterpart of `efficientteacher_tpu/train/trainer.py`).
+
+Parity with reference trainer/trainer.py:43-542:
+  - set_env: run dir via increment_path, config dump (trainer.py:253)
+  - build_model: model from cfg, warm-start via shape-matched partial load
+    (intersect, trainer.py:132-144), EMA in the train state
+  - build_optimizer: accumulate = 64/batch, scaled weight decay
+    (trainer.py:195-197), SGD nesterov, one_cycle or linear LR; full resume
+  - warmup iterations nw = clamp(round(warmup_epochs*nb), 1000, half-run)
+    (trainer.py:372-376)
+  - before_epoch: close mosaic for the last no_aug_epochs (trainer.py:363-365)
+  - after_epoch: validate EMA, fitness = 0.1*mAP50+0.9*mAP, save last/best
+    (trainer.py:445-491), asynchronously (utils/checkpoint.py)
+
+The trainer runs on the CUDA card unless the caller passes `device="cpu"`;
+it raises when a card is asked for and absent. The model trains in float32
+master weights with the forward in `compute_dtype` (bf16 autocast by
+default). Host syncs in the loop: the loss parts are read (`float`) only on
+the batches the JAX trainer logs (every 50th).
+
+Not ported yet, each raising NotImplementedError or skipped as the JAX
+trainer skips them when their dependencies are missing (ROADMAP, Queue 1):
+the dataset loaders (`build_dataloader`, item 6: callers override it),
+device-side augmentation (`Dataset.device_aug`, item 8), autoanchor
+(`noautoanchor: False`, item 6), RepOpt and AdamW (item 7), loss families
+other than the YOLOv5 `ComputeLoss` (item 7), warm starts from a
+reference `.pt` (item 9), DDP (item 6), and the loggers and plots (item 6,
+skipped), the JAX trainer's `profile_steps` (`torch.profiler` serves).
+"""
+
+from __future__ import annotations
+
+import csv
+import dataclasses
+import logging
+import time
+from pathlib import Path
+from typing import Optional
+
+import numpy as np
+import torch
+
+from ..configs import CfgNode
+from ..eval import validator
+from ..eval.metrics import MetricMeter, fitness
+from ..losses.yolov5_loss import YoloV5LossConfig
+from ..models import build_model, spec_from_cfg
+from ..parallel.distributed import is_main_process, to_device
+from ..utils.callbacks import Callbacks
+from ..utils.checkpoint import (AsyncCheckpointer, intersect_trees,
+                                load_checkpoint, load_module_variables,
+                                module_variables)
+from ..utils.general import check_img_size, increment_path
+from ..utils.shutdown import GracefulStop
+from .optim import OptimizerConfig
+from .supervised import Schedule, make_supervised_train_step
+from .train_state import create_train_state
+
+LOGGER = logging.getLogger(__name__)
+
+RESULTS_KEYS = [
+    "epoch", "train/box_loss", "train/obj_loss", "train/cls_loss",
+    "metrics/precision", "metrics/recall", "metrics/mAP_0.5",
+    "metrics/mAP_0.5:0.95", "val/fitness", "lr",
+]
+
+
+class Trainer:
+    # the SSOD trainer builds the SSOD detector (with its discriminators)
+    ssod_model = False
+
+    def __init__(self, cfg: CfgNode, callbacks: Optional[Callbacks] = None,
+                 compute_dtype: torch.dtype = torch.bfloat16,
+                 device: torch.device | str = "cuda"):
+        self.device = torch.device(device)
+        if self.device.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError("Trainer: no CUDA card is present; pass "
+                               "device='cpu' to train on the CPU")
+        self.cfg = cfg
+        self.callbacks = callbacks or Callbacks()
+        self.compute_dtype = compute_dtype
+        self.epoch = 0
+        self.start_epoch = 0
+        self.best_fitness = 0.0
+        self.set_env(cfg)
+        self.build_model(cfg)
+        self.build_optimizer(cfg)
+        self.build_dataloader(cfg)
+        self.build_loss(cfg)
+        self.build_step()
+
+    # -- lifecycle ----------------------------------------------------------
+    def set_env(self, cfg):
+        if cfg.Dataset.device_aug:
+            raise NotImplementedError(
+                "Dataset.device_aug is not ported yet (ROADMAP, Queue 1 item"
+                " 8: device-side augmentation)")
+        if not cfg.noautoanchor and not cfg.resume:
+            raise NotImplementedError(
+                "autoanchor is not ported yet (ROADMAP, Queue 1 item 6); set "
+                "noautoanchor: True")
+        self.epochs = cfg.epochs
+        self.batch_size = cfg.Dataset.batch_size
+        self.save_dir = increment_path(
+            Path(cfg.project or "runs/train") / (cfg.name or "exp"),
+            exist_ok=cfg.exist_ok, mkdir=True,
+        )
+        (self.save_dir / "weights").mkdir(parents=True, exist_ok=True)
+        self.is_main = is_main_process()
+        if self.is_main:
+            (self.save_dir / "opt.yaml").write_text(cfg.dump())
+        self.img_size = check_img_size(cfg.Dataset.img_size, 32)
+        self.noval = cfg.noval
+        self.nosave = cfg.nosave
+        self.save_period = cfg.save_period
+        self.results_csv = self.save_dir / "results.csv"
+        self.checkpointer = AsyncCheckpointer()
+        self.stop = GracefulStop()
+
+    def build_model(self, cfg):
+        if cfg.Model.RepOpt:
+            raise NotImplementedError(
+                "RepOptimizer is not ported yet (ROADMAP, Queue 1 item 7)")
+        self.spec = dataclasses.replace(spec_from_cfg(cfg),
+                                        train_domain=self.ssod_model)
+        model = build_model(self.spec, device=self.device,
+                            generator=torch.Generator().manual_seed(0))
+        if self.device.type == "cuda":
+            # NHWC images arrive as channels-last views (train/supervised.py)
+            model = model.to(memory_format=torch.channels_last)
+        n = sum(p.numel() for p in model.parameters())
+        LOGGER.info("Model summary: %s/%s/%s head, %.2fM parameters",
+                    self.spec.backbone, self.spec.neck, self.spec.head,
+                    n / 1e6)
+        if cfg.weights:
+            self._warm_start(cfg.weights, model)
+        self.model = model
+        s = np.asarray(self.spec.strides, np.float32)[:, None, None]
+        self.anchors_grid = torch.from_numpy(
+            np.asarray(self.spec.anchors, np.float32)
+            .reshape(self.spec.nl, -1, 2) / s).to(self.device)
+
+    def _warm_start(self, weights: str, model: torch.nn.Module):
+        """Shape-matched partial load from a port checkpoint (its `ema`
+        entry if it has one), in place."""
+        if weights.endswith(".pt"):
+            raise NotImplementedError(
+                "warm starts from a reference .pt are not ported yet "
+                "(ROADMAP, Queue 1 item 9)")
+        ckpt = load_checkpoint(weights)
+        ent = ckpt.get("ema") or ckpt["model"]
+        own = module_variables(model)
+        params, c1, t1 = intersect_trees(ent["params"], own["params"])
+        stats, c2, t2 = intersect_trees(ent["batch_stats"],
+                                        own["batch_stats"])
+        load_module_variables(model, {"params": params, "batch_stats": stats})
+        LOGGER.info(
+            "warm start: %d/%d params, %d/%d stats from %s",
+            c1, t1, c2, t2, weights,
+        )
+
+    def build_optimizer(self, cfg):
+        nbs = 64
+        self.accumulate = max(round(nbs / self.batch_size), 1)
+        scaled_wd = (
+            cfg.hyp.weight_decay * self.batch_size * self.accumulate / nbs
+        )
+        self.opt_cfg = OptimizerConfig.from_cfg(cfg, scaled_wd)
+        self.state = create_train_state(self.model, self.opt_cfg,
+                                        with_ema=True)
+        if cfg.resume and cfg.weights and not cfg.weights.endswith(".pt"):
+            self._resume(cfg.weights)
+
+    def _resume(self, weights):
+        """Full resume: params + BN stats + EMA + optimizer momentum + epoch
+        (reference trainer.py:159-186)."""
+        self._restore(load_checkpoint(weights))
+        LOGGER.info("resumed at epoch %d (best_fitness %.4f)",
+                    self.start_epoch, self.best_fitness)
+
+    def _restore(self, ckpt):
+        meta = ckpt.get("meta", {})
+        self.start_epoch = self.epoch = meta.get("epoch", -1) + 1
+        self.best_fitness = meta.get("best_fitness", 0.0)
+        st = self.state
+        load_module_variables(st.model, ckpt["model"])
+        if st.ema is not None and "ema" in ckpt:
+            load_module_variables(st.ema.module, ckpt["ema"])
+            st.ema.updates = int(meta.get("ema_updates", 0))
+        opt = ckpt.get("optimizer")
+        if opt is not None:
+            with torch.no_grad():
+                for (name, _), buf in zip(st.model.named_parameters(),
+                                          st.momentum_buf):
+                    buf.copy_(opt["momentum_buf"][name])
+            st.opt_step = int(opt["step"])
+
+    def _optimizer_state(self):
+        """The momentum and the fired-step count, by parameter name: the
+        `optimizer` entry of `last.ckpt` (the resume source; the reference
+        keeps it in last.pt and strips it from best)."""
+        st = self.state
+        names = [n for n, _ in st.model.named_parameters()]
+        return {"momentum_buf": dict(zip(names, st.momentum_buf)),
+                "step": st.opt_step}
+
+    def build_dataloader(self, cfg):
+        """Set the loaders. The dataset loaders (cv2-based in the JAX
+        package) are not ported yet (ROADMAP, Queue 1 item 6): callers
+        override this method and set, to the JAX `BatchLoader` contract:
+
+          train_loader  iterable of batch dicts, with `__len__` and `.ds`:
+                        "images" uint8 (B, H, W, 3), "labels" float32
+                        (B, M, 5) [cls, cx, cy, w, h] normalised to the
+                        image, "mask" bool (B, M)
+          val_loader    the same, plus "shapes" (B,) native (h, w) or None
+                        and optionally "ratio_pad" (B,) ((rh, rw), (dw,
+                        dh)); or None (no validation)
+          target_loader (SSOD) batch dicts with "images" (the strong view)
+                        and "images_ori" (the weak view), uint8, and "M_s"
+                        float32 (B, 13) [index, weak->strong affine (9),
+                        scale, flip-ud, flip-lr]; with
+                        SSOD.ssod_hyp.with_gt also "labels" and "mask"
+          dataset       train_loader.ds: `labels`, `mosaic` (set False for
+                        the last hyp.no_aug_epochs), `label_num_per_image`,
+                        `cls_ratio_gt`
+          nb            len(train_loader)
+        """
+        raise NotImplementedError(
+            "the dataset loaders are not ported yet (ROADMAP, Queue 1 item "
+            "6: cv2-free loaders); override build_dataloader to set "
+            "train_loader, val_loader, target_loader, dataset and nb")
+
+    def build_loss(self, cfg):
+        """Loss.type dispatch: the YOLOv5 `ComputeLoss` only."""
+        loss_type = cfg.Loss.type
+        if loss_type != "ComputeLoss" or cfg.Loss.assigner_type == "SimOTA":
+            raise NotImplementedError(
+                f"Loss.type {loss_type!r} (assigner "
+                f"{cfg.Loss.assigner_type!r}) is not ported yet (ROADMAP, "
+                "Queue 1 item 7); the port trains ComputeLoss")
+        self.loss_cfg = YoloV5LossConfig.from_cfg(cfg, nl=self.spec.nl)
+
+    def build_step(self):
+        self.train_step = make_supervised_train_step(
+            self.loss_cfg, self.anchors_grid, self.opt_cfg,
+            norm_scale=float(self.cfg.Dataset.norm_scale),
+            compute_dtype=self.compute_dtype,
+        )
+
+    def _to_device(self, *arrays):
+        out = tuple(to_device(a, self.device) for a in arrays)
+        return out if len(out) > 1 else out[0]
+
+    # -- schedule -----------------------------------------------------------
+    def _warmup_iters(self) -> int:
+        if self.cfg.hyp.warmup_epochs > 0:
+            nw = max(round(self.cfg.hyp.warmup_epochs * self.nb), 1000)
+            return int(min(nw, (self.epochs - self.start_epoch) / 2 * self.nb))
+        return -1
+
+    def _schedule(self, ni: int) -> Schedule:
+        s = self.opt_cfg.schedule(ni, self.epoch, self._warmup_iters())
+        if self._warmup_iters() > 0 and ni <= self._warmup_iters():
+            accumulate = max(
+                1, round(np.interp(ni, [0, self._warmup_iters()],
+                                   [1, 64 / self.batch_size]))
+            )
+        else:
+            accumulate = self.accumulate
+        return Schedule.make(
+            s["lr_bias"], s["lr_rest"], s["momentum"], accumulate,
+            ema_decay=0.9999,
+        )
+
+    # -- loop ---------------------------------------------------------------
+    def before_epoch(self):
+        if self.epoch == self.epochs - self.cfg.hyp.no_aug_epochs:
+            LOGGER.info("closing mosaic augmentation")
+            self.dataset.mosaic = False
+        self.meter = MetricMeter()
+
+    def train_in_epoch(self):
+        for i, batch in enumerate(self.train_loader):
+            sched = self._schedule(i + self.nb * self.epoch)
+            images, labels, mask = self._to_device(
+                batch["images"], batch["labels"], batch["mask"])
+            self.state, parts = self.train_step(
+                self.state, images, labels, mask, sched
+            )
+            if i % 50 == 0:
+                self.meter.update(
+                    {k: float(v) for k, v in parts.items() if k != "loss"}
+                )
+                LOGGER.info("epoch %d it %d/%d %s", self.epoch, i, self.nb,
+                            self.meter)
+            self.callbacks.run("on_train_batch_end")
+            if self.stop.requested:
+                break
+
+    def _validate(self, ema):
+        """validator.run over the val loader with `ema` (an EMAState)."""
+        results, _, _ = validator.run(
+            ema.module, self.val_loader, nc=self.spec.nc,
+            conf_thres=float(self.cfg.val_conf_thres),
+            norm_scale=float(self.cfg.Dataset.norm_scale),
+            compute_dtype=self.compute_dtype,
+        )
+        return results
+
+    def after_epoch(self):
+        results = (0.0, 0.0, 0.0, 0.0)
+        if self.val_loader is not None and not self.noval:
+            results = self._validate(self.state.ema)
+            LOGGER.info(
+                "epoch %d val P=%.4f R=%.4f mAP50=%.4f mAP=%.4f",
+                self.epoch, *results,
+            )
+        fi = float(fitness(np.array([list(results)]))[0])
+        if fi > self.best_fitness:
+            self.best_fitness = fi
+        if self.is_main:
+            self._write_results_row(results, fi)
+        if not self.nosave and self.is_main:
+            self._save_ckpt("last.ckpt", fi)
+            if fi == self.best_fitness:
+                self._save_ckpt("best.ckpt", fi)
+            if self.save_period > 0 and self.epoch % self.save_period == 0:
+                self._save_ckpt(f"epoch{self.epoch}.ckpt", fi)
+        metrics = {
+            "metrics/precision": results[0],
+            "metrics/recall": results[1],
+            "metrics/mAP_0.5": results[2],
+            "metrics/mAP_0.5:0.95": results[3],
+            "x/lr0": self.opt_cfg.lr0 * self.opt_cfg.lf(self.epoch),
+        }
+        for k, meter in self.meter.meters.items():
+            metrics[f"train/{k}_loss"] = meter.avg
+        self.callbacks.run("on_fit_epoch_end", metrics, self.epoch)
+
+    def _write_results_row(self, results, fi):
+        new = not self.results_csv.exists()
+        with open(self.results_csv, "a", newline="") as f:
+            w = csv.writer(f)
+            if new:
+                w.writerow(RESULTS_KEYS)
+            m = self.meter.meters
+            w.writerow([
+                self.epoch,
+                m.get("box", None) and m["box"].avg or 0.0,
+                m.get("obj", None) and m["obj"].avg or 0.0,
+                m.get("cls", None) and m["cls"].avg or 0.0,
+                *results, fi,
+                self.opt_cfg.lr0 * self.opt_cfg.lf(self.epoch),
+            ])
+
+    def _save_ckpt(self, name: str, fi: float, epoch: Optional[int] = None):
+        # async: on-device snapshot now, the copy to the host and the write
+        # on the ckpt-writer thread (utils/checkpoint.py AsyncCheckpointer)
+        st = self.state
+        student = module_variables(st.model)
+        ema = module_variables(st.ema.module) if st.ema else None
+        opt = self._optimizer_state() if name == "last.ckpt" else None
+        self.checkpointer.save(
+            self.save_dir / "weights" / name,
+            params=student["params"],
+            batch_stats=student["batch_stats"],
+            ema_params=ema["params"] if ema else None,
+            ema_batch_stats=ema["batch_stats"] if ema else None,
+            ema_updates=st.ema.updates if st.ema else 0,
+            opt_state=opt,
+            epoch=self.epoch if epoch is None else epoch,
+            best_fitness=self.best_fitness,
+            cfg_yaml=self.cfg.dump(),
+        )
+        self.callbacks.run("on_model_save",
+                           self.save_dir / "weights" / name,
+                           self.epoch if epoch is None else epoch, fi, name)
+
+    def train(self):
+        self.callbacks.run("on_train_start")
+        # preemption (SIGTERM) / Ctrl-C: finish step, save, exit cleanly
+        self.stop.install()
+        t0 = time.time()
+        try:
+            for self.epoch in range(self.start_epoch, self.epochs):
+                self.callbacks.run("on_train_epoch_start")
+                self.before_epoch()
+                self.train_in_epoch()
+                if self.stop.requested:
+                    LOGGER.warning(
+                        "graceful stop at epoch %d: saving last.ckpt "
+                        "(resume restarts this epoch), skipping val",
+                        self.epoch)
+                    if not self.nosave and self.is_main:
+                        # epoch-1: the interrupted epoch is incomplete;
+                        # resume (meta.epoch + 1) must re-run it
+                        self._save_ckpt("last.ckpt", self.best_fitness,
+                                        epoch=self.epoch - 1)
+                    break
+                self.after_epoch()
+        finally:
+            # even on an epoch-loop exception: restore default signal
+            # handlers and join the async checkpoint writer so a mid-write
+            # daemon isn't killed at interpreter exit and a failed save's
+            # exception surfaces
+            self.stop.uninstall()
+            self.checkpointer.wait()  # last/best.ckpt durable before return
+        LOGGER.info(
+            "%d epochs in %.1f h, best fitness %.4f",
+            self.epochs - self.start_epoch, (time.time() - t0) / 3600,
+            self.best_fitness,
+        )
+        self.callbacks.run("on_train_end")
+        return self.best_fitness

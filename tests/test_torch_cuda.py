@@ -258,3 +258,95 @@ def test_ssod_step_on_the_card(card):
         assert int(out.pseudo_count) > 0
         same = [torch.equal(a, b) for a, b in zip(before, state.params)]
         assert (not any(same)) if fired else all(same)
+
+
+def test_ssod_trainer_on_the_card(card, tmp_path):
+    """Two epochs of a width-0.25 SSODTrainer (1 burn-in, 1 mean-teacher)
+    on the card by default, 4 + 4 images at 256 px, bf16, with epoch-end
+    validation at nc 80: finite losses, K1 in every SSOD step and every
+    val batch, a results.csv row per epoch, and a last.ckpt that a
+    resumed trainer restores."""
+    import types
+
+    from efficientteacher_torch.configs import get_cfg
+    from efficientteacher_torch.train.ssod_trainer import SSODTrainer
+    from efficientteacher_torch.utils.checkpoint import load_checkpoint
+
+    rng = np.random.default_rng(0)
+    img, b = 256, 4
+
+    def batch():
+        labels = np.zeros((b, 4, 5), np.float32)
+        labels[:, :2, 0] = rng.integers(0, 80, (b, 2))
+        labels[:, :2, 1:3] = rng.uniform(0.3, 0.7, (b, 2, 2))
+        labels[:, :2, 3:5] = rng.uniform(0.1, 0.3, (b, 2, 2))
+        mask = np.zeros((b, 4), bool)
+        mask[:, :2] = True
+        return {"images": rng.integers(0, 256, (b, img, img, 3), np.uint8),
+                "labels": labels, "mask": mask, "shapes": [None] * b}
+
+    m_s = np.zeros((b, 13), np.float32)
+    m_s[:, 1:10] = np.eye(3).ravel()
+    m_s[:, 10] = 1.0
+    train = [batch(), batch()]
+    target = [{"images": batch()["images"], "images_ori": batch()["images"],
+               "M_s": m_s} for _ in range(2)]
+    ds = types.SimpleNamespace(mosaic=True)
+    steps = []
+
+    class Trainer(SSODTrainer):
+        def build_dataloader(self, cfg):
+            self.train_loader, self.target_loader = train, target
+            self.val_loader, self.dataset, self.nb = [batch()], ds, 2
+
+        def build_step(self):
+            super().build_step()
+            step = self.ssod_step
+
+            def counted(*args):
+                k0 = greedy_nms_keep_cuda.launches
+                state, out = step(*args)
+                steps.append((greedy_nms_keep_cuda.launches - k0,
+                              {k: float(v) for k, v in out.metrics.items()}))
+                return state, out
+
+            self.ssod_step = counted
+
+    cfg = get_cfg()
+    cfg.merge_from_list([
+        "Model.Backbone.name", "YoloV5", "Model.Neck.name", "YoloV5",
+        "Model.Head.name", "YoloV5", "Model.Backbone.activation", "SiLU",
+        "Model.Neck.activation", "SiLU",
+        "Model.Neck.in_channels", [256, 512, 1024],
+        "Model.Neck.out_channels", [256, 512, 1024],
+        "Model.width_multiple", 0.25, "Model.depth_multiple", 0.33,
+        "Loss.type", "ComputeLoss", "SSOD.train_domain", True,
+        "Dataset.img_size", img, "Dataset.batch_size", b, "epochs", 2,
+        "hyp.burn_epochs", 1, "SSOD.fixed_accumulate", True,
+        "project", str(tmp_path), "name", "card"])
+    trainer = Trainer(cfg)
+    assert trainer.device.type == "cuda"
+    with torch.no_grad():  # a teacher that gives pseudo labels
+        for m in (trainer.state.model, trainer.state.ema.module):
+            for conv in m.head.m:
+                conv.bias.view(3, 85)[:, 4] += 4.0
+                conv.bias.view(3, 85)[:, 5:] += 5.0
+    k0 = greedy_nms_keep_cuda.launches
+    trainer.train()
+    assert [k for k, _ in steps] == [1, 1]
+    assert all(np.isfinite(v) for _, m in steps for v in m.values())
+    # two SSOD steps + one val batch per epoch
+    assert greedy_nms_keep_cuda.launches - k0 == 4
+    rows = trainer.results_csv.read_text().splitlines()
+    assert [r.split(",")[0] for r in rows[1:]] == ["0", "1"]
+    last = trainer.save_dir / "weights" / "last.ckpt"
+    assert load_checkpoint(last)["meta"]["epoch"] == 1
+    cfg.resume, cfg.weights, cfg.name = True, str(last), "resumed"
+    resumed = Trainer(cfg)
+    assert resumed.start_epoch == 2 and resumed.teacher_seeded
+    for ema in ("ema", "semi_ema"):
+        assert getattr(resumed.state, ema).updates == \
+            getattr(trainer.state, ema).updates
+    for (k, p), q in zip(resumed.state.model.named_parameters(),
+                         trainer.state.model.parameters()):
+        assert torch.equal(p, q.half().float()), k

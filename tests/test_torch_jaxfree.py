@@ -1,5 +1,5 @@
-"""The PyTorch port imports neither jax, flax, yaml nor cv2 (the GPU
-machine it runs on has none of them), nor the JAX package. Checked in a
+"""The PyTorch port imports neither jax, flax, yaml, cv2 nor sklearn (the
+GPU machine it runs on has none of them), nor the JAX package. Checked in a
 fresh interpreter, since this test process has them loaded."""
 
 import os
@@ -38,6 +38,18 @@ MODULES = [
     "efficientteacher_torch.train.supervised",
     "efficientteacher_torch.train.ssod_step",
     "efficientteacher_torch.train.from_jax",
+    "efficientteacher_torch.train.trainer",
+    "efficientteacher_torch.train.ssod_trainer",
+    "efficientteacher_torch.configs",
+    "efficientteacher_torch.configs.cfg_node",
+    "efficientteacher_torch.configs.defaults",
+    "efficientteacher_torch.eval.metrics",
+    "efficientteacher_torch.ssod.quality",
+    "efficientteacher_torch.parallel.distributed",
+    "efficientteacher_torch.utils.callbacks",
+    "efficientteacher_torch.utils.checkpoint",
+    "efficientteacher_torch.utils.general",
+    "efficientteacher_torch.utils.shutdown",
     "chip_smoke",
     "ab_kernels",
 ]
@@ -49,7 +61,8 @@ def test_port_and_chip_smoke_import_without_jax():
         f"for m in {MODULES!r}:\n"
         "    importlib.import_module(m)\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
-        "('jax', 'jaxlib', 'flax', 'yaml', 'cv2', 'efficientteacher_tpu'))\n"
+        "('jax', 'jaxlib', 'flax', 'yaml', 'cv2', 'sklearn',\n"
+        "                              'efficientteacher_tpu'))\n"
         "assert not bad, bad\n"
     )
     env = dict(os.environ, PYTHONPATH=str(REPO))

@@ -18,6 +18,7 @@ from efficientteacher_torch.utils.eval_regimes import yolov5l_spec
 from efficientteacher_torch.utils.jax_import import state_dict_from_jax
 
 from torch_port_helpers import jax_and_port_models, yolov5_cfg
+from torch_port_helpers import one_torch_thread  # noqa: F401
 
 
 @pytest.fixture(scope="module")

@@ -36,6 +36,7 @@ from efficientteacher_torch.utils.eval_regimes import (
 
 from torch_port_helpers import (images_u8, jax_and_port_models, port_tensor,
                                 to_jax_variables, yolov5_cfg)
+from torch_port_helpers import one_torch_thread  # noqa: F401
 
 KW = dict(nc=80, conf_thres=0.001, iou_thres=0.6, max_det=300, max_nms=1000,
           norm_scale=255.0)

@@ -49,6 +49,7 @@ from efficientteacher_torch.train.from_jax import train_state_from_jax
 from torch_port_helpers import (ANCHORS_GRID, anchors_grid_of, assert_states,
                                 images_u8, jax_and_port_models, make_labels,
                                 port_tensor, to_jax_variables, yolov5_cfg)
+from torch_port_helpers import one_torch_thread  # noqa: F401
 
 
 # --- pseudo labels ---------------------------------------------------------

@@ -64,6 +64,7 @@ from efficientteacher_torch.utils.jax_import import (params_from_jax,
 from torch_port_helpers import (ANCHORS_GRID, anchors_grid_of, assert_states,
                                 images_u8, jax_and_port_models, make_labels,
                                 port_tensor, yolov5_cfg)
+from torch_port_helpers import one_torch_thread  # noqa: F401
 
 
 # --- BatchNorm -------------------------------------------------------------

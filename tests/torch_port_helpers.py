@@ -5,12 +5,26 @@ across by the port's bridge (numpy trees in between)."""
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
 import torch
 
 from efficientteacher_tpu.configs import get_cfg
 from efficientteacher_tpu.models import build_model as jax_build_model
 from efficientteacher_torch.models import build_model, spec_from_cfg
 from efficientteacher_torch.utils.jax_import import state_dict_from_jax
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """One intra-op torch thread for the module's tests, restored after. The
+    small test models are bound by per-op overhead on the CPU, so one
+    thread is as fast alone, and test workers running side by side, each
+    with a thread per core, slow each other ~2x. A test module takes it
+    with `from torch_port_helpers import one_torch_thread`."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def yolov5_cfg(width=0.25, depth=0.33, nc=8, img=64):
