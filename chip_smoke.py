@@ -1,11 +1,12 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port on one CUDA card: YOLOv5l eval serving, the
-YOLOv5l mean-teacher training step and the SSOD trainer around it.
+YOLOv5l mean-teacher training step, and the SSOD trainer around it reading
+its data from disk.
 
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from `efficientteacher_torch/csrc/`, checks
-each against its plain PyTorch version, then drives the port's three main
+each against its plain PyTorch version, then drives the port's main
 paths, each with the kernels' launch counts set to 0 just before it and
 read just after:
 
@@ -20,15 +21,25 @@ read just after:
     (16, 2048); then it profiles a held + fired pair, times the step with
     PyTorch's own BatchNorm forward beside the port's, and times the
     pseudo labels and K1 at the run's load and at a sparser one;
-  - trainer: `SSODTrainer` on the main YAML's config (`ssod_cfg`) and
-    batch, 32 + 32, over in-memory loaders (`trainer_data`): 1 burn-in
-    and 2 mean-teacher epochs of 4 steps, 3 val batches of 32 at each
-    epoch end (the val detections held against the plain NMS), last/best
-    checkpoints, then a trainer resumed from last.ckpt for one epoch
-    (its epoch, best fitness, EMA updates and weights held against the
-    checkpoint); it times the loop's steps against the same step function
-    called bare, the input copy, validator.run (device wait and host
-    metrics), the save() calls and the steps during a checkpoint write.
+  - data: writes a seeded dataset (256 labelled, 256 unlabelled, 64 val
+    images at COCO-like sizes, ~7 boxes each; JPEG where the loader core
+    has libjpeg, else PNG) into smoke_data/ (removed at the end); `[data]`
+    times decode + letterbox for the thread and process engines at 1, 4
+    and 8 workers, each batch held against a single-threaded pass;
+    `[aug]` times device_augment_batch and device_ssod_views at 32@640
+    and holds the card's output against the CPU's on the same draws;
+  - trainer: `SSODTrainer` on the main YAML (`ssod_cfg`, read without
+    PyYAML) and its batch, 32 + 32, with `Dataset.device_aug`, its loaders
+    reading the dataset from disk: 1 burn-in and 2 mean-teacher epochs of
+    8 steps, 2 val batches of 32 at each epoch end (the val detections
+    held against the plain NMS), last/best checkpoints, then a trainer
+    resumed from last.ckpt for one epoch (its epoch, best fitness, EMA
+    updates and weights held against the checkpoint); it times the loop's
+    steps against the same step function called bare, the input copy, the
+    loop's waits on the loaders, validator.run (device wait and host
+    metrics), the save() calls and the steps during a checkpoint write;
+  - cli: `cli.train` on the YAML file for one SSOD epoch, then `cli.val`
+    on its best.ckpt, held equal to validator.run.
 
 It times the forward, the NMS, the selection engine against `torch.topk`,
 the training steps and their phases (CUDA events), and each kernel
@@ -51,10 +62,14 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import os
+import shutil
 import statistics
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
+from pathlib import Path
 
 B, IMG, NC = 32, 640, 80
 CONF, IOU, MAX_NMS, MAX_DET = 0.001, 0.6, 30000, 300
@@ -64,71 +79,18 @@ HBM_BYTES_S = 3.35e12    # H100 SXM device memory
 FP32_OPS_S = 67e12       # H100 SXM fp32 outside the tensor cores
 IOU_OPS = 12             # fp32 operations of one IoU test (ops/boxes.py)
 
-# configs/ssod/coco-standard/yolov5l_coco_ssod_10_percent.yaml as a dotted
-# override list over the port's `get_cfg()` (the card's machine has no
-# yaml); tests/test_torch_config.py holds it equal to the YAML.
-COCO_NAMES = [
-    "person", "bicycle", "car", "motorcycle", "airplane", "bus", "train",
-    "truck", "boat", "traffic light", "fire hydrant", "stop sign",
-    "parking meter", "bench", "bird", "cat", "dog", "horse", "sheep", "cow",
-    "elephant", "bear", "zebra", "giraffe", "backpack", "umbrella",
-    "handbag", "tie", "suitcase", "frisbee", "skis", "snowboard",
-    "sports ball", "kite", "baseball bat", "baseball glove", "skateboard",
-    "surfboard", "tennis racket", "bottle", "wine glass", "cup", "fork",
-    "knife", "spoon", "bowl", "banana", "apple", "sandwich", "orange",
-    "broccoli", "carrot", "hot dog", "pizza", "donut", "cake", "chair",
-    "couch", "potted plant", "bed", "dining table", "toilet", "tv",
-    "laptop", "mouse", "remote", "keyboard", "cell phone", "microwave",
-    "oven", "toaster", "sink", "refrigerator", "book", "clock", "vase",
-    "scissors", "teddy bear", "hair drier", "toothbrush"]
-MAIN_YAML_OVERRIDES = [
-    "project", "runs/ssod_10p", "epochs", 60, "weights", "",
-    "hyp.lr0", 0.01, "hyp.lrf", 1.0, "hyp.momentum", 0.937,
-    "hyp.weight_decay", 0.0005, "hyp.burn_epochs", 10, "hyp.hsv_h", 0.015,
-    "hyp.hsv_s", 0.7, "hyp.hsv_v", 0.4, "hyp.translate", 0.1,
-    "hyp.scale", 0.9, "hyp.fliplr", 0.5, "hyp.mosaic", 1.0,
-    "Model.depth_multiple", 1.0, "Model.width_multiple", 1.0,
-    "Model.Backbone.name", "YoloV5", "Model.Backbone.activation", "SiLU",
-    "Model.Neck.name", "YoloV5", "Model.Neck.in_channels", [256, 512, 1024],
-    "Model.Neck.out_channels", [256, 512, 1024],
-    "Model.Neck.activation", "SiLU", "Model.Head.name", "YoloV5",
-    "Model.Head.activation", "SiLU",
-    "Model.anchors", [[10, 13, 16, 30, 33, 23], [30, 61, 62, 45, 59, 119],
-                      [116, 90, 156, 198, 373, 326]],
-    "Loss.type", "ComputeLoss", "Loss.cls", 0.3, "Loss.obj", 0.7,
-    "Loss.anchor_t", 4.0,
-    "Dataset.data_name", "coco_standard_10",
-    "Dataset.train", "data/coco_standard/labeled_10percent.txt",
-    "Dataset.val", "data/val2017.txt",
-    "Dataset.target", "data/coco_standard/unlabeled_10percent.txt",
-    "Dataset.nc", 80, "Dataset.np", 0, "Dataset.names", COCO_NAMES,
-    "Dataset.img_size", 640, "Dataset.batch_size", 32,
-    "Dataset.sampler_type", "normal",
-    "SSOD.train_domain", True, "SSOD.nms_conf_thres", 0.1,
-    "SSOD.nms_iou_thres", 0.65, "SSOD.teacher_loss_weight", 3.0,
-    "SSOD.cls_loss_weight", 0.3, "SSOD.box_loss_weight", 0.05,
-    "SSOD.obj_loss_weight", 0.7, "SSOD.loss_type", "ComputeStudentMatchLoss",
-    "SSOD.ignore_thres_low", 0.1, "SSOD.ignore_thres_high", 0.6,
-    "SSOD.uncertain_aug", True, "SSOD.use_ota", False,
-    "SSOD.multi_label", False, "SSOD.ignore_obj", False,
-    "SSOD.pseudo_label_with_obj", True, "SSOD.pseudo_label_with_bbox", True,
-    "SSOD.pseudo_label_with_cls", False, "SSOD.with_da_loss", False,
-    "SSOD.da_loss_weights", 0.01, "SSOD.epoch_adaptor", True,
-    "SSOD.resample_high_percent", 0.25, "SSOD.resample_low_percent", 0.99,
-    "SSOD.ema_rate", 0.999, "SSOD.cosine_ema", True,
-    "SSOD.ssod_hyp.with_gt", False, "SSOD.ssod_hyp.mosaic", 1.0,
-    "SSOD.ssod_hyp.cutout", 0.5, "SSOD.ssod_hyp.autoaugment", 0.5,
-    "SSOD.ssod_hyp.scale", 0.8, "SSOD.ssod_hyp.degrees", 0.0,
-    "SSOD.ssod_hyp.shear", 0.0]
+MAIN_YAML = (Path(__file__).resolve().parent
+             / "configs/ssod/coco-standard/yolov5l_coco_ssod_10_percent.yaml")
 
 
 def ssod_cfg(*overrides):
-    """The main SSOD config (the port's get_cfg() with MAIN_YAML_OVERRIDES),
-    then `overrides` (dotted key, value pairs)."""
+    """The main SSOD config (the port's get_cfg() merged with MAIN_YAML,
+    read without PyYAML), then `overrides` (dotted key, value pairs)."""
     from efficientteacher_torch.configs import get_cfg
 
     cfg = get_cfg()
-    cfg.merge_from_list(MAIN_YAML_OVERRIDES + list(overrides))
+    cfg.merge_from_file(str(MAIN_YAML))
+    cfg.merge_from_list(list(overrides))
     return cfg
 
 
@@ -866,57 +828,299 @@ def train_phase(torch, dev, card):
     return entry, {"ssod": (B_SUP + B_UN) / per_step * 1e3,
                    "burn_in": B_SUP / burn_warm * 1e3}
 
+# The dataset the data, aug, trainer and CLI phases read, written at run
+# time from SEED into DATA_DIR (gitignored, removed at the end): labelled,
+# unlabelled and val splits at COCO-like native sizes (w, h), with
+# bench.py-style boxes (classes 0-79, centres in [0.2, 0.8], sizes in
+# [0.05, 0.45)) at 1-13 per image, 7 on average (COCO train2017: 7.3).
+# Three images in four are JPEG (quality 90, written by the loader core's
+# libjpeg writer) where the core has libjpeg, the rest PNG (zlib); without
+# libjpeg all are PNG.
+DATA_DIR = Path(__file__).resolve().parent / "smoke_data"
+SPLITS = {"labelled": 256, "unlabelled": 256, "val": 64}
+NATIVE_WH = [(640, 480), (480, 640), (640, 427), (500, 375), (640, 640)]
+DATA_WORKERS = (1, 4, 8)
+
+
+def write_split(root: Path, name: str, n: int, seed: int, jpeg: bool):
+    """Images, YOLO label files and a list file of one split; returns the
+    list file and the number of JPEGs. Content: a per-image colour
+    gradient with mild noise, each box a filled rectangle of its own
+    colour (so the files compress as photos do, not as noise)."""
+    import numpy as np
+
+    from efficientteacher_torch.data import image_io
+    from efficientteacher_torch.utils import native_loader as nl
+
+    rng = np.random.default_rng(seed)
+    (root / "images").mkdir(parents=True, exist_ok=True)
+    (root / "labels").mkdir(parents=True, exist_ok=True)
+    specs = []
+    for i in range(n):
+        w, h = NATIVE_WH[i % len(NATIVE_WH)]
+        k = int(rng.integers(1, 14))
+        boxes = np.concatenate([
+            rng.integers(0, NC, (k, 1)), rng.uniform(0.2, 0.8, (k, 2)),
+            rng.uniform(0.05, 0.45, (k, 2))], 1)
+        ext = "jpg" if jpeg and i % 4 != 3 else "png"
+        specs.append((root / "images" / f"{name}_{i:04d}.{ext}", w, h,
+                      boxes, int(rng.integers(2**31))))
+
+    def write(spec):
+        path, w, h, boxes, s = spec
+        r = np.random.default_rng(s)
+        ys = np.arange(h, dtype=np.float32)[:, None, None]
+        xs = np.arange(w, dtype=np.float32)[None, :, None]
+        img = (r.uniform(40, 215, 3) + r.uniform(-0.15, 0.15, 3) * xs
+               + r.uniform(-0.15, 0.15, 3) * ys).astype(np.float32)
+        img = img + r.normal(0, 4, (h, w, 3)).astype(np.float32)
+        for _, cx, cy, bw, bh in boxes:
+            x1, x2 = (int(np.clip(v * w, 0, w)) for v in (cx - bw / 2,
+                                                          cx + bw / 2))
+            y1, y2 = (int(np.clip(v * h, 0, h)) for v in (cy - bh / 2,
+                                                          cy + bh / 2))
+            img[y1:y2, x1:x2] = r.uniform(0, 255, 3) \
+                + r.normal(0, 8, (y2 - y1, x2 - x1, 3))
+        img = np.clip(img, 0, 255).astype(np.uint8)
+        if path.suffix == ".jpg":
+            nl.jpeg_write(str(path), img, 90)
+        else:
+            image_io.write_png(str(path), img, level=1)
+        (root / "labels" / f"{path.stem}.txt").write_text("".join(
+            f"{int(c)} {cx:.6f} {cy:.6f} {bw:.6f} {bh:.6f}\n"
+            for c, cx, cy, bw, bh in boxes))
+
+    with ThreadPoolExecutor(8) as ex:
+        list(ex.map(write, specs))
+    lst = root / f"{name}.txt"
+    lst.write_text("".join(f"{spec[0]}\n" for spec in specs))
+    return lst, sum(spec[0].suffix == ".jpg" for spec in specs)
+
+
+def jpeg_probe(torch):
+    """The JPEG route on this machine: the loader core's libjpeg, and (for
+    the record) nvJPEG's header and library. Without libjpeg a dataset
+    holding a JPEG must raise when it is built: checked here."""
+    import tempfile
+
+    from efficientteacher_torch.data.datasets import LoadImagesAndLabels
+    from efficientteacher_torch.ops._build import (JPEG_HEADER_DIRS,
+                                                   host_library)
+    from efficientteacher_torch.utils import native_loader as nl
+
+    built = host_library()
+    cuda = Path(os.environ.get("CUDA_HOME", "/usr/local/cuda"))
+    nvjpeg_h = (cuda / "include" / "nvjpeg.h").exists()
+    nvjpeg_so = sorted(p.name for p in (cuda / "lib64").glob("libnvjpeg.so*"))
+    has = nl.has_jpeg()
+    print(f"[data] loader core {built.path.name} built in "
+          f"{built.seconds:.1f} s; libjpeg "
+          f"{'present' if has else 'absent'} (jpeglib.h in "
+          f"{', '.join(JPEG_HEADER_DIRS)}: {'yes' if has else 'no'}); "
+          f"nvjpeg.h {'present' if nvjpeg_h else 'absent'}, "
+          f"libnvjpeg {', '.join(nvjpeg_so) or 'absent'}")
+    if not has:
+        with tempfile.TemporaryDirectory() as tmp:
+            img = Path(tmp) / "images" / "x.jpg"
+            img.parent.mkdir()
+            img.write_bytes(b"\xff\xd8\xff\xe0")
+            lst = Path(tmp) / "l.txt"
+            lst.write_text(f"{img}\n")
+            try:
+                LoadImagesAndLabels(str(lst), img_size=IMG, nc=NC)
+            except nl.JpegUnsupported as e:
+                print(f"[data] a dataset with a JPEG raises when it is built:"
+                      f" {e}")
+            else:
+                raise SmokeFailure("a JPEG dataset built without libjpeg")
+    return has
+
+
+def write_dataset(torch):
+    """Write the smoke's dataset; returns {split: list file}."""
+    has_jpeg = jpeg_probe(torch)
+    if DATA_DIR.exists():
+        shutil.rmtree(DATA_DIR)
+    t0 = time.perf_counter()
+    lists, n_jpeg = {}, 0
+    for k, (name, n) in enumerate(SPLITS.items()):
+        lists[name], j = write_split(DATA_DIR / name, name, n, SEED + k,
+                                     has_jpeg)
+        n_jpeg += j
+    total = sum(SPLITS.values())
+    mb = sum(f.stat().st_size for f in DATA_DIR.rglob("images/*")) / 1e6
+    print(f"[data] wrote {total} images ({n_jpeg} JPEG, {total - n_jpeg} "
+          f"PNG; {', '.join(f'{k} {v}' for k, v in SPLITS.items())}; "
+          f"native sizes {NATIVE_WH}) and their labels, {mb:.0f} MB, in "
+          f"{time.perf_counter() - t0:.1f} s")
+    return lists
+
+
+def data_phase(torch, lists, card):
+    """Host decode + letterbox throughput of the labelled split at 32@640
+    for the thread and process engines at 1, 4 and 8 workers, each
+    epoch's batches held against one single-threaded pass."""
+    from efficientteacher_torch.data.datasets import (BatchLoader,
+                                                      LoadImagesAndLabels)
+
+    t0 = time.perf_counter()
+    ds = LoadImagesAndLabels(str(lists["labelled"]), img_size=IMG, nc=NC)
+    t_cache = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ref = list(BatchLoader(ds, T_BATCH, shuffle=False, workers=1,
+                           mode="thread"))
+    t_ref = time.perf_counter() - t0
+    labels = sum(int(b["mask"].sum()) for b in ref)
+    print(f"[data] labelled split: {len(ds)} images, {labels} boxes "
+          f"({labels / len(ds):.2f}/img), labels cache built in "
+          f"{t_cache:.2f} s; one single-threaded pass {t_ref:.2f} s "
+          f"({len(ds) / t_ref:.1f} img/s); host cores {os.cpu_count()}")
+    rates = {}
+    for mode in ("thread", "process"):
+        for w in DATA_WORKERS:
+            loader = BatchLoader(ds, T_BATCH, shuffle=False, workers=w,
+                                 mode=mode, pin_memory=True)
+            t0 = time.perf_counter()
+            n = 0
+            for bi, b in enumerate(loader):
+                require(b["images"].is_pinned(), f"{mode}: not pinned")
+                require(torch.equal(b["images"], ref[bi]["images"])
+                        and (b["labels"] == ref[bi]["labels"]).all(),
+                        f"{mode} x {w}: batch {bi} differs from the "
+                        f"single-threaded one")
+                n += b["images"].shape[0]
+            dt = time.perf_counter() - t0
+            rates[(mode, w)] = n / dt
+    print(f"[data] decode + letterbox at {T_BATCH}@{IMG} into pinned "
+          f"memory, img/s by engine x workers: " + ", ".join(
+              f"{m} {w} {r:.1f}" for (m, w), r in rates.items())
+          + f"; every batch == the single-threaded pass | {card}")
+
+
+def aug_phase(torch, dev, lists, card):
+    """device_augment_batch and device_ssod_views at 32@640 on the first
+    labelled and unlabelled batches: ms per batch by CUDA events, device
+    operations per call (torch.profiler), and the card's output against
+    the CPU's on the same draws (images within 1 LSB, boxes 1e-4, masks
+    exact, M_s 1e-5)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from efficientteacher_torch.data.datasets import (BatchLoader,
+                                                      LoadImagesAndLabels)
+    from efficientteacher_torch.data.datasets_ssod import (
+        LoadImagesAndFakeLabels, SSODBatchLoader)
+    from efficientteacher_torch.ops import augment_device as A
+
+    cfg = ssod_cfg()
+    hyp = {k: cfg.hyp[k] for k in cfg.hyp}
+    ssod_hyp = {k: cfg.SSOD.ssod_hyp[k] for k in cfg.SSOD.ssod_hyp}
+    mo = int(cfg.Dataset.max_targets)
+    kw = dict(img_size=IMG, nc=NC, max_targets=mo)
+    sb = next(iter(BatchLoader(LoadImagesAndLabels(
+        str(lists["labelled"]), **kw), T_BATCH, shuffle=False)))
+    tb = next(iter(SSODBatchLoader(LoadImagesAndFakeLabels(
+        str(lists["unlabelled"]), **kw), T_BATCH, shuffle=False)))
+    g = torch.Generator(device=dev)
+    cases = {
+        "device_augment_batch": (A.draw_augment, A.augment_batch, hyp, sb,
+                                 "images"),
+        "device_ssod_views": (A.draw_ssod, A.ssod_views, ssod_hyp, tb,
+                              "images_ori")}
+    for name, (draw, fn, h, batch, key) in cases.items():
+        args = (batch[key].to(dev), torch.from_numpy(batch["labels"]).to(dev),
+                torch.from_numpy(batch["mask"]).to(dev))
+
+        def call():
+            g.manual_seed(A.step_seed(2, 0, 1))
+            return fn(*args, h, draw(g, T_BATCH, IMG, h, dev), max_out=mo)
+
+        t = event_ms(torch, call, launches=10, repeats=5)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            call()
+            torch.cuda.synchronize()
+        cuda = torch.autograd.DeviceType.CUDA
+        ops = sum(1 for e in prof.events() if e.device_type == cuda)
+        top = sorted((e for e in prof.key_averages() if e.device_type == cuda),
+                     key=lambda e: e.self_device_time_total, reverse=True)
+        busy = sum(e.self_device_time_total for e in top) / 1e3
+        # the same draws through the CPU
+        g.manual_seed(A.step_seed(2, 0, 1))
+        draws = draw(g, T_BATCH, IMG, h, dev)
+        got = fn(*args, h, draws, max_out=mo)
+
+        def cpu(d):
+            return {k: cpu(v) if isinstance(v, dict) else v.cpu()
+                    for k, v in d.items()}
+
+        torch.set_num_threads(os.cpu_count() or 1)
+        t0 = time.perf_counter()
+        want = fn(*(a.cpu() for a in args), h, cpu(draws), max_out=mo)
+        t_cpu = time.perf_counter() - t0
+        errs = []
+        for x, y in zip(got, want):
+            x = x.cpu()
+            if x.dtype == torch.uint8:
+                errs.append(int((x.int() - y.int()).abs().max()))
+                require(errs[-1] <= 1, f"{name}: image off by {errs[-1]}")
+            elif x.dtype == torch.bool:
+                require(torch.equal(x, y), f"{name}: masks differ")
+            else:
+                e = float((x - y).abs().max())
+                require(torch.allclose(x, y, rtol=1e-5, atol=1e-4),
+                        f"{name}: boxes or M_s off by {e}")
+                errs.append(e)
+        nbytes = sum(a.numel() * a.element_size() for a in args) + sum(
+            x.numel() * x.element_size() for x in got)
+        print(f"[aug] {name} {T_BATCH}@{IMG}: {t[0]:.3f} ms/batch (min "
+              f"{t[1]:.3f}, max {t[2]:.3f}; CUDA events over 10 calls x 5) "
+              f"with its draws, {ops} device operations per call (kernels, "
+              f"copies, memsets); reads + writes {nbytes / 1e6:.0f} MB "
+              f"(bound {nbytes / HBM_BYTES_S * 1e3:.3f} ms); the card == "
+              f"the CPU on the same draws (max |d| per output "
+              f"{', '.join(f'{e:g}' for e in errs)}; CPU {t_cpu:.1f} s) "
+              f"| {card}")
+        print(f"[aug] {name}: device busy {busy:.3f} ms in the traced call; "
+              f"by device time: " + "; ".join(
+                  f"{e.key[:60]} x{e.count} {e.self_device_time_total / 1e3:.3f}"
+                  f" ms" for e in top[:5]) + f" | {card}")
+
+
 # The trainer phase: SSODTrainer at the YAML's own batch (32 + 32, so
 # accumulate 2), 1 burn-in epoch + 2 mean-teacher epochs, then a resumed
 # trainer for one more; T_STEPS labelled and T_STEPS target batches per
 # epoch (the target loader drives the SSOD epochs: epoch_adaptor) and
 # T_VAL val batches of 32 at each epoch end.
-T_BATCH, T_STEPS, T_VAL = 32, 4, 3
+T_BATCH = 32
+T_STEPS = SPLITS["labelled"] // T_BATCH
+T_VAL = -(-SPLITS["val"] // T_BATCH)
 T_EPOCHS, T_BURN = 3, 1
-# val images: 640 x 640 letterboxes of 480 x 640 natives, 80 px pads
-VAL_SHAPE, VAL_RATIO_PAD = (480, 640), ((1.0, 1.0), (0.0, 80.0))
 
 
-class MemoryLoader(list):
-    """Batches held in memory, with the surface of the JAX `BatchLoader`
-    the trainers read (`len`, `.ds`)."""
+class TimedLoader:
+    """A loader whose iteration records the host time each `next()` waits
+    (in `waits`); `len` and `.ds` as the loader's."""
 
-    def __init__(self, batches, ds=None):
-        super().__init__(batches)
-        self.ds = ds
+    def __init__(self, loader, waits):
+        self.loader, self.waits, self.ds = loader, waits, loader.ds
 
+    def __len__(self):
+        return len(self.loader)
 
-def trainer_data(torch, g, b):
-    """(train, target, val) loaders of numpy batch dicts drawn from `g`, to
-    the contract of `Trainer.build_dataloader`: noise images, bench-style
-    labels, the target views with `m_s_records`, val `shapes` and
-    `ratio_pad`."""
-    import types
-
-    import numpy as np
-
-    def images():
-        return torch.randint(0, 256, (b, IMG, IMG, 3), dtype=torch.uint8,
-                             generator=g).numpy()
-
-    def labelled(**extra):
-        labels, mask = synthetic_labels(torch, g, b)
-        return {"images": images(), "labels": labels.numpy(),
-                "mask": mask.numpy(), **extra}
-
-    train = [labelled() for _ in range(T_STEPS)]
-    per_img = [lab[m] for bt in train
-               for lab, m in zip(bt["labels"], bt["mask"])]
-    cls = np.concatenate([lab[:, 0] for lab in per_img]).astype(int)
-    ds = types.SimpleNamespace(
-        labels=per_img, mosaic=True,
-        label_num_per_image=len(cls) / len(per_img),
-        cls_ratio_gt=np.bincount(cls, minlength=NC) / len(cls))
-    target = [{"images": images(), "images_ori": images(),
-               "M_s": m_s_records(torch, b).numpy()} for _ in range(T_STEPS)]
-    val = [labelled(shapes=[VAL_SHAPE] * b, ratio_pad=[VAL_RATIO_PAD] * b)
-           for _ in range(T_VAL)]
-    return MemoryLoader(train, ds), MemoryLoader(target), MemoryLoader(val)
+    def __iter__(self):
+        it = iter(self.loader)
+        try:
+            while True:
+                t0 = time.perf_counter()
+                try:
+                    batch = next(it)
+                except StopIteration:
+                    return
+                self.waits.append((time.perf_counter() - t0) * 1e3)
+                yield batch
+        finally:
+            it.close()
 
 
 class RecordingInfer:
@@ -933,10 +1137,11 @@ class RecordingInfer:
         return out
 
 
-def smoke_trainer(torch, data):
-    """The SSODTrainer class of the phase: in-memory loaders, the train
-    phase's teacher helper, and a log of its steps, epochs, validations and
-    checkpoint saves."""
+def smoke_trainer(torch):
+    """The SSODTrainer class of the phase: its own loaders from disk (set
+    by `build_dataloader`, each wrapped in a `TimedLoader` when it
+    trains), the train phase's teacher helper, and a log of its steps,
+    epochs, loader waits, validations and checkpoint saves."""
     import logging
 
     from efficientteacher_torch.eval import validator
@@ -964,12 +1169,19 @@ def smoke_trainer(torch, data):
                 self.last = record.args[:2]
 
     class SmokeTrainer(SSODTrainer):
-        def build_dataloader(self, cfg):
-            self.train_loader, self.target_loader, self.val_loader = data
-            self.dataset = self.train_loader.ds
-            self.nb = len(self.train_loader)
-            self.log = {"steps": [], "epochs": [], "vals": [], "saves": []}
+        def __init__(self, *args, **kw):
+            self.log = {"steps": [], "epochs": [], "vals": [], "saves": [],
+                        "waits": []}
             self.helped = False
+            super().__init__(*args, **kw)
+
+        def train(self):
+            self.raw_loaders = self.train_loader, self.target_loader
+            self.train_loader = TimedLoader(self.train_loader,
+                                            self.log["waits"])
+            self.target_loader = TimedLoader(self.target_loader,
+                                             self.log["waits"])
+            return super().train()
 
         def build_step(self):
             super().build_step()
@@ -1016,14 +1228,14 @@ def smoke_trainer(torch, data):
                 # in the run that seeds: the train phase's teacher helper
                 # on the pseudo-label teacher (the EMA), and the serving
                 # phase's mid density at the eval gate for the semi-EMA
-                # (the validated teacher); a resumed run takes both from
-                # last.ckpt
-                weak = to_device(self.target_loader[0]["images_ori"],
-                                 self.device)
+                # (the validated teacher), calibrated on val images (the
+                # density the validations then see); a resumed run takes
+                # both from last.ckpt
+                weak = to_device(
+                    next(iter(self.raw_loaders[1]))["images_ori"],
+                    self.device)
                 pseudo_label_teacher(torch, self.state, weak)
-                calib = torch.randint(
-                    0, 256, (8, IMG, IMG, 3), dtype=torch.uint8,
-                    generator=torch.Generator().manual_seed(1))
+                calib = next(iter(self.val_loader))["images"][:8]
                 self.val_shift = mid_val_teacher(
                     torch, self.state.semi_ema.module, calib.to(self.device))
             self.helped = True
@@ -1122,32 +1334,43 @@ def mid_val_teacher(torch, module, calib, target=3300.0, iters=12):
     return best[:2]
 
 
-def bare_trainer_steps(torch, trainer, data, pairs=3):
+def bare_trainer_steps(torch, trainer, pairs=3):
     """The trainer's own step functions called directly, `pairs` held +
-    fired pairs each, on one batch already on the card, each step ended by
-    a synchronize: the bare steps at the trainer's batch, beside its loop.
-    Also the loop's input copy for one SSOD step (six arrays, 118 MB at
-    32 + 32 @ 640): host ms of the calls, and ms until the copies land.
-    Returns medians {"ssod", "burn_in", "copy_host", "copy_done"} and
-    the copy's "copy_mb"."""
+    fired pairs each, on one batch from each of its loaders, copied and
+    augmented on the card beforehand, each step ended by a synchronize:
+    the bare steps at the trainer's batch, beside its loop. Also the
+    loop's input copy for one SSOD step (six arrays, 79 MB at 32 + 32 @
+    640 under device_aug: images from pinned memory): host ms of the
+    calls, and ms until the copies land. Returns medians {"ssod",
+    "burn_in", "copy_host", "copy_done"} and the copy's "copy_mb"."""
+    from efficientteacher_torch.ops.augment_device import (device_ssod_views,
+                                                           step_seed)
+
     t = trainer
-    sb, tb = data[0][0], data[1][0]
+    sb, tb = (next(iter(loader)) for loader in t.raw_loaders)
     copies = []
     for _ in range(4):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         sup = t._to_device(sb["images"], sb["labels"], sb["mask"])
-        un = t._to_device(tb["images"], tb["images_ori"], tb["M_s"])
+        un = t._to_device(tb["images_ori"], tb["labels"], tb["mask"])
         t1 = time.perf_counter()
         torch.cuda.synchronize()
         copies.append(((t1 - t0) * 1e3, (time.perf_counter() - t0) * 1e3))
-    sched = t._schedule(t.global_step)
+    ni = t.global_step
+    sched = t._schedule(ni)
     semi = t._semi_decay()
+    s_args = t.augment(*sup, 2, ni)
+    t.aug_gen.manual_seed(step_seed(2, ni, 1))
+    strong, _, _, weak, m_s = device_ssod_views(
+        t.aug_gen, un[0], un[1].float(), un[2], t.ssod_hyp,
+        max_out=int(t.cfg.Dataset.max_targets))
     out = {}
     for kind, step, args in (
             ("ssod", t.raw_ssod_step,
-             (*sup, *un, t.cls_thr_high, t.cls_thr_low, sched, semi)),
-            ("burn_in", t.raw_burn_step, (*sup, None, sched, semi))):
+             (*s_args, strong, weak, m_s, t.cls_thr_high, t.cls_thr_low,
+              sched, semi)),
+            ("burn_in", t.raw_burn_step, (*s_args, None, sched, semi))):
         ms = []
         for _ in range(2 * pairs):
             torch.cuda.synchronize()
@@ -1156,18 +1379,29 @@ def bare_trainer_steps(torch, trainer, data, pairs=3):
             torch.cuda.synchronize()
             ms.append((time.perf_counter() - t0) * 1e3)
         out[kind] = statistics.median(ms[2:])  # after a warm pair
-    out["copy_mb"] = sum(a.nbytes for a in (*sup, *un)) / 1e6
+    out["copy_mb"] = sum(a.numel() * a.element_size()
+                         for a in (*sup, *un)) / 1e6
     out["copy_host"] = statistics.median(c[0] for c in copies[1:])
     out["copy_done"] = statistics.median(c[1] for c in copies[1:])
     return out
 
 
-def trainer_phase(torch, dev, card, bare):
-    """The trainer main path: SSODTrainer (the main YAML's config and batch)
-    through burn-in, seeding, two mean-teacher epochs with epoch-end
-    validation and last/best checkpoints, then resume for one more epoch.
-    Checks and prints its numbers beside the bare step's (`bare`, img/s);
-    returns the kernels-line entries of this path."""
+def data_overrides(lists):
+    """The smoke dataset's splits and the device augmentation, as
+    overrides of the main config."""
+    return ["Dataset.device_aug", True,
+            "Dataset.train", str(lists["labelled"]),
+            "Dataset.target", str(lists["unlabelled"]),
+            "Dataset.val", str(lists["val"])]
+
+
+def trainer_phase(torch, dev, card, bare, lists):
+    """The trainer main path: SSODTrainer (the main YAML's config and batch,
+    reading the smoke dataset from disk with device augmentation) through
+    burn-in, seeding, two mean-teacher epochs with epoch-end validation
+    and last/best checkpoints, then resume for one more epoch. Checks and
+    prints its numbers beside the bare step's (`bare`, img/s); returns the
+    kernels-line entries of this path."""
     import gc
     import tempfile
 
@@ -1179,24 +1413,28 @@ def trainer_phase(torch, dev, card, bare):
     gc.collect()
     torch.cuda.empty_cache()
     t_setup = time.perf_counter()
-    data = trainer_data(torch, torch.Generator().manual_seed(3), T_BATCH)
     wrappers = {"greedy_nms_keep": greedy_nms_keep_cuda,
                 "threshold_compact": threshold_compact_cuda,
                 "count_ge": count_ge_cuda}
     with tempfile.TemporaryDirectory() as tmp:
-        cls = smoke_trainer(torch, data)
+        cls = smoke_trainer(torch)
         cfg = ssod_cfg("epochs", T_EPOCHS, "hyp.burn_epochs", T_BURN,
-                       "project", tmp, "name", "ssod")
+                       "project", tmp, "name", "ssod",
+                       *data_overrides(lists))
         trainer = cls(cfg, device=dev)
         require(trainer.accumulate == max(round(64 / T_BATCH), 1)
-                and trainer.batch_size == T_BATCH,
+                and trainer.batch_size == T_BATCH and trainer.device_aug
+                and trainer.nb == T_STEPS
+                and len(trainer.target_loader) == T_STEPS
+                and len(trainer.val_loader) == T_VAL,
                 f"accumulate {trainer.accumulate}, batch "
-                f"{trainer.batch_size}")
+                f"{trainer.batch_size}, {trainer.nb} steps")
         print(f"[trainer] SSODTrainer on the main config (YOLOv5l, nc {NC}, "
               f"{IMG} px, bf16), batch {T_BATCH} + {T_BATCH}, accumulate "
               f"{trainer.accumulate}; {T_BURN} burn-in + "
               f"{T_EPOCHS - T_BURN} SSOD epochs of {T_STEPS} steps, "
-              f"{T_VAL} val batches; set-up "
+              f"{T_VAL} val batches, from the smoke dataset on disk with "
+              f"Dataset.device_aug; set-up "
               f"{time.perf_counter() - t_setup:.1f} s")
         base = torch.cuda.memory_allocated()
         torch.cuda.reset_peak_memory_stats()
@@ -1225,7 +1463,8 @@ def trainer_phase(torch, dev, card, bare):
         t0 = time.perf_counter()
         cfg2 = ssod_cfg("epochs", T_EPOCHS + 1, "hyp.burn_epochs", T_BURN,
                         "project", tmp, "name", "resumed", "resume", True,
-                        "weights", str(weights / "last.ckpt"))
+                        "weights", str(weights / "last.ckpt"),
+                        *data_overrides(lists))
         resumed = cls(cfg2, device=dev)
         st, was = resumed.state, trainer.state
         require(resumed.start_epoch == T_EPOCHS
@@ -1266,7 +1505,7 @@ def trainer_phase(torch, dev, card, bare):
               f"{trainer.val_shift[0]:+.3f} ({trainer.val_shift[1]:.0f} "
               f"candidates/img on its calibration batch)")
         log = {k: trainer.log[k] + resumed.log[k] for k in trainer.log}
-        own = bare_trainer_steps(torch, resumed, data)
+        own = bare_trainer_steps(torch, resumed)
 
     # checks over both runs
     for r in log["steps"]:
@@ -1322,9 +1561,15 @@ def trainer_phase(torch, dev, card, bare):
           f"{med['burn-in'] - own['burn_in']:+.1f} ms; the train phase's "
           f"bare step at 16 {bare['burn_in']:.1f} img/s | {card}")
     print(f"[time] trainer: one SSOD step's input copy (6 arrays, "
-          f"{own['copy_mb']:.0f} MB, pinned, non-blocking): "
-          f"{own['copy_host']:.1f} ms of host calls, "
-          f"{own['copy_done']:.1f} ms until on the card | {card}")
+          f"{own['copy_mb']:.0f} MB, the images from the loaders' pinned "
+          f"memory, non-blocking): {own['copy_host']:.1f} ms of host "
+          f"calls, {own['copy_done']:.1f} ms until on the card | {card}")
+    waits = sorted(log["waits"])
+    print(f"[time] trainer: the loop waits on the loaders' next() "
+          f"(labelled and unlabelled, {len(waits)} batches): median "
+          f"{statistics.median(waits):.2f} ms, p90 "
+          f"{waits[int(0.9 * (len(waits) - 1))]:.2f} ms, max "
+          f"{waits[-1]:.2f} ms; the first of each epoch included | {card}")
     print(f"[time] trainer: SSOD steps while a checkpoint write is in "
           f"flight: {', '.join(f'{t:.1f}' for t in flight) or 'none'} ms "
           f"(median without {med['ssod']:.1f}) | {card}")
@@ -1353,9 +1598,8 @@ def trainer_phase(torch, dev, card, bare):
     # final teacher's weak-view output, the val NMS's kernels on the last
     # validation's first lattice
     teacher = resumed.state.ema.module
-    weak = data[1][0]
-    weak_t = torch.from_numpy(weak["images_ori"]).to(dev)
-    m_s = torch.from_numpy(weak["M_s"]).to(dev)
+    weak_t = next(iter(resumed.raw_loaders[1]))["images_ori"].to(dev)
+    m_s = m_s_records(torch, T_BATCH).to(dev)
     ld = pseudo_label_load(torch, teacher_decoded(torch, teacher, weak_t),
                            m_s)
     flat, boxes_xyxy, taus, k2_err, count_err = lattice_checks(
@@ -1399,6 +1643,115 @@ def trainer_phase(torch, dev, card, bare):
             "shape": list((k1_val[0] if name == "greedy_nms_keep"
                            else flat).shape[:2])})
     return entries
+
+
+def cli_leg(torch, dev, card, lists):
+    """The CLIs on the main YAML file itself (read without PyYAML) and the
+    smoke dataset: `cli.train` trains one SSOD epoch (the teacher seeded
+    at its start) with device augmentation; `cli.val` scores the best.ckpt
+    it wrote, and a copy of it given the serving phase's mid density at
+    the eval gate (`mid_val_teacher` on val images: a one-epoch teacher
+    detects nothing at conf 0.001, so P/R/mAP would be 0 on both sides),
+    each equal to `validator.run` on the same weights and loader. K1 and
+    K2 must launch in the second."""
+    import gc
+    import logging
+    import tempfile
+
+    from efficientteacher_torch.cli import compute_dtype
+    from efficientteacher_torch.cli import train as cli_train
+    from efficientteacher_torch.cli import val as cli_val
+    from efficientteacher_torch.data.datasets import create_dataloader
+    from efficientteacher_torch.eval import validator
+    from efficientteacher_torch.models import build_model, spec_from_cfg
+    from efficientteacher_torch.ops.nms_cuda import greedy_nms_keep_cuda
+    from efficientteacher_torch.ops.select_cuda import (count_ge_cuda,
+                                                        threshold_compact_cuda)
+    from efficientteacher_torch.utils.checkpoint import (
+        load_eval_variables, load_module_variables, module_variables,
+        save_checkpoint)
+
+    wrappers = {"greedy_nms_keep": greedy_nms_keep_cuda,
+                "threshold_compact": threshold_compact_cuda,
+                "count_ge": count_ge_cuda}
+    gc.collect()
+    torch.cuda.empty_cache()
+    root = logging.getLogger()
+    level, handlers = root.level, list(root.handlers)
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            overrides = [str(x) for x in (
+                "epochs", 1, "hyp.burn_epochs", 0, "project", tmp, "name",
+                "cli", *data_overrides(lists))]
+            for fn in wrappers.values():
+                fn.launches = 0
+            t0 = time.perf_counter()
+            best = cli_train.main(["--cfg", str(MAIN_YAML), *overrides])
+            t_train = time.perf_counter() - t0
+            run = Path(tmp) / "cli"
+            ckpt = run / "weights" / "best.ckpt"
+            rows = (run / "results.csv").read_text().splitlines()
+            require(ckpt.is_file() and len(rows) == 2
+                    and (run / "weights" / "last.ckpt").is_file(),
+                    f"cli.train wrote {sorted(p.name for p in run.rglob('*'))}")
+            cfg = ssod_cfg(*overrides)
+            loader = create_dataloader(cfg, "val", augment=False,
+                                       batch_size=T_BATCH, pin_memory=True)
+
+            def model_of(path):
+                model = build_model(spec_from_cfg(cfg), device=dev)
+                load_module_variables(model, load_eval_variables(str(path)))
+                return model.eval()
+
+            mid = run / "weights" / "mid.ckpt"
+            model = model_of(ckpt)
+            # calibrated on val images: the density the val run then sees
+            calib = next(iter(loader))["images"][:8].to(dev)
+            shift = mid_val_teacher(torch, model, calib)
+            v = module_variables(model)
+            save_checkpoint(mid, params=v["params"],
+                            batch_stats=v["batch_stats"],
+                            ema_params=v["params"],
+                            ema_batch_stats=v["batch_stats"])
+            scores = {}
+            for name, path in (("best", ckpt), ("mid", mid)):
+                for fn in wrappers.values():
+                    fn.launches = 0
+                t0 = time.perf_counter()
+                got = cli_val.main(["--cfg", str(MAIN_YAML), "--weights",
+                                    str(path), "--batch-size", str(T_BATCH),
+                                    *overrides])
+                t_val = time.perf_counter() - t0
+                launches = {n: w.launches for n, w in wrappers.items()}
+                want = validator.run(model_of(path), loader, nc=NC,
+                                     compute_dtype=compute_dtype(dev))[0]
+                scores[name] = (got, want, t_val, launches)
+    finally:
+        root.setLevel(level)
+        for h in root.handlers[:]:
+            if h not in handlers:
+                root.removeHandler(h)
+    for name, (got, want, _, _) in scores.items():
+        require(tuple(got) == tuple(want),
+                f"cli.val on {name} {got} != validator.run {want}")
+    require(scores["mid"][3]["greedy_nms_keep"] > 0
+            and scores["mid"][3]["threshold_compact"] > 0,
+            f"cli.val at the mid density launched {scores['mid'][3]}")
+    print(f"[cli] python -m efficientteacher_torch.cli.train --cfg "
+          f"{MAIN_YAML.relative_to(MAIN_YAML.parents[3])} epochs 1 "
+          f"hyp.burn_epochs 0 Dataset.device_aug True (+ the smoke "
+          f"dataset): one SSOD epoch of {T_STEPS} steps, results.csv, "
+          f"last.ckpt, best.ckpt in {t_train:.1f} s (best fitness "
+          f"{best:.4f}) | {card}")
+    for name, (got, _, t_val, launches) in scores.items():
+        what = ("best.ckpt" if name == "best" else
+                f"best.ckpt at the mid density (objectness {shift[0]:+.3f}, "
+                f"{shift[1]:.0f} candidates/img on its calibration batch)")
+        print(f"[cli] cli.val on {what}: {t_val:.1f} s, P/R/mAP50/mAP "
+              f"{'/'.join(f'{x:.4f}' for x in got)} == validator.run on "
+              f"the same weights and loader; launches "
+              f"{', '.join(f'{n} {c}' for n, c in launches.items())} "
+              f"| {card}")
 
 
 def main() -> int:
@@ -1589,8 +1942,16 @@ def main() -> int:
     # 7. the training step's path
     entry, bare = train_phase(torch, dev, card)
     kernels.append(entry)
-    # 8. the trainer's path: epochs, validation, checkpoints, resume
-    kernels += trainer_phase(torch, dev, card, bare)
+    # 8. the data path: a dataset on disk, the loaders' engines, the
+    # device augmentation, the trainer from disk, the CLIs
+    try:
+        lists = write_dataset(torch)
+        data_phase(torch, lists, card)
+        aug_phase(torch, dev, lists, card)
+        kernels += trainer_phase(torch, dev, card, bare, lists)
+        cli_leg(torch, dev, card, lists)
+    finally:
+        shutil.rmtree(DATA_DIR, ignore_errors=True)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

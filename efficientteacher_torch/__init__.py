@@ -12,5 +12,7 @@ multi-label batched NMS, with hand-written CUDA kernels for greedy NMS
 train steps (`train/`); and the trainers around them
 (`train/trainer.py`, `train/ssod_trainer.py`) with epoch-end validation
 (`eval/validator.run`), checkpoints (`utils/checkpoint.py`) and the
-config tree (`configs/`).
+config tree (`configs/`); the data path — loaders from disk without cv2
+(`data/`, the host core `csrc/loader_core.cpp`), device augmentation
+(`ops/augment_device.py`) — and the CLIs (`cli/train.py`, `cli/val.py`).
 """

@@ -1,0 +1,53 @@
+"""Training CLI (counterpart of the root `train.py`; reference
+train.py:31-84).
+
+    python -m efficientteacher_torch.cli.train --cfg <yaml> \
+        Dataset.device_aug True [key value ...]
+
+Reads the YAML without PyYAML (`configs/yaml_lite.py`), applies the dotted
+overrides (strings parsed as YAML), and runs `SSODTrainer` when
+`SSOD.train_domain` is set, else `Trainer`. It trains on the CUDA card
+unless the override `device cpu` is given. The port augments on the card
+only: a config without `Dataset.device_aug True` asks for the host
+augmentation pipeline, which raises (ROADMAP, "Next, in order" item 2.7).
+Returns the best fitness.
+"""
+
+from __future__ import annotations
+
+import argparse
+import logging
+
+from . import compute_dtype, resolve_device
+
+
+def parse_opt(argv=None):
+    parser = argparse.ArgumentParser(
+        prog="python -m efficientteacher_torch.cli.train")
+    parser.add_argument("--cfg", type=str, required=True, help="config YAML")
+    parser.add_argument("opts", nargs=argparse.REMAINDER,
+                        help="dotted-path config overrides: key value ...")
+    return parser.parse_args(argv)
+
+
+def main(argv=None) -> float:
+    opt = parse_opt(argv)
+    logging.basicConfig(level=logging.INFO, format="%(message)s")
+    from ..configs import get_cfg
+
+    cfg = get_cfg()
+    cfg.merge_from_file(opt.cfg)
+    if opt.opts:
+        cfg.merge_from_list(opt.opts)
+    cfg.freeze()
+    device = resolve_device(cfg.device)
+    if cfg.SSOD.train_domain:
+        from ..train.ssod_trainer import SSODTrainer as cls
+    else:
+        from ..train.trainer import Trainer as cls
+    trainer = cls(cfg, compute_dtype=compute_dtype(device), device=device)
+    return trainer.train()
+
+
+if __name__ == "__main__":
+    main()

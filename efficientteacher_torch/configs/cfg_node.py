@@ -6,16 +6,18 @@ A nested attribute dict with YAML merge, dotted-path overrides and a freeze
 bit:
 
     cfg = get_cfg()                    # deep-copied default tree
-    cfg.merge_from_file("x.yaml")      # overlay a YAML file (needs PyYAML)
-    cfg.merge_from_list(["a.b", 1])    # dotted overrides
+    cfg.merge_from_file("x.yaml")      # overlay a YAML file
+    cfg.merge_from_list(["a.b", 1])    # dotted overrides (the CLIs pass
+                                       # strings: "epochs", "12")
     cfg.freeze()                       # make immutable
 
-Only `merge_from_file` needs PyYAML, imported there. `merge_from_list`
-takes typed values: the JAX package parses a string override of a
-non-string key as YAML, which waits for the CLIs that pass such strings
-(ROADMAP, Queue 1 item 6). `dump` writes JSON, a subset of YAML that
-`yaml.safe_load` reads back to the same tree as long as every float's
-repr has a dot (true of every config shipped in `configs/`).
+YAML is read by `yaml_lite`, which gives what `yaml.safe_load` gives on
+the subset the shipped configs use. As in the JAX package, a string
+override of a non-string key is parsed as YAML (`"0.5"` -> 0.5, `"[1, 2]"`
+-> [1, 2]; text that is no YAML stays a string). `dump` writes JSON, a
+subset of YAML that `yaml.safe_load` reads back to the same tree as long
+as every float's repr has a dot (true of every config shipped in
+`configs/`).
 """
 
 from __future__ import annotations
@@ -23,6 +25,8 @@ from __future__ import annotations
 import copy
 import json
 from typing import Any, Dict, List
+
+from . import yaml_lite
 
 _VALID_SCALARS = (int, float, bool, str, type(None))
 
@@ -83,10 +87,8 @@ class CfgNode(dict):
         _merge(other, self, [])
 
     def merge_from_file(self, path: str) -> None:
-        import yaml
-
         with open(path) as f:
-            loaded = yaml.safe_load(f) or {}
+            loaded = yaml_lite.safe_load(f.read()) or {}
         _merge(CfgNode(loaded), self, [])
 
     def merge_from_list(self, opts: List[Any]) -> None:
@@ -100,14 +102,7 @@ class CfgNode(dict):
             leaf = parts[-1]
             if leaf not in node:
                 raise KeyError(f"unknown config key: {key}")
-            old = node[leaf]
-            if isinstance(value, str) and old is not None \
-                    and not isinstance(old, str):
-                raise TypeError(
-                    f"{key}: string overrides of non-string keys are not "
-                    f"parsed yet (ROADMAP, Queue 1 item 6: the CLIs); pass a "
-                    f"{type(old).__name__}")
-            node[leaf] = _coerce(value, old, key)
+            node[leaf] = _coerce(value, node[leaf], key)
 
     # -- io -------------------------------------------------------------------
     def to_dict(self) -> Dict[str, Any]:
@@ -145,6 +140,8 @@ def _coerce(value: Any, old: Any, key: str) -> Any:
         raise TypeError(f"cannot replace node/leaf at {key}")
     if old is None or value is None:
         return value
+    if isinstance(value, str) and not isinstance(old, str):
+        value = _parse_literal(value)
     if isinstance(old, bool) and isinstance(value, int) and not isinstance(value, bool):
         return bool(value)
     if isinstance(old, float) and isinstance(value, int):
@@ -154,3 +151,12 @@ def _coerce(value: Any, old: Any, key: str) -> Any:
     if type(value) is type(old) or isinstance(value, _VALID_SCALARS):
         return value
     raise TypeError(f"type mismatch at {key}: {type(value)} vs {type(old)}")
+
+
+def _parse_literal(s: str) -> Any:
+    """`s` read as YAML, or `s` itself when it is no YAML the reader
+    covers (the JAX version returns it on a YAMLError)."""
+    try:
+        return yaml_lite.safe_load(s)
+    except ValueError:
+        return s

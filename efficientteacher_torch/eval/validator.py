@@ -140,6 +140,8 @@ def run(
     plots_dir=None,
     num_points: int = 0,
     val_kp: bool = False,
+    names=(),
+    selection: Optional[str] = None,
 ):
     """Evaluate `model` (its own weights, on its own device) over `loader`,
     an iterable of batch dicts: "images" uint8 (B, H, W, 3), "labels"
@@ -152,7 +154,16 @@ def run(
     works on batch i + 1 (`_host_batch` runs one batch behind); only
     `detections` and `valid` are copied to the host. The time spent
     waiting on the device and the host metrics' time are logged per image
-    ("Speed: ..."), as the JAX version does."""
+    ("Speed: ..."), as the JAX version does.
+
+    `names` (the class names) would label the plots, which are not ported.
+    `selection` names the JAX NMS's candidate-selection engine: the port
+    has one, exact, so "pallas" and "exact" are it and "approx" (JAX's
+    approximate top-k) is served exactly too (ROADMAP, Queue 1 item 10)."""
+    if selection not in (None, "pallas", "exact", "approx"):
+        raise ValueError(f"selection {selection!r}: pallas, exact or approx")
+    if selection == "approx":
+        LOGGER.info("selection 'approx' runs the exact selection")
     if save_json is not None or coco_gt_json or is_coco:
         raise NotImplementedError(
             "COCO JSON output and COCOeval are not ported yet (ROADMAP, "

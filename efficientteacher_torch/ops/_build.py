@@ -1,4 +1,5 @@
-"""Build the package's CUDA kernels (`csrc/*.cu`) with nvcc at first use.
+"""Build the package's CUDA kernels (`csrc/*.cu`) with nvcc at first use,
+and its host library (`csrc/loader_core.cpp`) with the host compiler.
 
 The sources have a plain C interface and are compiled into one shared
 library, loaded with ctypes (no PyTorch headers, so a build takes seconds,
@@ -14,6 +15,11 @@ memory into the build log.
 
 Every C entry returns `cudaGetLastError()` after its launches; `check`
 turns a non-zero code into an exception.
+
+`host_library` builds the loader core the same way (hashed, atomic
+rename) with `c++`, linked to the system libjpeg when its header is
+found; without it the core is built with `-DET_NO_JPEG`, its JPEG entries
+return an error, and `Built.log` says why.
 """
 
 from __future__ import annotations
@@ -87,18 +93,9 @@ def library() -> Built:
     log_path = so.with_suffix(".log")
     seconds = 0.0
     if not so.exists():
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, sources)]
-        t0 = time.perf_counter()
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        seconds = time.perf_counter() - t0
-        if proc.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n"
-                f"{proc.stdout}{proc.stderr}")
-        log_path.write_text(proc.stdout + proc.stderr)
-        os.replace(tmp, so)  # atomic: a concurrent loader sees all or none
+        seconds, log = _compile(
+            [_nvcc(), *NVCC_FLAGS, *map(str, sources), "-o"], so, "nvcc")
+        log_path.write_text(log)
     lib = ctypes.CDLL(str(so))
     for name, argtypes in _SIGNATURES.items():
         fn = getattr(lib, name)
@@ -108,6 +105,54 @@ def library() -> Built:
     lib.et_error_string.restype = ctypes.c_char_p
     log = log_path.read_text() if log_path.exists() else ""
     return Built(lib, so, sources, seconds, log)
+
+
+HOST_FLAGS = ("-O3", "-std=c++17", "-shared", "-fPIC")
+JPEG_HEADER_DIRS = ("/usr/include", "/usr/local/include",
+                    "/usr/include/x86_64-linux-gnu")
+
+
+def _compile(cmd, so: Path, what: str) -> tuple:
+    """Run `cmd` (which writes `so`'s temporary name last in its argument
+    list), publish `so` atomically; returns (seconds, log)."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
+    cmd = [*cmd, str(tmp)]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    seconds = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise RuntimeError(f"{what} failed ({proc.returncode}):\n"
+                           f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
+    os.replace(tmp, so)  # atomic: a concurrent loader sees all or none
+    return seconds, proc.stdout + proc.stderr
+
+
+@functools.cache
+def host_library() -> Built:
+    """Build (if needed) and load `csrc/loader_core.cpp`."""
+    src = CSRC / "loader_core.cpp"
+    jpeg = any((Path(d) / "jpeglib.h").exists() for d in JPEG_HEADER_DIRS)
+    flags = HOST_FLAGS + (() if jpeg else ("-DET_NO_JPEG",))
+    libs = ("-ljpeg",) if jpeg else ()
+    digest = hashlib.sha256(" ".join(flags + libs).encode())
+    digest.update(src.read_bytes())
+    so = BUILD_DIR / f"libet_loader_{digest.hexdigest()[:16]}.so"
+    log_path = so.with_suffix(".log")
+    seconds = 0.0
+    if not so.exists():
+        cxx = shutil.which("c++") or shutil.which("g++")
+        if cxx is None:
+            raise RuntimeError("no host C++ compiler (c++ or g++) on PATH")
+        seconds, log = _compile(
+            [cxx, *flags, str(src), *libs, "-o"], so, "c++")
+        note = "" if jpeg else (
+            "jpeglib.h not found in " + ", ".join(JPEG_HEADER_DIRS)
+            + ": built without JPEG support (-DET_NO_JPEG)\n")
+        log_path.write_text(note + log)
+    lib = ctypes.CDLL(str(so))
+    log = log_path.read_text() if log_path.exists() else ""
+    return Built(lib, so, (src,), seconds, log)
 
 
 def check(code: int, what: str) -> None:

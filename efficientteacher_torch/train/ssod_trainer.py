@@ -5,8 +5,12 @@ Parity with reference trainer/ssod_trainer.py:53-714:
   - env: burn_epochs, epoch_adaptor, cosine_ema, teacher_loss_weight
     (:76-84)
   - model: SSOD detector + semi_ema teacher chain (:96-203)
-  - dataloaders: labeled + target loaders (:205-255), set by the caller's
-    `build_dataloader` (see `Trainer.build_dataloader`)
+  - dataloaders: labeled + target loaders (:205-255); under
+    `Dataset.device_aug` the target loader serves letterboxed weak views
+    and the strong view, its labels and M_s are made on the card
+    (`device_ssod_views`), the labelled batch augmented as in the
+    supervised trainer; one step seed gives both draws (the JAX keys'
+    `split` of `fold_in(PRNGKey(2), ni)`)
   - epoch dispatch (:295-317): epoch < burn_epochs -> supervised burn-in
     (optionally with DA losses); at burn_epochs the EMA is copied into the
     student and the teacher is seeded (:305-316); afterwards mean-teacher
@@ -38,8 +42,10 @@ import logging
 import numpy as np
 import torch
 
+from ..data.datasets_ssod import create_target_dataloader
 from ..eval.metrics import fitness
 from ..losses.ssod_loss import SSODLossConfig
+from ..ops.augment_device import device_ssod_views, step_seed
 from ..parallel.distributed import to_host
 from ..ssod.quality import check_pseudo_label, check_pseudo_label_with_gt
 from ..utils.checkpoint import load_module_variables, module_variables
@@ -79,6 +85,7 @@ class SSODTrainer(Trainer):
         self.with_da_loss = bool(cfg.SSOD.with_da_loss)
         self.da_loss_weights = float(cfg.SSOD.da_loss_weights)
         self.target_with_gt = bool(cfg.SSOD.ssod_hyp.with_gt or cfg.SSOD.debug)
+        self.ssod_hyp = {k: cfg.SSOD.ssod_hyp[k] for k in cfg.SSOD.ssod_hyp}
         self.teacher_seeded = False
         # monotonic batch counter shared by the burn-in and mean-teacher
         # phases so the warmup/accumulate interpolation never jumps when the
@@ -105,6 +112,14 @@ class SSODTrainer(Trainer):
         self.state = create_ssod_train_state(self.model, self.opt_cfg)
         if cfg.resume and cfg.weights and not cfg.weights.endswith(".pt"):
             self._resume(cfg.weights)
+
+    def build_dataloader(self, cfg):
+        super().build_dataloader(cfg)
+        # augment=False serves raw letterboxed weak views (device_aug); the
+        # host dual-view pipeline raises
+        self.target_loader = create_target_dataloader(
+            cfg, batch_size=self.batch_size, augment=not self.device_aug,
+            pin_memory=self.device.type == "cuda")
 
     def _restore(self, ckpt):
         """The base restore (student, EMA, momentum, epoch), then the
@@ -180,12 +195,12 @@ class SSODTrainer(Trainer):
         target_iter = _cycle(self.target_loader) if self.with_da_loss \
             else None
         for i, batch in enumerate(self.train_loader):
-            sched = self._schedule(self._next_ni())
+            ni = self._next_ni()
+            sched = self._schedule(ni)
             t_imgs = (self._to_device(next(target_iter)["images_ori"])
                       if target_iter else None)
-            images, labels, mask = self._to_device(
-                batch["images"], batch["labels"], batch["mask"]
-            )
+            images, labels, mask = self.augment(*self._to_device(
+                batch["images"], batch["labels"], batch["mask"]), 1, ni)
             self.state, parts = self.burn_step(
                 self.state, images, labels, mask, t_imgs, sched,
                 self._semi_decay(),
@@ -209,13 +224,23 @@ class SSODTrainer(Trainer):
             if i >= n_iter:
                 break
             sbatch = next(labeled_iter)
-            sched = self._schedule(self._next_ni())
-            s_imgs, s_labels, s_mask = self._to_device(
-                sbatch["images"], sbatch["labels"], sbatch["mask"]
-            )
-            t_strong, t_weak, t_ms = self._to_device(
-                tbatch["images"], tbatch["images_ori"], tbatch["M_s"]
-            )
+            ni = self._next_ni()
+            sched = self._schedule(ni)
+            s_imgs, s_labels, s_mask = self.augment(*self._to_device(
+                sbatch["images"], sbatch["labels"], sbatch["mask"]), 2, ni)
+            if self.device_aug:
+                # only the weak view crosses to the card; the strong view,
+                # its labels and M_s are made there
+                t_weak, t_labels, t_mask = self._to_device(
+                    tbatch["images_ori"], tbatch["labels"], tbatch["mask"])
+                self.aug_gen.manual_seed(step_seed(2, ni, 1))
+                t_strong, t_labels, t_mask, t_weak, t_ms = device_ssod_views(
+                    self.aug_gen, t_weak, t_labels.float(), t_mask,
+                    self.ssod_hyp, max_out=int(self.cfg.Dataset.max_targets))
+            else:
+                t_strong, t_weak, t_ms = self._to_device(
+                    tbatch["images"], tbatch["images_ori"], tbatch["M_s"])
+                t_labels, t_mask = tbatch.get("labels"), tbatch.get("mask")
             self.state, out = self.ssod_step(
                 self.state, s_imgs, s_labels, s_mask,
                 t_strong, t_weak, t_ms,
@@ -227,8 +252,10 @@ class SSODTrainer(Trainer):
                 pl_np = to_host(out.pseudo_labels)
                 mask_np = to_host(out.pseudo_mask)
                 if self.target_with_gt:
+                    # the strong view's labels (made on the card under
+                    # device_aug)
                     metrics.update(check_pseudo_label_with_gt(
-                        pl_np, mask_np, tbatch["labels"], tbatch["mask"],
+                        pl_np, mask_np, to_host(t_labels), to_host(t_mask),
                     ))
                 else:
                     metrics.update(check_pseudo_label(pl_np, mask_np))

@@ -19,14 +19,20 @@ master weights with the forward in `compute_dtype` (bf16 autocast by
 default). Host syncs in the loop: the loss parts are read (`float`) only on
 the batches the JAX trainer logs (every 50th).
 
+The loaders read the dataset from disk (`data/`). The port trains with
+`Dataset.device_aug True`: the host decodes and letterboxes, and mosaic,
+perspective, HSV and flips run on the card (`ops/augment_device.py`), with
+draws seeded from the step counter. The host augmentation pipeline
+(`device_aug False` with `hyp.use_aug`) is not ported and raises
+(ROADMAP, "Next, in order" item 2.7).
+
 Not ported yet, each raising NotImplementedError or skipped as the JAX
 trainer skips them when their dependencies are missing (ROADMAP, Queue 1):
-the dataset loaders (`build_dataloader`, item 6: callers override it),
-device-side augmentation (`Dataset.device_aug`, item 8), autoanchor
-(`noautoanchor: False`, item 6), RepOpt and AdamW (item 7), loss families
-other than the YOLOv5 `ComputeLoss` (item 7), warm starts from a
-reference `.pt` (item 9), DDP (item 6), and the loggers and plots (item 6,
-skipped), the JAX trainer's `profile_steps` (`torch.profiler` serves).
+autoanchor (`noautoanchor: False`, item 6), RepOpt and AdamW (item 7),
+loss families other than the YOLOv5 `ComputeLoss` (item 7), warm starts
+from a reference `.pt` (item 9), DDP ("Next, in order" item 2.4), and
+the loggers and plots (item 6, skipped), the JAX trainer's
+`profile_steps` (`torch.profiler` serves).
 """
 
 from __future__ import annotations
@@ -42,11 +48,15 @@ import numpy as np
 import torch
 
 from ..configs import CfgNode
+from ..data.datasets import (BatchLoader, LoadImagesAndLabels,
+                             create_dataloader)
 from ..eval import validator
 from ..eval.metrics import MetricMeter, fitness
 from ..losses.yolov5_loss import YoloV5LossConfig
 from ..models import build_model, spec_from_cfg
-from ..parallel.distributed import is_main_process, to_device
+from ..ops.augment_device import device_augment_batch, step_seed
+from ..parallel.distributed import (is_main_process, per_process_batch,
+                                    to_device)
 from ..utils.callbacks import Callbacks
 from ..utils.checkpoint import (AsyncCheckpointer, intersect_trees,
                                 load_checkpoint, load_module_variables,
@@ -92,10 +102,6 @@ class Trainer:
 
     # -- lifecycle ----------------------------------------------------------
     def set_env(self, cfg):
-        if cfg.Dataset.device_aug:
-            raise NotImplementedError(
-                "Dataset.device_aug is not ported yet (ROADMAP, Queue 1 item"
-                " 8: device-side augmentation)")
         if not cfg.noautoanchor and not cfg.resume:
             raise NotImplementedError(
                 "autoanchor is not ported yet (ROADMAP, Queue 1 item 6); set "
@@ -117,6 +123,11 @@ class Trainer:
         self.results_csv = self.save_dir / "results.csv"
         self.checkpointer = AsyncCheckpointer()
         self.stop = GracefulStop()
+        # device_aug: the loaders serve letterboxed images and the batch is
+        # augmented on the card with draws seeded from the step counter
+        self.device_aug = bool(cfg.Dataset.device_aug)
+        self.aug_hyp = {k: cfg.hyp[k] for k in cfg.hyp}
+        self.aug_gen = torch.Generator(device=self.device)
 
     def build_model(self, cfg):
         if cfg.Model.RepOpt:
@@ -206,31 +217,64 @@ class Trainer:
                 "step": st.opt_step}
 
     def build_dataloader(self, cfg):
-        """Set the loaders. The dataset loaders (cv2-based in the JAX
-        package) are not ported yet (ROADMAP, Queue 1 item 6): callers
-        override this method and set, to the JAX `BatchLoader` contract:
+        """Set the loaders (JAX trainer.py build_dataloader):
 
-          train_loader  iterable of batch dicts, with `__len__` and `.ds`:
-                        "images" uint8 (B, H, W, 3), "labels" float32
-                        (B, M, 5) [cls, cx, cy, w, h] normalised to the
-                        image, "mask" bool (B, M)
-          val_loader    the same, plus "shapes" (B,) native (h, w) or None
-                        and optionally "ratio_pad" (B,) ((rh, rw), (dw,
-                        dh)); or None (no validation)
-          target_loader (SSOD) batch dicts with "images" (the strong view)
-                        and "images_ori" (the weak view), uint8, and "M_s"
-                        float32 (B, 13) [index, weak->strong affine (9),
-                        scale, flip-ud, flip-lr]; with
-                        SSOD.ssod_hyp.with_gt also "labels" and "mask"
-          dataset       train_loader.ds: `labels`, `mosaic` (set False for
-                        the last hyp.no_aug_epochs), `label_num_per_image`,
-                        `cls_ratio_gt`
-          nb            len(train_loader)
-        """
-        raise NotImplementedError(
-            "the dataset loaders are not ported yet (ROADMAP, Queue 1 item "
-            "6: cv2-free loaders); override build_dataloader to set "
-            "train_loader, val_loader, target_loader, dataset and nb")
+          train_loader  under device_aug a plain (letterboxing) loader over
+                        Dataset.train, shuffled, dropping the last partial
+                        batch; otherwise `create_dataloader(cfg, "train")`,
+                        which raises for the host augmentation
+          val_loader    `create_dataloader(cfg, "val", augment=False)`, or
+                        None without Dataset.val
+          dataset, nb   train_loader.ds, len(train_loader)
+
+        On the card the loaders write their images into pinned memory.
+        Callers who bring their own batches override this method and set
+        the same attributes, to the `BatchLoader` contract: batch dicts
+        with "images" uint8 (B, H, W, 3) (array or CPU tensor), "labels"
+        float32 (B, M, 5) [cls, cx, cy, w, h] normalised, "mask" bool
+        (B, M); val batches also "shapes" (B,) native (h, w) or None and
+        optionally "ratio_pad" (B,) ((rh, rw), (dw, dh)); the SSOD
+        target_loader "images" (the strong view), "images_ori" (the weak
+        view) and "M_s" float32 (B, 13), or under device_aug "images_ori",
+        "labels" and "mask"; `dataset` has `labels`, `mosaic`,
+        `label_num_per_image`, `cls_ratio_gt`."""
+        pin = self.device.type == "cuda"
+        if self.device_aug:
+            ds = LoadImagesAndLabels(
+                cfg.Dataset.train,
+                img_size=cfg.Dataset.img_size,
+                nc=cfg.Dataset.nc,
+                max_targets=cfg.Dataset.max_targets,
+                single_cls=cfg.single_cls,
+                cache_images=cfg.cache is True or cfg.cache == "ram",
+                num_keypoints=int(cfg.Dataset.np),
+                native_loader=bool(cfg.Dataset.native_loader),
+            )
+            self.train_loader = BatchLoader(
+                ds, per_process_batch(self.batch_size), shuffle=True,
+                drop_last=True, sampler_type=cfg.Dataset.sampler_type,
+                workers=int(cfg.Dataset.workers),
+                mode=str(cfg.Dataset.loader), pin_memory=pin)
+        else:
+            self.train_loader = create_dataloader(
+                cfg, "train", batch_size=self.batch_size, pin_memory=pin)
+        self.dataset = self.train_loader.ds
+        self.nb = len(self.train_loader)
+        self.val_loader = (
+            create_dataloader(cfg, "val", augment=False,
+                              batch_size=self.batch_size, pin_memory=pin)
+            if cfg.Dataset.val else None)
+
+    def augment(self, images, labels, mask, stream: int, ni: int,
+                part: int = 0):
+        """The labelled batch augmented on the card (under device_aug),
+        drawn from step_seed(stream, ni, part); else as it is."""
+        if not self.device_aug:
+            return images, labels, mask
+        self.aug_gen.manual_seed(step_seed(stream, ni, part))
+        return device_augment_batch(
+            self.aug_gen, images, labels.float(), mask, self.aug_hyp,
+            max_out=int(self.cfg.Dataset.max_targets))
 
     def build_loss(self, cfg):
         """Loss.type dispatch: the YOLOv5 `ComputeLoss` only."""
@@ -279,13 +323,15 @@ class Trainer:
         if self.epoch == self.epochs - self.cfg.hyp.no_aug_epochs:
             LOGGER.info("closing mosaic augmentation")
             self.dataset.mosaic = False
+            self.aug_hyp["mosaic"] = 0.0
         self.meter = MetricMeter()
 
     def train_in_epoch(self):
         for i, batch in enumerate(self.train_loader):
-            sched = self._schedule(i + self.nb * self.epoch)
-            images, labels, mask = self._to_device(
-                batch["images"], batch["labels"], batch["mask"])
+            ni = i + self.nb * self.epoch
+            sched = self._schedule(ni)
+            images, labels, mask = self.augment(*self._to_device(
+                batch["images"], batch["labels"], batch["mask"]), 0, ni)
             self.state, parts = self.train_step(
                 self.state, images, labels, mask, sched
             )

@@ -1,8 +1,9 @@
 """The port's config tree (`efficientteacher_torch/configs`) against the
 JAX package's: the defaults key for key, every YAML under `configs/`
-merged, typed dotted overrides, the port's JSON dump (read back by
-`yaml.safe_load` and `json.loads`), and `chip_smoke.py`'s override list
-against the main SSOD YAML. Tolerance: none, the trees are equal."""
+merged, dotted overrides (typed, and strings parsed as YAML), the port's
+JSON dump (read back by `yaml.safe_load` and `json.loads`), and
+`chip_smoke.py`'s config against the main SSOD YAML. Tolerance: none,
+the trees are equal."""
 
 import glob
 import json
@@ -56,11 +57,16 @@ def test_merge_from_list_matches_jax():
     ("epochs", "12"), ("hyp.lr0", "0.02"), ("noval", "true"),
     ("Model.anchors", "[[10, 13], [16, 30]]"), ("Dataset.np", "0")])
 def test_string_override_of_a_typed_key_is_refused(key, text):
-    # the JAX package parses it as YAML; the port has no parser yet
-    port = get_cfg()
-    with pytest.raises(TypeError, match="not parsed yet"):
-        port.merge_from_list([key, text])
-    assert port.to_dict() == jax_get_cfg().to_dict()
+    # no longer refused: parsed as YAML, as the JAX package parses it (the
+    # CLIs pass every override as a string)
+    port, ref = get_cfg(), jax_get_cfg()
+    port.merge_from_list([key, text])
+    ref.merge_from_list([key, text])
+    assert port.to_dict() == ref.to_dict()
+    node = port
+    for part in key.split("."):
+        node = node[part]
+    assert not isinstance(node, str)
 
 
 def test_dump_round_trips_awkward_values():
@@ -78,6 +84,4 @@ def test_chip_smoke_overrides_reproduce_the_main_yaml():
 
     ref = jax_get_cfg()
     ref.merge_from_file(str(MAIN_YAML))
-    port = get_cfg()
-    port.merge_from_list(chip_smoke.MAIN_YAML_OVERRIDES)
-    assert port.to_dict() == ref.to_dict()
+    assert chip_smoke.ssod_cfg().to_dict() == ref.to_dict()

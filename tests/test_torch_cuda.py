@@ -350,3 +350,76 @@ def test_ssod_trainer_on_the_card(card, tmp_path):
     for (k, p), q in zip(resumed.state.model.named_parameters(),
                          trainer.state.model.parameters()):
         assert torch.equal(p, q.half().float()), k
+
+
+def test_loader_core_builds_and_reads_on_the_card_machine(card, tmp_path):
+    """The host loader core builds with the machine's compiler; PNG reads
+    back exactly; JPEG goes through libjpeg where the core has it and
+    raises JpegUnsupported where it does not (never a silent fallback)."""
+    from efficientteacher_torch.data import image_io
+    from efficientteacher_torch.ops._build import host_library
+    from efficientteacher_torch.utils import native_loader as nl
+
+    built = host_library()
+    assert built.path.exists()
+    rng = np.random.default_rng(0)
+    img = rng.integers(0, 256, (37, 53, 3), np.uint8)
+    image_io.write_png(str(tmp_path / "a.png"), img)
+    assert np.array_equal(image_io.imread(str(tmp_path / "a.png")), img)
+    assert np.array_equal(nl.resize(img, 53, 37), img)
+    canvas = np.zeros((64, 64, 3), np.uint8)
+    nl.resize_letterbox(img, canvas, 13, 5, 53, 37)
+    assert np.array_equal(canvas[13:50, 5:58], img)
+    assert (canvas[:13] == 114).all() and (canvas[50:] == 114).all()
+    jpg = str(tmp_path / "a.jpg")
+    if nl.has_jpeg():
+        nl.jpeg_write(jpg, img, 95)
+        assert image_io.image_size(jpg) == (53, 37)
+        got = image_io.imread(jpg).astype(int)
+        assert np.abs(got - img).mean() < 12
+    else:
+        assert "ET_NO_JPEG" in built.log
+        with pytest.raises(nl.JpegUnsupported):
+            nl.jpeg_write(jpg, img, 95)
+
+
+@pytest.mark.parametrize("rotating", [False, True])
+def test_augmentation_on_the_card_equals_the_cpu(card, rotating):
+    """device_augment_batch and device_ssod_views on the card and on the
+    CPU with the same draws (drawn on the card): images within 1 LSB,
+    boxes within 1e-4, masks exact, M_s within 1e-5."""
+    from efficientteacher_torch.ops import augment_device as A
+
+    rng = np.random.default_rng(1)
+    b, s, m = 8, 160, 12
+    images = torch.from_numpy(rng.integers(0, 256, (b, s, s, 3), np.uint8))
+    labels = np.zeros((b, m, 5), np.float32)
+    labels[..., 0] = rng.integers(0, 80, (b, m))
+    labels[..., 1:3] = rng.uniform(0.2, 0.8, (b, m, 2))
+    labels[..., 3:] = rng.uniform(0.05, 0.3, (b, m, 2))
+    labels = torch.from_numpy(labels)
+    mask = torch.from_numpy(rng.uniform(size=(b, m)) < 0.7)
+    hyp = {"mosaic": 1.0, "scale": 0.9, "translate": 0.1, "hsv_h": 0.015,
+           "hsv_s": 0.7, "hsv_v": 0.4, "fliplr": 0.5, "cutout": 0.5,
+           "degrees": 10.0 if rotating else 0.0,
+           "shear": 2.0 if rotating else 0.0}
+
+    def on(d, dev):
+        return {k: on(v, dev) if isinstance(v, dict) else v.to(dev)
+                for k, v in d.items()}
+
+    g = torch.Generator(device=card).manual_seed(A.step_seed(2, 5, 0))
+    for draw, fn in ((A.draw_augment, A.augment_batch),
+                     (A.draw_ssod, A.ssod_views)):
+        draws = draw(g, b, s, hyp, card)
+        got = fn(images.to(card), labels.to(card), mask.to(card), hyp, draws,
+                 max_out=2 * m)
+        want = fn(images, labels, mask, hyp, on(draws, "cpu"), max_out=2 * m)
+        for x, y in zip(got, want):
+            x = x.cpu()
+            if x.dtype == torch.uint8:
+                assert (x.int() - y.int()).abs().max() <= 1
+            elif x.dtype == torch.bool:
+                assert torch.equal(x, y)
+            else:
+                assert torch.allclose(x, y, rtol=1e-5, atol=1e-4)

@@ -1,6 +1,7 @@
-"""The PyTorch port imports neither jax, flax, yaml, cv2 nor sklearn (the
-GPU machine it runs on has none of them), nor the JAX package. Checked in a
-fresh interpreter, since this test process has them loaded."""
+"""The PyTorch port imports neither jax, flax, yaml, cv2, PIL nor sklearn
+(the GPU machine it runs on need not have them), nor the JAX package.
+Checked in a fresh interpreter, since this test process has them
+loaded."""
 
 import os
 import subprocess
@@ -43,6 +44,18 @@ MODULES = [
     "efficientteacher_torch.configs",
     "efficientteacher_torch.configs.cfg_node",
     "efficientteacher_torch.configs.defaults",
+    "efficientteacher_torch.configs.yaml_lite",
+    "efficientteacher_torch.cli",
+    "efficientteacher_torch.cli.train",
+    "efficientteacher_torch.cli.val",
+    "efficientteacher_torch.data",
+    "efficientteacher_torch.data.augment",
+    "efficientteacher_torch.data.datasets",
+    "efficientteacher_torch.data.datasets_ssod",
+    "efficientteacher_torch.data.image_io",
+    "efficientteacher_torch.data.parallel_loader",
+    "efficientteacher_torch.ops.augment_device",
+    "efficientteacher_torch.utils.native_loader",
     "efficientteacher_torch.eval.metrics",
     "efficientteacher_torch.ssod.quality",
     "efficientteacher_torch.parallel.distributed",
@@ -61,7 +74,7 @@ def test_port_and_chip_smoke_import_without_jax():
         f"for m in {MODULES!r}:\n"
         "    importlib.import_module(m)\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
-        "('jax', 'jaxlib', 'flax', 'yaml', 'cv2', 'sklearn',\n"
+        "('jax', 'jaxlib', 'flax', 'yaml', 'cv2', 'PIL', 'sklearn',\n"
         "                              'efficientteacher_tpu'))\n"
         "assert not bad, bad\n"
     )
