@@ -21,11 +21,16 @@ read just after:
     (16, 2048); then it profiles a held + fired pair, times the step with
     PyTorch's own BatchNorm forward beside the port's, and times the
     pseudo labels and K1 at the run's load and at a sparser one;
-  - data: writes a seeded dataset (256 labelled, 256 unlabelled, 64 val
-    images at COCO-like sizes, ~7 boxes each; JPEG where the loader core
-    has libjpeg, else PNG) into smoke_data/ (removed at the end); `[data]`
-    times decode + letterbox for the thread and process engines at 1, 4
-    and 8 workers, each batch held against a single-threaded pass;
+  - data: the loader core's own JPEG decoder (no libjpeg on that
+    machine) against cv2's digests of the fixtures in
+    tests/test_torch_jpeg.py; then a seeded dataset (256 labelled, 256
+    unlabelled, 64 val images at COCO-like sizes, ~7 boxes each; three in
+    four JPEG, quality 90 4:2:0, written by the core's own writer, the
+    rest PNG; numeric file stems, COCO's image ids) in smoke_data/
+    (removed at the end); `[data]` times decode + letterbox for the
+    thread and process engines at 1, 4 and 8 workers on the mixed split,
+    on its JPEGs and on its PNGs, each batch held against a
+    single-threaded pass;
     `[aug]` times device_augment_batch and device_ssod_views at 32@640
     and holds the card's output against the CPU's on the same draws;
   - trainer: `SSODTrainer` on the main YAML (`ssod_cfg`, read without
@@ -38,8 +43,12 @@ read just after:
     steps against the same step function called bare, the input copy, the
     loop's waits on the loaders, validator.run (device wait and host
     metrics), the save() calls and the steps during a checkpoint write;
-  - cli: `cli.train` on the YAML file for one SSOD epoch, then `cli.val`
-    on its best.ckpt, held equal to validator.run.
+  - cli: `cli.train` on the YAML file for one SSOD epoch, then `cli.val
+    --save-json --coco-gt` on its best.ckpt and on a mid-density copy,
+    held equal to validator.run, against a COCO ground-truth file written
+    from the val split's label files; the JSON holds exactly the
+    detections validator.run counted, and the vendor-free COCO re-scorer's
+    mAP pair is printed beside validator.run's.
 
 It times the forward, the NMS, the selection engine against `torch.topk`,
 the training steps and their phases (CUDA events), and each kernel
@@ -833,20 +842,22 @@ def train_phase(torch, dev, card):
 # unlabelled and val splits at COCO-like native sizes (w, h), with
 # bench.py-style boxes (classes 0-79, centres in [0.2, 0.8], sizes in
 # [0.05, 0.45)) at 1-13 per image, 7 on average (COCO train2017: 7.3).
-# Three images in four are JPEG (quality 90, written by the loader core's
-# libjpeg writer) where the core has libjpeg, the rest PNG (zlib); without
-# libjpeg all are PNG.
+# Three images in four are JPEG (quality 90, 4:2:0, written by the loader
+# core's own writer), the rest PNG (zlib).
 DATA_DIR = Path(__file__).resolve().parent / "smoke_data"
 SPLITS = {"labelled": 256, "unlabelled": 256, "val": 64}
 NATIVE_WH = [(640, 480), (480, 640), (640, 427), (500, 375), (640, 640)]
 DATA_WORKERS = (1, 4, 8)
 
 
-def write_split(root: Path, name: str, n: int, seed: int, jpeg: bool):
+def write_split(root: Path, name: str, n: int, seed: int, first_id: int):
     """Images, YOLO label files and a list file of one split; returns the
-    list file and the number of JPEGs. Content: a per-image colour
-    gradient with mild noise, each box a filled rectangle of its own
-    colour (so the files compress as photos do, not as noise)."""
+    list file and the number of JPEGs. Three in four images are JPEG
+    (quality 90, 4:2:0, the loader core's writer), the rest PNG; file
+    stems are the numbers first_id + i (COCO's image ids). Content: a
+    per-image colour gradient with mild noise, each box a filled
+    rectangle of its own colour (so the files compress as photos do, not
+    as noise)."""
     import numpy as np
 
     from efficientteacher_torch.data import image_io
@@ -862,8 +873,8 @@ def write_split(root: Path, name: str, n: int, seed: int, jpeg: bool):
         boxes = np.concatenate([
             rng.integers(0, NC, (k, 1)), rng.uniform(0.2, 0.8, (k, 2)),
             rng.uniform(0.05, 0.45, (k, 2))], 1)
-        ext = "jpg" if jpeg and i % 4 != 3 else "png"
-        specs.append((root / "images" / f"{name}_{i:04d}.{ext}", w, h,
+        ext = "jpg" if i % 4 != 3 else "png"
+        specs.append((root / "images" / f"{first_id + i}.{ext}", w, h,
                       boxes, int(rng.integers(2**31))))
 
     def write(spec):
@@ -898,54 +909,86 @@ def write_split(root: Path, name: str, n: int, seed: int, jpeg: bool):
 
 
 def jpeg_probe(torch):
-    """The JPEG route on this machine: the loader core's libjpeg, and (for
-    the record) nvJPEG's header and library. Without libjpeg a dataset
-    holding a JPEG must raise when it is built: checked here."""
+    """The JPEG route where the smoke runs: the loader core with its own
+    decoder (it links no libjpeg; `ldd` checks), held against cv2's
+    digests of the fixtures of tests/test_torch_jpeg.py (baseline 4:2:0 /
+    4:2:2 / 4:4:4 / grey, progressive, restart intervals, an EXIF
+    orientation, partial MCUs; scales 1, 1/2, 1/4, 1/8); a dataset holding
+    a JPEG kind the decoder refuses raises when it is built, naming the
+    file. Also records which of cv2, PIL and yaml import there (the port
+    uses none) and nvJPEG's header and library."""
+    import base64
     import tempfile
 
     from efficientteacher_torch.data.datasets import LoadImagesAndLabels
-    from efficientteacher_torch.ops._build import (JPEG_HEADER_DIRS,
-                                                   host_library)
+    from efficientteacher_torch.ops._build import HOST_FLAGS, host_library
     from efficientteacher_torch.utils import native_loader as nl
 
+    sys.path.insert(0, str(Path(__file__).resolve().parent / "tests"))
+    from test_torch_jpeg import FIXTURES, check_fixtures
+
     built = host_library()
+    ldd = subprocess.run(["ldd", str(built.path)], capture_output=True,
+                         text=True, timeout=60).stdout
+    linked = sorted(line.split()[0] for line in ldd.splitlines() if line)
+    require(not any("jpeg" in lib for lib in linked),
+            f"the loader core links {linked}")
+    probe = subprocess.run(
+        [sys.executable, "-c",
+         "import importlib\n"
+         "for m in ('cv2', 'PIL', 'yaml'):\n"
+         "    try:\n"
+         "        importlib.import_module(m); print(m, 'imports')\n"
+         "    except Exception as e:\n"
+         "        print(m, 'does not import:', type(e).__name__)"],
+        capture_output=True, text=True, timeout=120).stdout
     cuda = Path(os.environ.get("CUDA_HOME", "/usr/local/cuda"))
     nvjpeg_h = (cuda / "include" / "nvjpeg.h").exists()
     nvjpeg_so = sorted(p.name for p in (cuda / "lib64").glob("libnvjpeg.so*"))
-    has = nl.has_jpeg()
     print(f"[data] loader core {built.path.name} built in "
-          f"{built.seconds:.1f} s; libjpeg "
-          f"{'present' if has else 'absent'} (jpeglib.h in "
-          f"{', '.join(JPEG_HEADER_DIRS)}: {'yes' if has else 'no'}); "
-          f"nvjpeg.h {'present' if nvjpeg_h else 'absent'}, "
-          f"libnvjpeg {', '.join(nvjpeg_so) or 'absent'}")
-    if not has:
-        with tempfile.TemporaryDirectory() as tmp:
-            img = Path(tmp) / "images" / "x.jpg"
-            img.parent.mkdir()
-            img.write_bytes(b"\xff\xd8\xff\xe0")
-            lst = Path(tmp) / "l.txt"
-            lst.write_text(f"{img}\n")
-            try:
-                LoadImagesAndLabels(str(lst), img_size=IMG, nc=NC)
-            except nl.JpegUnsupported as e:
-                print(f"[data] a dataset with a JPEG raises when it is built:"
-                      f" {e}")
-            else:
-                raise SmokeFailure("a JPEG dataset built without libjpeg")
-    return has
+          f"{built.seconds:.1f} s from "
+          f"{', '.join(p.name for p in built.sources)}"
+          f" ({' '.join(HOST_FLAGS)}; links {', '.join(linked)}: no "
+          f"libjpeg); {'; '.join(probe.split(chr(10))[:3])}; nvjpeg.h "
+          f"{'present' if nvjpeg_h else 'absent'}, libnvjpeg "
+          f"{', '.join(nvjpeg_so) or 'absent'}")
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        bad = check_fixtures(tmp)
+        dt = time.perf_counter() - t0
+        require(not bad, f"decoder differs from cv2's digests: {bad}")
+        n = sum(len(d) for _, d in FIXTURES.values())
+        print(f"[data] JPEG decoder == cv2.imread's digests on {n} decodes "
+              f"of {len(FIXTURES)} fixtures ({', '.join(FIXTURES)}) x scales"
+              f" 1, 1/2, 1/4, 1/8 in {dt * 1e3:.1f} ms")
+        # a refused kind: the baseline fixture's SOF0 made arithmetic (SOF9)
+        data = bytearray(base64.b64decode(FIXTURES["baseline_420"][0]))
+        data[data.index(b"\xff\xc0") + 1] = 0xC9
+        img = Path(tmp) / "images" / "arith.jpg"
+        img.parent.mkdir()
+        img.write_bytes(bytes(data))
+        lst = Path(tmp) / "l.txt"
+        lst.write_text(f"{img}\n")
+        try:
+            LoadImagesAndLabels(str(lst), img_size=IMG, nc=NC)
+        except nl.JpegUnsupported as e:
+            require(str(img) in str(e), f"the error names no file: {e}")
+            print(f"[data] a dataset holding a refused JPEG kind raises when "
+                  f"it is built: {e}")
+        else:
+            raise SmokeFailure("a dataset with an arithmetic JPEG was built")
 
 
 def write_dataset(torch):
     """Write the smoke's dataset; returns {split: list file}."""
-    has_jpeg = jpeg_probe(torch)
+    jpeg_probe(torch)
     if DATA_DIR.exists():
         shutil.rmtree(DATA_DIR)
     t0 = time.perf_counter()
     lists, n_jpeg = {}, 0
     for k, (name, n) in enumerate(SPLITS.items()):
         lists[name], j = write_split(DATA_DIR / name, name, n, SEED + k,
-                                     has_jpeg)
+                                     (k + 1) * 100000)
         n_jpeg += j
     total = sum(SPLITS.values())
     mb = sum(f.stat().st_size for f in DATA_DIR.rglob("images/*")) / 1e6
@@ -956,45 +999,69 @@ def write_dataset(torch):
     return lists
 
 
-def data_phase(torch, lists, card):
-    """Host decode + letterbox throughput of the labelled split at 32@640
-    for the thread and process engines at 1, 4 and 8 workers, each
-    epoch's batches held against one single-threaded pass."""
-    from efficientteacher_torch.data.datasets import (BatchLoader,
-                                                      LoadImagesAndLabels)
+def loader_rates(torch, ds, engines):
+    """img/s of decode + letterbox at T_BATCH@IMG into pinned memory for
+    each (engine, workers) in `engines`, every batch held against one
+    single-threaded pass (whose rate is returned first)."""
+    from efficientteacher_torch.data.datasets import BatchLoader
 
-    t0 = time.perf_counter()
-    ds = LoadImagesAndLabels(str(lists["labelled"]), img_size=IMG, nc=NC)
-    t_cache = time.perf_counter() - t0
     t0 = time.perf_counter()
     ref = list(BatchLoader(ds, T_BATCH, shuffle=False, workers=1,
                            mode="thread"))
-    t_ref = time.perf_counter() - t0
+    rates = {"single": len(ds) / (time.perf_counter() - t0)}
+    for mode, w in engines:
+        loader = BatchLoader(ds, T_BATCH, shuffle=False, workers=w,
+                             mode=mode, pin_memory=True)
+        t0 = time.perf_counter()
+        n = 0
+        for bi, b in enumerate(loader):
+            require(b["images"].is_pinned(), f"{mode}: not pinned")
+            require(torch.equal(b["images"], ref[bi]["images"])
+                    and (b["labels"] == ref[bi]["labels"]).all(),
+                    f"{mode} x {w}: batch {bi} differs from the "
+                    f"single-threaded one")
+            n += b["images"].shape[0]
+        rates[(mode, w)] = n / (time.perf_counter() - t0)
+    return ref, rates
+
+
+def data_phase(torch, lists, card):
+    """Host decode + letterbox throughput at 32@640 for the thread and
+    process engines at 1, 4 and 8 workers (and threads at 16): on the
+    labelled split (3/4 JPEG), on its JPEGs alone and on its PNGs alone,
+    each epoch's batches held against one single-threaded pass. The
+    trainer's loop needs about 276 img/s (32 + 32 per step)."""
+    from efficientteacher_torch.data.datasets import LoadImagesAndLabels
+
+    engines = [(m, w) for m in ("thread", "process") for w in DATA_WORKERS]
+    t0 = time.perf_counter()
+    ds = LoadImagesAndLabels(str(lists["labelled"]), img_size=IMG, nc=NC)
+    t_cache = time.perf_counter() - t0
+    ref, rates = loader_rates(torch, ds, engines)
     labels = sum(int(b["mask"].sum()) for b in ref)
     print(f"[data] labelled split: {len(ds)} images, {labels} boxes "
           f"({labels / len(ds):.2f}/img), labels cache built in "
-          f"{t_cache:.2f} s; one single-threaded pass {t_ref:.2f} s "
-          f"({len(ds) / t_ref:.1f} img/s); host cores {os.cpu_count()}")
-    rates = {}
-    for mode in ("thread", "process"):
-        for w in DATA_WORKERS:
-            loader = BatchLoader(ds, T_BATCH, shuffle=False, workers=w,
-                                 mode=mode, pin_memory=True)
-            t0 = time.perf_counter()
-            n = 0
-            for bi, b in enumerate(loader):
-                require(b["images"].is_pinned(), f"{mode}: not pinned")
-                require(torch.equal(b["images"], ref[bi]["images"])
-                        and (b["labels"] == ref[bi]["labels"]).all(),
-                        f"{mode} x {w}: batch {bi} differs from the "
-                        f"single-threaded one")
-                n += b["images"].shape[0]
-            dt = time.perf_counter() - t0
-            rates[(mode, w)] = n / dt
+          f"{t_cache:.2f} s; one single-threaded pass "
+          f"{rates.pop('single'):.1f} img/s; host cores {os.cpu_count()}")
     print(f"[data] decode + letterbox at {T_BATCH}@{IMG} into pinned "
           f"memory, img/s by engine x workers: " + ", ".join(
               f"{m} {w} {r:.1f}" for (m, w), r in rates.items())
           + f"; every batch == the single-threaded pass | {card}")
+    root = Path(lists["labelled"]).parent
+    for ext in ("jpg", "png"):
+        lst = root / f"only_{ext}.txt"
+        lst.write_text("".join(
+            f"{p}\n" for p in Path(lists["labelled"]).read_text().split()
+            if p.endswith(ext)))
+        sub = LoadImagesAndLabels(str(lst), img_size=IMG, nc=NC)
+        extra = [("thread", 16)] if ext == "jpg" else []
+        _, rates = loader_rates(torch, sub, engines + extra)
+        kind = {"jpg": "JPEG", "png": "PNG"}[ext]
+        print(f"[data] {kind} alone ({len(sub)} images): decode + "
+              f"letterbox img/s, single-threaded {rates.pop('single'):.1f}; "
+              f"by engine x workers: " + ", ".join(
+                  f"{m} {w} {r:.1f}" for (m, w), r in rates.items())
+              + f"; every batch == the single-threaded pass | {card}")
 
 
 def aug_phase(torch, dev, lists, card):
@@ -1653,7 +1720,11 @@ def cli_leg(torch, dev, card, lists):
     the eval gate (`mid_val_teacher` on val images: a one-epoch teacher
     detects nothing at conf 0.001, so P/R/mAP would be 0 on both sides),
     each equal to `validator.run` on the same weights and loader. K1 and
-    K2 must launch in the second."""
+    K2 must launch in the second. Both cli.val runs write the COCO JSON
+    (--save-json) and score it against a ground-truth file written from
+    the val split's label files (--coco-gt); the JSON must hold exactly
+    the detections validator.run counted, and the vendor-free re-scorer's
+    (mAP50, mAP) is printed beside validator.run's."""
     import gc
     import logging
     import tempfile
@@ -1662,7 +1733,7 @@ def cli_leg(torch, dev, card, lists):
     from efficientteacher_torch.cli import train as cli_train
     from efficientteacher_torch.cli import val as cli_val
     from efficientteacher_torch.data.datasets import create_dataloader
-    from efficientteacher_torch.eval import validator
+    from efficientteacher_torch.eval import coco, validator
     from efficientteacher_torch.models import build_model, spec_from_cfg
     from efficientteacher_torch.ops.nms_cuda import greedy_nms_keep_cuda
     from efficientteacher_torch.ops.select_cuda import (count_ge_cuda,
@@ -1674,6 +1745,22 @@ def cli_leg(torch, dev, card, lists):
     wrappers = {"greedy_nms_keep": greedy_nms_keep_cuda,
                 "threshold_compact": threshold_compact_cuda,
                 "count_ge": count_ge_cuda}
+    class Counted(logging.Handler):
+        """validator.run's "Detections: N over M images" records."""
+
+        def __init__(self):
+            super().__init__(logging.INFO)
+            self.counts = []
+
+        def emit(self, record):
+            if record.getMessage().startswith("Detections:"):
+                self.counts.append(int(record.args[0]))
+
+    counted = Counted()
+    vlog = logging.getLogger(validator.__name__)
+    vlog.addHandler(counted)
+    vlevel = vlog.level
+    vlog.setLevel(logging.INFO)
     gc.collect()
     torch.cuda.empty_cache()
     root = logging.getLogger()
@@ -1713,25 +1800,41 @@ def cli_leg(torch, dev, card, lists):
                             batch_stats=v["batch_stats"],
                             ema_params=v["params"],
                             ema_batch_stats=v["batch_stats"])
+            gt = coco.yolo_labels_to_coco_gt(loader.ds.img_files,
+                                             str(Path(tmp) / "gt.json"), NC)
             scores = {}
             for name, path in (("best", ckpt), ("mid", mid)):
                 for fn in wrappers.values():
                     fn.launches = 0
+                pred = Path(tmp) / f"{name}.json"
+                counted.counts.clear()
                 t0 = time.perf_counter()
                 got = cli_val.main(["--cfg", str(MAIN_YAML), "--weights",
                                     str(path), "--batch-size", str(T_BATCH),
-                                    *overrides])
+                                    "--save-json", str(pred), "--coco-gt",
+                                    gt, *overrides])
                 t_val = time.perf_counter() - t0
                 launches = {n: w.launches for n, w in wrappers.items()}
                 want = validator.run(model_of(path), loader, nc=NC,
                                      compute_dtype=compute_dtype(dev))[0]
-                scores[name] = (got, want, t_val, launches)
+                rows = json.loads(pred.read_text())
+                pair = coco.evaluate_predictions_json(str(pred), gt)
+                require(len(counted.counts) == 2
+                        and counted.counts[0] == counted.counts[1]
+                        == len(rows),
+                        f"{name}: the JSON holds {len(rows)} detections, "
+                        f"validator.run counted {counted.counts}")
+                require(all(isinstance(r["image_id"], int) for r in rows),
+                        f"{name}: image ids not the numeric stems")
+                scores[name] = (got, want, t_val, launches, len(rows), pair)
     finally:
+        vlog.removeHandler(counted)
+        vlog.setLevel(vlevel)
         root.setLevel(level)
         for h in root.handlers[:]:
             if h not in handlers:
                 root.removeHandler(h)
-    for name, (got, want, _, _) in scores.items():
+    for name, (got, want, *_) in scores.items():
         require(tuple(got) == tuple(want),
                 f"cli.val on {name} {got} != validator.run {want}")
     require(scores["mid"][3]["greedy_nms_keep"] > 0
@@ -1743,13 +1846,16 @@ def cli_leg(torch, dev, card, lists):
           f"dataset): one SSOD epoch of {T_STEPS} steps, results.csv, "
           f"last.ckpt, best.ckpt in {t_train:.1f} s (best fitness "
           f"{best:.4f}) | {card}")
-    for name, (got, _, t_val, launches) in scores.items():
+    for name, (got, _, t_val, launches, n_rows, pair) in scores.items():
         what = ("best.ckpt" if name == "best" else
                 f"best.ckpt at the mid density (objectness {shift[0]:+.3f}, "
                 f"{shift[1]:.0f} candidates/img on its calibration batch)")
-        print(f"[cli] cli.val on {what}: {t_val:.1f} s, P/R/mAP50/mAP "
-              f"{'/'.join(f'{x:.4f}' for x in got)} == validator.run on "
-              f"the same weights and loader; launches "
+        print(f"[cli] cli.val --save-json --coco-gt on {what}: {t_val:.1f} "
+              f"s, P/R/mAP50/mAP {'/'.join(f'{x:.4f}' for x in got)} == "
+              f"validator.run on the same weights and loader; COCO JSON "
+              f"{n_rows} detections == validator.run's count; re-scored "
+              f"mAP50/mAP {pair[0]:.4f}/{pair[1]:.4f} beside validator.run's "
+              f"{got[2]:.4f}/{got[3]:.4f}; launches "
               f"{', '.join(f'{n} {c}' for n, c in launches.items())} "
               f"| {card}")
 

@@ -7,11 +7,13 @@ val.py:468-512).
 Builds the config's model, loads the checkpoint's EMA (the teacher of an
 SSOD run) and runs `validator.run` over `create_dataloader(cfg, "val",
 augment=False)` (the rect loader under `Dataset.rect`), on the CUDA card
-unless the override `device cpu` is given. It takes the JAX CLI's flags;
-those whose feature is not ported raise NotImplementedError: --save-json
-and --coco-gt (COCOeval), --plots, --val-kp, and weights from a reference
-`.pt` (ROADMAP, Queue 1 items 6, 7 and 9). --selection approx runs the
-exact selection. Prints and returns (P, R, mAP50, mAP50-95).
+unless the override `device cpu` is given. It takes the JAX CLI's flags:
+--save-json writes the COCO-format predictions (80->91 category ids when
+the model has 80 classes and the val path names coco) and --coco-gt runs
+COCOeval on them (`eval/coco.py`). Those whose feature is not ported raise
+NotImplementedError: --plots, --val-kp, and weights from a reference `.pt`
+(ROADMAP Q1.8, Q1.10 and Q1.11). --selection approx runs the exact
+selection. Prints and returns (P, R, mAP50, mAP50-95).
 """
 
 from __future__ import annotations

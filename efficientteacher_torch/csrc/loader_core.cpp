@@ -1,46 +1,46 @@
 // Host data-loader core of the PyTorch port: JPEG decode and the bilinear
 // letterbox, PNG row unfiltering, and a JPEG writer for test data. Plain C
-// ABI, built with the host compiler (no CUDA) by ops/_build.host_library
-// and bound with ctypes by utils/native_loader.py.
+// ABI, built with the host compiler (no CUDA, no libjpeg) by
+// ops/_build.host_library and bound with ctypes by utils/native_loader.py.
 //
-// Counterpart of efficientteacher_tpu/native/loader_core.cpp, with three
+// Counterpart of efficientteacher_tpu/native/loader_core.cpp, with these
 // changes:
-//   1. the resize is OpenCV's INTER_LINEAR for 8-bit images (11-bit fixed
+//   1. the JPEG decoder is the core's own (jpeg_decode.h), bit-equal to
+//      cv2.imread's libjpeg-turbo on the kinds it reads; the EXIF
+//      orientation cv2.imread applies is applied on request;
+//   2. the resize is OpenCV's INTER_LINEAR for 8-bit images (11-bit fixed
 //      point coefficients, rows clamped but not their weights, the rounding
 //      of its vector path), so an image letterboxed here is bit-equal to
 //      cv2.imread + cv2.resize, upscales included (the JAX core's float
 //      bilinear is off by 1 on some pixels);
-//   2. the IDCT prescale (libjpeg decoding at 1/2, 1/4, 1/8 inside the
-//      inverse DCT) is a per-call option: off, the decode is at full
-//      resolution, as cv2.imread decodes (Dataset.native_loader False);
-//   3. output is RGB, the order the datasets yield, with no swizzle.
+//   3. the IDCT prescale (decoding at 1/2, 1/4, 1/8 inside the inverse
+//      DCT, as libjpeg's scale_denom does) is a per-call option: off, the
+//      decode is at full resolution, as cv2.imread decodes
+//      (Dataset.native_loader False);
+//   4. output is RGB, the order the datasets yield, with no swizzle.
 // Every entry writes into buffers the caller owns; none keeps state
 // between calls, so Python threads may call it at once (ctypes releases
 // the interpreter lock for the call).
-//
-// Built with ET_NO_JPEG when the machine has no libjpeg headers: the JPEG
-// entries then return ET_ERR_NO_JPEG, and the resize and PNG entries work.
 
 #include <algorithm>
 #include <cmath>
-#include <csetjmp>
 #include <cstddef>
 #include <cstdint>
 #include <cstdio>
 #include <cstring>
+#include <new>
 #include <vector>
 
-#ifndef ET_NO_JPEG
-#include <jpeglib.h>
-#endif
+#include "jpeg_decode.h"
+#include "jpeg_encode.h"
 
 namespace {
 
 constexpr int kOk = 0;
 constexpr int kErrOpen = -1;       // file missing or unreadable
-constexpr int kErrDecode = -2;     // libjpeg refused the data
+constexpr int kErrDecode = -2;     // corrupt or truncated data
 constexpr int kErrSize = -3;       // dims differ from what the caller expects
-constexpr int kErrNoJpeg = -4;     // built without libjpeg
+constexpr int kErrUnsupported = -4;  // a JPEG kind the decoder refuses
 constexpr int kErrArgs = -5;       // bad sizes
 constexpr int kErrFilter = -6;     // unknown PNG filter type
 
@@ -142,80 +142,142 @@ bool rect_fits(int ch, int cw, int top, int left, int new_w, int new_h) {
          top + new_h <= ch && left + new_w <= cw;
 }
 
-#ifndef ET_NO_JPEG
-struct ErrMgr {
-  jpeg_error_mgr pub;
-  jmp_buf jump;
-};
-
-void on_error(j_common_ptr cinfo) {
-  longjmp(reinterpret_cast<ErrMgr*>(cinfo->err)->jump, 1);
+// The whole file at `path`, or its first `limit` bytes (0: all of it);
+// `whole` tells which. False when it cannot be read.
+bool read_file(const char* path, size_t limit, std::vector<uint8_t>* out,
+               bool* whole) {
+  FILE* f = std::fopen(path, "rb");
+  if (!f) return false;
+  long size = -1;
+  if (std::fseek(f, 0, SEEK_END) == 0) size = std::ftell(f);
+  if (size < 0 || std::fseek(f, 0, SEEK_SET) != 0) {
+    std::fclose(f);
+    return false;
+  }
+  const size_t n = limit ? std::min(limit, static_cast<size_t>(size))
+                         : static_cast<size_t>(size);
+  out->resize(n);
+  out->resize(std::fread(out->data(), 1, n, f));
+  std::fclose(f);
+  *whole = out->size() == static_cast<size_t>(size);
+  return true;
 }
 
-void quiet(j_common_ptr, int) {}
+int status_code(int st) {
+  return st == etjpeg::kOk ? kOk
+         : st == etjpeg::kRefused ? kErrUnsupported : kErrDecode;
+}
 
-// Decode `path` and resize it to (new_w, new_h) into dst (rows `dstride`
-// bytes apart). With `prescale`, the largest IDCT downscale d in
-// {1, 2, 4, 8} that keeps both decoded dims >= 2x the target is used (the
-// JAX core's rule); without it the decode is at full resolution.
-int decode_resize(const char* path, int expect_w, int expect_h, int new_w,
-                  int new_h, uint8_t* dst, size_t dstride, bool prescale) {
-  FILE* f = std::fopen(path, "rb");
-  if (!f) return kErrOpen;
-  jpeg_decompress_struct cinfo;
-  ErrMgr jerr;
-  cinfo.err = jpeg_std_error(&jerr.pub);
-  jerr.pub.error_exit = on_error;
-  jerr.pub.emit_message = quiet;
-  std::vector<uint8_t> scratch;
-  if (setjmp(jerr.jump)) {
-    jpeg_destroy_decompress(&cinfo);
-    std::fclose(f);
-    return kErrDecode;
+// (w, h) of an image of size (w, h) under EXIF orientation o: 5-8 swap.
+void oriented(int o, int w, int h, int* ow, int* oh) {
+  *ow = o >= 5 ? h : w;
+  *oh = o >= 5 ? w : h;
+}
+
+// cv2's ApplyExifOrientation: src (h, w, 3) -> dst (its oriented size),
+// dst rows `dstride` bytes apart.
+void orient_copy(const uint8_t* src, int w, int h, int o, uint8_t* dst,
+                 size_t dstride) {
+  int dw, dh;
+  oriented(o, w, h, &dw, &dh);
+  for (int y = 0; y < dh; ++y) {
+    uint8_t* d = dst + y * dstride;
+    for (int x = 0; x < dw; ++x) {
+      int sx, sy;
+      switch (o) {
+        case 2: sx = w - 1 - x, sy = y; break;          // flip x
+        case 3: sx = w - 1 - x, sy = h - 1 - y; break;  // rotate 180
+        case 4: sx = x, sy = h - 1 - y; break;          // flip y
+        case 5: sx = y, sy = x; break;                  // transpose
+        case 6: sx = y, sy = h - 1 - x; break;          // rotate 90 cw
+        case 7: sx = w - 1 - y, sy = h - 1 - x; break;  // transverse
+        case 8: sx = w - 1 - y, sy = x; break;          // rotate 90 ccw
+        default: sx = x, sy = y; break;
+      }
+      std::memcpy(d + x * 3, src + (static_cast<size_t>(sy) * w + sx) * 3, 3);
+    }
   }
-  jpeg_create_decompress(&cinfo);
-  jpeg_stdio_src(&cinfo, f);
-  jpeg_read_header(&cinfo, TRUE);
-  const int fw = static_cast<int>(cinfo.image_width);
-  const int fh = static_cast<int>(cinfo.image_height);
-  if ((expect_w > 0 && fw != expect_w) || (expect_h > 0 && fh != expect_h)) {
-    jpeg_destroy_decompress(&cinfo);
-    std::fclose(f);
+}
+
+// Decode `path` at scale 1/denom and resize it to (new_w, new_h) into dst
+// (rows `dstride` bytes apart). `expect_w` / `expect_h` (<= 0: unchecked)
+// are checked against the oriented size, the one et_jpeg_info reports to
+// the labels cache. With `orient` the EXIF orientation is applied, as
+// cv2.imread applies it. `denom` 0 is the prescale rule: the largest IDCT
+// downscale d in {1, 2, 4, 8} that keeps both decoded dims >= 2x the
+// target (the JAX core's rule).
+int decode_resize_impl(const char* path, int expect_w, int expect_h,
+                       int new_w, int new_h, uint8_t* dst, size_t dstride,
+                       int denom, bool orient) {
+  std::vector<uint8_t> data;
+  bool whole;
+  if (!read_file(path, 0, &data, &whole)) return kErrOpen;
+  etjpeg::Decoder dec;
+  const int st = dec.read(data.data(), data.size(), true);
+  if (st != etjpeg::kOk) return status_code(st);
+  int vw, vh;
+  oriented(dec.orientation, dec.width, dec.height, &vw, &vh);
+  if ((expect_w > 0 && vw != expect_w) || (expect_h > 0 && vh != expect_h)) {
     return kErrSize;
   }
-  int denom = 1;
-  while (prescale && denom < 8 && fw >= new_w * denom * 2 &&
-         fh >= new_h * denom * 2) {
-    denom *= 2;
+  const int o = orient ? dec.orientation : 1;
+  int fw, fh;  // the size the caller resizes from
+  oriented(o, dec.width, dec.height, &fw, &fh);
+  if (denom == 0) {
+    denom = 1;
+    while (denom < 8 && fw >= new_w * denom * 2 && fh >= new_h * denom * 2) {
+      denom *= 2;
+    }
   }
-  cinfo.scale_num = 1;
-  cinfo.scale_denom = static_cast<unsigned>(denom);
-  cinfo.out_color_space = JCS_RGB;
-  jpeg_start_decompress(&cinfo);
-  const int ow = static_cast<int>(cinfo.output_width);
-  const int oh = static_cast<int>(cinfo.output_height);
-  if (ow == new_w && oh == new_h) {
+  const int ow = dec.out_width(denom), oh = dec.out_height(denom);
+  int rw, rh;
+  oriented(o, ow, oh, &rw, &rh);
+  if (o == 1 && ow == new_w && oh == new_h) {
     // decoded at the target size: rows go straight into the destination
-    while (cinfo.output_scanline < cinfo.output_height) {
-      JSAMPROW row = dst + cinfo.output_scanline * dstride;
-      jpeg_read_scanlines(&cinfo, &row, 1);
-    }
-  } else {
-    scratch.resize(static_cast<size_t>(ow) * oh * 3);
-    while (cinfo.output_scanline < cinfo.output_height) {
-      JSAMPROW row = scratch.data() +
-                     static_cast<size_t>(cinfo.output_scanline) * ow * 3;
-      jpeg_read_scanlines(&cinfo, &row, 1);
-    }
-    resize_rgb(scratch.data(), ow, oh, static_cast<size_t>(ow) * 3, dst,
-               new_w, new_h, dstride);
+    dec.output(denom, [&](int y, const uint8_t* row) {
+      std::memcpy(dst + y * dstride, row, static_cast<size_t>(ow) * 3);
+    });
+    return kOk;
   }
-  jpeg_finish_decompress(&cinfo);
-  jpeg_destroy_decompress(&cinfo);
-  std::fclose(f);
+  std::vector<uint8_t> img(static_cast<size_t>(ow) * oh * 3);
+  dec.output(denom, [&](int y, const uint8_t* row) {
+    std::memcpy(&img[static_cast<size_t>(y) * ow * 3], row,
+                static_cast<size_t>(ow) * 3);
+  });
+  if (o == 1) {
+    resize_rgb(img.data(), ow, oh, static_cast<size_t>(ow) * 3, dst, new_w,
+               new_h, dstride);
+  } else if (rw == new_w && rh == new_h) {
+    orient_copy(img.data(), ow, oh, o, dst, dstride);
+  } else {
+    std::vector<uint8_t> rot(img.size());
+    orient_copy(img.data(), ow, oh, o, rot.data(),
+                static_cast<size_t>(rw) * 3);
+    resize_rgb(rot.data(), rw, rh, static_cast<size_t>(rw) * 3, dst, new_w,
+               new_h, dstride);
+  }
   return kOk;
 }
-#endif
+
+// A header may declare up to 65535 x 65535 pixels: a decode that cannot
+// get its buffers is refused as corrupt, never thrown across the C ABI.
+template <class F>
+int guarded(F&& f) {
+  try {
+    return f();
+  } catch (const std::bad_alloc&) {
+    return kErrDecode;
+  }
+}
+
+int decode_resize(const char* path, int expect_w, int expect_h, int new_w,
+                  int new_h, uint8_t* dst, size_t dstride, int denom,
+                  bool orient) {
+  return guarded([&] {
+    return decode_resize_impl(path, expect_w, expect_h, new_w, new_h, dst,
+                              dstride, denom, orient);
+  });
+}
 
 int paeth(int a, int b, int c) {
   const int p = a + b - c;
@@ -228,64 +290,57 @@ int paeth(int a, int b, int c) {
 
 extern "C" {
 
-// 1 when built with libjpeg, else 0.
-int et_has_jpeg() {
-#ifdef ET_NO_JPEG
-  return 0;
-#else
-  return 1;
-#endif
-}
-
-// Width and height of a JPEG from its header, without decoding it.
-int et_jpeg_size(const char* path, int* w, int* h) {
-#ifdef ET_NO_JPEG
-  (void)path, (void)w, (void)h;
-  return kErrNoJpeg;
-#else
-  FILE* f = std::fopen(path, "rb");
-  if (!f) return kErrOpen;
-  jpeg_decompress_struct cinfo;
-  ErrMgr jerr;
-  cinfo.err = jpeg_std_error(&jerr.pub);
-  jerr.pub.error_exit = on_error;
-  jerr.pub.emit_message = quiet;
-  if (setjmp(jerr.jump)) {
-    jpeg_destroy_decompress(&cinfo);
-    std::fclose(f);
-    return kErrDecode;
+// The header of the JPEG at `path`: info = {w, h (as stored), EXIF
+// orientation (1-8), refusal kind (etjpeg::Kind, 0 when it decodes)}.
+// Returns kErrUnsupported for a kind the decoder refuses, without reading
+// any entropy-coded data. A sequential file is parsed from its first
+// 64 KiB when its headers fit there; a progressive one is walked to the end
+// (its scans decide whether every coefficient is refined).
+int et_jpeg_info(const char* path, int* info) {
+  std::vector<uint8_t> data;
+  bool whole;
+  if (!read_file(path, 1 << 16, &data, &whole)) return kErrOpen;
+  etjpeg::Decoder dec;
+  int st = dec.read(data.data(), data.size(), false);
+  if (!whole && !(st == etjpeg::kOk && !dec.progressive) &&
+      !(st == etjpeg::kRefused && dec.kind != etjpeg::kUnrefined)) {
+    if (!read_file(path, 0, &data, &whole)) return kErrOpen;
+    dec = etjpeg::Decoder();
+    st = dec.read(data.data(), data.size(), false);
   }
-  jpeg_create_decompress(&cinfo);
-  jpeg_stdio_src(&cinfo, f);
-  jpeg_read_header(&cinfo, TRUE);
-  *w = static_cast<int>(cinfo.image_width);
-  *h = static_cast<int>(cinfo.image_height);
-  jpeg_destroy_decompress(&cinfo);
-  std::fclose(f);
-  return kOk;
-#endif
+  info[0] = dec.width;
+  info[1] = dec.height;
+  info[2] = dec.orientation;
+  info[3] = dec.kind;
+  return status_code(st);
 }
 
-// Decode the JPEG at `path` (expected dims expect_w x expect_h; <= 0
-// skips the check), resize it to (new_w, new_h) and place it at (top,
+// Decode the JPEG at `path` at scale 1/denom (1, 2, 4 or 8) into `out`
+// (oh, ow, 3): the decoded size (oriented with `orient`), as et_jpeg_info
+// gives it; another size is resized to.
+int et_jpeg_decode(const char* path, int denom, int orient, uint8_t* out,
+                   int ow, int oh) {
+  if (denom != 1 && denom != 2 && denom != 4 && denom != 8) return kErrArgs;
+  if (ow <= 0 || oh <= 0) return kErrArgs;
+  return decode_resize(path, 0, 0, ow, oh, out, static_cast<size_t>(ow) * 3,
+                       denom, orient != 0);
+}
+
+// Decode the JPEG at `path` (expected oriented dims expect_w x expect_h;
+// <= 0 skips the check), resize it to (new_w, new_h) and place it at (top,
 // left) in the RGB canvas (ch, cw, 3). With pad_value >= 0 the canvas is
-// first filled with it. A canvas the size of the image with top = left = 0
-// is a plain decode + resize.
+// first filled with it. `flags`: 1 allows the IDCT prescale, 2 applies the
+// EXIF orientation. A canvas the size of the image with top = left = 0 is
+// a plain decode + resize.
 int et_jpeg_letterbox(const char* path, int expect_w, int expect_h,
                       uint8_t* canvas, int ch, int cw, int top, int left,
-                      int new_w, int new_h, int pad_value, int prescale) {
+                      int new_w, int new_h, int pad_value, int flags) {
   if (!rect_fits(ch, cw, top, left, new_w, new_h)) return kErrArgs;
-#ifdef ET_NO_JPEG
-  (void)path, (void)expect_w, (void)expect_h, (void)canvas, (void)pad_value,
-      (void)prescale;
-  return kErrNoJpeg;
-#else
   if (pad_value >= 0) fill_canvas(canvas, ch, cw, pad_value);
   const size_t stride = static_cast<size_t>(cw) * 3;
   return decode_resize(path, expect_w, expect_h, new_w, new_h,
                        canvas + top * stride + static_cast<size_t>(left) * 3,
-                       stride, prescale != 0);
-#endif
+                       stride, (flags & 1) ? 0 : 1, (flags & 2) != 0);
 }
 
 // Resize the RGB image src (sh, sw, 3), rows `sstride` bytes apart, to
@@ -339,43 +394,22 @@ int et_png_unfilter(const uint8_t* data, int h, int row_bytes, int bpp,
 }
 
 // Test-data support, never called by the loaders: write the RGB image
-// (h, w, 3) as a baseline JPEG at `quality` (libjpeg's defaults: 4:2:0).
+// (h, w, 3) as a baseline JFIF JPEG, 4:2:0, at `quality` (jpeg_encode.h).
 int et_jpeg_write(const char* path, const uint8_t* rgb, int w, int h,
                   int quality) {
-#ifdef ET_NO_JPEG
-  (void)path, (void)rgb, (void)w, (void)h, (void)quality;
-  return kErrNoJpeg;
-#else
+  if (w <= 0 || h <= 0 || w > 65535 || h > 65535) return kErrArgs;
+  std::vector<uint8_t> bytes;
+  if (guarded([&] {
+        bytes = etjpeg::Encoder().encode(rgb, w, h, quality);
+        return kOk;
+      }) != kOk) {
+    return kErrArgs;
+  }
   FILE* f = std::fopen(path, "wb");
   if (!f) return kErrOpen;
-  jpeg_compress_struct cinfo;
-  ErrMgr jerr;
-  cinfo.err = jpeg_std_error(&jerr.pub);
-  jerr.pub.error_exit = on_error;
-  if (setjmp(jerr.jump)) {
-    jpeg_destroy_compress(&cinfo);
-    std::fclose(f);
-    return kErrDecode;
-  }
-  jpeg_create_compress(&cinfo);
-  jpeg_stdio_dest(&cinfo, f);
-  cinfo.image_width = static_cast<JDIMENSION>(w);
-  cinfo.image_height = static_cast<JDIMENSION>(h);
-  cinfo.input_components = 3;
-  cinfo.in_color_space = JCS_RGB;
-  jpeg_set_defaults(&cinfo);
-  jpeg_set_quality(&cinfo, quality, TRUE);
-  jpeg_start_compress(&cinfo, TRUE);
-  while (cinfo.next_scanline < cinfo.image_height) {
-    JSAMPROW row = const_cast<uint8_t*>(rgb) +
-                   static_cast<size_t>(cinfo.next_scanline) * w * 3;
-    jpeg_write_scanlines(&cinfo, &row, 1);
-  }
-  jpeg_finish_compress(&cinfo);
-  jpeg_destroy_compress(&cinfo);
-  std::fclose(f);
-  return kOk;
-#endif
+  const bool ok = std::fwrite(bytes.data(), 1, bytes.size(), f) ==
+                  bytes.size();
+  return (std::fclose(f) == 0 && ok) ? kOk : kErrOpen;
 }
 
 }  // extern "C"

@@ -15,8 +15,9 @@ Parity with the JAX module (and through it reference utils/datasets.py):
     packages yield the same batches), `RectBatchLoader` (aspect-ratio
     buckets with ratio_pad), `create_dataloader`
 
-Images decode through `data/image_io.py` (libjpeg through the loader core,
-PNG through zlib) and resize through the core, bit-equal to cv2's
+Images decode through `data/image_io.py` (JPEG through the loader core's
+own decoder, EXIF orientation applied as cv2.imread applies it; PNG
+through zlib) and resize through the core, bit-equal to cv2's
 INTER_LINEAR. On the plain path one core call decodes, resizes and
 letterboxes a JPEG straight into its batch slot; image arrays in batches
 are uint8 CPU tensors, in pinned memory when the loader's `pin_memory` is
@@ -125,8 +126,8 @@ def verify_image_label(img_file: str, label_file: Optional[str], nc: int,
     """Validate one image/label pair (reference verify_image_label).
     Returns (labels (N, 5+2*np) float32, (w, h)) or None for a file that
     is missing, corrupt or under 10 px. Raises NotImplementedError for an
-    image format the port does not read (and `JpegUnsupported` for JPEG
-    on a machine without libjpeg): the dataset fails when it is built."""
+    image format the port does not read (`JpegUnsupported` for a JPEG kind
+    the loader core refuses): the dataset fails when it is built."""
     ncol = 5 + 2 * num_keypoints
     try:
         w, h = image_io.image_size(img_file)
@@ -190,8 +191,9 @@ class LoadImagesAndLabels:
         # read by the trainers' before_epoch, which closes the mosaic
         self.mosaic = False
         self.cache_images = cache_images
-        # libjpeg's IDCT prescale (the JAX native loader's opt-in): off,
-        # every JPEG decodes at full resolution, as cv2.imread does
+        # the IDCT prescale (the JAX native loader's opt-in, orientation
+        # ignored as there): off, every JPEG decodes at full resolution
+        # with its EXIF orientation, as cv2.imread does
         self.native_loader = bool(native_loader)
         self._img_cache: Dict[int, tuple] = {}
         self.cache_dir_images = Path(cache_dir_images) if cache_dir_images \
@@ -267,10 +269,29 @@ class LoadImagesAndLabels:
         return len(self.img_files)
 
     # -- image io ------------------------------------------------------------
+    def _prescaled(self, i: int) -> bool:
+        return self.native_loader and \
+            image_io.suffix(self.img_files[i]) in image_io.JPEG_SUFFIXES
+
+    def source_hw(self, i: int) -> Tuple[int, int]:
+        """(h0, w0) of image i as `load_image` decodes it: the labels
+        cache's size (EXIF orientation applied, as cv2.imread applies it),
+        except on the prescale route, which decodes a JPEG as stored and
+        ignores its orientation, as the JAX native core does (JAX takes
+        (h0, w0) there from the core's header read, not from the cache)."""
+        w0, h0 = (int(v) for v in self.shapes[i])
+        if self._prescaled(i):
+            w, h, orientation = nl.jpeg_info(self.img_files[i])
+            if nl.oriented_size(w, h, orientation) != (w0, h0):
+                raise OSError(f"{self.img_files[i]}: size differs from the "
+                              f"labels cache's {(w0, h0)}")
+            return h, w
+        return h0, w0
+
     def resized_hw(self, i: int) -> Tuple[int, int]:
         """(h, w) of image i after `load_image`'s resize (longer side ->
         img_size, int() truncation as in JAX)."""
-        w0, h0 = (int(v) for v in self.shapes[i])
+        h0, w0 = self.source_hw(i)
         r = self.img_size / max(h0, w0)
         if r == 1:
             return h0, w0
@@ -282,7 +303,7 @@ class LoadImagesAndLabels:
         optional RAM or disk cache of the resized images."""
         if i in self._img_cache:
             return self._img_cache[i]
-        w0, h0 = (int(v) for v in self.shapes[i])
+        h0, w0 = self.source_hw(i)
         npy = (self.cache_dir_images / f"{i}.npy"
                if self.cache_dir_images else None)
         if npy is not None and npy.exists():
@@ -308,7 +329,8 @@ class LoadImagesAndLabels:
         if image_io.suffix(path) in image_io.JPEG_SUFFIXES:
             nl.jpeg_letterbox(path, canvas, top, left, new_w, new_h,
                               pad_value, expect_wh=(w0, h0),
-                              prescale=self.native_loader)
+                              prescale=self.native_loader,
+                              orient=not self.native_loader)
             return
         img = image_io.imread(path)
         if img.shape[:2] != (h0, w0):

@@ -1,18 +1,25 @@
 """Image files without cv2: the port's counterpart of `cv2.imread`
 (`efficientteacher_tpu/data/datasets.py:313`).
 
-JPEG goes through the loader core (libjpeg, `utils/native_loader.py`).
-PNG is read here: chunks and `zlib` in Python, the row filters undone by
-the core (the Average and Paeth filters run along each row, which numpy
-cannot vectorise); 8-bit grey, grey + alpha, RGB, RGBA and palette images,
+JPEG goes through the loader core's own decoder (`csrc/jpeg_decode.h`,
+`utils/native_loader.py`): bit-equal to cv2.imread (libjpeg-turbo's
+defaults) on baseline, extended and progressive Huffman files, grey or
+YCbCr 4:4:4 / 4:2:2 / 4:2:0; other kinds raise `JpegUnsupported` from
+`image_size`. PNG is read here: chunks and `zlib` in Python, the row
+filters undone by the core (the Average and Paeth filters run along each
+row, which numpy cannot vectorise); 8-bit grey, grey + alpha, RGB, RGBA and palette images,
 not interlaced. PNG is lossless, so a PNG reads exactly as cv2 reads it
 (alpha is dropped, grey is repeated over the three channels). Every other
 entry of `IMG_FORMATS`, and any other PNG, raises `NotImplementedError`
 from `image_size`, which the datasets call for every file when they are
 built, so an unreadable file fails there and not in an epoch.
 
-Images are RGB uint8 (h, w, 3). The EXIF orientation that cv2.imread
-applies is not read (the JAX package's own core ignores it too).
+Images are RGB uint8 (h, w, 3). A JPEG's EXIF orientation is applied as
+cv2.imread applies it (`efficientteacher_tpu/data/datasets.py` reads
+every image with cv2.imread on its default route), so `image_size` gives
+the oriented size and `imread` the oriented pixels. Only the prescale
+route (`Dataset.native_loader`, `data/datasets.py`) ignores it, as the JAX
+native core does.
 """
 
 from __future__ import annotations
@@ -60,12 +67,14 @@ def _png_header(path: str, ihdr: bytes):
 
 
 def image_size(path: str):
-    """(w, h) of the image at `path` from its header. Raises
-    NotImplementedError for a format this module does not read, and
-    `native_loader.JpegUnsupported` for JPEG when the core has no libjpeg."""
+    """(w, h) of the image at `path` from its header, EXIF orientation
+    applied. Raises NotImplementedError for a format this module does not
+    read (`native_loader.JpegUnsupported` for a JPEG kind the core's
+    decoder refuses), OSError for a missing or corrupt file."""
     ext = suffix(path)
     if ext in JPEG_SUFFIXES:
-        return nl.jpeg_size(path)
+        w, h, orientation = nl.jpeg_info(path)
+        return nl.oriented_size(w, h, orientation)
     if ext == "png":
         for kind, body in _png_chunks(path):
             if kind == b"IHDR":
@@ -101,14 +110,11 @@ def read_png(path: str) -> np.ndarray:
 
 
 def imread(path: str) -> np.ndarray:
-    """The image at `path` as RGB uint8 (h, w, 3), full resolution."""
+    """The image at `path` as RGB uint8 (h, w, 3), full resolution, as
+    cv2.imread(path)[..., ::-1] reads it."""
     ext = suffix(path)
     if ext in JPEG_SUFFIXES:
-        w, h = nl.jpeg_size(path)
-        out = np.empty((h, w, 3), np.uint8)
-        nl.jpeg_letterbox(path, out, 0, 0, w, h, pad_value=-1,
-                          expect_wh=(w, h))
-        return out
+        return nl.jpeg_decode(path)
     if ext == "png":
         return read_png(path)
     raise NotImplementedError(f"{path}: .{ext} images are not read ({_TODO})")

@@ -12,14 +12,15 @@ Parity with reference val.py:148-465 `val.run`:
 Only the compact (max_det, 6) detections and their `valid` mask cross to
 the host, one batch behind the device (see `run`). The JAX version's `mesh`
 argument is dropped: the port runs on one card; data parallelism comes with
-DDP. Not ported yet, so they raise NotImplementedError: COCO JSON output and
-COCOeval (`save_json`, ROADMAP Queue 1 item 6), keypoint validation
-(`num_points`, `val_kp`, Queue 1 item 7) and the PR-curve plots
-(`plots_dir`, Queue 1 item 6).
+DDP. COCO JSON output and COCOeval (`save_json`, `coco_gt_json`,
+`is_coco`) are as in JAX (`eval/coco.py`). Not ported yet, so they raise
+NotImplementedError: keypoint validation (`num_points`, `val_kp`, ROADMAP
+Q1.10) and the PR-curve plots (`plots_dir`, Q1.8).
 """
 
 from __future__ import annotations
 
+import json
 import logging
 import time
 from typing import Optional, Tuple
@@ -31,6 +32,8 @@ from ..models.detector import SSODModel
 from ..ops.nms import NMSOutput, batched_nms
 from ..parallel.distributed import to_device
 from ..utils.precision import autocast
+from .coco import (coco80_to_coco91_class, coco_image_id,
+                   detections_to_json, run_cocoeval)
 from .metrics import ConfusionMatrix, ap_per_class, process_batch
 
 LOGGER = logging.getLogger(__name__)
@@ -154,7 +157,17 @@ def run(
     works on batch i + 1 (`_host_batch` runs one batch behind); only
     `detections` and `valid` are copied to the host. The time spent
     waiting on the device and the host metrics' time are logged per image
-    ("Speed: ..."), as the JAX version does.
+    ("Speed: ..."), as the JAX version does, and so is the number of
+    detections counted.
+
+    save_json: path for COCO-format predictions, as JAX writes them: the
+    rows are built in the host fold from the native-pixel detections,
+    image_id from the filename stem of `batch["paths"]` (else the
+    dataset index in `batch["indices"]`, else the running count), and,
+    when is_coco, category_id through the 80->91 map; the file is written
+    once at the end. COCOeval runs on it when coco_gt_json is given
+    (pycocotools if present, else the re-scorer of `eval/coco.py`) and
+    its (mAP@0.5, mAP@[.5:.95]) is printed.
 
     `names` (the class names) would label the plots, which are not ported.
     `selection` names the JAX NMS's candidate-selection engine: the port
@@ -164,10 +177,6 @@ def run(
         raise ValueError(f"selection {selection!r}: pallas, exact or approx")
     if selection == "approx":
         LOGGER.info("selection 'approx' runs the exact selection")
-    if save_json is not None or coco_gt_json or is_coco:
-        raise NotImplementedError(
-            "COCO JSON output and COCOeval are not ported yet (ROADMAP, "
-            "Queue 1 item 6: save_json/COCOeval)")
     if num_points or val_kp:
         raise NotImplementedError(
             "keypoint validation is not ported yet (ROADMAP, Queue 1 item 7:"
@@ -179,15 +188,18 @@ def run(
     device = next(model.parameters()).device
     infer = make_infer_fn(model, nc, conf_thres, iou_thres, max_det, max_nms,
                           norm_scale, compute_dtype)
+    class_map = (coco80_to_coco91_class() if is_coco
+                 else list(range(max(nc, 1000))))
     iouv = np.linspace(0.5, 0.95, 10)
     stats = []
+    json_preds = []
     cm = ConfusionMatrix(nc) if confusion else None
     t_infer = 0.0
     t_host = 0.0
     n_images = 0
     shape = None
 
-    def _host_batch(out: NMSOutput, batch, bs, lh, lw):
+    def _host_batch(out: NMSOutput, batch, bs, lh, lw, base_idx):
         """Materialize one batch's device output and fold it into the mAP
         accumulators."""
         nonlocal t_infer, t_host
@@ -222,6 +234,14 @@ def run(
                     det[:, :4], (lh, lw), native_hw, ratio_pad=rp)
             if cm is not None:
                 cm.process_batch(det, lxyxy)
+            if save_json is not None and len(det):
+                paths = batch.get("paths")
+                indices = batch.get("indices")
+                img_id = coco_image_id(
+                    paths[bi] if paths else None,
+                    indices[bi] if indices is not None else base_idx + bi)
+                json_preds.extend(
+                    detections_to_json(det[:, :6], img_id, class_map))
             stats.append((
                 process_batch(det, lxyxy, iouv),
                 det[:, 4] if len(det) else np.zeros(0),
@@ -234,6 +254,7 @@ def run(
     for batch in loader:
         images = batch["images"]
         bs = images.shape[0]
+        base_idx = n_images
         n_images += bs
         shape = shape or images.shape[:3]
         t0 = time.perf_counter()
@@ -241,7 +262,8 @@ def run(
         t_infer += time.perf_counter() - t0  # dispatch, and the NMS's syncs
         if pending is not None:
             _host_batch(*pending)
-        pending = (out, batch, bs, images.shape[1], images.shape[2])
+        pending = (out, batch, bs, images.shape[1], images.shape[2],
+                   base_idx)
     if pending is not None:
         _host_batch(*pending)
 
@@ -251,6 +273,17 @@ def run(
             "metrics per image at shape (%d, %d, %d)",
             t_infer / n_images * 1e3, t_host / n_images * 1e3,
             *shape)
+
+    n_det = sum(len(s[1]) for s in stats)
+    LOGGER.info("Detections: %d over %d images", n_det, n_images)
+    if save_json is not None:
+        with open(save_json, "w") as f:
+            json.dump(json_preds, f)
+        # COCOeval on the saved JSON (reference val.py:427-452); the
+        # vendor-free re-scorer when pycocotools is absent
+        if coco_gt_json:
+            j50, j = run_cocoeval(save_json, coco_gt_json)
+            print(f"COCOeval: mAP@0.5 {j50:.4f}  mAP@[.5:.95] {j:.4f}")
 
     stats = [np.concatenate(x, 0) for x in zip(*stats)]
     if len(stats) and stats[0].any():

@@ -16,10 +16,10 @@ memory into the build log.
 Every C entry returns `cudaGetLastError()` after its launches; `check`
 turns a non-zero code into an exception.
 
-`host_library` builds the loader core the same way (hashed, atomic
-rename) with `c++`, linked to the system libjpeg when its header is
-found; without it the core is built with `-DET_NO_JPEG`, its JPEG entries
-return an error, and `Built.log` says why.
+`host_library` builds the loader core the same way (hashed over
+`loader_core.cpp` and the headers it includes, atomic rename) with `c++`.
+It links nothing but the C++ runtime: the JPEG decoder and writer are the
+core's own (`csrc/jpeg_decode.h`, `csrc/jpeg_encode.h`).
 """
 
 from __future__ import annotations
@@ -108,8 +108,7 @@ def library() -> Built:
 
 
 HOST_FLAGS = ("-O3", "-std=c++17", "-shared", "-fPIC")
-JPEG_HEADER_DIRS = ("/usr/include", "/usr/local/include",
-                    "/usr/include/x86_64-linux-gnu")
+HOST_SOURCES = ("loader_core.cpp", "jpeg_decode.h", "jpeg_encode.h")
 
 
 def _compile(cmd, so: Path, what: str) -> tuple:
@@ -131,12 +130,10 @@ def _compile(cmd, so: Path, what: str) -> tuple:
 @functools.cache
 def host_library() -> Built:
     """Build (if needed) and load `csrc/loader_core.cpp`."""
-    src = CSRC / "loader_core.cpp"
-    jpeg = any((Path(d) / "jpeglib.h").exists() for d in JPEG_HEADER_DIRS)
-    flags = HOST_FLAGS + (() if jpeg else ("-DET_NO_JPEG",))
-    libs = ("-ljpeg",) if jpeg else ()
-    digest = hashlib.sha256(" ".join(flags + libs).encode())
-    digest.update(src.read_bytes())
+    sources = tuple(CSRC / name for name in HOST_SOURCES)
+    digest = hashlib.sha256(" ".join(HOST_FLAGS).encode())
+    for src in sources:
+        digest.update(src.name.encode() + b"\0" + src.read_bytes())
     so = BUILD_DIR / f"libet_loader_{digest.hexdigest()[:16]}.so"
     log_path = so.with_suffix(".log")
     seconds = 0.0
@@ -145,14 +142,11 @@ def host_library() -> Built:
         if cxx is None:
             raise RuntimeError("no host C++ compiler (c++ or g++) on PATH")
         seconds, log = _compile(
-            [cxx, *flags, str(src), *libs, "-o"], so, "c++")
-        note = "" if jpeg else (
-            "jpeglib.h not found in " + ", ".join(JPEG_HEADER_DIRS)
-            + ": built without JPEG support (-DET_NO_JPEG)\n")
-        log_path.write_text(note + log)
+            [cxx, *HOST_FLAGS, str(sources[0]), "-o"], so, "c++")
+        log_path.write_text(log)
     lib = ctypes.CDLL(str(so))
     log = log_path.read_text() if log_path.exists() else ""
-    return Built(lib, so, (src,), seconds, log)
+    return Built(lib, so, sources, seconds, log)
 
 
 def check(code: int, what: str) -> None:

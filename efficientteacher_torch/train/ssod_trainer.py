@@ -77,6 +77,13 @@ class SSODTrainer(Trainer):
                 "extra teachers and the SSOD OTA loss are not ported yet "
                 "(ROADMAP, Queue 1 item 7)")
         super().set_env(cfg)
+        if cfg.Dataset.device_aug and float(cfg.SSOD.ssod_hyp.autoaugment) > 0:
+            # as in JAX, the card's strong view has no AutoAugment
+            LOGGER.warning(
+                "SSOD.ssod_hyp.autoaugment %s is not applied under "
+                "Dataset.device_aug: the strong view on the card has no "
+                "AutoAugment (it comes with the host augmentation, ROADMAP "
+                "Q1.4)", cfg.SSOD.ssod_hyp.autoaugment)
         self.burn_epochs = int(cfg.hyp.burn_epochs)
         self.epoch_adaptor = bool(cfg.SSOD.epoch_adaptor)
         self.cosine_ema = bool(cfg.SSOD.cosine_ema)

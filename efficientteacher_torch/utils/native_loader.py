@@ -1,12 +1,14 @@
 """ctypes binding of the port's host loader core (`csrc/loader_core.cpp`,
 built at first use by `ops/_build.host_library`).
 
-Counterpart of `efficientteacher_tpu/utils/native_loader.py`. Unlike the
-JAX binding it never falls back: a JPEG read on a core built without
-libjpeg raises `JpegUnsupported`, which the datasets raise when they are
-built (`data/image_io.py`). Images are RGB uint8, (h, w, 3), C-contiguous.
-Each call releases the interpreter lock while it runs (ctypes does), so
-loader threads decode in parallel.
+Counterpart of `efficientteacher_tpu/utils/native_loader.py`. The core
+decodes JPEG itself (`csrc/jpeg_decode.h`, no libjpeg), bit-equal to
+cv2.imread on the kinds it reads; a kind it refuses raises
+`JpegUnsupported` from `jpeg_info`, which the datasets call for every file
+when they are built (`data/image_io.py`). Unlike the JAX binding it never
+falls back. Images are RGB uint8, (h, w, 3), C-contiguous. Each call
+releases the interpreter lock while it runs (ctypes does), so loader
+threads decode in parallel.
 """
 
 from __future__ import annotations
@@ -21,24 +23,35 @@ from ..ops._build import host_library
 
 _P, _I, _C = ctypes.c_void_p, ctypes.c_int, ctypes.c_char_p
 _SIGNATURES = {
-    "et_has_jpeg": (),
-    "et_jpeg_size": (_C, _P, _P),
+    "et_jpeg_info": (_C, _P),
+    # path, denom, orient, out, ow, oh
+    "et_jpeg_decode": (_C, _I, _I, _P, _I, _I),
     # path, expect w/h, canvas, ch, cw, top, left, new_w, new_h, pad,
-    # prescale
+    # flags (1 prescale, 2 EXIF orientation)
     "et_jpeg_letterbox": (_C, _I, _I, _P, _I, _I, _I, _I, _I, _I, _I, _I),
     # src, sw, sh, sstride, canvas, ch, cw, top, left, new_w, new_h, pad
     "et_resize_letterbox": (_P, _I, _I, _I, _P, _I, _I, _I, _I, _I, _I, _I),
     "et_png_unfilter": (_P, _I, _I, _I, _P),
     "et_jpeg_write": (_C, _P, _I, _I, _I),
 }
-_ERRORS = {-1: "cannot open the file", -2: "libjpeg cannot decode it",
+_ERRORS = {-1: "cannot open the file",
+           -2: "corrupt or truncated JPEG data",
            -3: "its size differs from the labels cache's",
-           -4: "the loader core was built without libjpeg",
+           -4: "a JPEG kind the loader core refuses",
            -5: "bad sizes", -6: "unknown PNG filter type"}
+# csrc/jpeg_decode.h etjpeg::Kind
+_REFUSED = {1: "arithmetic coding", 2: "a sample precision other than 8 bits",
+            3: "lossless coding", 4: "hierarchical coding",
+            5: "neither 1 nor 3 components (CMYK, YCCK)",
+            6: "sampling other than 4:4:4, 4:2:2 and 4:2:0",
+            7: "progressive scans that leave coefficients unrefined (libjpeg "
+               "would block-smooth them)",
+            8: "RGB colour (not YCbCr)"}
+PRESCALE, ORIENT = 1, 2
 
 
-class JpegUnsupported(RuntimeError):
-    """The core was built without libjpeg (no jpeglib.h on the machine)."""
+class JpegUnsupported(NotImplementedError):
+    """A JPEG of a kind the core's decoder refuses (`_REFUSED`)."""
 
 
 @functools.cache
@@ -51,14 +64,7 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
-def has_jpeg() -> bool:
-    return bool(_lib().et_has_jpeg())
-
-
 def _check(code: int, what: str) -> None:
-    if code == -4:
-        raise JpegUnsupported(
-            f"{what}: {_ERRORS[-4]} ({host_library().log.splitlines()[0]})")
     if code != 0:
         raise OSError(f"{what}: {_ERRORS.get(code, code)}")
 
@@ -70,26 +76,56 @@ def _canvas(canvas: np.ndarray):
     return canvas.ctypes.data, canvas.shape[0], canvas.shape[1]
 
 
-def jpeg_size(path: str):
-    """(w, h) from the JPEG header."""
-    w, h = ctypes.c_int(), ctypes.c_int()
-    _check(_lib().et_jpeg_size(os.fsencode(path), ctypes.byref(w),
-                               ctypes.byref(h)), path)
-    return w.value, h.value
+def jpeg_info(path: str):
+    """(w, h, orientation) from the JPEG's headers: the size as stored and
+    the EXIF orientation (1-8; 1 without a well-formed Exif block). Raises
+    `JpegUnsupported` for a kind the decoder refuses, OSError for a file
+    that is missing or not a JPEG."""
+    info = np.zeros(4, np.int32)
+    code = _lib().et_jpeg_info(os.fsencode(path), info.ctypes.data)
+    if code == -4:
+        raise JpegUnsupported(
+            f"{path}: JPEG with {_REFUSED.get(int(info[3]), info[3])} is not "
+            "read by the loader core (csrc/jpeg_decode.h)")
+    _check(code, path)
+    return int(info[0]), int(info[1]), int(info[2])
+
+
+def oriented_size(w: int, h: int, orientation: int):
+    """(w, h) once the EXIF orientation is applied: 5-8 transpose."""
+    return (h, w) if orientation >= 5 else (w, h)
+
+
+def jpeg_decode(path: str, denom: int = 1, orient: bool = True):
+    """The JPEG at `path` as RGB uint8 (h, w, 3), decoded at scale 1/denom
+    (1, 2, 4, 8: cv2.imread's IMREAD_REDUCED_COLOR_*), with the EXIF
+    orientation applied when `orient` (cv2.imread's default)."""
+    w, h, o = jpeg_info(path)
+    ow, oh = -(-w // denom), -(-h // denom)
+    if orient:
+        ow, oh = oriented_size(ow, oh, o)
+    out = np.empty((oh, ow, 3), np.uint8)
+    _check(_lib().et_jpeg_decode(os.fsencode(path), int(denom), int(orient),
+                                 out.ctypes.data, ow, oh), path)
+    return out
 
 
 def jpeg_letterbox(path: str, canvas: np.ndarray, top: int, left: int,
                    new_w: int, new_h: int, pad_value: int = 114,
-                   expect_wh=(0, 0), prescale: bool = False) -> None:
+                   expect_wh=(0, 0), prescale: bool = False,
+                   orient: bool = True) -> None:
     """Decode `path`, resize it to (new_w, new_h) (cv2 INTER_LINEAR) and
     write it at (top, left) into `canvas`, filled first with `pad_value`
-    (-1: left as it is). `expect_wh` (w, h) is checked against the header.
-    `prescale` allows libjpeg's IDCT downscale (Dataset.native_loader)."""
+    (-1: left as it is). `expect_wh` (w, h) is checked against the
+    oriented size (`image_io.image_size`, the labels cache's). `prescale`
+    allows the IDCT downscale (Dataset.native_loader); `orient` applies the
+    EXIF orientation, as cv2.imread does."""
     ptr, ch, cw = _canvas(canvas)
+    flags = (PRESCALE if prescale else 0) | (ORIENT if orient else 0)
     _check(_lib().et_jpeg_letterbox(
         os.fsencode(path), int(expect_wh[0]), int(expect_wh[1]), ptr, ch, cw,
-        int(top), int(left), int(new_w), int(new_h), int(pad_value),
-        int(prescale)), path)
+        int(top), int(left), int(new_w), int(new_h), int(pad_value), flags),
+        path)
 
 
 def resize_letterbox(src: np.ndarray, canvas: np.ndarray, top: int,
@@ -127,7 +163,8 @@ def png_unfilter(data: bytes, h: int, row_bytes: int, bpp: int) -> np.ndarray:
 
 
 def jpeg_write(path: str, rgb: np.ndarray, quality: int = 90) -> None:
-    """Test-data support: write `rgb` (h, w, 3) uint8 as a JPEG."""
+    """Test-data support: write `rgb` (h, w, 3) uint8 as a baseline JFIF
+    JPEG, 4:2:0, libjpeg's quantisation tables at `quality`."""
     rgb = np.ascontiguousarray(rgb, np.uint8)
     _check(_lib().et_jpeg_write(os.fsencode(path), rgb.ctypes.data,
                                 rgb.shape[1], rgb.shape[0], int(quality)),

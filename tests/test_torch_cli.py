@@ -4,9 +4,11 @@ on disk with `Dataset.device_aug True` (YOLOv5l at width 0.25, 256 px, a
 handful of images), writing results.csv, last.ckpt and best.ckpt; then
 `cli.val` on best.ckpt, last.ckpt, or a copy whose teacher detects (its
 objectness and class biases raised), gives exactly what `validator.run`
-gives on the same weights and loader. Flags whose feature is not ported
+gives on the same weights and loader, and `cli.val --save-json --coco-gt`
+writes the JSON `validator.run` writes. Flags whose feature is not ported
 raise, as do weights from a reference .pt."""
 
+import json
 from pathlib import Path
 
 import numpy as np
@@ -17,7 +19,7 @@ from efficientteacher_torch.cli import train as cli_train
 from efficientteacher_torch.cli import val as cli_val
 from efficientteacher_torch.configs import get_cfg
 from efficientteacher_torch.data.datasets import create_dataloader
-from efficientteacher_torch.eval import validator
+from efficientteacher_torch.eval import coco, validator
 from efficientteacher_torch.models import build_model, spec_from_cfg
 from efficientteacher_torch.utils.checkpoint import (load_checkpoint,
                                                      load_eval_variables,
@@ -107,8 +109,36 @@ def test_cli_val_equals_validator_run(run, capsys, ckpt):
         assert got[1] > 0  # some detections match the labels
 
 
-@pytest.mark.parametrize("flag", [["--save-json", "x.json"],
-                                  ["--plots", "plots"], ["--val-kp"],
+def test_cli_val_save_json_equals_validator_run(run, tmp_path, capsys):
+    """cli.val --save-json --coco-gt writes the JSON validator.run writes
+    on the same weights and loader (exact), and re-scores it."""
+    root, overrides, _ = run
+    weights = root / "runs" / "ssod" / "weights" / "shifted.ckpt"
+    cfg = get_cfg()
+    cfg.merge_from_file(str(MAIN_YAML))
+    cfg.merge_from_list(overrides)
+    loader = create_dataloader(cfg, "val", augment=False, batch_size=2)
+    gt = coco.yolo_labels_to_coco_gt(loader.ds.img_files,
+                                     str(tmp_path / "gt.json"), 80)
+    got = cli_val.main(["--cfg", str(MAIN_YAML), "--weights", str(weights),
+                        "--batch-size", "2", "--save-json",
+                        str(tmp_path / "cli.json"), "--coco-gt", gt,
+                        *overrides])
+    assert "COCOeval: mAP@0.5" in capsys.readouterr().out
+    want = validator.run(_model(overrides, weights), loader, nc=80,
+                         compute_dtype=torch.float32,
+                         save_json=str(tmp_path / "run.json"))[0]
+    assert got == want
+    rows = json.loads((tmp_path / "cli.json").read_text())
+    assert rows == json.loads((tmp_path / "run.json").read_text())
+    assert len(rows) > 0
+    assert {r["image_id"] for r in rows} <= {
+        Path(p).stem for p in loader.ds.img_files}
+    pair = coco.evaluate_predictions_json(str(tmp_path / "cli.json"), gt)
+    assert all(np.isfinite(pair)) and pair[0] > 0
+
+
+@pytest.mark.parametrize("flag", [["--plots", "plots"], ["--val-kp"],
                                   ["--weights", "yolov5l.pt"]])
 def test_cli_val_refuses_what_is_not_ported(run, flag):
     root, overrides, _ = run

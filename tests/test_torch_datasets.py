@@ -290,3 +290,62 @@ def test_missing_and_corrupt_files_are_dropped_as_in_jax(data, tmp_path):
     ref = jax_ds.LoadImagesAndLabels(str(lst), img_size=IMG, nc=8)
     assert port.img_files == ref.img_files == good
     assert os.path.exists(port.cache_path)
+
+
+# (h, w as stored, orientation): 6 and 8 turn the image a quarter, 3 half
+ROTATED = [(72, 96, 6), (60, 90, 3), (96, 64, 1), (150, 200, 6),
+           (96, 96, 3), (50, 80, 8), (96, 72, 6)]
+
+
+@pytest.fixture(scope="module")
+def rotated(tmp_path_factory):
+    """JPEGs carrying an Exif orientation (APP1 spliced in by hand), which
+    cv2.imread applies and the JAX package's loaders therefore see."""
+    from test_torch_jpeg import with_exif_orientation
+
+    root = tmp_path_factory.mktemp("rot")
+    lst = write_dataset(root, [(h, w, "jpg") for h, w, _ in ROTATED],
+                        seed=4, name="rot")
+    for path, (_, _, o) in zip(Path(lst).read_text().split(), ROTATED):
+        Path(path).write_bytes(
+            with_exif_orientation(Path(path).read_bytes(), o))
+    return lst
+
+
+def test_rotated_jpegs_load_as_jax_loads_them(rotated):
+    for p, (h, w, o) in zip(Path(rotated).read_text().split(), ROTATED):
+        assert image_io.image_size(p) == ((h, w) if o >= 5 else (w, h))
+    pc, jc = cfgs(rotated)
+    port = port_ds.create_dataloader(pc, "train", augment=False, seed=3)
+    ref = jax_ds.create_dataloader(jc, "train", augment=False, seed=3)
+    assert_batches_equal(list(port), list(ref),
+                         ["labels", "mask", "shapes", "indices"])
+    pc, jc = cfgs(rotated, **{"Dataset.rect": True})
+    port = port_ds.create_dataloader(pc, "val", augment=False)
+    ref = jax_ds.create_dataloader(jc, "val", augment=False)
+    assert port.batch_shapes == ref.batch_shapes
+    assert_batches_equal(list(port), list(ref),
+                         ["labels", "mask", "shapes", "ratio_pad", "indices",
+                          "paths"])
+
+
+def test_prescale_route_ignores_the_orientation_as_jax_native_does(rotated):
+    """Dataset.native_loader: both packages decode a JPEG as stored (the
+    JAX native core reads no Exif) with the IDCT prescale, and take (h0,
+    w0) from the file while the rect batches come from the labels cache's
+    oriented sizes. Labels, shapes, ratio_pad and image sizes exact;
+    pixels within 1 (JAX's core resizes in float, the port's as cv2)."""
+    pc, jc = cfgs(rotated, **{"Dataset.rect": True,
+                              "Dataset.native_loader": True})
+    port = port_ds.create_dataloader(pc, "val", augment=False)
+    ref = jax_ds.create_dataloader(jc, "val", augment=False)
+    got, want = list(port), list(ref)
+    assert len(got) == len(want) > 0
+    for bp, bj in zip(got, want):
+        for k in ("labels", "mask", "shapes", "ratio_pad", "indices"):
+            np.testing.assert_array_equal(np.asarray(bp[k]),
+                                          np.asarray(bj[k]), err_msg=k)
+        a = np.asarray(bp["images"]).astype(int)
+        b = np.asarray(bj["images"]).astype(int)
+        assert a.shape == b.shape
+        assert np.abs(a - b).max() <= 1

@@ -57,6 +57,7 @@ MODULES = [
     "efficientteacher_torch.ops.augment_device",
     "efficientteacher_torch.utils.native_loader",
     "efficientteacher_torch.eval.metrics",
+    "efficientteacher_torch.eval.coco",
     "efficientteacher_torch.ssod.quality",
     "efficientteacher_torch.parallel.distributed",
     "efficientteacher_torch.utils.callbacks",

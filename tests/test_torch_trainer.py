@@ -29,6 +29,7 @@ in test_torch_trainer_resume.py."""
 
 import copy
 import json
+import logging
 
 import jax
 import jax.numpy as jnp
@@ -282,3 +283,29 @@ def test_ssod_checkpoint_meta_equal(ssod_runs):
                pt.state.semi_ema.module.named_parameters()}
     for k, v in ckpt["ema"]["params"].items():
         assert torch.equal(v, teacher[k]), k
+
+
+@pytest.mark.parametrize("device_aug,autoaugment,warns", [
+    (True, 0.5, True), (True, 0.0, False), (False, 0.5, False)])
+def test_ssod_set_env_warns_that_autoaugment_is_dropped(
+        tmp_path, caplog, device_aug, autoaugment, warns):
+    """Under Dataset.device_aug the strong view has no AutoAugment (as in
+    JAX); set_env says so once, naming the ROADMAP item that brings it."""
+    from efficientteacher_torch.configs import get_cfg as port_get_cfg
+    from efficientteacher_torch.train.ssod_trainer import SSODTrainer
+
+    cfg = port_get_cfg()
+    cfg.project, cfg.name = str(tmp_path), "env"
+    cfg.noautoanchor = True
+    cfg.Dataset.device_aug = device_aug
+    cfg.SSOD.ssod_hyp.autoaugment = autoaugment
+    trainer = SSODTrainer.__new__(SSODTrainer)
+    trainer.device = torch.device("cpu")
+    with caplog.at_level(logging.WARNING,
+                         logger="efficientteacher_torch.train.ssod_trainer"):
+        trainer.set_env(cfg)
+    trainer.checkpointer.wait()
+    found = [r for r in caplog.records if "autoaugment" in r.getMessage()]
+    assert len(found) == (1 if warns else 0)
+    if warns:
+        assert "ROADMAP Q1.4" in found[0].getMessage()

@@ -119,7 +119,6 @@ def test_run_without_detections_or_labels(relu_models):
 
 def test_run_rejects_what_is_not_ported(relu_models):
     _, _, port = relu_models
-    for kw in ({"save_json": "x.json"}, {"num_points": 5},
-               {"plots_dir": "plots"}):
+    for kw in ({"num_points": 5}, {"plots_dir": "plots"}):
         with pytest.raises(NotImplementedError):
             validator.run(port, [], nc=1, **kw)
