@@ -43,7 +43,17 @@ read just after:
     steps against the same step function called bare, the input copy, the
     loop's waits on the loaders, validator.run (device wait and host
     metrics), the save() calls and the steps during a checkpoint write;
-  - cli: `cli.train` on the YAML file for one SSOD epoch, then `cli.val
+  - hostaug: the host augmentation route (`Dataset.device_aug` False,
+    as every shipped YAML is written): the loader core's pixel operations
+    against cv2 5.0.0's digests (tests/pixel_op_cases.py), the labelled
+    and unlabelled host loaders' img/s on the JPEGs at 32@640 for threads
+    at 1, 4 and 8 workers and 8 processes (each epoch held against the
+    single-threaded one) and with `cache ram`, then `SSODTrainer` on the
+    main YAML without the override (1 burn-in + 1 mean-teacher epoch of 8
+    steps, 32 + 32): its step in the loop, the loaders' wait per step and
+    peak memory beside the trainer phase's device_aug route;
+  - cli: `cli.train` on the YAML file as written (the host augmentation)
+    for one SSOD epoch, then `cli.val
     --save-json --coco-gt` on its best.ckpt and on a mid-density copy,
     held equal to validator.run, against a COCO ground-truth file written
     from the val split's label files; the JSON holds exactly the
@@ -1238,7 +1248,7 @@ def smoke_trainer(torch):
     class SmokeTrainer(SSODTrainer):
         def __init__(self, *args, **kw):
             self.log = {"steps": [], "epochs": [], "vals": [], "saves": [],
-                        "waits": []}
+                        "waits": [], "ssod_waits": []}
             self.helped = False
             super().__init__(*args, **kw)
 
@@ -1249,6 +1259,11 @@ def smoke_trainer(torch):
             self.target_loader = TimedLoader(self.target_loader,
                                              self.log["waits"])
             return super().train()
+
+        def _train_ssod_epoch(self):
+            n0 = len(self.log["waits"])
+            super()._train_with_unlabeled()
+            self.log["ssod_waits"] += self.log["waits"][n0:]
 
         def build_step(self):
             super().build_step()
@@ -1306,7 +1321,7 @@ def smoke_trainer(torch):
                 self.val_shift = mid_val_teacher(
                     torch, self.state.semi_ema.module, calib.to(self.device))
             self.helped = True
-            super()._train_with_unlabeled()
+            self._train_ssod_epoch()
 
         def train_in_epoch(self):
             torch.cuda.synchronize()
@@ -1454,10 +1469,8 @@ def bare_trainer_steps(torch, trainer, pairs=3):
 
 
 def data_overrides(lists):
-    """The smoke dataset's splits and the device augmentation, as
-    overrides of the main config."""
-    return ["Dataset.device_aug", True,
-            "Dataset.train", str(lists["labelled"]),
+    """The smoke dataset's splits, as overrides of the main config."""
+    return ["Dataset.train", str(lists["labelled"]),
             "Dataset.target", str(lists["unlabelled"]),
             "Dataset.val", str(lists["val"])]
 
@@ -1468,7 +1481,7 @@ def trainer_phase(torch, dev, card, bare, lists):
     burn-in, seeding, two mean-teacher epochs with epoch-end validation
     and last/best checkpoints, then resume for one more epoch. Checks and
     prints its numbers beside the bare step's (`bare`, img/s); returns the
-    kernels-line entries of this path."""
+    kernels-line entries of this path and its `route_numbers`."""
     import gc
     import tempfile
 
@@ -1487,7 +1500,7 @@ def trainer_phase(torch, dev, card, bare, lists):
         cls = smoke_trainer(torch)
         cfg = ssod_cfg("epochs", T_EPOCHS, "hyp.burn_epochs", T_BURN,
                        "project", tmp, "name", "ssod",
-                       *data_overrides(lists))
+                       "Dataset.device_aug", True, *data_overrides(lists))
         trainer = cls(cfg, device=dev)
         require(trainer.accumulate == max(round(64 / T_BATCH), 1)
                 and trainer.batch_size == T_BATCH and trainer.device_aug
@@ -1531,7 +1544,7 @@ def trainer_phase(torch, dev, card, bare, lists):
         cfg2 = ssod_cfg("epochs", T_EPOCHS + 1, "hyp.burn_epochs", T_BURN,
                         "project", tmp, "name", "resumed", "resume", True,
                         "weights", str(weights / "last.ckpt"),
-                        *data_overrides(lists))
+                        "Dataset.device_aug", True, *data_overrides(lists))
         resumed = cls(cfg2, device=dev)
         st, was = resumed.state, trainer.state
         require(resumed.start_epoch == T_EPOCHS
@@ -1632,6 +1645,7 @@ def trainer_phase(torch, dev, card, bare, lists):
           f"memory, non-blocking): {own['copy_host']:.1f} ms of host "
           f"calls, {own['copy_done']:.1f} ms until on the card | {card}")
     waits = sorted(log["waits"])
+    route = route_numbers(log, med["ssod"], peak)
     print(f"[time] trainer: the loop waits on the loaders' next() "
           f"(labelled and unlabelled, {len(waits)} batches): median "
           f"{statistics.median(waits):.2f} ms, p90 "
@@ -1709,13 +1723,232 @@ def trainer_phase(torch, dev, card, bare, lists):
             "path": "trainer: epoch-end val",
             "shape": list((k1_val[0] if name == "greedy_nms_keep"
                            else flat).shape[:2])})
-    return entries
+    return entries, route
+
+
+def route_numbers(log, ssod_ms, peak):
+    """A trainer run's SSOD step in the loop (ms), the waits of its SSOD
+    steps on the two loaders (ms per step: median, p90, max, and the sum
+    over all its SSOD steps), its SSOD epochs' img/s and its peak memory
+    (GiB), for the [hostaug] comparison of the two routes."""
+    ssod = [r for r in log["steps"] if r["kind"] == "ssod"]
+    per_step = sorted(a + b for a, b in zip(*[iter(log["ssod_waits"])] * 2))
+    epochs = [2 * r["steps"] * T_BATCH / r["ms"] * 1e3
+              for r in log["epochs"] if r["kind"] == "ssod"]
+    return {"ssod_ms": ssod_ms, "steps": len(ssod),
+            "wait_med": statistics.median(per_step),
+            "wait_p90": per_step[int(0.9 * (len(per_step) - 1))],
+            "wait_max": per_step[-1], "wait_sum": sum(per_step),
+            "epoch_img_s": epochs, "peak_gib": peak / 2**30}
+
+
+# [hostaug]: the host augmentation route (Dataset.device_aug False, every
+# shipped YAML). The loader rates run on the JPEGs of the labelled and
+# unlabelled splits at T_BATCH@IMG, each engine's epoch held against the
+# single-threaded one (a batch draws from random.Random(f"{seed}/{epoch}/
+# {batch}") whatever builds it); the trainer run is 1 burn-in + 1
+# mean-teacher epoch of T_STEPS steps at T_BATCH + T_BATCH.
+HOST_ENGINES = [("thread", 1), ("thread", 4), ("thread", 8), ("process", 8)]
+
+
+def pixel_op_digests(torch):
+    """The loader core's pixel operations against cv2 5.0.0's digests
+    (tests/pixel_op_cases.py, recorded where that cv2 is the oracle); also
+    prints which cv2 this machine has, if any (not the oracle here)."""
+    from efficientteacher_torch.utils import native_loader as nl
+
+    sys.path.insert(0, str(Path(__file__).resolve().parent / "tests"))
+    import pixel_op_cases
+
+    t0 = time.perf_counter()
+    bad = pixel_op_cases.check_core(nl)
+    dt = time.perf_counter() - t0
+    require(not bad, f"pixel ops differ from cv2's digests: {bad}")
+    probe = subprocess.run(
+        [sys.executable, "-c", "import cv2; print(cv2.__version__)"],
+        capture_output=True, text=True, timeout=120)
+    here = (f"cv2 {probe.stdout.strip()}" if probe.returncode == 0
+            else "no cv2")
+    names = [c[0] for c in pixel_op_cases.cases()]
+    print(f"[hostaug] loader core pixel ops == cv2 5.0.0's digests on "
+          f"{len(names)} cases ({', '.join(names)}) in {dt * 1e3:.1f} ms; "
+          f"this machine has {here} (not the oracle)")
+
+
+def host_loader_rates(torch, make, name, card):
+    """img/s of one epoch of `make(workers, mode)` (epoch 0, seed 0) per
+    engine of HOST_ENGINES, each epoch's batches held against the first
+    engine's (one thread)."""
+    rates, ref = {}, None
+    for mode, w in HOST_ENGINES:
+        loader = make(w, mode)
+        t0 = time.perf_counter()
+        got = list(loader)
+        rates[(mode, w)] = (sum(b["images"].shape[0] for b in got)
+                            / (time.perf_counter() - t0))
+        if ref is None:
+            ref = got
+            continue
+        for bi, (a, b) in enumerate(zip(got, ref, strict=True)):
+            for k in ("images", "images_ori"):
+                require(k not in b or torch.equal(a[k], b[k]),
+                        f"{name} {mode} x {w}: batch {bi} {k} differs from "
+                        f"the single-threaded epoch's")
+            require((a["labels"] == b["labels"]).all()
+                    and (a["mask"] == b["mask"]).all(),
+                    f"{name} {mode} x {w}: batch {bi} labels differ")
+    return rates
+
+
+def hostaug_phase(torch, dev, card, lists, dev_aug):
+    """The host augmentation route: the core's pixel ops against cv2's
+    digests, the host loaders' img/s per engine and with `cache ram`,
+    and SSODTrainer on the main YAML without the device_aug override
+    (its step in the loop, the loaders' waits, peak memory) beside the
+    trainer phase's device_aug route (`dev_aug`, its route_numbers)."""
+    import gc
+    import tempfile
+
+    from efficientteacher_torch.data.datasets import (BatchLoader,
+                                                      LoadImagesAndLabels)
+    from efficientteacher_torch.data.datasets_ssod import (
+        LoadImagesAndFakeLabels, SSODBatchLoader)
+    from efficientteacher_torch.ops.nms_cuda import greedy_nms_keep_cuda
+    from efficientteacher_torch.ops.select_cuda import (count_ge_cuda,
+                                                        threshold_compact_cuda)
+
+    pixel_op_digests(torch)
+    cfg = ssod_cfg()
+    hyp = {k: cfg.hyp[k] for k in cfg.hyp}
+    ssod_hyp = {k: cfg.SSOD.ssod_hyp[k] for k in cfg.SSOD.ssod_hyp}
+    jpgs = {}
+    for split in ("labelled", "unlabelled"):
+        lst = Path(lists[split]).parent / f"only_jpg_{split}.txt"
+        lst.write_text("".join(f"{p}\n" for p in
+                               Path(lists[split]).read_text().split()
+                               if p.endswith("jpg")))
+        jpgs[split] = str(lst)
+
+    def labelled(cache=False):
+        return LoadImagesAndLabels(jpgs["labelled"], img_size=IMG, hyp=hyp,
+                                   augment=True, nc=NC, cache_images=cache)
+
+    def unlabelled():
+        return LoadImagesAndFakeLabels(jpgs["unlabelled"], img_size=IMG,
+                                       hyp=ssod_hyp, augment=True, nc=NC)
+
+    routes = {
+        "labelled (mosaic, affine, HSV, flips)": lambda ds, w, m: BatchLoader(
+            ds, T_BATCH, workers=w, mode=m, pin_memory=True),
+        "unlabelled (mosaic pair, strong view with HSV and cutout, M_s)":
+            lambda ds, w, m: SSODBatchLoader(ds, T_BATCH, workers=w, mode=m,
+                                             pin_memory=True)}
+    for (name, loader), make_ds in zip(routes.items(),
+                                       (labelled, unlabelled)):
+        ds = make_ds()
+        rates = host_loader_rates(
+            torch, lambda w, m, ds=ds, loader=loader: loader(ds, w, m),
+            name, card)
+        print(f"[hostaug] {name}: {len(ds)} JPEGs at {T_BATCH}@{IMG} into "
+              f"pinned memory, img/s by engine x workers: " + ", ".join(
+                  f"{m} {w} {r:.1f}" for (m, w), r in rates.items())
+              + f"; every engine's epoch == the single-threaded one; the "
+              f"loop takes ~276 img/s | {card}")
+    cached = labelled(cache=True)
+    fill = list(routes)[0]
+    t0 = time.perf_counter()
+    first = list(routes[fill](cached, 8, "thread"))
+    t_fill = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    again = list(routes[fill](cached, 8, "thread"))
+    t_warm = time.perf_counter() - t0
+    n = sum(b["images"].shape[0] for b in again)
+    require(len(cached._img_cache) == len(cached), "cache ram: not filled")
+    require(all(torch.equal(a["images"], b["images"])
+                for a, b in zip(first, again)), "cache ram: epochs differ")
+    print(f"[hostaug] labelled with cache ram, 8 threads: {n / t_warm:.1f} "
+          f"img/s from the cache ({n / t_fill:.1f} img/s on the pass that "
+          f"fills it) | {card}")
+    del first, again, cached
+    gc.collect()
+
+    # the trainer on the main YAML as written (no Dataset.device_aug)
+    wrappers = {"greedy_nms_keep": greedy_nms_keep_cuda,
+                "threshold_compact": threshold_compact_cuda,
+                "count_ge": count_ge_cuda}
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        cls = smoke_trainer(torch)
+        cfg = ssod_cfg("epochs", T_BURN + 1, "hyp.burn_epochs", T_BURN,
+                       "project", tmp, "name", "host", *data_overrides(lists))
+        t0 = time.perf_counter()
+        trainer = cls(cfg, device=dev)
+        require(not trainer.device_aug and trainer.dataset.augment
+                and trainer.target_loader.ds.augment
+                and trainer.nb == T_STEPS, "host route: the loaders do not "
+                "augment on the host")
+        t_setup = time.perf_counter() - t0
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        for fn in wrappers.values():
+            fn.launches = 0
+        t0 = time.perf_counter()
+        trainer.train()
+        t_train = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
+        launches = {n: w.launches for n, w in wrappers.items()}
+        log = trainer.log
+        rows = trainer.results_csv.read_text().splitlines()[1:]
+    ssod = [r for r in log["steps"] if r["kind"] == "ssod"]
+    for r in log["steps"]:
+        require(all(v == v and abs(v) != float("inf")
+                    for v in r["losses"].values()),
+                f"host route epoch {r['epoch']} {r['kind']}: losses "
+                f"{r['losses']}")
+    require(len(rows) == T_BURN + 1 and len(ssod) == T_STEPS
+            and all(r["k1"] == 1 for r in ssod)
+            and launches["greedy_nms_keep"] >= len(ssod) + T_VAL
+            and launches["threshold_compact"] >= 1,
+            f"host route: {len(rows)} epochs, {len(ssod)} SSOD steps, "
+            f"launches {launches}")
+    warm = [r["ms"] for r in ssod[2:] if not r["in_flight"]]
+    host = route_numbers(log, statistics.median(warm), peak)
+    for r in log["epochs"]:
+        imgs = r["steps"] * T_BATCH * (2 if r["kind"] == "ssod" else 1)
+        print(f"[hostaug] trainer epoch {r['epoch']} {r['kind']}: "
+              f"{r['steps']} steps in {r['ms']:.1f} ms, "
+              f"{imgs / r['ms'] * 1e3:.1f} img/s; step ms "
+              + ", ".join(f"{x['ms']:.1f}" for x in log["steps"]
+                          if x["epoch"] == r["epoch"]) + f" | {card}")
+    print(f"[hostaug] main YAML as written (host augmentation, AutoAugment "
+          f"drawn but not fired: with_gt False), {T_BATCH} + {T_BATCH}: "
+          f"SSOD step {host['ssod_ms']:.1f} ms in the loop (median of "
+          f"{len(warm)} after 2), loaders' wait per SSOD step median "
+          f"{host['wait_med']:.1f} ms, p90 {host['wait_p90']:.1f}, max "
+          f"{host['wait_max']:.1f}, {host['wait_sum']:.0f} ms over the "
+          f"{host['steps']} steps (the loaders build up to 16 batches "
+          f"ahead: an epoch of {T_STEPS} waits once); SSOD epoch "
+          f"{', '.join(f'{r:.1f}' for r in host['epoch_img_s'])} img/s; "
+          f"peak memory {host['peak_gib']:.2f} GiB "
+          f"({(peak - base) / 2**30:.2f} above the live "
+          f"{base / 2**30:.2f}); launches {launches}; set-up {t_setup:.1f} "
+          f"s, train {t_train:.1f} s | {card}")
+    print(f"[hostaug] the trainer phase's device_aug route in this run: "
+          f"SSOD step {dev_aug['ssod_ms']:.1f} ms in the loop, wait per SSOD "
+          f"step median {dev_aug['wait_med']:.1f} ms, p90 "
+          f"{dev_aug['wait_p90']:.1f}, max {dev_aug['wait_max']:.1f}, "
+          f"{dev_aug['wait_sum']:.0f} ms over its {dev_aug['steps']} SSOD "
+          f"steps; SSOD epochs "
+          f"{', '.join(f'{r:.1f}' for r in dev_aug['epoch_img_s'])} img/s "
+          f"(the first with the teacher helper and cuDNN's search); peak "
+          f"memory {dev_aug['peak_gib']:.2f} GiB | {card}")
 
 
 def cli_leg(torch, dev, card, lists):
     """The CLIs on the main YAML file itself (read without PyYAML) and the
     smoke dataset: `cli.train` trains one SSOD epoch (the teacher seeded
-    at its start) with device augmentation; `cli.val` scores the best.ckpt
+    at its start) as the YAML is written (the host augmentation);
+    `cli.val` scores the best.ckpt
     it wrote, and a copy of it given the serving phase's mid density at
     the eval gate (`mid_val_teacher` on val images: a one-epoch teacher
     detects nothing at conf 0.001, so P/R/mAP would be 0 on both sides),
@@ -1842,7 +2075,7 @@ def cli_leg(torch, dev, card, lists):
             f"cli.val at the mid density launched {scores['mid'][3]}")
     print(f"[cli] python -m efficientteacher_torch.cli.train --cfg "
           f"{MAIN_YAML.relative_to(MAIN_YAML.parents[3])} epochs 1 "
-          f"hyp.burn_epochs 0 Dataset.device_aug True (+ the smoke "
+          f"hyp.burn_epochs 0 (+ the smoke "
           f"dataset): one SSOD epoch of {T_STEPS} steps, results.csv, "
           f"last.ckpt, best.ckpt in {t_train:.1f} s (best fitness "
           f"{best:.4f}) | {card}")
@@ -2054,7 +2287,9 @@ def main() -> int:
         lists = write_dataset(torch)
         data_phase(torch, lists, card)
         aug_phase(torch, dev, lists, card)
-        kernels += trainer_phase(torch, dev, card, bare, lists)
+        entries, dev_aug = trainer_phase(torch, dev, card, bare, lists)
+        kernels += entries
+        hostaug_phase(torch, dev, card, lists, dev_aug)
         cli_leg(torch, dev, card, lists)
     finally:
         shutil.rmtree(DATA_DIR, ignore_errors=True)

@@ -1,16 +1,14 @@
 """Training CLI (counterpart of the root `train.py`; reference
 train.py:31-84).
 
-    python -m efficientteacher_torch.cli.train --cfg <yaml> \
-        Dataset.device_aug True [key value ...]
+    python -m efficientteacher_torch.cli.train --cfg <yaml> [key value ...]
 
 Reads the YAML without PyYAML (`configs/yaml_lite.py`), applies the dotted
 overrides (strings parsed as YAML), and runs `SSODTrainer` when
 `SSOD.train_domain` is set, else `Trainer`. It trains on the CUDA card
-unless the override `device cpu` is given. The port augments on the card
-only: a config without `Dataset.device_aug True` asks for the host
-augmentation pipeline, which raises (ROADMAP, "Next, in order" item 2.7).
-Returns the best fitness.
+unless the override `device cpu` is given. A YAML trains as it is
+written: the host augments (`Dataset.device_aug False`, the default), or
+the card does under `Dataset.device_aug True`. Returns the best fitness.
 """
 
 from __future__ import annotations

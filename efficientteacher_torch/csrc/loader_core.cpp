@@ -1,5 +1,7 @@
 // Host data-loader core of the PyTorch port: JPEG decode and the bilinear
-// letterbox, PNG row unfiltering, and a JPEG writer for test data. Plain C
+// letterbox, PNG row unfiltering, the host augmentation's pixel operations
+// (pixel_ops.h: cv2's warpAffine / warpPerspective, HSV, grey and 3x3
+// filter), and a JPEG writer for test data. Plain C
 // ABI, built with the host compiler (no CUDA, no libjpeg) by
 // ops/_build.host_library and bound with ctypes by utils/native_loader.py.
 //
@@ -33,6 +35,7 @@
 
 #include "jpeg_decode.h"
 #include "jpeg_encode.h"
+#include "pixel_ops.h"
 
 namespace {
 
@@ -390,6 +393,69 @@ int et_png_unfilter(const uint8_t* data, int h, int row_bytes, int bpp,
       o[i] = static_cast<uint8_t>(v & 0xff);
     }
   }
+  return kOk;
+}
+
+// cv2.warpAffine (flags 1: warpPerspective) of src (sh, sw, 3), rows
+// `sstride` bytes apart, into dst (dh, dw, 3), packed: INTER_LINEAR, the
+// constant border `border` (grey), `m` the forward map, 2x3 (3x3 for the
+// perspective) row-major doubles, inverted as cv2 inverts it.
+int et_warp(const uint8_t* src, int sw, int sh, int sstride, uint8_t* dst,
+            int dw, int dh, const double* m, int border, int flags) {
+  if (sw <= 0 || sh <= 0 || sstride < sw * 3 || dw <= 0 || dh <= 0 ||
+      border < 0 || border > 255) {
+    return kErrArgs;
+  }
+  const bool persp = (flags & 1) != 0;
+  double inv[9];
+  if (persp) {
+    if (!etpix::invert3(m, inv)) std::memset(inv, 0, sizeof(inv));
+  } else {
+    etpix::invert_affine(m, inv);
+  }
+  float mf[9];
+  for (int i = 0; i < 9; ++i) mf[i] = static_cast<float>(inv[i]);
+  const uint8_t bval[3] = {static_cast<uint8_t>(border),
+                           static_cast<uint8_t>(border),
+                           static_cast<uint8_t>(border)};
+  etpix::warp_linear(src, sw, sh, static_cast<size_t>(sstride), dst, dw, dh,
+                     static_cast<size_t>(dw) * 3, mf, persp, bval);
+  return kOk;
+}
+
+// augment_hsv in place on img (h, w, 3), rows `stride` bytes apart: each
+// pixel through cv2's BGR2HSV, the LUTs (256 entries each) and HSV2BGR.
+// `blue` is the channel of blue (0 BGR, 2 RGB).
+int et_augment_hsv(uint8_t* img, int h, int w, int stride,
+                   const uint8_t* lut_h, const uint8_t* lut_s,
+                   const uint8_t* lut_v, int blue) {
+  if (h <= 0 || w <= 0 || stride < w * 3 || (blue != 0 && blue != 2)) {
+    return kErrArgs;
+  }
+  etpix::augment_hsv(img, h, w, static_cast<size_t>(stride), lut_h, lut_s,
+                     lut_v, blue);
+  return kOk;
+}
+
+// cv2 BGR2GRAY of img (h, w, 3) into out (h, w).
+int et_gray(const uint8_t* img, int h, int w, int stride, uint8_t* out,
+            int blue) {
+  if (h <= 0 || w <= 0 || stride < w * 3 || (blue != 0 && blue != 2)) {
+    return kErrArgs;
+  }
+  etpix::bgr2gray(img, h, w, static_cast<size_t>(stride), out, blue);
+  return kOk;
+}
+
+// cv2.filter2D(img, -1, k / div) of img (h, w, 3) into out (h, w, 3),
+// packed: `k` 9 integers, `div` odd and positive.
+int et_filter3x3(const uint8_t* img, int h, int w, int stride, const int* k,
+                 int div, uint8_t* out) {
+  if (h <= 0 || w <= 0 || stride < w * 3 || div <= 0 || div % 2 == 0) {
+    return kErrArgs;
+  }
+  etpix::filter3x3(img, h, w, static_cast<size_t>(stride), k, div, out,
+                   static_cast<size_t>(w) * 3);
   return kOk;
 }
 

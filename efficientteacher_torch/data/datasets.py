@@ -10,10 +10,22 @@ Parity with the JAX module (and through it reference utils/datasets.py):
   - `__getitem__` with augment=False: the image resized so its longer side
     is img_size (INTER_LINEAR), letterboxed into the square canvas, labels
     packed to max_targets with a mask
+  - `__getitem__` with augment=True: mosaic-4 / mosaic-9 (+ mixup,
+    copy_paste) or the letterbox (scaleup), then random_perspective, HSV
+    and the flips (`data/augment.py`), with the JAX draws in their order
   - `BatchLoader` (samplers normal / class_balance / dir_balance, an
     epoch's order from `random.Random(seed + epoch)`, as in JAX, so both
     packages yield the same batches), `RectBatchLoader` (aspect-ratio
-    buckets with ratio_pad), `create_dataloader`
+    buckets with ratio_pad), `QuadBatchLoader` (Dataset.quad),
+    `create_dataloader`
+
+Draws: every batch of a `BatchLoader` draws from its own generator,
+`random.Random(f"{seed}/{epoch}/{batch}")`, handed to the batch build by
+both engines, so a batch is a function of (seed, epoch, batch) alone.
+That is the JAX process engine's per-batch reseed (JAX datasets.py:
+582-590); JAX's thread engine shares one generator among its workers, so
+parity is held against its process engine. `ds[i]` and `QuadBatchLoader`
+draw from the dataset's own `random.Random(seed)`, as in JAX.
 
 Images decode through `data/image_io.py` (JPEG through the loader core's
 own decoder, EXIF orientation applied as cv2.imread applies it; PNG
@@ -26,10 +38,9 @@ headers (JAX decodes each image to take its size); a file that cannot be
 read is dropped, as in JAX, and a format the port does not read raises
 when the dataset is built.
 
-Not ported (ROADMAP, "Next, in order" items 2.7, 2.8): augment=True
-(the host mosaic / perspective / HSV / flip pipeline: under
-`Dataset.device_aug` it runs on the card instead) and `QuadBatchLoader`.
-Keypoint and id columns are carried as in JAX.
+Albumentations is off: the JAX dataset applies it only when the package
+imports, and the card's machine has none (ROADMAP Q1.12). Keypoint and id
+columns are carried as in JAX.
 """
 
 from __future__ import annotations
@@ -43,18 +54,16 @@ from pathlib import Path
 from typing import Dict, Iterator, List, Optional, Tuple
 
 import numpy as np
+import torch
 
 from ..utils import native_loader as nl
 from . import image_io
-from .augment import letterbox
+from .augment import (augment_hsv, copy_paste, hflip_labels, letterbox,
+                      mixup, mosaic4, mosaic9, random_perspective,
+                      vflip_labels)
 from .image_io import IMG_FORMATS
 
 CACHE_VERSION = "torch-1.0"
-HOST_AUG_TODO = ("the host augmentation pipeline (augment=True: mosaic, "
-                 "random_perspective, HSV, flips, mixup, copy_paste, "
-                 "AutoAugment) is not ported (ROADMAP, \"Next, in order\" "
-                 "item 2.7); set Dataset.device_aug True to augment on the "
-                 "card")
 
 
 def img2label_path(img_path: str) -> str:
@@ -162,34 +171,40 @@ def verify_image_label(img_file: str, label_file: Optional[str], nc: int,
 
 
 class LoadImagesAndLabels:
-    """YOLO-format dataset: letterboxed images and padded labels
-    (augment=False only; see the module docstring)."""
+    """YOLO-format dataset: letterboxed or augmented images and padded
+    labels (see the module docstring)."""
 
     def __init__(
         self,
         path: str,
         img_size: int = 640,
+        hyp: Optional[Dict] = None,
         augment: bool = False,
         nc: int = 80,
         max_targets: int = 120,
         single_cls: bool = False,
         cache_dir: Optional[str] = None,
+        seed: int = 0,
         cache_images: bool = False,
         num_keypoints: int = 0,
         cache_dir_images: Optional[str] = None,
+        mosaic9_prob: float = 0.0,
         num_ids: int = 0,
         pseudo_ids: bool = False,
         native_loader: bool = False,
     ):
-        if augment:
-            raise NotImplementedError(HOST_AUG_TODO)
         self.num_keypoints = num_keypoints
         self.img_size = img_size
+        self.hyp = dict(hyp or {})
+        self.augment = augment
         self.nc = nc
         self.max_targets = max_targets
         self.single_cls = single_cls
-        # read by the trainers' before_epoch, which closes the mosaic
-        self.mosaic = False
+        # the trainers' before_epoch closes it for the last no_aug_epochs
+        self.mosaic = augment and self.hyp.get("mosaic", 0) > 0
+        self.mosaic9_prob = mosaic9_prob
+        # the draws of `ds[i]` (the loaders hand each batch its own)
+        self.rng = random.Random(seed)
         self.cache_images = cache_images
         # the IDCT prescale (the JAX native loader's opt-in, orientation
         # ignored as there): off, every JPEG decodes at full resolution
@@ -386,9 +401,78 @@ class LoadImagesAndLabels:
                     out[:, id_col] = -1.0
         return out
 
-    def load_item_into(self, index: int, canvas: np.ndarray):
+    # -- the host augmentation (augment=True) ------------------------------
+    def _perspective(self, img, targets, rng, border=(0, 0)):
+        hyp = self.hyp
+        return random_perspective(
+            img, targets, degrees=hyp.get("degrees", 0.0),
+            translate=hyp.get("translate", 0.1),
+            scale=hyp.get("scale", 0.5), shear=hyp.get("shear", 0.0),
+            perspective=hyp.get("perspective", 0.0), border=border, rng=rng)
+
+    def _load_mosaic(self, index: int, rng: random.Random):
+        s = self.img_size
+        use9 = self.mosaic9_prob > 0 and rng.random() < self.mosaic9_prob
+        n_extra = 8 if use9 else 3
+        idxs = [index] + [rng.randrange(len(self)) for _ in range(n_extra)]
+        imgs, lbs = [], []
+        for i in idxs:
+            img, _, (h, w) = self.load_image(i)
+            imgs.append(img)
+            lbs.append(self._labels_xyxy_pixels(i, w, h, 0, 0))
+        compose = mosaic9 if use9 else mosaic4
+        canvas, merged = compose(imgs, lbs, s, rng)
+        cp = self.hyp.get("copy_paste", 0.0)
+        if cp > 0 and len(merged):
+            canvas, merged = copy_paste(canvas, merged, cp, rng)
+        return self._perspective(canvas, merged, rng, (-s // 2, -s // 2))
+
+    def _load_plain(self, index: int, rng: random.Random):
+        img, _, (h, w) = self.load_image(index)
+        img, ratio, pad = letterbox(img, self.img_size, auto=False,
+                                    scaleup=True)
+        targets = self._labels_xyxy_pixels(
+            index, ratio[0] * w, ratio[1] * h, pad[0], pad[1])
+        return self._perspective(img, targets, rng)
+
+    def augmented_item(self, index: int, rng: random.Random):
+        """JAX `__getitem__` under augment=True, drawing from `rng`: (img
+        RGB (S, S, 3), targets (N, 5+) pixel xyxy, shapes (h0, w0) or None
+        for a mosaic)."""
+        hyp = self.hyp
+        if self.mosaic and rng.random() < hyp.get("mosaic", 0):
+            img, targets = self._load_mosaic(index, rng)
+            if rng.random() < hyp.get("mixup", 0):
+                img2, targets2 = self._load_mosaic(rng.randrange(len(self)),
+                                                   rng)
+                img, targets = mixup(img, targets, img2, targets2, rng)
+            shapes = None
+        else:
+            img, targets = self._load_plain(index, rng)
+            w0, h0 = self.shapes[index]
+            shapes = (h0, w0)
+        augment_hsv(img, hyp.get("hsv_h", 0), hyp.get("hsv_s", 0),
+                    hyp.get("hsv_v", 0), rng)
+        if rng.random() < hyp.get("flipud", 0):
+            img = np.flipud(img)
+            targets = vflip_labels(targets, img.shape[0])
+        if rng.random() < hyp.get("fliplr", 0):
+            img = np.fliplr(img)
+            targets = hflip_labels(targets, img.shape[1])
+        return img, targets, shapes
+
+    def load_item_into(self, index: int, canvas: np.ndarray,
+                       rng: Optional[random.Random] = None):
         """`__getitem__` with the image written into `canvas`: returns
-        (labels, mask, shapes)."""
+        (labels, mask, shapes). The augmentation draws from `rng` (default:
+        the dataset's own)."""
+        if self.augment:
+            img, targets, shapes = self.augmented_item(index,
+                                                       rng or self.rng)
+            canvas[...] = img
+            labels, mask = self.pack_labels(targets, img.shape[1],
+                                            img.shape[0])
+            return labels, mask, shapes
         (dw, dh), (h, w) = self.letterbox_into(index, canvas)
         # ratio (1.0, 1.0): the square letterbox never rescales here
         targets = self._labels_xyxy_pixels(index, 1.0 * w, 1.0 * h, dw, dh)
@@ -534,10 +618,12 @@ class BatchLoader:
             batches = [b for b in batches if len(b) == self.bs]
         return batches
 
-    def _build_batch(self, bidx, images: np.ndarray) -> Dict:
-        """The batch of `bidx`, its images written into `images`; the
-        image field is left for the engine to fill in."""
-        items = [self.ds.load_item_into(i, images[j])
+    def _build_batch(self, bidx, images: np.ndarray,
+                     rng: random.Random) -> Dict:
+        """The batch of `bidx`, its images written into `images`, its
+        draws from `rng`; the image field is left for the engine to fill
+        in."""
+        items = [self.ds.load_item_into(i, images[j], rng)
                  for j, i in enumerate(bidx)]
         return {
             "labels": np.stack([it[0] for it in items]),
@@ -556,14 +642,22 @@ class BatchLoader:
 
         return self.mode == "process" and _FORK_OK
 
+    def _build_task(self, task, images: np.ndarray) -> Dict:
+        """Build one task of `__iter__`: (the batch's seed, its batch)."""
+        seed, batch = task
+        return self._build_batch(batch, images, random.Random(seed))
+
     def __iter__(self) -> Iterator[Dict]:
         from .parallel_loader import (iter_batches_processes,
                                       iter_batches_threads)
 
-        batches = self._batches()
+        # the JAX process engine's per-batch seed (JAX BatchLoader._reseed)
+        tasks = [(f"{self.seed}/{self.epoch}/{seq}", b)
+                 for seq, b in enumerate(self._batches())]
         engine = (iter_batches_processes if self._use_processes()
                   else iter_batches_threads)
-        yield from engine(self._build_batch, batches, self._image_shape,
+        yield from engine(self._build_task, tasks,
+                          lambda task: self._image_shape(task[1]),
                           self.workers, self.prefetch,
                           pin_memory=self.pin_memory)
         self.epoch += 1
@@ -573,18 +667,20 @@ def create_dataloader(cfg, split: str = "train",
                       augment: Optional[bool] = None,
                       batch_size: Optional[int] = None, seed: int = 0,
                       pin_memory: bool = False):
-    """Factory mirroring reference create_dataloader (datasets.py:320-363).
-    augment=True (the host augmentation) raises: see HOST_AUG_TODO."""
+    """Factory mirroring reference create_dataloader (datasets.py:320-363):
+    the dataset augments when `augment` (default: the train split) and
+    `hyp.use_aug`."""
     path = getattr(cfg.Dataset, split)
     augment = (split == "train") if augment is None else augment
-    if augment and cfg.hyp.use_aug:
-        raise NotImplementedError(HOST_AUG_TODO)
     ds = LoadImagesAndLabels(
         path,
         img_size=cfg.Dataset.img_size,
+        hyp={k: cfg.hyp[k] for k in cfg.hyp},
+        augment=augment and cfg.hyp.use_aug,
         nc=cfg.Dataset.nc,
         max_targets=cfg.Dataset.max_targets,
         single_cls=cfg.single_cls,
+        seed=seed,
         cache_images=cfg.cache is True or cfg.cache == "ram",
         cache_dir_images=(
             str(Path(path).parent / ".img_cache_torch")
@@ -600,9 +696,10 @@ def create_dataloader(cfg, split: str = "train",
         return RectBatchLoader(ds, bs, img_size=cfg.Dataset.img_size,
                                pin_memory=pin_memory)
     if augment and cfg.Dataset.quad:
-        raise NotImplementedError(
-            "QuadBatchLoader (Dataset.quad) is not ported (ROADMAP, \"Next, "
-            "in order\" item 2.8)")
+        return QuadBatchLoader(ds, bs // 2, shuffle=True, seed=seed,
+                               drop_last=True,
+                               sampler_type=cfg.Dataset.sampler_type,
+                               pin_memory=pin_memory)
     from ..parallel.distributed import per_process_batch
 
     return BatchLoader(
@@ -667,7 +764,8 @@ class RectBatchLoader(BatchLoader):
         bidx, (bh, bw) = task
         return (len(bidx), bh, bw, 3)
 
-    def _build_batch(self, task, images: np.ndarray) -> Dict:
+    def _build_batch(self, task, images: np.ndarray,
+                     rng: random.Random) -> Dict:
         bidx, (bh, bw) = task
         labels, masks, shapes, ratio_pads = [], [], [], []
         for j, i in enumerate(bidx):
@@ -694,3 +792,70 @@ class RectBatchLoader(BatchLoader):
 
     def _use_processes(self) -> bool:
         return False
+
+
+class QuadBatchLoader(BatchLoader):
+    """Quad collate (reference collate_fn4, utils/datasets.py:1170-1194;
+    JAX datasets.py:773-837): each output sample covers 4 dataset items,
+    either the first upscaled 2x (the core's INTER_LINEAR) or a 2x2 paste
+    of all four, giving 2*img_size images at a quarter of the batch count.
+    As in JAX, it builds in the calling thread, the items drawing from the
+    dataset's generator and the quad choices from a per-epoch one."""
+
+    def __iter__(self):
+        idx = self._indices()
+        qrng = random.Random((self.seed + 3) * 104729 + self.epoch)
+        group = self.bs * 4
+        batches = [idx[i:i + group] for i in range(0, len(idx), group)]
+        if self.drop_last:
+            batches = [b for b in batches if len(b) == group]
+        s = self.ds.img_size
+        m = self.ds.max_targets
+        for bidx in batches:
+            images = torch.empty((len(bidx) // 4, 2 * s, 2 * s, 3),
+                                 dtype=torch.uint8,
+                                 pin_memory=self.pin_memory)
+            labels, masks = [], []
+            for q, g in enumerate(range(0, len(bidx), 4)):
+                items = [self.ds[i] for i in bidx[g:g + 4]]
+                lab, msk = quad_collate(items, images.numpy()[q], s, m,
+                                        qrng.random() < 0.5)
+                labels.append(lab)
+                masks.append(msk)
+            yield {"images": images, "labels": np.stack(labels),
+                   "mask": np.stack(masks), "shapes": [None] * len(labels),
+                   "indices": list(bidx)}
+        self.epoch += 1
+
+
+def quad_collate(items, out: np.ndarray, s: int, m: int, single: bool):
+    """One quad sample from four `__getitem__` items into `out` (2s, 2s,
+    3): the first item upscaled 2x (labels unchanged, being normalised to
+    the frame) when `single`, else the 2x2 paste (labels halved and
+    offset). Returns (labels (4m, ncol), mask (4m,))."""
+    ncol = items[0][1].shape[-1]
+    lab = np.zeros((m * 4, ncol), np.float32)
+    msk = np.zeros((m * 4,), bool)
+    if single:
+        nl.resize_letterbox(items[0][0], out, 0, 0, 2 * s, 2 * s,
+                            pad_value=-1)
+        n = int(items[0][2].sum())
+        lab[:n] = items[0][1][items[0][2]]
+        msk[:n] = True
+        return lab, msk
+    out[...] = 0
+    w = 0
+    for (oy, ox), it in zip([(0, 0), (0, 1), (1, 0), (1, 1)], items):
+        out[oy * s:(oy + 1) * s, ox * s:(ox + 1) * s] = it[0]
+        sel = it[2]
+        n = int(sel.sum())
+        if n:
+            rows = it[1][sel].copy()
+            rows[:, 1] = rows[:, 1] / 2 + ox * 0.5
+            rows[:, 2] = rows[:, 2] / 2 + oy * 0.5
+            rows[:, 3] /= 2
+            rows[:, 4] /= 2
+            lab[w:w + n] = rows
+            msk[w:w + n] = True
+            w += n
+    return lab, msk

@@ -17,9 +17,9 @@ trainer's copy to the card reads the batch where the loader wrote it.
     numpy, zlib and the core only, never torch, so forking a process that
     has the card open is safe for them.
 
-`BatchLoader`'s 'auto' takes threads: the port's loaders draw no random
-numbers (augmentation runs on the card), so threads lose no determinism,
-and they skip the processes' slot copy.
+`BatchLoader`'s 'auto' takes threads: each task carries its batch's seed
+(`data/datasets.py`), so a batch's draws do not depend on which worker
+builds it or when, and threads skip the processes' slot copy.
 """
 
 from __future__ import annotations

@@ -5,12 +5,14 @@ Parity with reference trainer/ssod_trainer.py:53-714:
   - env: burn_epochs, epoch_adaptor, cosine_ema, teacher_loss_weight
     (:76-84)
   - model: SSOD detector + semi_ema teacher chain (:96-203)
-  - dataloaders: labeled + target loaders (:205-255); under
-    `Dataset.device_aug` the target loader serves letterboxed weak views
-    and the strong view, its labels and M_s are made on the card
-    (`device_ssod_views`), the labelled batch augmented as in the
-    supervised trainer; one step seed gives both draws (the JAX keys'
-    `split` of `fold_in(PRNGKey(2), ni)`)
+  - dataloaders: labeled + target loaders (:205-255); by default the
+    target loader makes the weak / strong pairs and M_s on the host
+    (`data/datasets_ssod.py`, AutoAugment included); under
+    `Dataset.device_aug` it serves letterboxed weak views and the strong
+    view, its labels and M_s are made on the card (`device_ssod_views`),
+    the labelled batch augmented as in the supervised trainer; one step
+    seed gives both draws (the JAX keys' `split` of
+    `fold_in(PRNGKey(2), ni)`)
   - epoch dispatch (:295-317): epoch < burn_epochs -> supervised burn-in
     (optionally with DA losses); at burn_epochs the EMA is copied into the
     student and the teacher is seeded (:305-316); afterwards mean-teacher
@@ -30,9 +32,9 @@ Differences from the JAX trainer:
     never calls `_resume`), so `last.ckpt` holds the optimizer momentum
     and, past seeding, the student's EMA (the pseudo-label teacher) with
     its count as `student_ema`, beside the teacher (semi-EMA) as `ema`.
-Not ported yet (NotImplementedError; ROADMAP, Queue 1): LabelMatch
-(`pseudo_label_type: LabelMatch`, item 6), extra teachers and the SSOD OTA
-loss (item 7); the pseudo-label debug plots are skipped (item 6).
+Not ported yet (NotImplementedError): LabelMatch (`pseudo_label_type:
+LabelMatch`, ROADMAP Q1.6), extra teachers and the SSOD OTA loss (Q1.10);
+the pseudo-label debug plots are skipped (Q1.8).
 """
 
 from __future__ import annotations
@@ -77,13 +79,17 @@ class SSODTrainer(Trainer):
                 "extra teachers and the SSOD OTA loss are not ported yet "
                 "(ROADMAP, Queue 1 item 7)")
         super().set_env(cfg)
-        if cfg.Dataset.device_aug and float(cfg.SSOD.ssod_hyp.autoaugment) > 0:
-            # as in JAX, the card's strong view has no AutoAugment
+        if (cfg.Dataset.device_aug
+                and float(cfg.SSOD.ssod_hyp.autoaugment) > 0
+                and (cfg.SSOD.ssod_hyp.with_gt or cfg.SSOD.debug)):
+            # as in JAX, the card's strong view has no AutoAugment; the
+            # host route applies it only where the target keeps its labels
             LOGGER.warning(
                 "SSOD.ssod_hyp.autoaugment %s is not applied under "
                 "Dataset.device_aug: the strong view on the card has no "
-                "AutoAugment (it comes with the host augmentation, ROADMAP "
-                "Q1.4)", cfg.SSOD.ssod_hyp.autoaugment)
+                "AutoAugment, which the host route (device_aug False) "
+                "applies to targets with labels (ROADMAP F2)",
+                cfg.SSOD.ssod_hyp.autoaugment)
         self.burn_epochs = int(cfg.hyp.burn_epochs)
         self.epoch_adaptor = bool(cfg.SSOD.epoch_adaptor)
         self.cosine_ema = bool(cfg.SSOD.cosine_ema)
@@ -122,8 +128,8 @@ class SSODTrainer(Trainer):
 
     def build_dataloader(self, cfg):
         super().build_dataloader(cfg)
-        # augment=False serves raw letterboxed weak views (device_aug); the
-        # host dual-view pipeline raises
+        # augment=False serves raw letterboxed weak views (device_aug), else
+        # the host makes the weak / strong pairs
         self.target_loader = create_target_dataloader(
             cfg, batch_size=self.batch_size, augment=not self.device_aug,
             pin_memory=self.device.type == "cuda")

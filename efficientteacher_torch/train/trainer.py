@@ -19,20 +19,20 @@ master weights with the forward in `compute_dtype` (bf16 autocast by
 default). Host syncs in the loop: the loss parts are read (`float`) only on
 the batches the JAX trainer logs (every 50th).
 
-The loaders read the dataset from disk (`data/`). The port trains with
-`Dataset.device_aug True`: the host decodes and letterboxes, and mosaic,
-perspective, HSV and flips run on the card (`ops/augment_device.py`), with
-draws seeded from the step counter. The host augmentation pipeline
-(`device_aug False` with `hyp.use_aug`) is not ported and raises
-(ROADMAP, "Next, in order" item 2.7).
+The loaders read the dataset from disk (`data/`). Two augmentation
+routes, as in JAX: by default (`Dataset.device_aug False`, every shipped
+YAML) the host augments (`data/augment.py`: mosaic, perspective, HSV,
+flips; `Dataset.quad` too), each batch drawing from its own seeded
+generator; under `Dataset.device_aug True` the host decodes and
+letterboxes, and mosaic, perspective, HSV and flips run on the card
+(`ops/augment_device.py`), with draws seeded from the step counter.
 
 Not ported yet, each raising NotImplementedError or skipped as the JAX
-trainer skips them when their dependencies are missing (ROADMAP, Queue 1):
-autoanchor (`noautoanchor: False`, item 6), RepOpt and AdamW (item 7),
-loss families other than the YOLOv5 `ComputeLoss` (item 7), warm starts
-from a reference `.pt` (item 9), DDP ("Next, in order" item 2.4), and
-the loggers and plots (item 6, skipped), the JAX trainer's
-`profile_steps` (`torch.profiler` serves).
+trainer skips them when their dependencies are missing: autoanchor
+(`noautoanchor: False`, ROADMAP Q1.7), RepOpt and AdamW (Q1.10), loss
+families other than the YOLOv5 `ComputeLoss` (Q1.10), warm starts from a
+reference `.pt` (Q1.11), DDP (Q1.5), and the loggers and plots (Q1.8,
+skipped), the JAX trainer's `profile_steps` (`torch.profiler` serves).
 """
 
 from __future__ import annotations
@@ -222,7 +222,7 @@ class Trainer:
           train_loader  under device_aug a plain (letterboxing) loader over
                         Dataset.train, shuffled, dropping the last partial
                         batch; otherwise `create_dataloader(cfg, "train")`,
-                        which raises for the host augmentation
+                        which augments on the host under hyp.use_aug
           val_loader    `create_dataloader(cfg, "val", augment=False)`, or
                         None without Dataset.val
           dataset, nb   train_loader.ds, len(train_loader)

@@ -33,6 +33,13 @@ _SIGNATURES = {
     "et_resize_letterbox": (_P, _I, _I, _I, _P, _I, _I, _I, _I, _I, _I, _I),
     "et_png_unfilter": (_P, _I, _I, _I, _P),
     "et_jpeg_write": (_C, _P, _I, _I, _I),
+    # src, sw, sh, sstride, dst, dw, dh, matrix (doubles), border, flags
+    "et_warp": (_P, _I, _I, _I, _P, _I, _I, _P, _I, _I),
+    # img, h, w, stride, lut_h, lut_s, lut_v, blue
+    "et_augment_hsv": (_P, _I, _I, _I, _P, _P, _P, _I),
+    "et_gray": (_P, _I, _I, _I, _P, _I),
+    # img, h, w, stride, kernel (9 ints), divisor, out
+    "et_filter3x3": (_P, _I, _I, _I, _P, _I, _P),
 }
 _ERRORS = {-1: "cannot open the file",
            -2: "corrupt or truncated JPEG data",
@@ -148,6 +155,67 @@ def resize(src: np.ndarray, new_w: int, new_h: int) -> np.ndarray:
     """cv2.resize(src, (new_w, new_h), interpolation=INTER_LINEAR)."""
     out = np.empty((new_h, new_w, 3), np.uint8)
     resize_letterbox(src, out, 0, 0, new_w, new_h, pad_value=-1)
+    return out
+
+
+def _image(img: np.ndarray, what: str):
+    """(pointer, h, w, row stride) of a uint8 (h, w, 3) image whose rows
+    are packed (a slice of rows or of columns of a larger image passes)."""
+    if img.dtype != np.uint8 or img.ndim != 3 or img.shape[2] != 3 \
+            or img.strides[1:] != (3, 1):
+        raise ValueError(f"{what} must be uint8 (h, w, 3) with packed rows")
+    return img.ctypes.data, img.shape[0], img.shape[1], img.strides[0]
+
+
+def warp(src: np.ndarray, matrix: np.ndarray, dsize, border: int = 114
+         ) -> np.ndarray:
+    """cv2.warpAffine(src, matrix, dsize, borderValue=(border,) * 3) for a
+    2x3 `matrix`, cv2.warpPerspective for a 3x3 one: INTER_LINEAR, the
+    forward map inverted as cv2 inverts it, bit-equal to cv2 5.0.0
+    (`csrc/pixel_ops.h`). `dsize` is (w, h); returns (h, w, 3) uint8."""
+    m = np.ascontiguousarray(matrix, np.float64)
+    if m.shape not in ((2, 3), (3, 3)):
+        raise ValueError(f"warp matrix of shape {m.shape}")
+    ptr, h, w, stride = _image(src, "src")
+    dw, dh = (int(v) for v in dsize)
+    out = np.empty((dh, dw, 3), np.uint8)
+    _check(_lib().et_warp(ptr, w, h, stride, out.ctypes.data, dw, dh,
+                          m.ctypes.data, int(border), int(m.shape[0] == 3)),
+           "warp")
+    return out
+
+
+def augment_hsv(img: np.ndarray, lut_h, lut_s, lut_v, blue: int = 2) -> None:
+    """In place: cv2's BGR2HSV, the three 256-entry uint8 LUTs, HSV2BGR, as
+    JAX `augment_hsv` applies them; `blue` is the channel of blue (2 for
+    the port's RGB images, 0 for BGR)."""
+    ptr, h, w, stride = _image(img, "img")
+    luts = [np.ascontiguousarray(t, np.uint8) for t in (lut_h, lut_s, lut_v)]
+    if any(t.shape != (256,) for t in luts):
+        raise ValueError("each LUT has 256 entries")
+    _check(_lib().et_augment_hsv(ptr, h, w, stride, *(t.ctypes.data
+                                                       for t in luts),
+                                 int(blue)), "augment_hsv")
+
+
+def gray(img: np.ndarray, blue: int = 2) -> np.ndarray:
+    """cv2.cvtColor(img, COLOR_BGR2GRAY) as (h, w) uint8; `blue` as in
+    `augment_hsv`."""
+    ptr, h, w, stride = _image(img, "img")
+    out = np.empty((h, w), np.uint8)
+    _check(_lib().et_gray(ptr, h, w, stride, out.ctypes.data, int(blue)),
+           "gray")
+    return out
+
+
+def filter3x3(img: np.ndarray, kernel, divisor: int) -> np.ndarray:
+    """cv2.filter2D(img, -1, kernel / divisor) for an integer 3x3 `kernel`
+    and an odd `divisor` (BORDER_REFLECT_101)."""
+    ptr, h, w, stride = _image(img, "img")
+    k = np.ascontiguousarray(kernel, np.int32).reshape(9)
+    out = np.empty((h, w, 3), np.uint8)
+    _check(_lib().et_filter3x3(ptr, h, w, stride, k.ctypes.data,
+                               int(divisor), out.ctypes.data), "filter3x3")
     return out
 
 

@@ -387,6 +387,17 @@ def test_loader_core_builds_and_reads_on_the_card_machine(card, tmp_path):
     assert np.abs(got - smooth).mean() < 12
 
 
+def test_pixel_ops_give_cv2s_digests_on_the_card_machine(card):
+    """The host augmentation's pixel operations, built with that machine's
+    compiler, give cv2 5.0.0's digests (tests/pixel_op_cases.py): its own
+    cv2, if any, is not the oracle."""
+    import pixel_op_cases
+
+    from efficientteacher_torch.utils import native_loader as nl
+
+    assert pixel_op_cases.check_core(nl) == []
+
+
 @pytest.mark.parametrize("rotating", [False, True])
 def test_augmentation_on_the_card_equals_the_cpu(card, rotating):
     """device_augment_batch and device_ssod_views on the card and on the

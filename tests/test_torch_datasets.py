@@ -273,9 +273,17 @@ def test_unread_formats_raise_when_the_dataset_is_built(data, tmp_path):
 
 
 def test_host_augmentation_raises(data):
-    pc, _ = cfgs(data)
-    pc.hyp.use_aug = True
-    with pytest.raises(NotImplementedError, match="device_aug"):
+    """The host augmentation is ported: create_dataloader augments under
+    hyp.use_aug, as JAX's does, with JAX's batches; what still raises is
+    a config value it cannot read (an unknown loader engine)."""
+    pc, jc = cfgs(data, **{"hyp.use_aug": True, "Dataset.loader": "process"})
+    port = port_ds.create_dataloader(pc, "train", seed=3)
+    ref = jax_ds.create_dataloader(jc, "train", seed=3)
+    assert port.ds.augment and port.ds.mosaic
+    assert_batches_equal(list(port), list(ref), ("labels", "mask", "shapes",
+                                                 "indices", "paths"))
+    pc.Dataset.loader = "fork"
+    with pytest.raises(ValueError, match="Dataset.loader"):
         port_ds.create_dataloader(pc, "train")
 
 

@@ -1,7 +1,8 @@
 """The port's target (unlabelled) loader against the JAX package's, both
 with augment=False (the device_aug route): the same weak views, labels,
 masks, identity M_s records and batch order, exactly. With `with_gt` the
-labels come through; the host augmentation raises."""
+labels come through. With augment=True (the host route) the strong and
+weak views, labels and M_s equal JAX's too."""
 
 import numpy as np
 import pytest
@@ -48,6 +49,21 @@ def test_target_loader_matches_jax(target, with_gt):
 
 
 def test_target_host_augmentation_raises(target):
-    pc, _ = cfgs(target, **{"Dataset.target": target})
-    with pytest.raises(NotImplementedError, match="device_aug"):
-        port_ssod.create_target_dataloader(pc, augment=True)
+    """The host weak / strong pipeline is ported: augment=True gives JAX's
+    batches (strong and weak views, labels, M_s); an unknown AutoAugment
+    policy raises when a strong view with labels draws it."""
+    pc, jc = cfgs(target, **{"Dataset.target": target,
+                             "Dataset.loader": "process",
+                             "SSOD.ssod_hyp.with_gt": True})
+    port = port_ssod.create_target_dataloader(pc, batch_size=3, seed=7)
+    ref = jax_ssod.create_target_dataloader(jc, batch_size=3, seed=7)
+    for bp, bj in zip(list(port), list(ref), strict=True):
+        for k in ("images", "images_ori"):
+            np.testing.assert_array_equal(bp[k].numpy(), bj[k])
+        for k in ("labels", "mask", "M_s"):
+            np.testing.assert_array_equal(bp[k], bj[k], err_msg=k)
+    assert not (bp["M_s"][:, 1:10] == np.eye(3).reshape(-1)).all()
+    pc.SSOD.ssod_hyp.autoaugment = 1.0
+    pc.SSOD.ssod_hyp.autoaugment_policy = "v9"
+    with pytest.raises(RuntimeError, match="unknown AutoAugment policy"):
+        list(port_ssod.create_target_dataloader(pc, batch_size=3, seed=7))

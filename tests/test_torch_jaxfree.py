@@ -50,6 +50,7 @@ MODULES = [
     "efficientteacher_torch.cli.val",
     "efficientteacher_torch.data",
     "efficientteacher_torch.data.augment",
+    "efficientteacher_torch.data.autoaugment",
     "efficientteacher_torch.data.datasets",
     "efficientteacher_torch.data.datasets_ssod",
     "efficientteacher_torch.data.image_io",

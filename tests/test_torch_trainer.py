@@ -285,12 +285,18 @@ def test_ssod_checkpoint_meta_equal(ssod_runs):
         assert torch.equal(v, teacher[k]), k
 
 
-@pytest.mark.parametrize("device_aug,autoaugment,warns", [
-    (True, 0.5, True), (True, 0.0, False), (False, 0.5, False)])
+@pytest.mark.parametrize("device_aug,autoaugment,with_gt,warns", [
+    pytest.param(True, 0.5, True, True, id="True-0.5-True"),
+    pytest.param(True, 0.0, True, False, id="True-0.0-False"),
+    pytest.param(False, 0.5, True, False, id="False-0.5-False"),
+    pytest.param(True, 0.5, False, False, id="True-0.5-nolabels-False")])
 def test_ssod_set_env_warns_that_autoaugment_is_dropped(
-        tmp_path, caplog, device_aug, autoaugment, warns):
+        tmp_path, caplog, device_aug, autoaugment, with_gt, warns):
     """Under Dataset.device_aug the strong view has no AutoAugment (as in
-    JAX); set_env says so once, naming the ROADMAP item that brings it."""
+    JAX); set_env says so once, naming the ROADMAP item, where the host
+    route would apply it: only to a target with labels (ssod_hyp.with_gt
+    here, or SSOD.debug). Without them neither route applies it (the main
+    YAML), and nothing is said."""
     from efficientteacher_torch.configs import get_cfg as port_get_cfg
     from efficientteacher_torch.train.ssod_trainer import SSODTrainer
 
@@ -299,6 +305,7 @@ def test_ssod_set_env_warns_that_autoaugment_is_dropped(
     cfg.noautoanchor = True
     cfg.Dataset.device_aug = device_aug
     cfg.SSOD.ssod_hyp.autoaugment = autoaugment
+    cfg.SSOD.ssod_hyp.with_gt = with_gt
     trainer = SSODTrainer.__new__(SSODTrainer)
     trainer.device = torch.device("cpu")
     with caplog.at_level(logging.WARNING,
@@ -308,4 +315,4 @@ def test_ssod_set_env_warns_that_autoaugment_is_dropped(
     found = [r for r in caplog.records if "autoaugment" in r.getMessage()]
     assert len(found) == (1 if warns else 0)
     if warns:
-        assert "ROADMAP Q1.4" in found[0].getMessage()
+        assert "ROADMAP F2" in found[0].getMessage()

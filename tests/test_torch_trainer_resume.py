@@ -280,9 +280,9 @@ def test_graceful_stop_handler_sets_flag_and_uninstall_restores():
     ({"noautoanchor": False}, Trainer),
     ({"Loss.type": "ComputeXLoss"}, Trainer),
     ({"SSOD.pseudo_label_type": "LabelMatch"}, SSODTrainer),
-    # build_dataloader: the defaults (device_aug False) ask for the host
-    # augmentation, which is not ported
-    ({}, Trainer),
+    # the host augmentation (device_aug False) is ported now: RepOpt
+    # stands in
+    ({"Model.RepOpt": True}, Trainer),
 ])
 def test_refuses_what_is_not_ported(tmp_path, override, cls):
     cfg = get_cfg()
