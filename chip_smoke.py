@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port on one CUDA card: YOLOv5l eval serving, the
-YOLOv5l mean-teacher training step, and the SSOD trainer around it reading
-its data from disk.
+YOLOv5l mean-teacher training step, the SSOD trainer around it reading
+its data from disk, and the anchor-free families' supervised trainer.
 
     python3 chip_smoke.py
 
@@ -58,7 +58,16 @@ read just after:
     held equal to validator.run, against a COCO ground-truth file written
     from the val split's label files; the JSON holds exactly the
     detections validator.run counted, and the vendor-free COCO re-scorer's
-    mAP pair is printed beside validator.run's.
+    mAP pair is printed beside validator.run's;
+  - zoo: the anchor-free families from their shipped YAMLs as written but
+    the data paths, YOLOX-s (configs/sup/public/yolox_coco.yaml) and
+    YOLOv8-m (yolov8m_coco.yaml), batch 64 @640: `Trainer` for one epoch
+    of 4 steps on the smoke dataset (host augmentation), its epoch-end
+    validation at a mid density held against the plain NMS, `cli.val`
+    on the best.ckpt it saved equal to validator.run, the eval program on
+    a saturated copy; step ms, img/s, the loss and its assignment's ms,
+    peak memory, forward and NMS ms, and K1, K2 and the count against
+    their plain versions at the mid and saturated 672,000-score lattices.
 
 It times the forward, the NMS, the selection engine against `torch.topk`,
 the training steps and their phases (CUDA events), and each kernel
@@ -426,7 +435,8 @@ def pseudo_label_teacher(torch, state, weak):
     the student, which the objectness loss drives to silence on noise
     images. Returns the objectness shift."""
     from efficientteacher_torch.train.supervised import to_input
-    from efficientteacher_torch.utils.eval_regimes import calibrate_bn
+    from efficientteacher_torch.utils.eval_regimes import (calibrate_bn,
+                                                           shift_score_bias)
 
     teacher = state.ema.module
     calibrate_bn(teacher, weak)
@@ -440,7 +450,7 @@ def pseudo_label_teacher(torch, state, weak):
         obj = torch.cat([r[..., 4].float().flatten(1) for r in raw], 1)
         q = 1.0 - OBJ_TARGET / obj.shape[1]
         shift = -float(torch.quantile(obj.flatten(), q))
-    shift_teacher_obj(torch, teacher, shift)
+    shift_score_bias(teacher.head, shift)
     state.ema.updates = EMA_UPDATES
     return shift
 
@@ -605,19 +615,12 @@ def pseudo_label_load(torch, decoded, m_s):
         "bound": bound(b * 2048 * 2 + swept * 16, IOU_OPS * tests)}
 
 
-def shift_teacher_obj(torch, teacher, delta):
-    """Raise every objectness bias of the teacher's head by `delta`."""
-    head = teacher.head
-    with torch.no_grad():
-        for conv in head.m:
-            conv.bias.view(head.na, head.no)[:, 4] += delta
-
-
 def sparse_teacher(torch, teacher, weak, m_s, iters=12):
     """Lower the teacher's objectness biases, by bisection, until its
     pseudo labels per image come nearest PL_SPARSE. Returns (shift, pseudo
     labels per image) of the nearest."""
     from efficientteacher_torch.ssod.pseudo_label import create_pseudo_labels
+    from efficientteacher_torch.utils.eval_regimes import shift_score_bias
 
     s = ssod_cfg().SSOD
     kw = dict(img_size=IMG, nc=NC, conf_thres=s.nms_conf_thres,
@@ -625,14 +628,14 @@ def sparse_teacher(torch, teacher, weak, m_s, iters=12):
     lo, hi, at, best = -12.0, 0.0, 0.0, None
     for _ in range(iters):
         mid = (lo + hi) / 2
-        shift_teacher_obj(torch, teacher, mid - at)
+        shift_score_bias(teacher.head, mid - at)
         at = mid
         pl = float(create_pseudo_labels(teacher_decoded(torch, teacher, weak),
                                         m_s, **kw).mask.sum()) / weak.shape[0]
         if best is None or abs(pl - PL_SPARSE) < abs(best[1] - PL_SPARSE):
             best = (mid, pl)
         lo, hi = (mid, hi) if pl < PL_SPARSE else (lo, mid)
-    shift_teacher_obj(torch, teacher, best[0] - at)
+    shift_score_bias(teacher.head, best[0] - at)
     return best
 
 
@@ -1389,8 +1392,9 @@ def smoke_trainer(torch):
 
 def mid_val_teacher(torch, module, calib, target=3300.0, iters=12):
     """Give `module` (the validated teacher) the serving phase's mid
-    density at the eval gate: BatchNorm calibrated on `calib`, then every
-    objectness bias shifted, by bisection, until the candidates per image
+    density at the eval gate: BatchNorm calibrated on `calib`, then its
+    head's score biases (objectness; the YOLOv8 head's classes:
+    `shift_score_bias`) shifted, by bisection, until the candidates per image
     on `calib` come nearest `target` (on a log scale). The trainer's
     burn-in moves the weights away from the init that MID_OBJ_SHIFT was
     chosen for (its objectness loss on noise images silences the head),
@@ -1398,21 +1402,22 @@ def mid_val_teacher(torch, module, calib, target=3300.0, iters=12):
     import math
 
     from efficientteacher_torch.utils.eval_regimes import (calibrate_bn,
-                                                           make_density_fn)
+                                                           make_density_fn,
+                                                           shift_score_bias)
 
     calibrate_bn(module, calib)
     density = make_density_fn(module, NC, CONF)
     lo, hi, at, best = -12.0, 12.0, 0.0, None
     for _ in range(iters):
         mid = (lo + hi) / 2
-        shift_teacher_obj(torch, module, mid - at)
+        shift_score_bias(module.head, mid - at)
         at = mid
         cands = density(calib)[0]
         miss = abs(math.log(cands + 1.0) - math.log(target))
         if best is None or miss < best[2]:
             best = (mid, cands, miss)
         lo, hi = (mid, hi) if cands < target else (lo, mid)
-    shift_teacher_obj(torch, module, best[0] - at)
+    shift_score_bias(module.head, best[0] - at)
     return best[:2]
 
 
@@ -2093,6 +2098,408 @@ def cli_leg(torch, dev, card, lists):
               f"| {card}")
 
 
+# [zoo]: the anchor-free families from their shipped YAMLs, as written but
+# for the data paths: YOLOX-s (SimOTA, ComputeXLoss) and YOLOv8-m (C2f,
+# TAL, DFL), nc 80 at 640 px, batch 64 (accumulate 1), SGD, the host
+# augmentation route. Each trains one epoch of Z_STEPS steps on the smoke
+# dataset's labelled split, validates on its val split in batches of
+# T_BATCH, and cli.val reads the best.ckpt it saved. Their eval lattice is
+# 8,400 predictions x 80 classes = 672,000 scores per image (YOLOv5l's:
+# 2,016,000).
+ZOO_YAMLS = {
+    "yolox": Path(__file__).resolve().parent
+    / "configs/sup/public/yolox_coco.yaml",
+    "yolov8": Path(__file__).resolve().parent
+    / "configs/sup/public/yolov8m_coco.yaml"}
+Z_BATCH = 64
+Z_STEPS = SPLITS["labelled"] // Z_BATCH
+Z_N = (IMG // 8) ** 2 + (IMG // 16) ** 2 + (IMG // 32) ** 2
+# the saturated lattice's logit spans: objectness near 1, class scores
+# spread over (0.018, 0.98) (the top 1% above), every pair over the gate
+SAT_LOGITS = {"obj": (4.0, 8.0), "cls": (-4.0, 4.0)}
+
+
+def zoo_cfg(family, *overrides):
+    """The family's YAML (the port's get_cfg() merged with it), then
+    `overrides` (dotted key, value pairs)."""
+    from efficientteacher_torch.configs import get_cfg
+
+    cfg = get_cfg()
+    cfg.merge_from_file(str(ZOO_YAMLS[family]))
+    cfg.merge_from_list(list(overrides))
+    return cfg
+
+
+def saturate_head(torch, head, forward, images):
+    """Light every (anchor, class) pair of an anchor-free head with scores
+    that still vary with the features: each conv whose sigmoid makes part
+    of the eval score (the YOLOX class and objectness predictions, the
+    YOLOv8 class predictions) has its logits on `images` mapped affinely
+    (weights scaled, biases moved) so that their minimum lands at the low
+    end of its SAT_LOGITS span and their 99th percentile at the high end.
+    Equal scores would leave the element engine's bisection no threshold
+    between them, and it would hand the selection to torch.topk. The
+    boxes are the model's own."""
+    from efficientteacher_torch.models.heads import YoloXDetect
+
+    if isinstance(head, YoloXDetect):
+        convs = [*((c, "cls") for c in head.cls_preds),
+                 *((c, "obj") for c in head.obj_preds)]
+    else:
+        convs = [(getattr(head, f"cv3_{i}")[2], "cls")
+                 for i in range(len(head.strides))]
+    logits = {}
+    hooks = [conv.register_forward_hook(
+        lambda m, _, out: logits.__setitem__(m, out.detach().float()))
+        for conv, _ in convs]
+    try:
+        forward(images)
+    finally:
+        for h in hooks:
+            h.remove()
+    with torch.no_grad():
+        for conv, kind in convs:
+            x = logits[conv].flatten()
+            mn = x.min()
+            q99 = x.kthvalue(max(1, int(0.99 * x.numel()))).values
+            require(bool(q99 > mn), f"saturate: constant {kind} logits")
+            lo, hi = SAT_LOGITS[kind]
+            a = (hi - lo) / (q99 - mn)
+            conv.weight.mul_(a)
+            conv.bias.mul_(a).add_(lo - a * mn)
+
+
+def zoo_trainer(torch):
+    """The supervised Trainer of the phase: its val loader at T_BATCH, each
+    step timed between synchronizes, and its epoch-end validation given
+    the mid density first (`mid_val_teacher` on 8 val images: a 4-step
+    model detects nothing at conf 0.001) and recorded, each batch's
+    detections held against the plain NMS."""
+    from efficientteacher_torch.data.datasets import create_dataloader
+    from efficientteacher_torch.eval import validator
+    from efficientteacher_torch.ops.nms import _pair_scores
+    from efficientteacher_torch.train.trainer import Trainer
+
+    class ZooTrainer(Trainer):
+        def __init__(self, *args, **kw):
+            self.log = {"steps": [], "records": []}
+            super().__init__(*args, **kw)
+
+        def build_dataloader(self, cfg):
+            super().build_dataloader(cfg)
+            self.val_loader = create_dataloader(
+                cfg, "val", augment=False, batch_size=T_BATCH,
+                pin_memory=True)
+
+        def build_step(self):
+            super().build_step()
+            step = self.train_step
+
+            def run(state, *args):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                state, parts = step(state, *args)
+                torch.cuda.synchronize()
+                self.log["steps"].append(
+                    ((time.perf_counter() - t0) * 1e3,
+                     {k: float(v) for k, v in parts.items()}))
+                self.last_batch = args[:3]
+                return state, parts
+
+            self.train_step = run
+
+        def _validate(self, ema):
+            calib = next(iter(self.val_loader))["images"][:8]
+            self.val_shift = mid_val_teacher(torch, ema.module,
+                                             calib.to(self.device))
+            records = self.log["records"]
+            make = validator.make_infer_fn
+            validator.make_infer_fn = \
+                lambda *a, **k: RecordingInfer(make(*a, **k), records)
+            try:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                results = super()._validate(ema)
+                self.val_ms = (time.perf_counter() - t0) * 1e3
+            finally:
+                validator.make_infer_fn = make
+            infer = make(ema.module, NC, CONF, IOU, MAX_DET, MAX_NMS, 255.0,
+                         self.compute_dtype)
+            self.cands = []
+            for bi, (decoded, out) in enumerate(records):
+                ref = infer.nms(decoded, use_kernels=False)
+                require(torch.equal(ref.detections, out.detections)
+                        and torch.equal(ref.valid, out.valid),
+                        f"val batch {bi}: detections differ from the plain "
+                        f"NMS")
+                score = _pair_scores(decoded, NC, CONF, False, 0, False,
+                                     None)[0]
+                self.cands.append(float((score > 0).sum())
+                                  / decoded.shape[0])
+            return results
+
+    return ZooTrainer
+
+
+def zoo_leg(torch, dev, card, lists, family, tmp):
+    """One family's main path in three parts, with the kernels' counts set
+    to 0 just before each and read just after: the Trainer on the YAML for
+    one epoch with its epoch-end validation, cli.val on the best.ckpt it
+    saved, and the eval program on a saturated copy (the check run of
+    validator.run beside cli.val lies outside them); then the kernels
+    against their plain versions at the mid and saturated lattices.
+    Returns the kernels-line entries of this path."""
+    import gc
+    import logging
+
+    from efficientteacher_torch.cli import val as cli_val
+    from efficientteacher_torch.data.datasets import create_dataloader
+    from efficientteacher_torch.eval import validator
+    from efficientteacher_torch.models import build_model, spec_from_cfg
+    from efficientteacher_torch.ops import select_cuda
+    from efficientteacher_torch.ops.nms_cuda import greedy_nms_keep_cuda
+    from efficientteacher_torch.ops.select_cuda import (count_ge_cuda,
+                                                        threshold_compact_cuda)
+    from efficientteacher_torch.utils.checkpoint import (load_eval_variables,
+                                                         load_module_variables)
+
+    wrappers = {"greedy_nms_keep": greedy_nms_keep_cuda,
+                "threshold_compact": threshold_compact_cuda,
+                "count_ge": count_ge_cuda}
+    gc.collect()
+    torch.cuda.empty_cache()
+    overrides = [str(x) for x in (
+        "epochs", 1, "project", tmp, "name", family,
+        "Dataset.train", lists["labelled"], "Dataset.val", lists["val"])]
+    cfg = zoo_cfg(family, *overrides)
+    t0 = time.perf_counter()
+    trainer = zoo_trainer(torch)(cfg, device=dev)
+    spec = trainer.spec
+    require(trainer.batch_size == Z_BATCH and trainer.nb == Z_STEPS
+            and trainer.accumulate == 1 and not trainer.device_aug
+            and len(trainer.val_loader) == T_VAL,
+            f"{family}: batch {trainer.batch_size}, {trainer.nb} steps, "
+            f"accumulate {trainer.accumulate}")
+    n_params = sum(p.numel() for p in trainer.model.parameters())
+    print(f"[zoo] {family}: Trainer on {ZOO_YAMLS[family].name} as written "
+          f"but the data paths ({spec.backbone}/{spec.neck}/{spec.head}, "
+          f"width {spec.width_multiple}, depth {spec.depth_multiple}, "
+          f"{n_params / 1e6:.2f} M parameters, nc {spec.nc}, "
+          f"{trainer.img_size} px, bf16 autocast; Loss.type "
+          f"{cfg.Loss.type}; batch {trainer.batch_size}, {trainer.nb} "
+          f"steps, host augmentation); set-up "
+          f"{time.perf_counter() - t0:.1f} s")
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    torch.backends.cudnn.benchmark = True
+    root = logging.getLogger()
+    level, handlers = root.level, list(root.handlers)
+
+    def counted(what, fn):
+        """fn() with the kernels' counts and the selection tiers set to 0
+        just before; (its result, the counts and tiers just after). Each
+        kernel of the path must have launched."""
+        for w in wrappers.values():
+            w.launches = 0
+        select_cuda.tier_counts.clear()
+        out = fn()
+        torch.cuda.synchronize()
+        launches = {n: w.launches for n, w in wrappers.items()}
+        require(all(c > 0 for c in launches.values()),
+                f"{family}: a kernel of {what} was not launched: {launches}")
+        return out, launches, dict(sorted(select_cuda.tier_counts.items()))
+
+    try:
+        t0 = time.perf_counter()
+        _, val_launches, val_tiers = counted("the epoch", trainer.train)
+        t_train = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
+        weights = Path(tmp) / family / "weights"
+        require((weights / "best.ckpt").is_file()
+                and (weights / "last.ckpt").is_file(),
+                f"{family}: no best/last.ckpt")
+        loader = create_dataloader(cfg, "val", augment=False,
+                                   batch_size=T_BATCH, pin_memory=True)
+
+        def model_of(path):
+            model = build_model(spec_from_cfg(cfg), device=dev)
+            load_module_variables(model, load_eval_variables(str(path)))
+            return model.eval()
+
+        t0 = time.perf_counter()
+        got, cli_launches, cli_tiers = counted(
+            "cli.val", lambda: cli_val.main([
+                "--cfg", str(ZOO_YAMLS[family]), "--weights",
+                str(weights / "best.ckpt"), "--batch-size", str(T_BATCH),
+                *overrides]))
+        t_val = time.perf_counter() - t0
+        # the check: validator.run on the same weights (no count is read)
+        model = model_of(weights / "best.ckpt")
+        want = validator.run(model, loader, nc=NC,
+                             compute_dtype=torch.bfloat16)[0]
+        require(tuple(got) == tuple(want),
+                f"{family}: cli.val {got} != validator.run {want}")
+        # the eval program on a saturated copy: every pair lit
+        images = next(iter(loader))["images"].to(dev)
+        infer = validator.make_infer_fn(model, NC, CONF, IOU, MAX_DET,
+                                        MAX_NMS, 255.0, torch.bfloat16)
+        mid = infer.forward(images)
+        saturate_head(torch, model.head, infer.forward, images)
+        recorded = []
+        _, sat_launches, sat_tiers = counted(
+            "the saturated eval",
+            lambda: RecordingInfer(infer, recorded)(images))
+        (sat, sat_out), = recorded
+    finally:
+        root.setLevel(level)
+        for h in root.handlers[:]:
+            if h not in handlers:
+                root.removeHandler(h)
+    steps = trainer.log["steps"]
+    for ms, parts in steps:
+        require(all(v == v and abs(v) != float("inf")
+                    for v in parts.values()),
+                f"{family}: losses {parts}")
+    step_ms = statistics.median(ms for ms, _ in steps[1:])
+    loss_ms, assign_ms = loss_times(torch, trainer, family)
+    print(f"[zoo] {family}: {len(steps)} steps at {Z_BATCH}@{IMG}, ms "
+          f"(synchronized) {', '.join(f'{ms:.1f}' for ms, _ in steps)}: "
+          f"{step_ms:.1f} ms after the first (cuDNN's search), "
+          f"{Z_BATCH / step_ms * 1e3:.1f} img/s; epoch + validation "
+          f"{t_train:.1f} s; losses "
+          + "; ".join(", ".join(f"{k} {v:.3f}" for k, v in parts.items())
+                      for _, parts in steps[:1] + steps[-1:])
+          + f"; peak memory {peak / 2**30:.2f} GiB (max_memory_allocated, "
+          f"{base / 2**30:.2f} GiB live before) | {card}")
+    print(f"[time] zoo {family}: the loss on the last step's batch, "
+          f"forward only: {loss_ms:.2f} ms, of which the assignment "
+          f"({'SimOTA' if family == 'yolox' else 'TAL'}) {assign_ms:.2f} "
+          f"ms ({assign_ms / step_ms:.0%} of the step) | {card}")
+    print(f"[zoo] {family}: validator.run at the epoch end "
+          f"{trainer.val_ms / T_VAL:.1f} ms/batch ({T_VAL} x {T_BATCH}), "
+          f"the EMA's score bias shifted {trainer.val_shift[0]:+.3f} "
+          f"({trainer.val_shift[1]:.0f} candidates/img on its calibration "
+          f"batch; {', '.join(f'{c:.0f}' for c in trainer.cands)} per val "
+          f"batch); detections == plain NMS; launches {val_launches}, "
+          f"selection tiers {val_tiers} | {card}")
+    print(f"[zoo] {family}: cli.val on best.ckpt {t_val:.1f} s, P/R/mAP50/mAP "
+          f"{'/'.join(f'{x:.4f}' for x in got)} == validator.run; launches "
+          f"{cli_launches}, selection tiers {cli_tiers} | {card}")
+    print(f"[zoo] {family}: saturated eval (one batch of {T_BATCH}): "
+          f"launches {sat_launches}, selection tiers {sat_tiers} | {card}")
+
+    # the kernels at this head's lattices: mid (the saved EMA) and
+    # saturated (every pair lit)
+    require(sat.shape == (T_BATCH, Z_N, 5 + NC), f"{family}: {sat.shape}")
+    ref = infer.nms(sat, use_kernels=False)
+    require(torch.equal(ref.detections, sat_out.detections)
+            and torch.equal(ref.valid, sat_out.valid),
+            f"{family}: saturated detections differ from the plain NMS")
+    t_fwd = time_ms(torch, lambda: infer.forward(images), reps=10, warmup=3)
+    print(f"[time] zoo {family}: forward bf16 b{T_BATCH}@{IMG} "
+          f"{t_fwd:.3f} ms/batch | {card}")
+    entries = []
+    errs = {}
+    # the mid lattice is the epoch-end validation's and cli.val's; their
+    # launches are summed into one entry, and given apart
+    mid_launches = {n: val_launches[n] + cli_launches[n] for n in wrappers}
+    paths = {"mid": ("epoch-end val + cli.val (mid)", mid_launches),
+             "saturated": ("eval saturated", sat_launches)}
+    for regime, decoded in (("mid", mid), ("saturated", sat)):
+        flat, boxes_xyxy, taus, k2_err, count_err = lattice_checks(
+            torch, decoded, f"zoo {family} {regime}")
+        cands = float((flat > 0).sum()) / flat.shape[0]
+        require(flat.shape[1] == Z_N * NC,
+                f"{family}: lattice {tuple(flat.shape)}")
+        if regime == "saturated":
+            require(cands == Z_N * NC, f"{family}: saturated holds {cands}")
+        rows, k1, tests, k1_err = kernel_rows(torch, flat, boxes_xyxy, taus)
+        t_k = time_ms(torch, lambda: infer.nms(decoded))
+        t_p = time_ms(torch, lambda: infer.nms(decoded, use_kernels=False))
+        print(f"[time] zoo {family} {regime}: {cands:.0f} candidates/img; "
+              f"NMS kernels {t_k:.3f} ms, plain {t_p:.3f} ms per batch of "
+              f"{T_BATCH}; {tests} IoU tests needed | {card}")
+        print_kernel_rows(f"zoo {family} {regime}", rows, card)
+        errs = {"greedy_nms_keep": k1_err, "threshold_compact": k2_err,
+                "count_ge": count_err}
+        path, launches = paths[regime]
+        for name, (tk, tp, (b_ms, b_by), lib) in rows.items():
+            entry = {
+                "name": name, "route": "cuda",
+                "source": ZOO_SOURCES[name][0],
+                "replaces": ZOO_SOURCES[name][1],
+                "launches": launches[name], "max_abs_err": float(errs[name]),
+                "ms": tk[0], "ms_min": tk[1], "ms_max": tk[2],
+                "plain_ms": tp[0], "bound_ms": b_ms, "bound_by": b_by,
+                "library_ms": lib[0] if lib else None,
+                "path": f"zoo {family}: {path}",
+                "shape": list((k1[0] if name == "greedy_nms_keep"
+                               else flat).shape[:2])}
+            if regime == "mid":
+                entry["launches_per_path"] = {
+                    "epoch-end val": val_launches[name],
+                    "cli.val": cli_launches[name]}
+            entries.append(entry)
+    del trainer, model, infer, mid, sat
+    gc.collect()
+    torch.cuda.empty_cache()
+    return entries
+
+
+def loss_times(torch, trainer, family):
+    """(loss ms, assignment ms) by CUDA events on the trainer's last
+    batch: the detection loss's forward on the model's train-mode raw
+    maps, and the same with the assigner's result cached, whose
+    difference is the assignment's time."""
+    from efficientteacher_torch.losses import tal_loss, yolox_loss
+    from efficientteacher_torch.train.supervised import (forward_train,
+                                                         to_input)
+
+    images, labels, mask = trainer.last_batch
+    with torch.no_grad():
+        raw = forward_train(trainer.state.model,
+                            to_input(images, trainer.compute_dtype, 255.0),
+                            trainer.compute_dtype)
+        loss = lambda: trainer.detection_loss(raw, labels, mask)  # noqa
+        full = event_ms(torch, loss, launches=5, repeats=3)[0]
+        module, name = ((yolox_loss, "simota_assign") if family == "yolox"
+                        else (tal_loss, "tal_assign"))
+        assign = getattr(module, name)
+        cached = []
+
+        def once(*a, **k):
+            if not cached:
+                cached.append(assign(*a, **k))
+            return cached[0]
+
+        setattr(module, name, once)
+        try:
+            rest = event_ms(torch, loss, launches=5, repeats=3)[0]
+        finally:
+            setattr(module, name, assign)
+    return full, full - rest
+
+
+ZOO_SOURCES = {
+    "greedy_nms_keep": ("efficientteacher_torch/csrc/nms.cu",
+                        "efficientteacher_tpu/ops/nms_pallas.py:138"),
+    "threshold_compact": ("efficientteacher_torch/csrc/select.cu",
+                          "efficientteacher_tpu/ops/select_pallas.py:218"),
+    "count_ge": ("efficientteacher_torch/csrc/select.cu",
+                 "efficientteacher_tpu/ops/select_pallas.py:247")}
+
+
+def zoo_phase(torch, dev, card, lists):
+    """Both anchor-free families (`zoo_leg`); their kernels-line entries."""
+    import tempfile
+
+    entries = []
+    with tempfile.TemporaryDirectory() as tmp:
+        for family in ZOO_YAMLS:
+            entries += zoo_leg(torch, dev, card, lists, family, tmp)
+    return entries
+
+
 def main() -> int:
     import torch
 
@@ -2291,6 +2698,7 @@ def main() -> int:
         kernels += entries
         hostaug_phase(torch, dev, card, lists, dev_aug)
         cli_leg(torch, dev, card, lists)
+        kernels += zoo_phase(torch, dev, card, lists)
     finally:
         shutil.rmtree(DATA_DIR, ignore_errors=True)
     print(json.dumps({"kernels": kernels}))

@@ -1,9 +1,11 @@
 """Backbone factory (reference models/backbone/__init__.py:8-23). Holds the
-backbones ported so far."""
+backbones ported so far; YOLOv6, YOLOv7 and ResNet raise (ROADMAP
+Q1.10)."""
 
 from .yolov5 import YoloV5BackBone
+from .yolov8 import YoloV8BackBone
 
-_REGISTRY = {"YoloV5": YoloV5BackBone}
+_REGISTRY = {"YoloV5": YoloV5BackBone, "YoloV8": YoloV8BackBone}
 
 
 def build_backbone_cls(name: str):
@@ -11,5 +13,5 @@ def build_backbone_cls(name: str):
         return _REGISTRY[name]
     except KeyError:
         raise NotImplementedError(
-            f"backbone {name!r}; ported: {sorted(_REGISTRY)}"
-        ) from None
+            f"backbone {name!r} is not ported yet (ROADMAP Q1.10); ported: "
+            f"{sorted(_REGISTRY)}") from None

@@ -1,8 +1,9 @@
-"""Shared building blocks for the YOLOv5 model, as torch modules (NCHW).
+"""Shared building blocks of the ported models, as torch modules (NCHW).
 
 Counterparts of `efficientteacher_tpu/models/common.py` (reference:
-models/backbone/common.py — Conv:471, Bottleneck:534, C3:566, SPPF:682).
-Only the blocks the YOLOv5 serving slice runs are ported so far.
+models/backbone/common.py — Conv:471, Bottleneck:534, C3:566, C2f:594,
+SPPF:682). Only the blocks of the ported families (YOLOv5, YOLOX, YOLOv8)
+are here so far.
 
   - Submodule names follow the reference state_dict (`conv`, `bn`, `cv1`,
     `m.0`, ...), so a checkpoint exported from the JAX package
@@ -150,6 +151,28 @@ class C3(nn.Module):
 
     def forward(self, x):
         return self.cv3(torch.cat([self.m(self.cv1(x)), self.cv2(x)], 1))
+
+
+class C2f(nn.Module):
+    """CSP bottleneck with 2 convs, YOLOv8's (reference common.py:594):
+    cv1 to 2c channels, split in halves, n 3x3-3x3 bottlenecks chained on
+    the second half, every piece concatenated into cv2."""
+
+    def __init__(self, c1: int, c2: int, n: int = 1, shortcut: bool = False,
+                 g: int = 1, e: float = 0.5, act="silu"):
+        super().__init__()
+        self.c = int(c2 * e)
+        self.cv1 = ConvBase(c1, 2 * self.c, 1, 1, act=act)
+        self.cv2 = ConvBase((2 + n) * self.c, c2, 1, 1, act=act)
+        self.m = nn.ModuleList(
+            Bottleneck(self.c, self.c, shortcut, g, k=(3, 3), e=1.0, act=act)
+            for _ in range(n))
+
+    def forward(self, x):
+        ys = list(self.cv1(x).split(self.c, 1))
+        for m in self.m:
+            ys.append(m(ys[-1]))
+        return self.cv2(torch.cat(ys, 1))
 
 
 class SPPF(nn.Module):

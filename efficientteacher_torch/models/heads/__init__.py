@@ -1,9 +1,24 @@
 """Head factory (reference models/head/__init__.py:12-27). Holds the heads
-ported so far."""
+ported so far; YOLOv6 and YOLOv7 raise (ROADMAP Q1.10).
+
+`head_model_type` is the detector's model_type dispatch (reference
+yolo.py:66-82; JAX heads/__init__.py `_MODEL_TYPE`): anchor heads ->
+'yolov5', the YOLOX head -> 'yolox', the TAL heads -> 'tal'."""
 
 from .yolov5 import YoloV5Detect
+from .yolov8 import YoloV8Detect
+from .yolox import YoloXDetect
 
-_REGISTRY = {"YoloV5": YoloV5Detect}
+_REGISTRY = {"YoloV5": YoloV5Detect, "YoloV8": YoloV8Detect,
+             "YoloX": YoloXDetect}
+
+_MODEL_TYPE = {
+    "YoloV5": "yolov5",
+    "YoloV7": "yolov5",   # IDetect is anchor-based like Detect
+    "YoloX": "yolox",
+    "YoloV6": "tal",
+    "YoloV8": "tal",
+}
 
 
 def build_head_cls(name: str):
@@ -11,5 +26,9 @@ def build_head_cls(name: str):
         return _REGISTRY[name]
     except KeyError:
         raise NotImplementedError(
-            f"head {name!r}; ported: {sorted(_REGISTRY)}"
-        ) from None
+            f"head {name!r} is not ported yet (ROADMAP Q1.10); ported: "
+            f"{sorted(_REGISTRY)}") from None
+
+
+def head_model_type(name: str) -> str:
+    return _MODEL_TYPE.get(name, "yolov5")

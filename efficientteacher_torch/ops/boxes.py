@@ -6,7 +6,10 @@ arithmetic, in the same order, as the JAX functions, so NMS decisions match
 bit for bit:
   - xywh2xyxy: reference utils/general.py:575
   - box_iou (pairwise NxM): reference utils/metrics.py:252-274
-  - bbox_ciou (elementwise CIoU, xywh): reference utils/metrics.py:207-249
+  - bbox_iou (elementwise IoU / GIoU / DIoU / CIoU / SIoU): reference
+    utils/metrics.py:207-249 and the SIoU of models/loss/loss.py:726-859;
+    bbox_ciou is its xywh CIoU, the form the YOLOv5 losses call
+  - iou_loss: 1 - bbox_iou by name (the anchor-free losses' dispatch)
 """
 
 from __future__ import annotations
@@ -35,21 +38,26 @@ def box_iou(box1: torch.Tensor, box2: torch.Tensor,
     return inter / (area1[..., :, None] + area2[..., None, :] - inter + eps)
 
 
-def bbox_ciou(box1: torch.Tensor, box2: torch.Tensor,
-              eps: float = 1e-7) -> torch.Tensor:
-    """Elementwise CIoU of broadcastable xywh boxes (..., 4): the JAX
-    `bbox_iou(x1y1x2y2=False, CIoU=True)` (ops/boxes.py:140), the form both
-    losses call. As the reference: `+eps` on the heights only, and alpha is
-    a constant to autograd. The JAX function's other forms (xyxy input,
-    plain IoU, GIoU, DIoU, SIoU) have no caller in the port."""
-    b1_x1 = box1[..., 0] - box1[..., 2] / 2
-    b1_x2 = box1[..., 0] + box1[..., 2] / 2
-    b1_y1 = box1[..., 1] - box1[..., 3] / 2
-    b1_y2 = box1[..., 1] + box1[..., 3] / 2
-    b2_x1 = box2[..., 0] - box2[..., 2] / 2
-    b2_x2 = box2[..., 0] + box2[..., 2] / 2
-    b2_y1 = box2[..., 1] - box2[..., 3] / 2
-    b2_y2 = box2[..., 1] + box2[..., 3] / 2
+def bbox_iou(box1: torch.Tensor, box2: torch.Tensor, x1y1x2y2: bool = True,
+             GIoU: bool = False, DIoU: bool = False, CIoU: bool = False,
+             SIoU: bool = False, eps: float = 1e-7) -> torch.Tensor:
+    """Elementwise IoU between broadcastable boxes (..., 4), xyxy or (with
+    x1y1x2y2=False) xywh: the JAX `bbox_iou` (ops/boxes.py:140). As the
+    reference: `+eps` on the heights only, and CIoU's alpha a constant to
+    autograd, with the JAX function's NaN guard where iou rounds to
+    1 + eps."""
+    if x1y1x2y2:
+        b1_x1, b1_y1, b1_x2, b1_y2 = (box1[..., i] for i in range(4))
+        b2_x1, b2_y1, b2_x2, b2_y2 = (box2[..., i] for i in range(4))
+    else:
+        b1_x1 = box1[..., 0] - box1[..., 2] / 2
+        b1_x2 = box1[..., 0] + box1[..., 2] / 2
+        b1_y1 = box1[..., 1] - box1[..., 3] / 2
+        b1_y2 = box1[..., 1] + box1[..., 3] / 2
+        b2_x1 = box2[..., 0] - box2[..., 2] / 2
+        b2_x2 = box2[..., 0] + box2[..., 2] / 2
+        b2_y1 = box2[..., 1] - box2[..., 3] / 2
+        b2_y2 = box2[..., 1] + box2[..., 3] / 2
 
     inter = ((torch.minimum(b1_x2, b2_x2) - torch.maximum(b1_x1, b2_x1))
              .clamp(min=0)
@@ -59,15 +67,59 @@ def bbox_ciou(box1: torch.Tensor, box2: torch.Tensor,
     w2, h2 = b2_x2 - b2_x1, b2_y2 - b2_y1 + eps
     union = w1 * h1 + w2 * h2 - inter + eps
     iou = inter / union
+    if not (GIoU or DIoU or CIoU or SIoU):
+        return iou
+
     cw = torch.maximum(b1_x2, b2_x2) - torch.minimum(b1_x1, b2_x1)
     ch = torch.maximum(b1_y2, b2_y2) - torch.minimum(b1_y1, b2_y1)
-    c2 = cw ** 2 + ch ** 2 + eps
-    rho2 = ((b2_x1 + b2_x2 - b1_x1 - b1_x2) ** 2
-            + (b2_y1 + b2_y2 - b1_y1 - b1_y2) ** 2) / 4
-    v = (4 / math.pi ** 2) * (torch.atan(w2 / h2) - torch.atan(w1 / h1)) ** 2
-    # the JAX function's NaN guard: where iou rounds to 1 + eps the
-    # denominator cancels to 0
-    den = v - iou + (1 + eps)
-    den = torch.where(den.abs() < 1e-12, 1e-12, den)
-    alpha = (v / den).detach()
-    return iou - (rho2 / c2 + v * alpha)
+    if CIoU or DIoU:
+        c2 = cw ** 2 + ch ** 2 + eps
+        rho2 = ((b2_x1 + b2_x2 - b1_x1 - b1_x2) ** 2
+                + (b2_y1 + b2_y2 - b1_y1 - b1_y2) ** 2) / 4
+        if DIoU:
+            return iou - rho2 / c2
+        v = (4 / math.pi ** 2) * (torch.atan(w2 / h2)
+                                  - torch.atan(w1 / h1)) ** 2
+        den = v - iou + (1 + eps)
+        den = torch.where(den.abs() < 1e-12, 1e-12, den)
+        alpha = (v / den).detach()
+        return iou - (rho2 / c2 + v * alpha)
+    if SIoU:
+        s_cw = (b2_x1 + b2_x2 - b1_x1 - b1_x2) * 0.5
+        s_ch = (b2_y1 + b2_y2 - b1_y1 - b1_y2) * 0.5
+        sigma = torch.sqrt(s_cw ** 2 + s_ch ** 2) + eps
+        sin_alpha_1 = s_cw.abs() / sigma
+        sin_alpha_2 = s_ch.abs() / sigma
+        threshold = 2 ** 0.5 / 2
+        sin_alpha = torch.where(sin_alpha_1 > threshold, sin_alpha_2,
+                                sin_alpha_1)
+        angle_cost = torch.cos(torch.arcsin(sin_alpha) * 2 - math.pi / 2)
+        rho_x = (s_cw / (cw + eps)) ** 2
+        rho_y = (s_ch / (ch + eps)) ** 2
+        gamma = angle_cost - 2
+        distance_cost = 2 - torch.exp(gamma * rho_x) - torch.exp(gamma * rho_y)
+        omiga_w = (w1 - w2).abs() / torch.maximum(w1, w2)
+        omiga_h = (h1 - h2).abs() / torch.maximum(h1, h2)
+        shape_cost = ((1 - torch.exp(-omiga_w)) ** 4
+                      + (1 - torch.exp(-omiga_h)) ** 4)
+        return iou - 0.5 * (distance_cost + shape_cost)
+    c_area = cw * ch + eps
+    return iou - (c_area - union) / c_area  # GIoU
+
+
+def bbox_ciou(box1: torch.Tensor, box2: torch.Tensor,
+              eps: float = 1e-7) -> torch.Tensor:
+    """Elementwise CIoU of broadcastable xywh boxes (..., 4), the form the
+    YOLOv5 losses call."""
+    return bbox_iou(box1, box2, x1y1x2y2=False, CIoU=True, eps=eps)
+
+
+_IOU_KIND = {"giou": {"GIoU": True}, "diou": {"DIoU": True},
+             "ciou": {"CIoU": True}, "siou": {"SIoU": True}, "iou": {}}
+
+
+def iou_loss(pred: torch.Tensor, target: torch.Tensor, iou_type: str = "giou",
+             x1y1x2y2: bool = True) -> torch.Tensor:
+    """1 - bbox_iou of the named kind (JAX ops/boxes.py:248)."""
+    return 1.0 - bbox_iou(pred, target, x1y1x2y2=x1y1x2y2,
+                          **_IOU_KIND[iou_type])

@@ -33,8 +33,9 @@ Differences from the JAX trainer:
     and, past seeding, the student's EMA (the pseudo-label teacher) with
     its count as `student_ema`, beside the teacher (semi-EMA) as `ema`.
 Not ported yet (NotImplementedError): LabelMatch (`pseudo_label_type:
-LabelMatch`, ROADMAP Q1.6), extra teachers and the SSOD OTA loss (Q1.10);
-the pseudo-label debug plots are skipped (Q1.8).
+LabelMatch`, ROADMAP Q1.6), extra teachers, the SSOD OTA loss and the
+SSOD losses of the anchor-free heads (Q1.10); the pseudo-label debug
+plots are skipped (Q1.8).
 """
 
 from __future__ import annotations
@@ -47,6 +48,7 @@ import torch
 from ..data.datasets_ssod import create_target_dataloader
 from ..eval.metrics import fitness
 from ..losses.ssod_loss import SSODLossConfig
+from ..models.heads import head_model_type
 from ..ops.augment_device import device_ssod_views, step_seed
 from ..parallel.distributed import to_host
 from ..ssod.quality import check_pseudo_label, check_pseudo_label_with_gt
@@ -72,12 +74,12 @@ class SSODTrainer(Trainer):
     def set_env(self, cfg):
         if str(cfg.SSOD.pseudo_label_type) == "LabelMatch":
             raise NotImplementedError(
-                "LabelMatch is not ported yet (ROADMAP, Queue 1 item 6); "
+                "LabelMatch is not ported yet (ROADMAP Q1.6); "
                 "use pseudo_label_type: FairPseudoLabel")
         if cfg.SSOD.extra_teachers or cfg.SSOD.use_ota:
             raise NotImplementedError(
                 "extra teachers and the SSOD OTA loss are not ported yet "
-                "(ROADMAP, Queue 1 item 7)")
+                "(ROADMAP Q1.10)")
         super().set_env(cfg)
         if (cfg.Dataset.device_aug
                 and float(cfg.SSOD.ssod_hyp.autoaugment) > 0
@@ -151,6 +153,11 @@ class SSODTrainer(Trainer):
 
     def build_loss(self, cfg):
         super().build_loss(cfg)
+        if head_model_type(self.spec.head) != "yolov5":
+            raise NotImplementedError(
+                f"the SSOD losses of the {self.spec.head!r} head are not "
+                "ported yet (ROADMAP Q1.10); the port's SSOD trainer runs "
+                "anchor heads")
         self.ssod_loss_cfg = SSODLossConfig.from_cfg(cfg, nl=self.spec.nl)
         # FairPseudoLabel's fixed per-class thresholds (LabelMatch would
         # refresh them per epoch)

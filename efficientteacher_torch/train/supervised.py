@@ -5,8 +5,9 @@ reference trainer/trainer.py:413-440).
 Images arrive uint8 NHWC and are scaled on the device. The forward runs in
 `compute_dtype`: bf16 by autocast on the card (float32 master weights, no
 GradScaler needed for bf16), float32 in the parity tests. The loss runs in
-float32 outside autocast. RepOpt gradient masks (`grad_masks`) are not
-ported yet.
+float32 outside autocast. The loss family is a hook, as in JAX:
+`detection_loss(raw, labels, mask) -> (loss, parts)`. RepOpt gradient
+masks (`grad_masks`) are not ported yet.
 """
 
 from __future__ import annotations
@@ -15,7 +16,6 @@ from typing import NamedTuple, Optional
 
 import torch
 
-from ..losses.yolov5_loss import YoloV5LossConfig, compute_loss
 from ..models.detector import SSODModel
 from ..utils.precision import autocast
 from .optim import OptimizerConfig
@@ -68,15 +68,15 @@ def apply_grads(state: TrainState, grads, oc: OptimizerConfig,
 
 
 def make_supervised_train_step(
-        loss_cfg: YoloV5LossConfig, anchors_grid, opt_cfg: OptimizerConfig,
-        norm_scale: float = 255.0,
+        opt_cfg: OptimizerConfig, detection_loss, norm_scale: float = 255.0,
         compute_dtype: torch.dtype = torch.bfloat16):
-    """(state, images_u8, labels, label_mask, sched) -> (state, parts): the
-    YOLOv5 `compute_loss` with `loss_cfg` and anchors_grid (nl, na, 2), a
-    tensor on the step's device (or an array, for CPU steps). An SSODModel
-    trains here without its discriminators. The model is the state's. (The
-    JAX step's `detection_loss` hook for other loss families is not ported
-    with them.)"""
+    """(state, images_u8, labels, label_mask, sched) -> (state, parts).
+
+    `detection_loss(raw, labels, mask) -> (loss, parts)` is the loss family
+    (the reference's Loss.type dispatch, trainer.py:320-327; the trainer's
+    `build_loss` picks it: for anchor heads the YOLOv5 `compute_loss` with
+    its anchors_grid). An SSODModel trains here without its
+    discriminators. The model is the state's."""
 
     def train_step(state: TrainState, images, labels, label_mask,
                    sched: Schedule):
@@ -87,8 +87,7 @@ def make_supervised_train_step(
                             **({"with_domain": False} if ssod else {}))
         if ssod:
             raw = raw[0]
-        loss, parts = compute_loss(raw, labels, label_mask, anchors_grid,
-                                   loss_cfg)
+        loss, parts = detection_loss(raw, labels, label_mask)
         apply_grads(state, grads_of(loss, state), opt_cfg, sched)
         return state, detached(parts)
 

@@ -9,7 +9,12 @@ Parity with reference trainer/trainer.py:43-542:
     (trainer.py:195-197), SGD nesterov, one_cycle or linear LR; full resume
   - warmup iterations nw = clamp(round(warmup_epochs*nb), 1000, half-run)
     (trainer.py:372-376)
+  - build_loss: the Loss.type dispatch, ComputeLoss (YOLOv5),
+    ComputeXLoss / ComputeFastXLoss (YOLOX, SimOTA) and ComputeTalLoss (the
+    TAL heads), with JAX's early ValueError on an anchor-free loss paired
+    with an anchor head (JAX trainer.py:336-349)
   - before_epoch: close mosaic for the last no_aug_epochs (trainer.py:363-365)
+    and, for YOLOX, turn on the L1 term there (trainer.py:366-368)
   - after_epoch: validate EMA, fitness = 0.1*mAP50+0.9*mAP, save last/best
     (trainer.py:445-491), asynchronously (utils/checkpoint.py)
 
@@ -29,10 +34,11 @@ letterboxes, and mosaic, perspective, HSV and flips run on the card
 
 Not ported yet, each raising NotImplementedError or skipped as the JAX
 trainer skips them when their dependencies are missing: autoanchor
-(`noautoanchor: False`, ROADMAP Q1.7), RepOpt and AdamW (Q1.10), loss
-families other than the YOLOv5 `ComputeLoss` (Q1.10), warm starts from a
-reference `.pt` (Q1.11), DDP (Q1.5), and the loggers and plots (Q1.8,
-skipped), the JAX trainer's `profile_steps` (`torch.profiler` serves).
+(`noautoanchor: False`, ROADMAP Q1.7), RepOpt and AdamW (Q1.10), the
+YOLOv7 OTA loss (`ComputeLoss` with `assigner_type: SimOTA`, Q1.10), warm
+starts from a reference `.pt` (Q1.11), DDP (Q1.5), and the loggers and
+plots (Q1.8, skipped), the JAX trainer's `profile_steps`
+(`torch.profiler` serves).
 """
 
 from __future__ import annotations
@@ -52,8 +58,11 @@ from ..data.datasets import (BatchLoader, LoadImagesAndLabels,
                              create_dataloader)
 from ..eval import validator
 from ..eval.metrics import MetricMeter, fitness
-from ..losses.yolov5_loss import YoloV5LossConfig
+from ..losses.tal_loss import TALLossConfig, compute_tal_loss
+from ..losses.yolov5_loss import YoloV5LossConfig, compute_loss
+from ..losses.yolox_loss import YoloXLossConfig, compute_yolox_loss
 from ..models import build_model, spec_from_cfg
+from ..models.heads import head_model_type
 from ..ops.augment_device import device_augment_batch, step_seed
 from ..parallel.distributed import (is_main_process, per_process_batch,
                                     to_device)
@@ -104,7 +113,7 @@ class Trainer:
     def set_env(self, cfg):
         if not cfg.noautoanchor and not cfg.resume:
             raise NotImplementedError(
-                "autoanchor is not ported yet (ROADMAP, Queue 1 item 6); set "
+                "autoanchor is not ported yet (ROADMAP Q1.7); set "
                 "noautoanchor: True")
         self.epochs = cfg.epochs
         self.batch_size = cfg.Dataset.batch_size
@@ -132,7 +141,7 @@ class Trainer:
     def build_model(self, cfg):
         if cfg.Model.RepOpt:
             raise NotImplementedError(
-                "RepOptimizer is not ported yet (ROADMAP, Queue 1 item 7)")
+                "RepOptimizer is not ported yet (ROADMAP Q1.10)")
         self.spec = dataclasses.replace(spec_from_cfg(cfg),
                                         train_domain=self.ssod_model)
         model = build_model(self.spec, device=self.device,
@@ -158,7 +167,7 @@ class Trainer:
         if weights.endswith(".pt"):
             raise NotImplementedError(
                 "warm starts from a reference .pt are not ported yet "
-                "(ROADMAP, Queue 1 item 9)")
+                "(ROADMAP Q1.11)")
         ckpt = load_checkpoint(weights)
         ent = ckpt.get("ema") or ckpt["model"]
         own = module_variables(model)
@@ -277,20 +286,62 @@ class Trainer:
             max_out=int(self.cfg.Dataset.max_targets))
 
     def build_loss(self, cfg):
-        """Loss.type dispatch: the YOLOv5 `ComputeLoss` only."""
+        """Loss.type dispatch (JAX trainer.py:330-394): ComputeLoss for
+        anchor heads, ComputeXLoss / ComputeFastXLoss (YOLOX) and
+        ComputeTalLoss (the TAL heads), each set as the step's
+        `detection_loss`."""
         loss_type = cfg.Loss.type
-        if loss_type != "ComputeLoss" or cfg.Loss.assigner_type == "SimOTA":
-            raise NotImplementedError(
-                f"Loss.type {loss_type!r} (assigner "
-                f"{cfg.Loss.assigner_type!r}) is not ported yet (ROADMAP, "
-                "Queue 1 item 7); the port trains ComputeLoss")
+        # fail early on a head/loss family mismatch: the default Loss.type
+        # is ComputeXLoss, which only fits anchor-free heads; with an
+        # anchor head it would surface as a shape error inside the loss
+        if loss_type in ("ComputeXLoss", "ComputeFastXLoss",
+                         "ComputeTalLoss") \
+                and head_model_type(self.spec.head) == "yolov5":
+            raise ValueError(
+                f"Loss.type {loss_type!r} is anchor-free but head "
+                f"{self.spec.head!r} is anchor-based — set Loss.type: "
+                "'ComputeLoss' (every shipped anchor-head YAML does)")
         self.loss_cfg = YoloV5LossConfig.from_cfg(cfg, nl=self.spec.nl)
+        if loss_type == "ComputeLoss":
+            if cfg.Loss.assigner_type == "SimOTA":
+                raise NotImplementedError(
+                    "the YOLOv7 OTA loss (Loss.type 'ComputeLoss' with "
+                    "assigner_type 'SimOTA') is not ported yet (ROADMAP "
+                    "Q1.10)")
+            anchors, lc = self.anchors_grid, self.loss_cfg
+
+            def det_loss(raw, labels, mask):
+                return compute_loss(raw, labels, mask, anchors, lc)
+
+        elif loss_type in ("ComputeXLoss", "ComputeFastXLoss"):
+            det_loss = self._yolox_loss(use_l1=False)
+        elif loss_type == "ComputeTalLoss":
+            self.tal_cfg = TALLossConfig.from_cfg(cfg)
+            img, tc = self.img_size, self.tal_cfg
+
+            def det_loss(raw, labels, mask):
+                return compute_tal_loss(raw, labels, mask, img, tc)
+
+        else:
+            raise NotImplementedError(f"Loss.type {loss_type!r}")
+        self.detection_loss = det_loss
+
+    def _yolox_loss(self, use_l1: bool):
+        """The YOLOX loss at the config's settings, with or without L1."""
+        self.yolox_cfg = YoloXLossConfig.from_cfg(self.cfg, use_l1=use_l1)
+        img, xc = self.img_size, self.yolox_cfg
+
+        def det_loss(raw, labels, mask):
+            return compute_yolox_loss(raw, labels, mask, img, xc)
+
+        return det_loss
 
     def build_step(self):
         self.train_step = make_supervised_train_step(
-            self.loss_cfg, self.anchors_grid, self.opt_cfg,
+            opt_cfg=self.opt_cfg,
             norm_scale=float(self.cfg.Dataset.norm_scale),
             compute_dtype=self.compute_dtype,
+            detection_loss=self.detection_loss,
         )
 
     def _to_device(self, *arrays):
@@ -324,6 +375,11 @@ class Trainer:
             LOGGER.info("closing mosaic augmentation")
             self.dataset.mosaic = False
             self.aug_hyp["mosaic"] = 0.0
+            if self.cfg.Loss.type in ("ComputeXLoss", "ComputeFastXLoss"):
+                # YOLOX: the extra L1 term for the no-aug tail (reference
+                # trainer.py:366-368)
+                self.detection_loss = self._yolox_loss(use_l1=True)
+                self.build_step()
         self.meter = MetricMeter()
 
     def train_in_epoch(self):

@@ -41,6 +41,7 @@ from typing import Dict
 import torch
 
 from ..eval.validator import InferFn
+from ..models.heads import YoloV5Detect, YoloV8Detect, YoloXDetect
 from ..models.spec import ModelSpec
 from ..ops.nms import _pair_scores
 from .precision import autocast
@@ -73,6 +74,24 @@ def shift_obj(state, delta: float, no: int = 85) -> Dict[str, torch.Tensor]:
             v = v.view(-1)
         out[key] = v
     return out
+
+
+def shift_score_bias(head, delta: float) -> None:
+    """Raise, in place, the biases that gate a head's eval scores by
+    `delta`: objectness for the YOLOv5 and YOLOX heads, the class biases
+    for the YOLOv8 head, whose decoded objectness is the constant 1."""
+    with torch.no_grad():
+        if isinstance(head, YoloV5Detect):
+            for conv in head.m:
+                conv.bias.view(head.na, head.no)[:, 4] += delta
+        elif isinstance(head, YoloXDetect):
+            for conv in head.obj_preds:
+                conv.bias += delta
+        elif isinstance(head, YoloV8Detect):
+            for i in range(len(head.strides)):
+                getattr(head, f"cv3_{i}")[2].bias += delta
+        else:
+            raise NotImplementedError(type(head).__name__)
 
 
 def saturate_obj(state, no: int = 85, delta: float = 10.0):

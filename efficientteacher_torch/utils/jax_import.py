@@ -6,11 +6,15 @@ export_to_torch_state_dict`, rewritten in numpy without jax (that module's
 package imports jax). The Flax modules keep the reference's state_dict
 names, so the map is mechanical:
 
-  - kernels HWIO -> OIHW, `scale`/`kernel` -> `weight`;
+  - kernels HWIO -> OIHW, `scale`/`kernel` -> `weight`; a biased conv's
+    (flax `nn.Conv` with bias: the YOLOv5 Detect convs, the YOLOX and
+    YOLOv8 prediction convs) `bias` stays `bias`;
   - batch stats `mean`/`var` -> `running_mean`/`running_var`;
   - `m_0` -> `m.0`, except modules whose reference name literally holds
     `_<digit>` (`stage2_1`, ...) and the SSOD model's discriminators
-    `det_8/16/32`, which the port names as the JAX package does;
+    `det_8/16/32`, which the port names as the JAX package does; only the
+    last `_<digit>` splits, so YOLOv8's `cv2_0_1` is `cv2_0.1` and YOLOX's
+    `cls_preds_0` is `cls_preds.0`;
   - plus `num_batches_tracked` for every BatchNorm, which
     `nn.BatchNorm2d` registers and `load_state_dict(strict=True)` requires.
 

@@ -438,3 +438,127 @@ def test_augmentation_on_the_card_equals_the_cpu(card, rotating):
                 assert torch.equal(x, y)
             else:
                 assert torch.allclose(x, y, rtol=1e-5, atol=1e-4)
+
+
+def _anchor_free_lattice(rng, b, nc=80, lit=None):
+    """A decoded anchor-free field at 640 px: 8,400 predictions per image,
+    (b, 8400, 5 + nc) [xywh, obj, cls]; `lit` pairs per image above the
+    0.001 gate (None: every one)."""
+    n = 8400
+    pred = np.zeros((b, n, 5 + nc), np.float32)
+    pred[..., 0:2] = rng.uniform(0, 640, (b, n, 2))
+    pred[..., 2:4] = rng.uniform(4, 200, (b, n, 2))
+    pred[..., 4] = 1.0  # the TAL heads' constant objectness
+    cls = rng.uniform(0.002, 1.0, (b, n * nc)).astype(np.float32)
+    if lit is not None:
+        for i in range(b):
+            off = rng.choice(n * nc, n * nc - lit, replace=False)
+            cls[i, off] = rng.uniform(0, 0.0009, off.size)
+    pred[..., 5:] = cls.reshape(b, n, nc)
+    return torch.from_numpy(pred)
+
+
+@pytest.mark.parametrize("lit", [3300, None])
+def test_selection_kernels_at_the_anchor_free_lattice(card, lit):
+    """K2 (element and row buffers) and count_ge at the YOLOX-s / YOLOv8-m
+    eval lattice, N = 8,400 x 80 = 672,000 scores per image, mid and
+    saturated; then the whole eval NMS with the kernels equals the plain
+    one."""
+    from efficientteacher_torch.ops.nms import _pair_scores, batched_nms
+
+    decoded = _anchor_free_lattice(np.random.default_rng(8), 4, lit=lit)
+    decoded = decoded.to(card)
+    flat = _pair_scores(decoded, 80, 0.001, False, 0, False, None)[0]
+    assert flat.shape == (4, 672000)
+    assert int((flat > 0).sum(1).min()) == (lit or 672000)
+    lo, hi = torch.zeros(4, device=card), torch.full((4,), float("inf"),
+                                                     device=card)
+    for cap in (30080, 672000):
+        before = threshold_compact_cuda.launches
+        ks, ki = threshold_compact_cuda(flat, lo, hi, cap)
+        assert threshold_compact_cuda.launches == before + 1
+        ps, pi = threshold_compact(flat, lo, hi, cap)
+        assert torch.equal(ks, ps) and torch.equal(ki, pi)
+    taus = torch.sort(torch.rand(4, 8, device=card), 1).values.contiguous()
+    before = count_ge_cuda.launches
+    assert torch.equal(count_ge_cuda(flat, taus), _count_ge(flat, taus))
+    assert count_ge_cuda.launches == before + 1
+    for engine in (exact_topk_rows, exact_topk_elems):
+        ts, ti = engine(flat, 30000)
+        check_exact_topk(flat, 30000, ts, ti)
+    kw = dict(nc=80, conf_thres=0.001, iou_thres=0.6, max_nms=30000,
+              max_det=300, multi_label=True)
+    got = batched_nms(decoded, **kw)
+    ref = batched_nms(decoded, use_kernels=False, **kw)
+    assert torch.equal(got.detections, ref.detections)
+    assert torch.equal(got.valid, ref.valid)
+
+
+@pytest.mark.parametrize("family", ["yolox", "yolov8"])
+def test_anchor_free_train_step_on_the_card(card, family):
+    """One supervised step of each anchor-free family from its shipped
+    YAML (width 0.25, 256 px, 4 images) on the card against the same step
+    on the CPU, both float32 (TF32 off) from one seeded init: the same
+    loss parts (rtol 1e-3: cuDNN's convolutions round otherwise), then a
+    bf16 autocast step on the card with finite losses."""
+    from pathlib import Path
+
+    from efficientteacher_torch.configs import get_cfg
+    from efficientteacher_torch.losses.tal_loss import (TALLossConfig,
+                                                        compute_tal_loss)
+    from efficientteacher_torch.losses.yolox_loss import (YoloXLossConfig,
+                                                          compute_yolox_loss)
+    from efficientteacher_torch.models import build_model, spec_from_cfg
+    from efficientteacher_torch.train.optim import OptimizerConfig
+    from efficientteacher_torch.train.supervised import (
+        Schedule, make_supervised_train_step)
+    from efficientteacher_torch.train.train_state import create_train_state
+
+    yaml = {"yolox": "yolox_coco.yaml", "yolov8": "yolov8m_coco.yaml"}
+    cfg = get_cfg()
+    cfg.merge_from_file(str(Path(__file__).resolve().parents[1]
+                            / "configs/sup/public" / yaml[family]))
+    cfg.merge_from_list(["Model.width_multiple", 0.25,
+                         "Model.depth_multiple", 0.33,
+                         "Dataset.img_size", 256])
+    if family == "yolox":
+        lc = YoloXLossConfig.from_cfg(cfg, use_l1=True)
+        loss = lambda r, lab, m: compute_yolox_loss(r, lab, m, 256, lc)  # noqa
+    else:
+        lc = TALLossConfig.from_cfg(cfg)
+        loss = lambda r, lab, m: compute_tal_loss(r, lab, m, 256, lc)  # noqa
+    rng = np.random.default_rng(4)
+    images = torch.from_numpy(rng.integers(0, 256, (4, 256, 256, 3),
+                                           dtype=np.uint8))
+    labels = torch.zeros(4, 8, 5)
+    labels[:, :5, 0] = torch.from_numpy(rng.integers(0, 80, (4, 5)))
+    labels[:, :5, 1:3] = torch.from_numpy(rng.uniform(0.2, 0.8, (4, 5, 2)))
+    labels[:, :5, 3:5] = torch.from_numpy(rng.uniform(0.05, 0.4, (4, 5, 2)))
+    mask = torch.zeros(4, 8, dtype=torch.bool)
+    mask[:, :5] = True
+    oc = OptimizerConfig(lr0=0.01, lrf=1.0)
+    sched = Schedule.make(0.01, 0.01, 0.937, 1)
+    parts = {}
+    tf32 = (torch.backends.cudnn.allow_tf32,
+            torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        for dev, dtype in (("cpu", torch.float32), (card, torch.float32),
+                           (card, torch.bfloat16)):
+            model = build_model(spec_from_cfg(cfg), device=dev,
+                                generator=torch.Generator().manual_seed(0))
+            state = create_train_state(model, oc, with_ema=True)
+            step = make_supervised_train_step(
+                opt_cfg=oc, compute_dtype=dtype, detection_loss=loss)
+            _, out = step(state, images.to(dev), labels.to(dev),
+                          mask.to(dev), sched)
+            parts[(str(dev), dtype)] = {k: float(v) for k, v in out.items()}
+    finally:
+        (torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32) = tf32
+    cpu, f32, bf16 = parts.values()
+    assert set(cpu) == set(f32) == set(bf16)
+    for k in cpu:
+        assert f32[k] == pytest.approx(cpu[k], rel=1e-3), k
+        assert np.isfinite(bf16[k]), k

@@ -19,6 +19,16 @@ MODULES = [
     "efficientteacher_torch.models.backbones.yolov5",
     "efficientteacher_torch.models.necks.yolov5",
     "efficientteacher_torch.models.heads.yolov5",
+    "efficientteacher_torch.models.backbones.yolov8",
+    "efficientteacher_torch.models.necks.yolov8",
+    "efficientteacher_torch.models.heads.yolov6",
+    "efficientteacher_torch.models.heads.yolov8",
+    "efficientteacher_torch.models.heads.yolox",
+    "efficientteacher_torch.assigners.simota",
+    "efficientteacher_torch.assigners.tal",
+    "efficientteacher_torch.assigners.topk",
+    "efficientteacher_torch.losses.yolox_loss",
+    "efficientteacher_torch.losses.tal_loss",
     "efficientteacher_torch.ops.boxes",
     "efficientteacher_torch.ops._build",
     "efficientteacher_torch.ops.nms",

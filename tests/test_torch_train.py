@@ -473,9 +473,12 @@ def test_three_supervised_steps_match_jax():
     jstep = jax_sup_step(jm, JaxLossConfig.from_cfg(cfg), anchors,
                          jax_optim.OptimizerConfig(**oc_kw),
                          compute_dtype=jnp.float32)
+    lc = YoloV5LossConfig.from_cfg(cfg)
     step = make_supervised_train_step(
-        YoloV5LossConfig.from_cfg(cfg), anchors,
-        optim.OptimizerConfig(**oc_kw), compute_dtype=torch.float32)
+        optim.OptimizerConfig(**oc_kw),
+        lambda raw, labels, mask: compute_loss(raw, labels, mask, anchors,
+                                               lc),
+        compute_dtype=torch.float32)
     rng = np.random.default_rng(0)
     for it in range(3):
         images = images_u8(rng, 4, 64)
