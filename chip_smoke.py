@@ -59,15 +59,22 @@ read just after:
     from the val split's label files; the JSON holds exactly the
     detections validator.run counted, and the vendor-free COCO re-scorer's
     mAP pair is printed beside validator.run's;
-  - zoo: the anchor-free families from their shipped YAMLs as written but
-    the data paths, YOLOX-s (configs/sup/public/yolox_coco.yaml) and
-    YOLOv8-m (yolov8m_coco.yaml), batch 64 @640: `Trainer` for one epoch
-    of 4 steps on the smoke dataset (host augmentation), its epoch-end
-    validation at a mid density held against the plain NMS, `cli.val`
-    on the best.ckpt it saved equal to validator.run, the eval program on
-    a saturated copy; step ms, img/s, the loss and its assignment's ms,
-    peak memory, forward and NMS ms, and K1, K2 and the count against
-    their plain versions at the mid and saturated 672,000-score lattices.
+  - zoo: the zoo families from their shipped YAMLs as written but the
+    data paths (configs/sup/public/): YOLOX-s (yolox_coco.yaml) and
+    YOLOv8-m (yolov8m_coco.yaml) at batch 64 for 2 steps, YOLOv7-L
+    (yolov7l_coco.yaml) and YOLOv6-s (yolov6s_coco.yaml) at 64 for 4,
+    YOLOv7-s-SimOTA (yolov7s_coco_simota.yaml) and the YOLOv6-s RepOpt
+    finetune (yolov6s_coco_repopt_finetune.yaml, its RepScale_weight a
+    seeded LinearAdd YOLOv6-s written first, its masks checked) at 128
+    for 2, @640: `Trainer` for one epoch on the smoke dataset (host
+    augmentation), its epoch-end validation at a mid density held against
+    the plain NMS, `cli.val` on the best.ckpt it saved equal to
+    validator.run, the eval program on a saturated copy and, for YOLOv7-L
+    and YOLOv6-s, on its RepVGG-fused deploy model (`utils/reparam.py`;
+    float32 outputs against the unfused model's); step ms, img/s, the
+    loss and its assignment's ms, peak memory, forward and NMS ms, and K1,
+    K2 and the count against their plain versions at the mid and
+    saturated lattices (672,000 scores per image; YOLOv7-L's 2,016,000).
 
 It times the forward, the NMS, the selection engine against `torch.topk`,
 the training steps and their phases (CUDA events), and each kernel
@@ -1390,7 +1397,8 @@ def smoke_trainer(torch):
     return SmokeTrainer
 
 
-def mid_val_teacher(torch, module, calib, target=3300.0, iters=12):
+def mid_val_teacher(torch, module, calib, target=3300.0, iters=12,
+                    shift=None):
     """Give `module` (the validated teacher) the serving phase's mid
     density at the eval gate: BatchNorm calibrated on `calib`, then its
     head's score biases (objectness; the YOLOv8 head's classes:
@@ -1398,26 +1406,28 @@ def mid_val_teacher(torch, module, calib, target=3300.0, iters=12):
     on `calib` come nearest `target` (on a log scale). The trainer's
     burn-in moves the weights away from the init that MID_OBJ_SHIFT was
     chosen for (its objectness loss on noise images silences the head),
-    so the shift is searched here. Returns (shift, candidates/img)."""
+    so the shift is searched here. `shift(head, delta)` moves the biases
+    (default `shift_score_bias`). Returns (shift, candidates/img)."""
     import math
 
     from efficientteacher_torch.utils.eval_regimes import (calibrate_bn,
                                                            make_density_fn,
                                                            shift_score_bias)
 
+    shift = shift or shift_score_bias
     calibrate_bn(module, calib)
     density = make_density_fn(module, NC, CONF)
     lo, hi, at, best = -12.0, 12.0, 0.0, None
     for _ in range(iters):
         mid = (lo + hi) / 2
-        shift_score_bias(module.head, mid - at)
+        shift(module.head, mid - at)
         at = mid
         cands = density(calib)[0]
         miss = abs(math.log(cands + 1.0) - math.log(target))
         if best is None or miss < best[2]:
             best = (mid, cands, miss)
         lo, hi = (mid, hi) if cands < target else (lo, mid)
-    shift_score_bias(module.head, best[0] - at)
+    shift(module.head, best[0] - at)
     return best[:2]
 
 
@@ -2098,22 +2108,37 @@ def cli_leg(torch, dev, card, lists):
               f"| {card}")
 
 
-# [zoo]: the anchor-free families from their shipped YAMLs, as written but
-# for the data paths: YOLOX-s (SimOTA, ComputeXLoss) and YOLOv8-m (C2f,
-# TAL, DFL), nc 80 at 640 px, batch 64 (accumulate 1), SGD, the host
-# augmentation route. Each trains one epoch of Z_STEPS steps on the smoke
-# dataset's labelled split, validates on its val split in batches of
-# T_BATCH, and cli.val reads the best.ckpt it saved. Their eval lattice is
-# 8,400 predictions x 80 classes = 672,000 scores per image (YOLOv5l's:
-# 2,016,000).
+# [zoo]: the zoo families from their shipped YAMLs, as written but for the
+# data paths: YOLOX-s (SimOTA, ComputeXLoss), YOLOv8-m (C2f, TAL, DFL),
+# YOLOv7-L (ELAN, SPPCSPC, IDetect, ComputeLoss), YOLOv7-s-SimOTA (the
+# YOLOX head on the YOLOv7 body, ComputeFastXLoss), YOLOv6-s
+# (EfficientRep, RepPAN, ComputeTalLoss) and its RepOpt finetune (RealVGG
+# blocks, gradient masks from a LinearAdd checkpoint written first), nc 80
+# at 640 px, each at its YAML's batch, SGD, the host augmentation route.
+# Each trains one epoch on the smoke dataset's labelled split (YOLOX-s
+# and YOLOv8-m on its first 128 images: 2 steps), validates on its val
+# split in batches of T_BATCH, and cli.val reads the best.ckpt it saved.
+# Eval lattices: 8,400 predictions x 80 classes = 672,000 scores per image
+# for the anchor-free heads; YOLOv7-L's IDetect has 3 anchors per cell,
+# 2,016,000 (YOLOv5l's).
+_CFGS = Path(__file__).resolve().parent / "configs/sup/public"
 ZOO_YAMLS = {
-    "yolox": Path(__file__).resolve().parent
-    / "configs/sup/public/yolox_coco.yaml",
-    "yolov8": Path(__file__).resolve().parent
-    / "configs/sup/public/yolov8m_coco.yaml"}
-Z_BATCH = 64
-Z_STEPS = SPLITS["labelled"] // Z_BATCH
+    "yolox": _CFGS / "yolox_coco.yaml",
+    "yolov8": _CFGS / "yolov8m_coco.yaml",
+    "yolov7l": _CFGS / "yolov7l_coco.yaml",
+    "yolov7s_simota": _CFGS / "yolov7s_coco_simota.yaml",
+    "yolov6s": _CFGS / "yolov6s_coco.yaml",
+    "yolov6s_repopt": _CFGS / "yolov6s_coco_repopt_finetune.yaml"}
+# the labelled images each leg trains on (the earlier legs cut to 2 steps)
+Z_IMAGES = {"yolox": 128, "yolov8": 128}
 Z_N = (IMG // 8) ** 2 + (IMG // 16) ** 2 + (IMG // 32) ** 2
+# steps timed warm after each leg, on its epoch's last batch
+Z_WARM = 3
+# the legs whose eval also runs on the `utils/reparam` fused model
+Z_FUSED = ("yolov7l", "yolov6s")
+# fused against unfused decoded outputs, float32 (no TF32): boxes within
+# 1e-3 of the largest box entry, scores within 1e-3
+FUSED_TOL = 1e-3
 # the saturated lattice's logit spans: objectness near 1, class scores
 # spread over (0.018, 0.98) (the top 1% above), every pair over the gate
 SAT_LOGITS = {"obj": (4.0, 8.0), "cls": (-4.0, 4.0)}
@@ -2131,49 +2156,69 @@ def zoo_cfg(family, *overrides):
 
 
 def saturate_head(torch, head, forward, images):
-    """Light every (anchor, class) pair of an anchor-free head with scores
-    that still vary with the features: each conv whose sigmoid makes part
+    """Light every (anchor, class) pair of a head with scores that still
+    vary with the features: each group of logits whose sigmoid makes part
     of the eval score (the YOLOX class and objectness predictions, the
-    YOLOv8 class predictions) has its logits on `images` mapped affinely
-    (weights scaled, biases moved) so that their minimum lands at the low
-    end of its SAT_LOGITS span and their 99th percentile at the high end.
-    Equal scores would leave the element engine's bisection no threshold
-    between them, and it would hand the selection to torch.topk. The
-    boxes are the model's own."""
-    from efficientteacher_torch.models.heads import YoloXDetect
+    YOLOv8 and YOLOv6 class predictions, YOLOv7 IDetect's objectness and
+    class channels after its ImplicitM) has its values on `images` mapped
+    affinely (the conv's weights scaled, its biases moved) so that their
+    minimum lands at the low end of its SAT_LOGITS span and their 99th
+    percentile at the high end. Equal scores would leave the element
+    engine's bisection no threshold between them, and it would hand the
+    selection to torch.topk. The boxes are the model's own."""
+    from efficientteacher_torch.models.heads import (YoloV6Detect,
+                                                     YoloV7Detect,
+                                                     YoloXDetect)
 
+    # (hooked module, conv to rescale, kind, channels or None for all)
+    groups = []
     if isinstance(head, YoloXDetect):
-        convs = [*((c, "cls") for c in head.cls_preds),
-                 *((c, "obj") for c in head.obj_preds)]
+        groups = [*((c, c, "cls", None) for c in head.cls_preds),
+                  *((c, c, "obj", None) for c in head.obj_preds)]
+    elif isinstance(head, YoloV7Detect):
+        idx = torch.arange(head.na * head.no).view(head.na, head.no)
+        for conv, im in zip(head.m, head.im):
+            groups += [(im, conv, "obj", idx[:, 4]),
+                       (im, conv, "cls", idx[:, 5:5 + head.nc].flatten())]
+    elif isinstance(head, YoloV6Detect):
+        groups = [(c, c, "cls", None) for c in head.cls_preds]
     else:
-        convs = [(getattr(head, f"cv3_{i}")[2], "cls")
-                 for i in range(len(head.strides))]
+        groups = [(c, c, "cls", None) for c in
+                  (getattr(head, f"cv3_{i}")[2]
+                   for i in range(len(head.strides)))]
     logits = {}
-    hooks = [conv.register_forward_hook(
+    hooks = [mod.register_forward_hook(
         lambda m, _, out: logits.__setitem__(m, out.detach().float()))
-        for conv, _ in convs]
+        for mod in {g[0] for g in groups}]
     try:
         forward(images)
     finally:
         for h in hooks:
             h.remove()
     with torch.no_grad():
-        for conv, kind in convs:
-            x = logits[conv].flatten()
+        for mod, conv, kind, chs in groups:
+            out = logits[mod]
+            x = (out if chs is None else out[:, chs.to(out.device)]).flatten()
             mn = x.min()
             q99 = x.kthvalue(max(1, int(0.99 * x.numel()))).values
             require(bool(q99 > mn), f"saturate: constant {kind} logits")
             lo, hi = SAT_LOGITS[kind]
             a = (hi - lo) / (q99 - mn)
-            conv.weight.mul_(a)
-            conv.bias.mul_(a).add_(lo - a * mn)
+            # an ImplicitM's per-channel factor comes after the conv
+            scale = (mod.implicit.flatten() if mod is not conv
+                     else torch.ones_like(conv.bias))
+            sel = (slice(None) if chs is None
+                   else chs.to(conv.weight.device))
+            conv.weight[sel] *= a
+            conv.bias[sel] = (conv.bias[sel] * a
+                              + (lo - a * mn) / scale[sel])
 
 
 def zoo_trainer(torch):
     """The supervised Trainer of the phase: its val loader at T_BATCH, each
     step timed between synchronizes, and its epoch-end validation given
-    the mid density first (`mid_val_teacher` on 8 val images: a 4-step
-    model detects nothing at conf 0.001) and recorded, each batch's
+    the mid density first (`mid_val_teacher` on 8 val images: a model of a
+    few steps detects nothing at conf 0.001) and recorded, each batch's
     detections held against the plain NMS."""
     from efficientteacher_torch.data.datasets import create_dataloader
     from efficientteacher_torch.eval import validator
@@ -2203,15 +2248,17 @@ def zoo_trainer(torch):
                 self.log["steps"].append(
                     ((time.perf_counter() - t0) * 1e3,
                      {k: float(v) for k, v in parts.items()}))
-                self.last_batch = args[:3]
+                self.last_batch, self.last_sched = args[:3], args[3]
                 return state, parts
 
             self.train_step = run
 
         def _validate(self, ema):
             calib = next(iter(self.val_loader))["images"][:8]
+            one_class_lit(ema.module.head)
             self.val_shift = mid_val_teacher(torch, ema.module,
-                                             calib.to(self.device))
+                                             calib.to(self.device),
+                                             shift=shift_class0_bias)
             records = self.log["records"]
             make = validator.make_infer_fn
             validator.make_infer_fn = \
@@ -2241,11 +2288,88 @@ def zoo_trainer(torch):
     return ZooTrainer
 
 
+# The zoo's mid lattice: one class lit. When many classes of a cell pass
+# the gate, ~3,300 candidates fill a few hundred 128-wide rows of the
+# (cell, class) lattice, and the selection's row tier (<= 1,024 live rows)
+# takes them without the count; whether it does depends on the few-step
+# weights. With the objectness near 1 (+MID_OBJ_LIT), every class but
+# class 0 far below the gate (-MID_CLS_OFF) and class 0's biases bisected
+# to the target, each candidate is a cell of its own, spread over more
+# rows than the row tier takes: the element tier and its count run.
+MID_OBJ_LIT = 12.0
+MID_CLS_OFF = 20.0
+
+
+def score_biases(head):
+    """(objectness bias views, class bias views (..., nc)) of the convs
+    whose sigmoids make a head's eval score: YOLOX's predictions, the
+    YOLOv5 / YOLOv7 Detect convs' channels (IDetect's before its
+    ImplicitM), the YOLOv6 and YOLOv8 class predictions (no objectness)."""
+    from efficientteacher_torch.models.heads import (YoloV5Detect,
+                                                     YoloV6Detect,
+                                                     YoloXDetect)
+
+    if isinstance(head, YoloXDetect):
+        return ([c.bias for c in head.obj_preds],
+                [c.bias for c in head.cls_preds])
+    if isinstance(head, YoloV5Detect):
+        views = [c.bias.view(head.na, head.no) for c in head.m]
+        return ([v[:, 4] for v in views],
+                [v[:, 5:5 + head.nc] for v in views])
+    if isinstance(head, YoloV6Detect):
+        return [], [c.bias for c in head.cls_preds]
+    return [], [getattr(head, f"cv3_{i}")[2].bias
+                for i in range(len(head.strides))]
+
+
+def one_class_lit(head):
+    """Objectness biases +MID_OBJ_LIT, every class bias but class 0's
+    -MID_CLS_OFF, in place."""
+    import torch
+
+    obj, cls = score_biases(head)
+    with torch.no_grad():
+        for b in obj:
+            b += MID_OBJ_LIT
+        for b in cls:
+            b[..., 1:] -= MID_CLS_OFF
+
+
+def shift_class0_bias(head, delta):
+    """Class 0's biases + `delta`, in place (`mid_val_teacher`'s shift)."""
+    import torch
+
+    with torch.no_grad():
+        for b in score_biases(head)[1]:
+            b[..., 0] += delta
+
+
+def write_repscale(torch, tmp):
+    """The RepOpt finetune's `Model.RepScale_weight`: a port checkpoint of
+    a seeded `LinearAddModel: True` YOLOv6-s (yolov6s_coco.yaml, its
+    scales at their init)."""
+    from efficientteacher_torch.models import build_model, spec_from_cfg
+    from efficientteacher_torch.utils.checkpoint import (module_variables,
+                                                         save_checkpoint)
+
+    cfg = zoo_cfg("yolov6s", "Model.LinearAddModel", True)
+    model = build_model(spec_from_cfg(cfg), device="cpu",
+                        generator=torch.Generator().manual_seed(SEED))
+    v = module_variables(model)
+    path = Path(tmp) / "repscale_linearadd.ckpt"
+    save_checkpoint(path, params=v["params"], batch_stats=v["batch_stats"])
+    n = sum(k.endswith(".scale_conv") for k in v["params"])
+    print(f"[zoo] yolov6s_repopt: RepScale_weight written from a seeded "
+          f"LinearAdd YOLOv6-s ({n} LinearAdd blocks) -> {path.name}")
+    return path
+
+
 def zoo_leg(torch, dev, card, lists, family, tmp):
-    """One family's main path in three parts, with the kernels' counts set
-    to 0 just before each and read just after: the Trainer on the YAML for
-    one epoch with its epoch-end validation, cli.val on the best.ckpt it
-    saved, and the eval program on a saturated copy (the check run of
+    """One family's main path in parts, with the kernels' counts set to 0
+    just before each and read just after: the Trainer on the YAML for one
+    epoch with its epoch-end validation, cli.val on the best.ckpt it
+    saved, the eval program on a saturated copy and, for Z_FUSED, the
+    same on its `utils/reparam` fused model (the check run of
     validator.run beside cli.val lies outside them); then the kernels
     against their plain versions at the mid and saturated lattices.
     Returns the kernels-line entries of this path."""
@@ -2262,38 +2386,29 @@ def zoo_leg(torch, dev, card, lists, family, tmp):
                                                         threshold_compact_cuda)
     from efficientteacher_torch.utils.checkpoint import (load_eval_variables,
                                                          load_module_variables)
+    from efficientteacher_torch.utils.reparam import deploy_model
 
     wrappers = {"greedy_nms_keep": greedy_nms_keep_cuda,
                 "threshold_compact": threshold_compact_cuda,
                 "count_ge": count_ge_cuda}
     gc.collect()
     torch.cuda.empty_cache()
+    split = lists.get(f"labelled_{Z_IMAGES.get(family)}", lists["labelled"])
+    n_images = Z_IMAGES.get(family, SPLITS["labelled"])
     overrides = [str(x) for x in (
         "epochs", 1, "project", tmp, "name", family,
-        "Dataset.train", lists["labelled"], "Dataset.val", lists["val"])]
+        "Dataset.train", split, "Dataset.val", lists["val"])]
+    if family == "yolov6s_repopt":
+        overrides += ["Model.RepScale_weight",
+                      str(write_repscale(torch, tmp))]
     cfg = zoo_cfg(family, *overrides)
     t0 = time.perf_counter()
     trainer = zoo_trainer(torch)(cfg, device=dev)
-    spec = trainer.spec
-    require(trainer.batch_size == Z_BATCH and trainer.nb == Z_STEPS
-            and trainer.accumulate == 1 and not trainer.device_aug
-            and len(trainer.val_loader) == T_VAL,
-            f"{family}: batch {trainer.batch_size}, {trainer.nb} steps, "
-            f"accumulate {trainer.accumulate}")
-    n_params = sum(p.numel() for p in trainer.model.parameters())
-    print(f"[zoo] {family}: Trainer on {ZOO_YAMLS[family].name} as written "
-          f"but the data paths ({spec.backbone}/{spec.neck}/{spec.head}, "
-          f"width {spec.width_multiple}, depth {spec.depth_multiple}, "
-          f"{n_params / 1e6:.2f} M parameters, nc {spec.nc}, "
-          f"{trainer.img_size} px, bf16 autocast; Loss.type "
-          f"{cfg.Loss.type}; batch {trainer.batch_size}, {trainer.nb} "
-          f"steps, host augmentation); set-up "
-          f"{time.perf_counter() - t0:.1f} s")
+    root = logging.getLogger()
+    level, handlers = root.level, list(root.handlers)
     base = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
     torch.backends.cudnn.benchmark = True
-    root = logging.getLogger()
-    level, handlers = root.level, list(root.handlers)
 
     def counted(what, fn):
         """fn() with the kernels' counts and the selection tiers set to 0
@@ -2309,11 +2424,48 @@ def zoo_leg(torch, dev, card, lists, family, tmp):
                 f"{family}: a kernel of {what} was not launched: {launches}")
         return out, launches, dict(sorted(select_cuda.tier_counts.items()))
 
+    spec = trainer.spec
+    n_params = sum(p.numel() for p in trainer.model.parameters())
+    print(f"[zoo] {family}: Trainer on {ZOO_YAMLS[family].name} as "
+          f"written but the data paths ({spec.backbone}/{spec.neck}/"
+          f"{spec.head}, "
+          + (f"{spec.vgg_block_type} blocks, " if spec.backbone == "YoloV6"
+             else "")
+          + f"width {spec.width_multiple}, depth {spec.depth_multiple}, "
+          f"{n_params / 1e6:.2f} M parameters, nc {spec.nc}, "
+          f"{trainer.img_size} px, bf16 autocast; Loss.type "
+          f"{cfg.Loss.type}; batch {trainer.batch_size}, accumulate "
+          f"{trainer.accumulate}, {trainer.nb} steps on {n_images} "
+          f"images, host augmentation); set-up "
+          f"{time.perf_counter() - t0:.1f} s")
+    require(trainer.nb == n_images // trainer.batch_size
+            and trainer.accumulate == max(round(64 / trainer.batch_size),
+                                          1)
+            and not trainer.device_aug
+            and len(trainer.val_loader) == T_VAL,
+            f"{family}: batch {trainer.batch_size}, {trainer.nb} steps, "
+            f"accumulate {trainer.accumulate}")
+
+    masked = [m for m in trainer.grad_masks or [] if m is not None]
+    if family == "yolov6s_repopt":
+        trivial = sum(bool(m.eq(1).all()) for m in masked)
+        require(masked and not trivial,
+                f"{family}: {len(masked)} masked kernels, {trivial} trivial")
+        print(f"[zoo] {family}: RepOpt masks on {len(masked)} RealVGG 3x3 "
+              f"kernels, none all ones (centre taps "
+              f"{min(float(m[:, :, 1, 1].min()) for m in masked):.3f}.."
+              f"{max(float(m[:, :, 1, 1].max()) for m in masked):.3f}, "
+              f"corners {min(float(m[:, :, 0, 0].min()) for m in masked):.3f}"
+              f"..{max(float(m[:, :, 0, 0].max()) for m in masked):.3f})")
+    else:
+        require(not masked, f"{family}: gradient masks without RepOpt")
+
     try:
         t0 = time.perf_counter()
         _, val_launches, val_tiers = counted("the epoch", trainer.train)
         t_train = time.perf_counter() - t0
         peak = torch.cuda.max_memory_allocated()
+        batch = trainer.batch_size
         weights = Path(tmp) / family / "weights"
         require((weights / "best.ckpt").is_file()
                 and (weights / "last.ckpt").is_file(),
@@ -2350,22 +2502,34 @@ def zoo_leg(torch, dev, card, lists, family, tmp):
             "the saturated eval",
             lambda: RecordingInfer(infer, recorded)(images))
         (sat, sat_out), = recorded
+        fused_launches = None
+        if family in Z_FUSED:
+            fused_launches, fused_tiers, fused_times = fused_eval(
+                torch, family, model, images, deploy_model, counted, card)
     finally:
         root.setLevel(level)
         for h in root.handlers[:]:
             if h not in handlers:
                 root.removeHandler(h)
-    steps = trainer.log["steps"]
+    steps = list(trainer.log["steps"])
     for ms, parts in steps:
         require(all(v == v and abs(v) != float("inf")
                     for v in parts.values()),
                 f"{family}: losses {parts}")
-    step_ms = statistics.median(ms for ms, _ in steps[1:])
-    loss_ms, assign_ms = loss_times(torch, trainer, family)
-    print(f"[zoo] {family}: {len(steps)} steps at {Z_BATCH}@{IMG}, ms "
-          f"(synchronized) {', '.join(f'{ms:.1f}' for ms, _ in steps)}: "
-          f"{step_ms:.1f} ms after the first (cuDNN's search), "
-          f"{Z_BATCH / step_ms * 1e3:.1f} img/s; epoch + validation "
+    # warm steps: the epoch's last batch and schedule again, after the
+    # leg's evaluations (an epoch of 2 steps has no warm step of its own)
+    for _ in range(Z_WARM):
+        trainer.train_step(trainer.state, *trainer.last_batch,
+                           trainer.last_sched)
+    warm = [ms for ms, _ in trainer.log["steps"][len(steps):]]
+    step_ms = statistics.median(warm)
+    loss_ms, assign_ms, assigner = loss_times(torch, trainer)
+    print(f"[zoo] {family}: {len(steps)} steps at {batch}@{IMG}, ms "
+          f"(synchronized) {', '.join(f'{ms:.1f}' for ms, _ in steps)} "
+          f"(cuDNN's search: the first step {steps[0][0] / 1e3:.1f} s); "
+          f"{Z_WARM} warm steps on the last batch "
+          f"{', '.join(f'{ms:.1f}' for ms in warm)}: median {step_ms:.1f} "
+          f"ms, {batch / step_ms * 1e3:.1f} img/s; epoch + validation "
           f"{t_train:.1f} s; losses "
           + "; ".join(", ".join(f"{k} {v:.3f}" for k, v in parts.items())
                       for _, parts in steps[:1] + steps[-1:])
@@ -2373,12 +2537,14 @@ def zoo_leg(torch, dev, card, lists, family, tmp):
           f"{base / 2**30:.2f} GiB live before) | {card}")
     print(f"[time] zoo {family}: the loss on the last step's batch, "
           f"forward only: {loss_ms:.2f} ms, of which the assignment "
-          f"({'SimOTA' if family == 'yolox' else 'TAL'}) {assign_ms:.2f} "
-          f"ms ({assign_ms / step_ms:.0%} of the step) | {card}")
+          f"({assigner}) {assign_ms:.2f} ms ({assign_ms / step_ms:.0%} of "
+          f"the step) | {card}")
     print(f"[zoo] {family}: validator.run at the epoch end "
           f"{trainer.val_ms / T_VAL:.1f} ms/batch ({T_VAL} x {T_BATCH}), "
-          f"the EMA's score bias shifted {trainer.val_shift[0]:+.3f} "
-          f"({trainer.val_shift[1]:.0f} candidates/img on its calibration "
+          f"the EMA's class-0 bias shifted {trainer.val_shift[0]:+.3f} "
+          f"(one class lit: objectness +{MID_OBJ_LIT:g}, the other classes "
+          f"-{MID_CLS_OFF:g}; {trainer.val_shift[1]:.0f} candidates/img on "
+          f"its calibration "
           f"batch; {', '.join(f'{c:.0f}' for c in trainer.cands)} per val "
           f"batch); detections == plain NMS; launches {val_launches}, "
           f"selection tiers {val_tiers} | {card}")
@@ -2390,7 +2556,9 @@ def zoo_leg(torch, dev, card, lists, family, tmp):
 
     # the kernels at this head's lattices: mid (the saved EMA) and
     # saturated (every pair lit)
-    require(sat.shape == (T_BATCH, Z_N, 5 + NC), f"{family}: {sat.shape}")
+    n_pred = Z_N * (len(spec_from_cfg(cfg).anchors[0]) // 2
+                    if spec_from_cfg(cfg).head == "YoloV7" else 1)
+    require(sat.shape == (T_BATCH, n_pred, 5 + NC), f"{family}: {sat.shape}")
     ref = infer.nms(sat, use_kernels=False)
     require(torch.equal(ref.detections, sat_out.detections)
             and torch.equal(ref.valid, sat_out.valid),
@@ -2399,20 +2567,27 @@ def zoo_leg(torch, dev, card, lists, family, tmp):
     print(f"[time] zoo {family}: forward bf16 b{T_BATCH}@{IMG} "
           f"{t_fwd:.3f} ms/batch | {card}")
     entries = []
-    errs = {}
     # the mid lattice is the epoch-end validation's and cli.val's; their
-    # launches are summed into one entry, and given apart
+    # launches are summed into one entry, and given apart; the saturated
+    # entry holds the saturated eval's and the fused eval's
     mid_launches = {n: val_launches[n] + cli_launches[n] for n in wrappers}
-    paths = {"mid": ("epoch-end val + cli.val (mid)", mid_launches),
-             "saturated": ("eval saturated", sat_launches)}
+    sat_paths = {"saturated eval": sat_launches}
+    if fused_launches is not None:
+        sat_paths["fused eval"] = fused_launches
+    paths = {"mid": ("epoch-end val + cli.val (mid)", mid_launches,
+                     {"epoch-end val": val_launches, "cli.val": cli_launches}),
+             "saturated": (" + ".join(sat_paths), {
+                 n: sum(p[n] for p in sat_paths.values()) for n in wrappers},
+                 sat_paths)}
     for regime, decoded in (("mid", mid), ("saturated", sat)):
         flat, boxes_xyxy, taus, k2_err, count_err = lattice_checks(
             torch, decoded, f"zoo {family} {regime}")
         cands = float((flat > 0).sum()) / flat.shape[0]
-        require(flat.shape[1] == Z_N * NC,
+        require(flat.shape[1] == n_pred * NC,
                 f"{family}: lattice {tuple(flat.shape)}")
         if regime == "saturated":
-            require(cands == Z_N * NC, f"{family}: saturated holds {cands}")
+            require(cands == n_pred * NC,
+                    f"{family}: saturated holds {cands}")
         rows, k1, tests, k1_err = kernel_rows(torch, flat, boxes_xyxy, taus)
         t_k = time_ms(torch, lambda: infer.nms(decoded))
         t_p = time_ms(torch, lambda: infer.nms(decoded, use_kernels=False))
@@ -2422,9 +2597,9 @@ def zoo_leg(torch, dev, card, lists, family, tmp):
         print_kernel_rows(f"zoo {family} {regime}", rows, card)
         errs = {"greedy_nms_keep": k1_err, "threshold_compact": k2_err,
                 "count_ge": count_err}
-        path, launches = paths[regime]
+        path, launches, per_path = paths[regime]
         for name, (tk, tp, (b_ms, b_by), lib) in rows.items():
-            entry = {
+            entries.append({
                 "name": name, "route": "cuda",
                 "source": ZOO_SOURCES[name][0],
                 "replaces": ZOO_SOURCES[name][1],
@@ -2433,25 +2608,81 @@ def zoo_leg(torch, dev, card, lists, family, tmp):
                 "plain_ms": tp[0], "bound_ms": b_ms, "bound_by": b_by,
                 "library_ms": lib[0] if lib else None,
                 "path": f"zoo {family}: {path}",
+                "launches_per_path": {k: v[name]
+                                      for k, v in per_path.items()},
                 "shape": list((k1[0] if name == "greedy_nms_keep"
-                               else flat).shape[:2])}
-            if regime == "mid":
-                entry["launches_per_path"] = {
-                    "epoch-end val": val_launches[name],
-                    "cli.val": cli_launches[name]}
-            entries.append(entry)
+                               else flat).shape[:2])})
     del trainer, model, infer, mid, sat
     gc.collect()
     torch.cuda.empty_cache()
     return entries
 
 
-def loss_times(torch, trainer, family):
-    """(loss ms, assignment ms) by CUDA events on the trainer's last
-    batch: the detection loss's forward on the model's train-mode raw
-    maps, and the same with the assigner's result cached, whose
-    difference is the assignment's time."""
-    from efficientteacher_torch.losses import tal_loss, yolox_loss
+def fused_eval(torch, family, model, images, deploy_model, counted, card):
+    """The `utils/reparam` deploy model of `model` (every RepVGG block one
+    biased 3x3 conv): its decoded outputs in float32 beside the unfused
+    model's (boxes within FUSED_TOL of the largest box entry, scores
+    within FUSED_TOL), its eval program counted (the kernels must launch)
+    with its detections held against the plain NMS, and the forward times
+    of both in float32 and bf16. Returns (launches, tiers, times)."""
+    from efficientteacher_torch.eval import validator
+    from efficientteacher_torch.models.common import RepVGGBlock
+
+    fused = deploy_model(model)
+    n_blocks = sum(isinstance(m, RepVGGBlock) for m in model.modules())
+    n_fused = sum(hasattr(m, "rbr_reparam") for m in fused.modules())
+    require(n_fused == n_blocks > 0,
+            f"{family}: {n_fused} of {n_blocks} RepVGG blocks fused")
+    make = lambda m, dt: validator.make_infer_fn(  # noqa: E731
+        m, NC, CONF, IOU, MAX_DET, MAX_NMS, 255.0, dt)
+    plain32, fused32 = make(model, torch.float32), make(fused, torch.float32)
+    want, got = plain32.forward(images), fused32.forward(images)
+    box_err = float((got[..., :4] - want[..., :4]).abs().max())
+    box_max = float(want[..., :4].abs().max())
+    score_err = float((got[..., 4:] - want[..., 4:]).abs().max())
+    require(box_err <= FUSED_TOL * box_max and score_err <= FUSED_TOL,
+            f"{family}: fused model off by {box_err} px (of {box_max}), "
+            f"scores by {score_err}")
+    recorded = []
+    _, launches, tiers = counted(
+        "the fused eval", lambda: RecordingInfer(fused32, recorded)(images))
+    (decoded, out), = recorded
+    ref = fused32.nms(decoded, use_kernels=False)
+    require(torch.equal(ref.detections, out.detections)
+            and torch.equal(ref.valid, out.valid),
+            f"{family}: fused detections differ from the plain NMS")
+    times = {}
+    for name, m in (("unfused", model), ("fused", fused)):
+        for dt in (torch.float32, torch.bfloat16):
+            f = make(m, dt)
+            times[f"{name} {str(dt)[6:]}"] = time_ms(
+                torch, lambda: f.forward(images), reps=10, warmup=3)
+    print(f"[zoo] {family}: fused deploy model ({n_fused} RepVGG blocks -> "
+          f"one 3x3 conv each): float32 decoded outputs vs unfused: boxes "
+          f"{box_err:.2e} px of {box_max:.0f} (tol {FUSED_TOL:g} x), scores "
+          f"{score_err:.2e} (tol {FUSED_TOL:g}); its eval launches "
+          f"{launches}, tiers {tiers}, detections == plain NMS | {card}")
+    print(f"[time] zoo {family}: forward b{T_BATCH}@{IMG} ms/batch "
+          + ", ".join(f"{k} {v:.3f}" for k, v in times.items())
+          + f" | {card}")
+    del fused
+    return launches, tiers, times
+
+
+# the assigner each loss family calls, by Loss.type: (module, name)
+ASSIGNERS = {"ComputeLoss": ("yolov5_loss", "assign_all_scales"),
+             "ComputeXLoss": ("yolox_loss", "simota_assign"),
+             "ComputeFastXLoss": ("yolox_loss", "simota_assign"),
+             "ComputeTalLoss": ("tal_loss", "tal_assign")}
+
+
+def loss_times(torch, trainer):
+    """(loss ms, assignment ms, the assigner's name) by CUDA events on the
+    trainer's last batch: the detection loss's forward on the model's
+    train-mode raw maps, and the same with the assigner's result cached,
+    whose difference is the assignment's time."""
+    import importlib
+
     from efficientteacher_torch.train.supervised import (forward_train,
                                                          to_input)
 
@@ -2462,8 +2693,9 @@ def loss_times(torch, trainer, family):
                             trainer.compute_dtype)
         loss = lambda: trainer.detection_loss(raw, labels, mask)  # noqa
         full = event_ms(torch, loss, launches=5, repeats=3)[0]
-        module, name = ((yolox_loss, "simota_assign") if family == "yolox"
-                        else (tal_loss, "tal_assign"))
+        mod_name, name = ASSIGNERS[trainer.cfg.Loss.type]
+        module = importlib.import_module(
+            f"efficientteacher_torch.losses.{mod_name}")
         assign = getattr(module, name)
         cached = []
 
@@ -2477,7 +2709,7 @@ def loss_times(torch, trainer, family):
             rest = event_ms(torch, loss, launches=5, repeats=3)[0]
         finally:
             setattr(module, name, assign)
-    return full, full - rest
+    return full, full - rest, name
 
 
 ZOO_SOURCES = {
@@ -2490,9 +2722,15 @@ ZOO_SOURCES = {
 
 
 def zoo_phase(torch, dev, card, lists):
-    """Both anchor-free families (`zoo_leg`); their kernels-line entries."""
+    """The zoo families (`zoo_leg`); their kernels-line entries."""
     import tempfile
 
+    lists = dict(lists)
+    for n in set(Z_IMAGES.values()):
+        sub = Path(lists["labelled"]).with_name(f"labelled_{n}.txt")
+        lines = Path(lists["labelled"]).read_text().splitlines()[:n]
+        sub.write_text("\n".join(lines) + "\n")
+        lists[f"labelled_{n}"] = str(sub)
     entries = []
     with tempfile.TemporaryDirectory() as tmp:
         for family in ZOO_YAMLS:
@@ -2516,6 +2754,7 @@ def main() -> int:
         threshold_compact_cuda)
     from efficientteacher_torch.utils.eval_regimes import make_density_fn
 
+    t_start = time.perf_counter()
     # 1. device
     dev = torch.device("cuda", 0)
     kind = torch.cuda.get_device_name(0)
@@ -2701,6 +2940,8 @@ def main() -> int:
         kernels += zoo_phase(torch, dev, card, lists)
     finally:
         shutil.rmtree(DATA_DIR, ignore_errors=True)
+    print(f"[time] chip_smoke.py total {time.perf_counter() - t_start:.1f} "
+          f"s (the kernels' build included) | {card}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

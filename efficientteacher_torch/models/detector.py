@@ -10,7 +10,7 @@ import torch
 from torch import nn
 
 from .backbones import build_backbone_cls
-from .common import lecun_normal_
+from .common import ImplicitA, ImplicitM, lecun_normal_
 from .heads import build_head_cls
 from .necks import build_neck_cls
 from .spec import ModelSpec, spec_from_cfg
@@ -103,8 +103,10 @@ def build_model(cfg, dtype: torch.dtype = torch.float32,
     card is present.
 
     Weights are made on the CPU from `generator` (flax's default conv init,
-    the head's focal-prior bias), then moved, so one seed gives the same
-    model on every device."""
+    fan-in over (in, kh, kw) for a transposed conv too; the heads' biases;
+    YOLOv7's implicit tokens N(0, 0.02) and N(1, 0.02), as JAX draws
+    them), then moved, so one seed gives the same model on every
+    device."""
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("build_model: no CUDA card is present; pass "
@@ -115,4 +117,10 @@ def build_model(cfg, dtype: torch.dtype = torch.float32,
         for mod in model.modules():
             if isinstance(mod, nn.Conv2d):
                 lecun_normal_(mod.weight, generator)
+            elif isinstance(mod, nn.ConvTranspose2d):
+                # (in, out, kh, kw): flax's fan-in is kh * kw * in
+                lecun_normal_(mod.weight.transpose(0, 1), generator)
+            elif isinstance(mod, (ImplicitA, ImplicitM)):
+                mean = 0.0 if isinstance(mod, ImplicitA) else 1.0
+                mod.implicit.normal_(mean, 0.02, generator=generator)
     return model.to(device=device, dtype=dtype)

@@ -1,15 +1,18 @@
-"""Head factory (reference models/head/__init__.py:12-27). Holds the heads
-ported so far; YOLOv6 and YOLOv7 raise (ROADMAP Q1.10).
+"""Head factory (reference models/head/__init__.py:12-27). Holds every
+head of the JAX package's registry.
 
 `head_model_type` is the detector's model_type dispatch (reference
 yolo.py:66-82; JAX heads/__init__.py `_MODEL_TYPE`): anchor heads ->
 'yolov5', the YOLOX head -> 'yolox', the TAL heads -> 'tal'."""
 
 from .yolov5 import YoloV5Detect
+from .yolov6 import YoloV6Detect
+from .yolov7 import YoloV7Detect
 from .yolov8 import YoloV8Detect
 from .yolox import YoloXDetect
 
-_REGISTRY = {"YoloV5": YoloV5Detect, "YoloV8": YoloV8Detect,
+_REGISTRY = {"YoloV5": YoloV5Detect, "YoloV6": YoloV6Detect,
+             "YoloV7": YoloV7Detect, "YoloV8": YoloV8Detect,
              "YoloX": YoloXDetect}
 
 _MODEL_TYPE = {

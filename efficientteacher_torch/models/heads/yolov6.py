@@ -1,14 +1,28 @@
-"""The TAL heads' shared decode (counterpart of `decode_tal_scale` in
-`efficientteacher_tpu/models/heads/yolov6.py`; reference
-models/head/yolov6_head.py:173-215) and the DFL bin expectation it reads
-(`dfl_project`, JAX `losses/tal_loss.py`), which the TAL loss imports
-from here. The YOLOv8 head decodes with it now;
-the YOLOv6 head itself (`YoloV6Detect`) is not ported yet (ROADMAP
-Q1.10)."""
+"""YOLOv6 efficient decoupled head (counterpart of
+`efficientteacher_tpu/models/heads/yolov6.py`), with the TAL heads' shared
+decode (`decode_tal_scale`; reference models/head/yolov6_head.py:173-215)
+and the DFL bin expectation it reads (`dfl_project`, JAX
+`losses/tal_loss.py`), which the YOLOv8 head and the TAL loss import from
+here.
+
+Parity with reference yolov6_head.py:53-381 (tal_build_effidehead_layer
+:280-381):
+  - per scale a 1x1 stem `stems_{i}`, then 3x3 `cls_convs_{i}` and
+    `reg_convs_{i}`, all at the scale's input channels
+  - biased 1x1 predictions `cls_preds_{i}` (nc) and `reg_preds_{i}`
+    (4*(reg_max+1) DFL bins), their biases 0 (flax's default, as the JAX
+    head has them)
+  - raw maps (B, 1, ny, nx, bins+nc) [bins, cls]; the eval decode is
+    `decode_tal_scale`
+"""
 
 from __future__ import annotations
 
 import torch
+from torch import nn
+
+from ..common import Conv
+from ..spec import ModelSpec
 
 
 def dfl_project(reg_dist: torch.Tensor, reg_max: int) -> torch.Tensor:
@@ -43,3 +57,44 @@ def decode_tal_scale(raw: torch.Tensor, stride: float, reg_max: int,
     obj = torch.ones_like(cxy[..., :1])
     out = torch.cat([cxy, wh, obj, cls], -1)
     return out.reshape(b, na * ny * nx, 5 + nc)
+
+
+class YoloV6Detect(nn.Module):
+    """TAL anchor-free head ('YoloV6' in the head factory)."""
+
+    def __init__(self, spec: ModelSpec, in_ch):
+        super().__init__()
+        self.nc = spec.nc
+        self.reg_max = spec.reg_max
+        self.use_dfl = spec.use_dfl
+        self.strides = tuple(spec.strides)
+        nbins = 4 * (self.reg_max + 1)
+        act = {"SiLU": "silu", "ReLU": "relu"}.get(spec.head_act, "relu")
+        self.stems = nn.ModuleList(Conv(c, c, 1, 1, act=act) for c in in_ch)
+        self.cls_convs = nn.ModuleList(Conv(c, c, 3, 1, act=act)
+                                       for c in in_ch)
+        self.reg_convs = nn.ModuleList(Conv(c, c, 3, 1, act=act)
+                                       for c in in_ch)
+        self.cls_preds = nn.ModuleList(nn.Conv2d(c, self.nc, 1, bias=True)
+                                       for c in in_ch)
+        self.reg_preds = nn.ModuleList(nn.Conv2d(c, nbins, 1, bias=True)
+                                       for c in in_ch)
+        for conv in (*self.cls_preds, *self.reg_preds):
+            nn.init.zeros_(conv.bias)
+
+    def forward(self, feats, decode: bool):
+        """feats: (P3, P4, P5) NCHW. Returns raw maps [(B, 1, ny, nx, no)];
+        with `decode`, `(decoded (B, N, 5+nc) float32, raw maps)`."""
+        raw = []
+        for i, f in enumerate(feats):
+            x = self.stems[i](f)
+            x = torch.cat([self.reg_preds[i](self.reg_convs[i](x)),
+                           self.cls_preds[i](self.cls_convs[i](x))], 1)
+            b, no, ny, nx = x.shape
+            raw.append(x.permute(0, 2, 3, 1).reshape(b, 1, ny, nx, no))
+        if not decode:
+            return raw
+        z = [decode_tal_scale(r.float(), s, self.reg_max, self.use_dfl,
+                              self.nc)
+             for r, s in zip(raw, self.strides)]
+        return torch.cat(z, 1), raw

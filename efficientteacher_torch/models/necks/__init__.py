@@ -1,10 +1,13 @@
-"""Neck factory (reference models/neck/__init__.py:23-39). Holds the necks
-ported so far; YOLOv6 and YOLOv7 raise (ROADMAP Q1.10)."""
+"""Neck factory (reference models/neck/__init__.py:23-39). Holds every
+neck of the JAX package's registry."""
 
 from .yolov5 import YoloV5Neck
+from .yolov6 import YoloV6Neck
+from .yolov7 import YoloV7Neck
 from .yolov8 import YoloV8Neck
 
-_REGISTRY = {"YoloV5": YoloV5Neck, "YoloV8": YoloV8Neck}
+_REGISTRY = {"YoloV5": YoloV5Neck, "YoloV6": YoloV6Neck, "YoloV7": YoloV7Neck,
+             "YoloV8": YoloV8Neck}
 
 
 def build_neck_cls(name: str):

@@ -38,15 +38,17 @@ def linear_lf(lrf: float, epochs: int):
 def param_group_labels(model: nn.Module) -> List[str]:
     """The group of each of `model.parameters()`, in order. By module type,
     not by name: BatchNorm's scale is also called `weight` in PyTorch.
-    Conv/Linear `weight` -> "weight"; any `bias` -> "bias"; everything
-    else -> "bn" (JAX param_group_label: `kernel`, `bias`, the rest)."""
+    Conv, transposed conv and Linear `weight` -> "weight"; any `bias` ->
+    "bias"; everything else (BatchNorm scales, the implicit tokens, the
+    LinearAdd scales) -> "bn" (JAX param_group_label: `kernel`, `bias`,
+    the rest)."""
     label = {}
     for mod in model.modules():
         for name, p in mod.named_parameters(recurse=False):
             if name == "bias":
                 label[id(p)] = "bias"
             elif name == "weight" and isinstance(
-                    mod, (nn.Conv2d, nn.Linear)):
+                    mod, (nn.Conv2d, nn.ConvTranspose2d, nn.Linear)):
                 label[id(p)] = "weight"
             else:
                 label[id(p)] = "bn"

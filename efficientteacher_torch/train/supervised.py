@@ -6,8 +6,10 @@ Images arrive uint8 NHWC and are scaled on the device. The forward runs in
 `compute_dtype`: bf16 by autocast on the card (float32 master weights, no
 GradScaler needed for bf16), float32 in the parity tests. The loss runs in
 float32 outside autocast. The loss family is a hook, as in JAX:
-`detection_loss(raw, labels, mask) -> (loss, parts)`. RepOpt gradient
-masks (`grad_masks`) are not ported yet.
+`detection_loss(raw, labels, mask) -> (loss, parts)`. With RepOpt's
+`grad_masks` (`train/repopt.py`) the gradients are multiplied by the masks
+after the backward and before they are accumulated (JAX
+supervised.py:85-90).
 """
 
 from __future__ import annotations
@@ -19,6 +21,7 @@ import torch
 from ..models.detector import SSODModel
 from ..utils.precision import autocast
 from .optim import OptimizerConfig
+from .repopt import apply_grad_masks
 from .train_state import TrainState, apply_gradients_accumulating
 
 
@@ -69,14 +72,15 @@ def apply_grads(state: TrainState, grads, oc: OptimizerConfig,
 
 def make_supervised_train_step(
         opt_cfg: OptimizerConfig, detection_loss, norm_scale: float = 255.0,
-        compute_dtype: torch.dtype = torch.bfloat16):
+        compute_dtype: torch.dtype = torch.bfloat16, grad_masks=None):
     """(state, images_u8, labels, label_mask, sched) -> (state, parts).
 
     `detection_loss(raw, labels, mask) -> (loss, parts)` is the loss family
     (the reference's Loss.type dispatch, trainer.py:320-327; the trainer's
     `build_loss` picks it: for anchor heads the YOLOv5 `compute_loss` with
     its anchors_grid). An SSODModel trains here without its
-    discriminators. The model is the state's."""
+    discriminators. The model is the state's. `grad_masks`: one mask or
+    None per parameter (`train/repopt.build_grad_masks`)."""
 
     def train_step(state: TrainState, images, labels, label_mask,
                    sched: Schedule):
@@ -88,7 +92,11 @@ def make_supervised_train_step(
         if ssod:
             raw = raw[0]
         loss, parts = detection_loss(raw, labels, label_mask)
-        apply_grads(state, grads_of(loss, state), opt_cfg, sched)
+        grads = grads_of(loss, state)
+        if grad_masks is not None:
+            # RepOptimizer (reference RepOptimizer.py:163-178)
+            grads = apply_grad_masks(grads, grad_masks)
+        apply_grads(state, grads, opt_cfg, sched)
         return state, detached(parts)
 
     return train_step

@@ -32,9 +32,13 @@ generator; under `Dataset.device_aug True` the host decodes and
 letterboxes, and mosaic, perspective, HSV and flips run on the card
 (`ops/augment_device.py`), with draws seeded from the step counter.
 
+RepOpt (`Model.RepOpt`): the scales of `Model.RepScale_weight` (a port
+checkpoint of a LinearAdd model) re-initialise the RealVGG kernels of a
+run from scratch and mask their gradients (`train/repopt.py`).
+
 Not ported yet, each raising NotImplementedError or skipped as the JAX
 trainer skips them when their dependencies are missing: autoanchor
-(`noautoanchor: False`, ROADMAP Q1.7), RepOpt and AdamW (Q1.10), the
+(`noautoanchor: False`, ROADMAP Q1.7), AdamW (Q1.10), the
 YOLOv7 OTA loss (`ComputeLoss` with `assigner_type: SimOTA`, Q1.10), warm
 starts from a reference `.pt` (Q1.11), DDP (Q1.5), and the loggers and
 plots (Q1.8, skipped), the JAX trainer's `profile_steps`
@@ -73,6 +77,8 @@ from ..utils.checkpoint import (AsyncCheckpointer, intersect_trees,
 from ..utils.general import check_img_size, increment_path
 from ..utils.shutdown import GracefulStop
 from .optim import OptimizerConfig
+from .repopt import (build_grad_masks, load_repscale_scales,
+                     reinitialize_from_scales)
 from .supervised import Schedule, make_supervised_train_step
 from .train_state import create_train_state
 
@@ -139,9 +145,6 @@ class Trainer:
         self.aug_gen = torch.Generator(device=self.device)
 
     def build_model(self, cfg):
-        if cfg.Model.RepOpt:
-            raise NotImplementedError(
-                "RepOptimizer is not ported yet (ROADMAP Q1.10)")
         self.spec = dataclasses.replace(spec_from_cfg(cfg),
                                         train_domain=self.ssod_model)
         model = build_model(self.spec, device=self.device,
@@ -155,6 +158,16 @@ class Trainer:
                     n / 1e6)
         if cfg.weights:
             self._warm_start(cfg.weights, model)
+        # RepOptimizer (reference trainer/trainer.py:219-236; JAX
+        # trainer.py:140-162): the LinearAdd checkpoint's scales make
+        # per-kernel gradient masks; a run from scratch also re-initialises
+        # the 3x3 kernels to the fused CSLA equivalent
+        self.grad_masks = None
+        if cfg.Model.RepOpt:
+            scales = load_repscale_scales(cfg.Model.RepScale_weight)
+            if not cfg.weights:
+                reinitialize_from_scales(model, scales)
+            self.grad_masks = build_grad_masks(model, scales)
         self.model = model
         s = np.asarray(self.spec.strides, np.float32)[:, None, None]
         self.anchors_grid = torch.from_numpy(
@@ -342,6 +355,7 @@ class Trainer:
             norm_scale=float(self.cfg.Dataset.norm_scale),
             compute_dtype=self.compute_dtype,
             detection_loss=self.detection_loss,
+            grad_masks=self.grad_masks,
         )
 
     def _to_device(self, *arrays):

@@ -41,7 +41,8 @@ from typing import Dict
 import torch
 
 from ..eval.validator import InferFn
-from ..models.heads import YoloV5Detect, YoloV8Detect, YoloXDetect
+from ..models.heads import (YoloV5Detect, YoloV6Detect, YoloV8Detect,
+                            YoloXDetect)
 from ..models.spec import ModelSpec
 from ..ops.nms import _pair_scores
 from .precision import autocast
@@ -78,10 +79,14 @@ def shift_obj(state, delta: float, no: int = 85) -> Dict[str, torch.Tensor]:
 
 def shift_score_bias(head, delta: float) -> None:
     """Raise, in place, the biases that gate a head's eval scores by
-    `delta`: objectness for the YOLOv5 and YOLOX heads, the class biases
-    for the YOLOv8 head, whose decoded objectness is the constant 1."""
+    `delta`: objectness for the YOLOv5 (and YOLOv7 IDetect, before its
+    ImplicitM) and YOLOX heads, the class biases for the YOLOv8 and YOLOv6
+    heads, whose decoded objectness is the constant 1."""
     with torch.no_grad():
-        if isinstance(head, YoloV5Detect):
+        if isinstance(head, YoloV6Detect):
+            for conv in head.cls_preds:
+                conv.bias += delta
+        elif isinstance(head, YoloV5Detect):
             for conv in head.m:
                 conv.bias.view(head.na, head.no)[:, 4] += delta
         elif isinstance(head, YoloXDetect):

@@ -7,8 +7,16 @@ package imports jax). The Flax modules keep the reference's state_dict
 names, so the map is mechanical:
 
   - kernels HWIO -> OIHW, `scale`/`kernel` -> `weight`; a biased conv's
-    (flax `nn.Conv` with bias: the YOLOv5 Detect convs, the YOLOX and
-    YOLOv8 prediction convs) `bias` stays `bias`;
+    (flax `nn.Conv` with bias: the YOLOv5 / YOLOv7 Detect convs, the
+    YOLOX, YOLOv6 and YOLOv8 prediction convs, RepVGG's fused
+    `rbr_reparam`) `bias` stays `bias`;
+  - by the leaf's owner, not its rank: the kernel of a flax
+    `nn.ConvTranspose` (the YOLOv6 neck's `upsample_transpose`), (kh, kw,
+    in, out) and applied unflipped, is `ConvTranspose2d`'s (in, out, kh,
+    kw) flipped in both spatial axes, k[::-1, ::-1].transpose(2, 3, 0, 1);
+    YOLOv7's `implicit` tokens (1, 1, 1, C) are (1, C, 1, 1); the
+    LinearAdd scale vectors (`scale_conv`, `scale_1x1`,
+    `scale_identity`) are 1-D and cross as they are;
   - batch stats `mean`/`var` -> `running_mean`/`running_var`;
   - `m_0` -> `m.0`, except modules whose reference name literally holds
     `_<digit>` (`stage2_1`, ...) and the SSOD model's discriminators
@@ -53,6 +61,25 @@ def _torch_path(path) -> list:
     return parts
 
 
+# owners of the kernels that flax's nn.ConvTranspose holds
+_TRANSPOSED_CONVS = frozenset(["upsample_transpose"])
+
+
+def _torch_layout(path, arr: np.ndarray) -> np.ndarray:
+    """A Flax leaf's array in the layout of the port's tensor of that
+    name, chosen by the leaf's name and its owner's."""
+    if path[-1] == "implicit":
+        return arr.reshape(1, -1, 1, 1)
+    if path[-1] == "kernel" and len(path) > 1 \
+            and path[-2] in _TRANSPOSED_CONVS:
+        return np.ascontiguousarray(arr[::-1, ::-1].transpose(2, 3, 0, 1))
+    if arr.ndim == 4:
+        return arr.transpose(3, 2, 0, 1)                  # HWIO -> OIHW
+    if arr.ndim == 2:
+        return arr.T
+    return arr
+
+
 def _walk(node, path, out):
     if isinstance(node, dict):
         for k, v in node.items():
@@ -68,12 +95,9 @@ def state_dict_from_jax(params, batch_stats) -> Dict[str, torch.Tensor]:
     _walk(params, [], leaves)
     for path, arr in leaves:
         leaf = {"scale": "weight", "kernel": "weight"}.get(path[-1], path[-1])
-        if arr.ndim == 4:
-            arr = arr.transpose(3, 2, 0, 1)               # HWIO -> OIHW
-        elif arr.ndim == 2:
-            arr = arr.T
         key = ".".join(_torch_path(path[:-1]) + [leaf])
-        out[key] = torch.tensor(arr, dtype=torch.float32)
+        out[key] = torch.tensor(_torch_layout(path, arr),
+                                dtype=torch.float32)
     leaves = []
     _walk(batch_stats, [], leaves)
     for path, arr in leaves:

@@ -494,7 +494,7 @@ def test_selection_kernels_at_the_anchor_free_lattice(card, lit):
     assert torch.equal(got.valid, ref.valid)
 
 
-@pytest.mark.parametrize("family", ["yolox", "yolov8"])
+@pytest.mark.parametrize("family", ["yolox", "yolov8", "yolov6s"])
 def test_anchor_free_train_step_on_the_card(card, family):
     """One supervised step of each anchor-free family from its shipped
     YAML (width 0.25, 256 px, 4 images) on the card against the same step
@@ -514,7 +514,8 @@ def test_anchor_free_train_step_on_the_card(card, family):
         Schedule, make_supervised_train_step)
     from efficientteacher_torch.train.train_state import create_train_state
 
-    yaml = {"yolox": "yolox_coco.yaml", "yolov8": "yolov8m_coco.yaml"}
+    yaml = {"yolox": "yolox_coco.yaml", "yolov8": "yolov8m_coco.yaml",
+            "yolov6s": "yolov6s_coco.yaml"}
     cfg = get_cfg()
     cfg.merge_from_file(str(Path(__file__).resolve().parents[1]
                             / "configs/sup/public" / yaml[family]))
@@ -562,3 +563,61 @@ def test_anchor_free_train_step_on_the_card(card, family):
     for k in cpu:
         assert f32[k] == pytest.approx(cpu[k], rel=1e-3), k
         assert np.isfinite(bf16[k]), k
+
+
+@pytest.mark.parametrize("yaml", ["yolov6s_coco.yaml", "yolov7l_coco.yaml"])
+def test_fused_deploy_model_on_the_card(card, yaml):
+    """The RepVGG-fused deploy model (`utils/reparam.deploy_model`) of a
+    YOLOv6-s / YOLOv7-L (width 0.25, 256 px, its BN statistics calibrated
+    on the test images, `utils/eval_regimes.calibrate_bn`) fused on the
+    card: its float32 decoded outputs (TF32 off) equal the unfused
+    model's and the CPU's fused model's within 5e-4 of the largest entry
+    (a box side is a DFL expectation times the stride), and its eval NMS
+    with the kernels equals the plain one."""
+    from pathlib import Path
+
+    from efficientteacher_torch.configs import get_cfg
+    from efficientteacher_torch.eval.validator import make_infer_fn
+    from efficientteacher_torch.models import build_model, spec_from_cfg
+    from efficientteacher_torch.utils.eval_regimes import calibrate_bn
+    from efficientteacher_torch.utils.reparam import deploy_model
+
+    cfg = get_cfg()
+    cfg.merge_from_file(str(Path(__file__).resolve().parents[1]
+                            / "configs/sup/public" / yaml))
+    cfg.merge_from_list(["Model.width_multiple", 0.25,
+                         "Model.depth_multiple", 0.33,
+                         "Dataset.img_size", 256])
+    model = build_model(spec_from_cfg(cfg), device="cpu",
+                        generator=torch.Generator().manual_seed(0))
+    images = torch.from_numpy(np.random.default_rng(3).integers(
+        0, 256, (4, 256, 256, 3), dtype=np.uint8))
+    calibrate_bn(model, images, torch.float32)
+    tf32 = (torch.backends.cudnn.allow_tf32,
+            torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        outs = {}
+        for name, m in (("cpu fused", deploy_model(model.eval())),
+                        ("card", model.to(card).eval())):
+            dev = next(m.parameters()).device
+            infer = make_infer_fn(m, 80, 0.001, 0.6, 300, 30000, 255.0,
+                                  torch.float32)
+            outs[name] = infer.forward(images.to(dev)).cpu()
+        fused = deploy_model(model)
+        infer = make_infer_fn(fused, 80, 0.001, 0.6, 300, 30000, 255.0,
+                              torch.float32)
+        decoded = infer.forward(images.to(card))
+        got = infer.nms(decoded)
+        ref = infer.nms(decoded, use_kernels=False)
+    finally:
+        (torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32) = tf32
+    assert not any("rbr_dense" in k for k in fused.state_dict())
+    scale = float(outs["card"].abs().max())
+    for name, want in outs.items():
+        np.testing.assert_allclose(decoded.cpu().numpy(), want.numpy(),
+                                   rtol=0, atol=5e-4 * scale, err_msg=name)
+    assert torch.equal(got.detections, ref.detections)
+    assert torch.equal(got.valid, ref.valid)

@@ -21,7 +21,13 @@ MODULES = [
     "efficientteacher_torch.models.heads.yolov5",
     "efficientteacher_torch.models.backbones.yolov8",
     "efficientteacher_torch.models.necks.yolov8",
+    "efficientteacher_torch.models.backbones.resnet",
+    "efficientteacher_torch.models.backbones.yolov6",
+    "efficientteacher_torch.models.backbones.yolov7",
+    "efficientteacher_torch.models.necks.yolov6",
+    "efficientteacher_torch.models.necks.yolov7",
     "efficientteacher_torch.models.heads.yolov6",
+    "efficientteacher_torch.models.heads.yolov7",
     "efficientteacher_torch.models.heads.yolov8",
     "efficientteacher_torch.models.heads.yolox",
     "efficientteacher_torch.assigners.simota",
@@ -49,6 +55,8 @@ MODULES = [
     "efficientteacher_torch.train.supervised",
     "efficientteacher_torch.train.ssod_step",
     "efficientteacher_torch.train.from_jax",
+    "efficientteacher_torch.train.repopt",
+    "efficientteacher_torch.utils.reparam",
     "efficientteacher_torch.train.trainer",
     "efficientteacher_torch.train.ssod_trainer",
     "efficientteacher_torch.configs",

@@ -282,9 +282,9 @@ def test_graceful_stop_handler_sets_flag_and_uninstall_restores():
     # ValueError): the YOLOv7 OTA loss stands in
     ({"Loss.type": "ComputeLoss", "Loss.assigner_type": "SimOTA"}, Trainer),
     ({"SSOD.pseudo_label_type": "LabelMatch"}, SSODTrainer),
-    # the host augmentation (device_aug False) is ported now: RepOpt
-    # stands in
-    ({"Model.RepOpt": True}, Trainer),
+    # the host augmentation (device_aug False), then RepOpt, are ported
+    # now: AdamW stands in
+    ({"adam": True}, Trainer),
 ])
 def test_refuses_what_is_not_ported(tmp_path, override, cls):
     cfg = get_cfg()
