@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port on one CUDA card: YOLOv5l eval serving, the
 YOLOv5l mean-teacher training step, the SSOD trainer around it reading
-its data from disk, and the anchor-free families' supervised trainer.
+its data from disk (and with its remaining options), and the model zoo's
+supervised trainer.
 
     python3 chip_smoke.py
 
@@ -74,7 +75,24 @@ read just after:
     float32 outputs against the unfused model's); step ms, img/s, the
     loss and its assignment's ms, peak memory, forward and NMS ms, and K1,
     K2 and the count against their plain versions at the mid and
-    saturated lattices (672,000 scores per image; YOLOv7-L's 2,016,000).
+    saturated lattices (672,000 scores per image; YOLOv7-L's 2,016,000);
+  - ssod-opts: the SSOD trainer's remaining options and the last YAML.
+    A: SSODTrainer on the main YAML (device_aug, 32 + 32) with
+    `SSOD.pseudo_label_type: LabelMatch`, `SSOD.use_ota: True` and one
+    extra teacher (a seeded YOLOv5l's port checkpoint, made a teacher; its
+    class names a permutation of Dataset.names with some dropped): 1
+    burn-in + 2 SSOD epochs of 4 steps with epoch-end validation, then a
+    resumed epoch; K1 launches 3 times per SSOD step (the two teachers'
+    NMS at (32, 2048), the class-agnostic merge at (32, 256)), each
+    recorded merge held against greedy_nms_keep; LabelMatch's thresholds
+    after each refresh and across the resume; the step in the loop and
+    bare, with its phases and the SimOTA matches by CUDA events. B:
+    configs/ssod/cityscapes/yolov5l_cityscapes.yaml as written but the data
+    paths and 1 epoch (nc 8, 960 px, batch 16, autoanchor, the DA loss,
+    burn_epochs 0) on the smoke images with their classes mod 8: the
+    anchor check's BPR and whether it adopted new anchors, the step ms.
+    C: yolov7l_coco.yaml with `Loss.assigner_type: SimOTA` and `adam:
+    True` at 64@640: step ms, the SimOTA share, peak memory.
 
 It times the forward, the NMS, the selection engine against `torch.topk`,
 the training steps and their phases (CUDA events), and each kernel
@@ -229,7 +247,7 @@ def nms_iou_tests(torch, box_iou, boxes, valid, keep, tile, stop_at, thr):
     return total, swept
 
 
-def lattice_checks(torch, decoded, name):
+def lattice_checks(torch, decoded, name, nc=NC):
     """K2 (element and row buffers) and the count (a bisection pass's
     thresholds and the candidate total) against their plain versions on
     the multi-label lattice of `decoded` at the eval gate. Returns (flat
@@ -241,7 +259,7 @@ def lattice_checks(torch, decoded, name):
         threshold_compact_cuda)
 
     dev = decoded.device
-    flat, boxes_xyxy, _ = _pair_scores(decoded, NC, CONF, False, 0, False,
+    flat, boxes_xyxy, _ = _pair_scores(decoded, nc, CONF, False, 0, False,
                                        None)
     b = flat.shape[0]
     cap = -(-(MAX_NMS + _SLACK) // 128) * 128
@@ -279,7 +297,7 @@ def lattice_checks(torch, decoded, name):
     return flat, boxes_xyxy, taus, k2_err, float(count_err)
 
 
-def kernel_rows(torch, flat, boxes_xyxy, taus):
+def kernel_rows(torch, flat, boxes_xyxy, taus, nc=NC):
     """Each kernel of the eval NMS on one lattice: ((kernel, its range),
     plain, (bound, bound_by), library or None) by name, with K1 on the
     rows engine's candidates; also K1's arguments, its IoU tests and the
@@ -297,7 +315,7 @@ def kernel_rows(torch, flat, boxes_xyxy, taus):
     zero = torch.zeros(b, device=dev)
     inf = torch.full((b,), float("inf"), device=dev)
     ts, ti = exact_topk_rows(flat, MAX_NMS)
-    nms_boxes, cand_valid, _ = _finish_pairs(ts, ti, boxes_xyxy, None, NC,
+    nms_boxes, cand_valid, _ = _finish_pairs(ts, ti, boxes_xyxy, None, nc,
                                              False, 256)
     k1 = (nms_boxes, cand_valid, IOU, 256, MAX_DET)
     k2 = (flat, zero, inf, cap)
@@ -1431,6 +1449,27 @@ def mid_val_teacher(torch, module, calib, target=3300.0, iters=12,
     return best[:2]
 
 
+def bare_ssod_args(torch, t):
+    """One SSOD step's arguments, as trainer `t`'s loop makes them under
+    device_aug: a batch of each of its loaders, copied to the card and
+    augmented there. Also the host batches ("batches")."""
+    from efficientteacher_torch.ops.augment_device import (device_ssod_views,
+                                                           step_seed)
+
+    sb, tb = (next(iter(loader)) for loader in t.raw_loaders)
+    sup = t._to_device(sb["images"], sb["labels"], sb["mask"])
+    un = t._to_device(tb["images_ori"], tb["labels"], tb["mask"])
+    ni = t.global_step
+    s_args = t.augment(*sup, 2, ni)
+    t.aug_gen.manual_seed(step_seed(2, ni, 1))
+    strong, _, _, weak, m_s = device_ssod_views(
+        t.aug_gen, un[0], un[1].float(), un[2], t.ssod_hyp,
+        max_out=int(t.cfg.Dataset.max_targets))
+    return {"sup": s_args, "strong": strong, "weak": weak, "m_s": m_s,
+            "sched": t._schedule(ni), "semi": t._semi_decay(),
+            "batches": (sb, tb)}
+
+
 def bare_trainer_steps(torch, trainer, pairs=3):
     """The trainer's own step functions called directly, `pairs` held +
     fired pairs each, on one batch from each of its loaders, copied and
@@ -1444,7 +1483,8 @@ def bare_trainer_steps(torch, trainer, pairs=3):
                                                            step_seed)
 
     t = trainer
-    sb, tb = (next(iter(loader)) for loader in t.raw_loaders)
+    a = bare_ssod_args(torch, t)
+    sb, tb = a["batches"]
     copies = []
     for _ in range(4):
         torch.cuda.synchronize()
@@ -1454,19 +1494,12 @@ def bare_trainer_steps(torch, trainer, pairs=3):
         t1 = time.perf_counter()
         torch.cuda.synchronize()
         copies.append(((t1 - t0) * 1e3, (time.perf_counter() - t0) * 1e3))
-    ni = t.global_step
-    sched = t._schedule(ni)
-    semi = t._semi_decay()
-    s_args = t.augment(*sup, 2, ni)
-    t.aug_gen.manual_seed(step_seed(2, ni, 1))
-    strong, _, _, weak, m_s = device_ssod_views(
-        t.aug_gen, un[0], un[1].float(), un[2], t.ssod_hyp,
-        max_out=int(t.cfg.Dataset.max_targets))
+    s_args, sched, semi = a["sup"], a["sched"], a["semi"]
     out = {}
     for kind, step, args in (
             ("ssod", t.raw_ssod_step,
-             (*s_args, strong, weak, m_s, t.cls_thr_high, t.cls_thr_low,
-              sched, semi)),
+             (*s_args, a["strong"], a["weak"], a["m_s"], t.cls_thr_high,
+              t.cls_thr_low, sched, semi)),
             ("burn_in", t.raw_burn_step, (*s_args, None, sched, semi))):
         ms = []
         for _ in range(2 * pairs):
@@ -2676,11 +2709,12 @@ ASSIGNERS = {"ComputeLoss": ("yolov5_loss", "assign_all_scales"),
              "ComputeTalLoss": ("tal_loss", "tal_assign")}
 
 
-def loss_times(torch, trainer):
+def loss_times(torch, trainer, assigner=None):
     """(loss ms, assignment ms, the assigner's name) by CUDA events on the
     trainer's last batch: the detection loss's forward on the model's
     train-mode raw maps, and the same with the assigner's result cached,
-    whose difference is the assignment's time."""
+    whose difference is the assignment's time. `assigner`: (module in
+    `losses`, function) to cache, by default the Loss.type's."""
     import importlib
 
     from efficientteacher_torch.train.supervised import (forward_train,
@@ -2693,7 +2727,7 @@ def loss_times(torch, trainer):
                             trainer.compute_dtype)
         loss = lambda: trainer.detection_loss(raw, labels, mask)  # noqa
         full = event_ms(torch, loss, launches=5, repeats=3)[0]
-        mod_name, name = ASSIGNERS[trainer.cfg.Loss.type]
+        mod_name, name = assigner or ASSIGNERS[trainer.cfg.Loss.type]
         module = importlib.import_module(
             f"efficientteacher_torch.losses.{mod_name}")
         assign = getattr(module, name)
@@ -2735,6 +2769,604 @@ def zoo_phase(torch, dev, card, lists):
     with tempfile.TemporaryDirectory() as tmp:
         for family in ZOO_YAMLS:
             entries += zoo_leg(torch, dev, card, lists, family, tmp)
+    return entries
+
+
+# [ssod-opts]: the SSOD trainer's remaining options and the last shipped
+# YAML. Leg A: the main YAML (device_aug, as the trainer phase) with
+# LabelMatch, the SSOD OTA loss and one extra teacher, O_STEPS steps per
+# epoch (1 burn-in + 2 SSOD epochs, then one resumed epoch: LabelMatch
+# refreshes at the end of each SSOD epoch); leg B: the cityscapes YAML as
+# written but the data paths and its depth (1 epoch of CITY_STEPS steps,
+# the smoke images with their classes mod 8); leg C: YOLOv7-L with the
+# anchor OTA loss and AdamW at its YAML's batch (OTA_STEPS steps + Z_WARM
+# warm ones).
+O_STEPS = 4
+O_EPOCHS, O_BURN = 3, 1
+O_PAIRS = 3        # held + fired pairs of the bare, phase-timed SSOD step
+O_DROPPED = 10     # classes the extra teacher's name list drops
+CITY_YAML = (Path(__file__).resolve().parent
+             / "configs/ssod/cityscapes/yolov5l_cityscapes.yaml")
+CITY_NC, CITY_STEPS = 8, 4
+OTA_STEPS = 2
+
+
+def city_cfg(*overrides):
+    """The cityscapes YAML (the port's get_cfg() merged with it), then
+    `overrides` (dotted key, value pairs)."""
+    from efficientteacher_torch.configs import get_cfg
+
+    cfg = get_cfg()
+    cfg.merge_from_file(str(CITY_YAML))
+    cfg.merge_from_list(list(overrides))
+    return cfg
+
+
+def subset_lists(lists, n, tag, classes=None):
+    """The first `n` images of each split as new list files; with
+    `classes`, in a directory of their own whose label files take each
+    class mod `classes` (the images are symlinks)."""
+    out = {}
+    for split, lst in lists.items():
+        if split not in SPLITS:
+            continue
+        lines = Path(lst).read_text().splitlines()[:n.get(split, 0)]
+        root = Path(lst).parent
+        if classes is not None:
+            root = DATA_DIR / f"{tag}_{split}"
+            (root / "images").mkdir(parents=True, exist_ok=True)
+            (root / "labels").mkdir(parents=True, exist_ok=True)
+            new = []
+            for line in lines:
+                src = Path(line)
+                dst = root / "images" / src.name
+                if not dst.exists():
+                    os.symlink(src, dst)
+                rows = (src.parent.parent / "labels" / f"{src.stem}.txt"
+                        ).read_text().splitlines()
+                (root / "labels" / f"{src.stem}.txt").write_text("".join(
+                    f"{int(r.split()[0]) % classes} "
+                    f"{' '.join(r.split()[1:])}\n" for r in rows))
+                new.append(str(dst))
+            lines = new
+        sub = root / f"{split}_{tag}.txt"
+        sub.write_text("\n".join(lines) + "\n")
+        out[split] = str(sub)
+    return out
+
+
+class K1Recorder:
+    """Wraps a module's `greedy_nms_keep_cuda` name: every call goes to
+    the kernel (its launch count moves as before); calls whose K (the
+    boxes' second dimension) is in `widths` have their arguments and mask
+    kept (a few MB at the SSOD steps' shapes), so each can be held
+    against the plain version afterwards."""
+
+    def __init__(self, torch, module, widths):
+        self.torch, self.module, self.widths = torch, module, widths
+        self.real = module.greedy_nms_keep_cuda
+        self.calls = []
+
+    def __enter__(self):
+        def rec(boxes, valid, iou, tile=256, stop_at=None):
+            keep = self.real(boxes, valid, iou, tile, stop_at)
+            if boxes.shape[1] in self.widths:
+                self.calls.append((boxes.clone(), valid.clone(), iou, tile,
+                                   stop_at, keep.clone()))
+            return keep
+
+        self.module.greedy_nms_keep_cuda = rec
+        return self
+
+    def __exit__(self, *exc):
+        self.module.greedy_nms_keep_cuda = self.real
+
+
+def k1_entry(torch, call, path, launches, timed=True):
+    """K1 on one recorded call: its mask against the plain version (they
+    must be equal) and, with `timed`, kernel time (CUDA graph), plain time
+    and bound. Returns the kernels-line entry (None untimed)."""
+    from efficientteacher_torch.ops.boxes import box_iou
+    from efficientteacher_torch.ops.nms_cuda import (greedy_nms_keep,
+                                                     greedy_nms_keep_cuda)
+
+    boxes, valid, iou, tile, stop_at, keep = call
+    args = (boxes, valid, iou, tile, stop_at)
+    ref = greedy_nms_keep(*args)
+    err = int((ref != keep).sum()) + int((greedy_nms_keep_cuda(*args)
+                                          != ref).sum())
+    require(err == 0, f"{path}: K1 at {tuple(keep.shape)} differs from the "
+            f"plain version in {err} rows")
+    if not timed:
+        return None
+    tests, swept = nms_iou_tests(torch, box_iou, boxes, valid, ref, tile,
+                                 stop_at, iou)
+    t = event_ms(torch, lambda: greedy_nms_keep_cuda(*args), graph=True)
+    tp = event_ms(torch, lambda: greedy_nms_keep(*args))
+    b_ms, b_by = bound(keep.numel() * 2 + swept * 16, IOU_OPS * tests)
+    return {"name": "greedy_nms_keep", "route": "cuda",
+            "source": ZOO_SOURCES["greedy_nms_keep"][0],
+            "replaces": ZOO_SOURCES["greedy_nms_keep"][1],
+            "launches": launches, "max_abs_err": float(err), "ms": t[0],
+            "ms_min": t[1], "ms_max": t[2], "plain_ms": tp[0],
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+            "path": path, "shape": list(keep.shape), "tile": tile,
+            "valid_per_img": float(valid.sum(1).float().mean()),
+            "kept": int(ref.sum())}
+
+
+def val_entries(torch, decoded, path, launches, card, nc=NC):
+    """K1, K2 and the count on a validation lattice (`kernel_rows`) of a
+    model with `nc` classes, as kernels-line entries; a kernel that did
+    not launch on the path has none."""
+    flat, boxes_xyxy, taus, k2_err, count_err = lattice_checks(
+        torch, decoded, path, nc)
+    rows, k1, _, k1_err = kernel_rows(torch, flat, boxes_xyxy, taus, nc)
+    print_kernel_rows(path, rows, card)
+    errs = {"greedy_nms_keep": k1_err, "threshold_compact": k2_err,
+            "count_ge": count_err}
+    out = []
+    for name, (tk, tp, (b_ms, b_by), lib) in rows.items():
+        if not launches[name]:
+            continue
+        out.append({
+            "name": name, "route": "cuda", "source": ZOO_SOURCES[name][0],
+            "replaces": ZOO_SOURCES[name][1], "launches": launches[name],
+            "max_abs_err": float(errs[name]), "ms": tk[0], "ms_min": tk[1],
+            "ms_max": tk[2], "plain_ms": tp[0], "bound_ms": b_ms,
+            "bound_by": b_by, "library_ms": lib[0] if lib else None,
+            "path": path, "shape": list((k1[0] if name == "greedy_nms_keep"
+                                         else flat).shape[:2])})
+    return out
+
+
+def write_extra_teacher(torch, cfg, dev, weak, path):
+    """A port checkpoint of a seeded YOLOv5l of `cfg` (float32), made a
+    teacher that gives pseudo labels on `weak` (`pseudo_label_teacher`)."""
+    import types
+
+    from efficientteacher_torch.models import build_model, spec_from_cfg
+    from efficientteacher_torch.utils.checkpoint import (module_variables,
+                                                         save_checkpoint)
+
+    spec = dataclasses.replace(spec_from_cfg(cfg), train_domain=True)
+    model = build_model(spec, device=dev,
+                        generator=torch.Generator().manual_seed(SEED + 1))
+    pseudo_label_teacher(torch, types.SimpleNamespace(
+        ema=types.SimpleNamespace(module=model.eval(), updates=0)), weak)
+    v = module_variables(model)
+    save_checkpoint(path, params=v["params"], batch_stats=v["batch_stats"],
+                    half=False)
+    del model
+
+
+def ssod_step_phases(torch, t, pairs=O_PAIRS):
+    """The trainer's SSOD step called bare, `pairs` held + fired pairs on
+    one batch, each phase timed by CUDA events (`on_phase`) and each
+    SimOTA match (`losses/yolov5_ota_loss.simota_match`) too. Returns
+    median ms per phase, of the step, and of its SimOTA matches."""
+    from efficientteacher_torch.losses import yolov5_ota_loss as ota
+
+    args = bare_ssod_args(torch, t)
+    thr = t._thresholds()
+    real = ota.simota_match
+    rows = []
+    for i in range(2 * pairs):
+        marks, spans = [], []
+
+        def on_phase(name):
+            ev = torch.cuda.Event(enable_timing=True)
+            ev.record()
+            marks.append((name, ev))
+
+        def timed(*a, **k):
+            s = torch.cuda.Event(enable_timing=True)
+            e = torch.cuda.Event(enable_timing=True)
+            s.record()
+            out = real(*a, **k)
+            e.record()
+            spans.append((s, e))
+            return out
+
+        ota.simota_match = timed
+        try:
+            torch.cuda.synchronize()
+            on_phase("start")
+            t.state, _ = t.raw_ssod_step(
+                t.state, *args["sup"], args["strong"], args["weak"],
+                args["m_s"], *thr, args["sched"], args["semi"],
+                on_phase=on_phase)
+            torch.cuda.synchronize()
+        finally:
+            ota.simota_match = real
+        row = {name: a[1].elapsed_time(ev)
+               for a, (name, ev) in zip(marks, marks[1:])}
+        row["step"] = marks[0][1].elapsed_time(marks[-1][1])
+        row["simota"] = sum(s.elapsed_time(e) for s, e in spans)
+        rows.append(row)
+    return {k: statistics.median(r[k] for r in rows[2:]) for k in rows[-1]}
+
+
+def ssod_opts_leg(torch, dev, card, lists, tmp):
+    """Leg A (see the section's comment). Returns kernels-line entries."""
+    import random
+
+    import numpy as np
+
+    from efficientteacher_torch.data.datasets_ssod import (
+        create_target_dataloader)
+    from efficientteacher_torch.ops import nms
+    from efficientteacher_torch.ops.nms_cuda import greedy_nms_keep_cuda
+    from efficientteacher_torch.ops.select_cuda import (count_ge_cuda,
+                                                        threshold_compact_cuda)
+    from efficientteacher_torch.parallel.distributed import to_device
+    from efficientteacher_torch.ssod import pseudo_label
+    from efficientteacher_torch.utils.checkpoint import load_checkpoint
+
+    wrappers = {"greedy_nms_keep": greedy_nms_keep_cuda,
+                "threshold_compact": threshold_compact_cuda,
+                "count_ge": count_ge_cuda}
+    n = O_STEPS * T_BATCH
+    sub = subset_lists(lists, {"labelled": n, "unlabelled": n,
+                               "val": SPLITS["val"]}, "opts")
+    main = ssod_cfg()
+    names = [str(x) for x in main.Dataset.names]
+    thr0 = np.float32(main.SSOD.ignore_thres_high)
+    rng = random.Random(SEED)
+    extra_names = rng.sample(names, len(names))
+    for i in rng.sample(range(len(names)), O_DROPPED):
+        extra_names[i] = f"not_in_dataset_{i}"
+    teacher_path = Path(tmp) / "extra_teacher.ckpt"
+
+    def cfg_of(name, *more):
+        return ssod_cfg(
+            "epochs", O_EPOCHS, "hyp.burn_epochs", O_BURN, "project", tmp,
+            "name", name, "Dataset.device_aug", True, *data_overrides(sub),
+            "SSOD.pseudo_label_type", "LabelMatch", "SSOD.use_ota", True,
+            "SSOD.extra_teachers", [str(teacher_path)],
+            "SSOD.extra_teachers_class_names", [extra_names], *more)
+
+    cls = smoke_trainer(torch)
+    t0 = time.perf_counter()
+    weak = to_device(next(iter(create_target_dataloader(
+        cfg_of("probe"), batch_size=T_BATCH, augment=False)))["images_ori"],
+        dev)
+    write_extra_teacher(torch, cfg_of("probe"), dev, weak, teacher_path)
+    trainer = cls(cfg_of("opts"), device=dev)
+    (module, cmap), = trainer.extra_teachers
+    require(trainer.use_labelmatch and trainer.label_match is not None
+            and int((cmap < 0).sum()) == O_DROPPED and not module.training,
+            f"LabelMatch {trainer.use_labelmatch}, class map drops "
+            f"{int((cmap < 0).sum())}")
+    thr_log = []
+
+    def log_thresholds(tr):
+        lm = tr.label_match
+        tr.callbacks.register_action(
+            "on_fit_epoch_end", callback=lambda m, e: thr_log.append(
+                (e, lm.cls_thr_high.copy(), lm.cls_thr_low.copy())))
+
+    log_thresholds(trainer)
+    print(f"[ssod-opts] A: SSODTrainer on the main YAML (YOLOv5l, nc {NC}, "
+          f"{IMG} px, bf16, batch {T_BATCH} + {T_BATCH}, Dataset.device_aug)"
+          f" with SSOD.pseudo_label_type LabelMatch, SSOD.use_ota True and "
+          f"one extra teacher (a seeded YOLOv5l's port checkpoint, its class "
+          f"names a permutation of Dataset.names with {O_DROPPED} dropped); "
+          f"{O_BURN} burn-in + {O_EPOCHS - O_BURN} SSOD epochs of {O_STEPS} "
+          f"steps, then one resumed epoch; set-up "
+          f"{time.perf_counter() - t0:.1f} s")
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    for w in wrappers.values():
+        w.launches = 0
+    with K1Recorder(torch, pseudo_label, (128, 256, 512)) as merges, \
+            K1Recorder(torch, nms, (2048,)) as teachers:
+        t0 = time.perf_counter()
+        trainer.train()
+        weights = trainer.save_dir / "weights"
+        cfg2 = cfg_of("resumed", "epochs", O_EPOCHS + 1, "resume", True,
+                      "weights", str(weights / "last.ckpt"))
+        resumed = cls(cfg2, device=dev)
+        saved = load_checkpoint(weights / "last.ckpt")["optimizer"]
+        lm, was = resumed.label_match, trainer.label_match
+        require(all(np.array_equal(getattr(lm, k), getattr(was, k))
+                    for k in ("cls_thr_high", "cls_thr_low",
+                              "cls_num_total"))
+                and "labelmatch" in saved,
+                "resume: LabelMatch's thresholds are not the saved ones")
+        log_thresholds(resumed)
+        resumed.train()
+        t_run = time.perf_counter() - t0
+    launches = {k: w.launches for k, w in wrappers.items()}
+    peak = torch.cuda.max_memory_allocated()
+    log = {k: trainer.log[k] + resumed.log[k] for k in trainer.log}
+    ssod = [r for r in log["steps"] if r["kind"] == "ssod"]
+    for r in log["steps"]:
+        require(all(v == v and abs(v) != float("inf")
+                    for v in r["losses"].values()),
+                f"ssod-opts epoch {r['epoch']}: losses {r['losses']}")
+    require(all(r["k1"] == 3 for r in ssod),
+            f"K1 launches per SSOD step {[r['k1'] for r in ssod]} (want 3: "
+            f"two teachers' NMS and the merge)")
+    require(all(r["pseudo"] > 0 for r in ssod),
+            f"pseudo labels per step {[r['pseudo'] for r in ssod]}")
+    require(len(thr_log) == O_EPOCHS + 1
+            and len(merges.calls) == len(ssod)
+            and len(teachers.calls) == 2 * len(ssod),
+            f"{len(thr_log)} epoch ends, {len(merges.calls)} merges and "
+            f"{len(teachers.calls)} teacher NMS calls recorded for "
+            f"{len(ssod)} SSOD steps")
+    refreshed = [(e, h, lo) for e, h, lo in thr_log if e >= O_BURN]
+    require(all(not np.all(h == thr0) for _, h, _ in refreshed),
+            "a LabelMatch refresh left every class at its initial threshold")
+    vals = log["vals"]
+    require(all(v["launches"]["greedy_nms_keep"] >= v["batches"]
+                for v in vals), f"val launches {[v['launches'] for v in vals]}")
+    phases = ssod_step_phases(torch, resumed)
+    loop = statistics.median(r["ms"] for r in ssod
+                             if r["epoch"] != O_BURN and not r["in_flight"])
+    print(f"[ssod-opts] A: {len(ssod)} SSOD steps, K1 launches per step "
+          f"{sorted({r['k1'] for r in ssod})} (the EMA's and the extra "
+          f"teacher's NMS at ({T_BATCH}, 2048), the merge at "
+          f"{sorted({tuple(c[0].shape[:2]) for c in merges.calls})}, tile "
+          f"{merges.calls[0][3]}); pseudo labels/img "
+          + ", ".join(f"{r['pseudo'] / T_BATCH:.1f}" for r in ssod)
+          + f"; launches over the run {launches}; train + resume "
+          f"{t_run:.1f} s; peak memory {peak / 2**30:.2f} GiB "
+          f"({base / 2**30:.2f} GiB live before) | {card}")
+    for e, h, lo in thr_log:
+        print(f"[ssod-opts] A: LabelMatch thresholds after epoch {e}"
+              f"{' (resumed run)' if e == O_EPOCHS else ''}: high "
+              f"min/median/max {h.min():.4f}/{np.median(h):.4f}/"
+              f"{h.max():.4f}, low {lo.min():.4f}/{np.median(lo):.4f}/"
+              f"{lo.max():.4f}, classes refreshed "
+              f"{int((h != thr0).sum())} of {NC}")
+    extra = phases.get("extra_teachers", 0.0)
+    print(f"[time] ssod-opts A: SSOD step {loop:.1f} ms in the loop "
+          f"(median, outside the first SSOD epoch), bare "
+          f"{phases['step']:.1f} ms ({2 * T_BATCH / phases['step'] * 1e3:.1f}"
+          f" img/s); phases (CUDA events) "
+          + ", ".join(f"{k} {v:.1f}" for k, v in phases.items()
+                      if k not in ("step", "simota"))
+          + f" ms: the extra teacher's forward {extra:.1f} ms "
+          f"({extra / phases['step']:.0%} of the step), the SimOTA matches "
+          f"(reliable + uncertain, 3 scales pooled) {phases['simota']:.1f} "
+          f"ms ({phases['simota'] / phases['step']:.0%}) | {card}")
+    for v in vals:
+        print(f"[ssod-opts] A: epoch {v['epoch']} validation "
+              f"{v['ms'] / v['batches']:.1f} ms/batch, P/R/mAP50/mAP "
+              f"{'/'.join(f'{x:.4f}' for x in v['results'])}, launches "
+              f"{v['launches']}; detections == plain NMS")
+    # every recorded launch against the plain version; the last of each
+    # kind is also timed
+    for call in merges.calls[:-1] + teachers.calls[:-1]:
+        k1_entry(torch, call, "ssod-opts A: a recorded K1 call", 0,
+                 timed=False)
+    entries = [
+        k1_entry(torch, merges.calls[-1],
+                 "ssod-opts A: the class-agnostic merge", len(ssod)),
+        k1_entry(torch, teachers.calls[0],
+                 "ssod-opts A: the EMA's and the extra teacher's NMS",
+                 2 * len(ssod))]
+    for e in entries:
+        print(f"[time] ssod-opts A: greedy_nms_keep {tuple(e['shape'])} "
+              f"tile {e['tile']} ({e['path'][13:]}; {e['valid_per_img']:.1f}"
+              f" valid rows/img, {e['kept']} kept) kernel {e['ms']:.4f} ms, "
+              f"plain {e['plain_ms']:.4f} ms, bound {e['bound_ms']:.5f} ms "
+              f"({e['bound_by']}), == greedy_nms_keep | {card}")
+    print(f"[k1] ssod-opts A: all {len(merges.calls)} merges "
+          f"{sorted({tuple(c[0].shape) for c in merges.calls})} and "
+          f"{len(teachers.calls)} teacher NMS calls "
+          f"{sorted({tuple(c[0].shape) for c in teachers.calls})} of the "
+          f"SSOD steps bit-equal to greedy_nms_keep")
+    val_launches = {k: sum(v["launches"][k] for v in vals) for k in wrappers}
+    entries += val_entries(torch, resumed.val_decoded,
+                           "ssod-opts A: epoch-end val", val_launches, card)
+    del trainer, resumed
+    return entries
+
+
+def cityscapes_leg(torch, dev, card, lists, tmp):
+    """Leg B: the cityscapes YAML. Returns kernels-line entries."""
+    import gc
+
+    import numpy as np
+
+    from efficientteacher_torch.eval import validator
+    from efficientteacher_torch.ops import nms
+    from efficientteacher_torch.ops.nms_cuda import greedy_nms_keep_cuda
+    from efficientteacher_torch.ops.select_cuda import (count_ge_cuda,
+                                                        threshold_compact_cuda)
+    from efficientteacher_torch.parallel.distributed import to_device
+    from efficientteacher_torch.train.ssod_trainer import SSODTrainer
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    wrappers = {"greedy_nms_keep": greedy_nms_keep_cuda,
+                "threshold_compact": threshold_compact_cuda,
+                "count_ge": count_ge_cuda}
+    cfg = city_cfg()
+    n = CITY_STEPS * int(cfg.Dataset.batch_size)
+    sub = subset_lists(lists, {"labelled": n, "unlabelled": n,
+                               "val": SPLITS["val"] // 2}, "city",
+                       classes=CITY_NC)
+    cfg.merge_from_list(["epochs", 1, "project", tmp, "name", "city",
+                         *data_overrides(sub)])
+    steps = []
+
+    class CityTrainer(SSODTrainer):
+        def build_step(self):
+            super().build_step()
+            step = self.ssod_step
+
+            def run(state, *args):
+                torch.cuda.synchronize()
+                k0, t0 = greedy_nms_keep_cuda.launches, time.perf_counter()
+                state, out = step(state, *args)
+                torch.cuda.synchronize()
+                steps.append(((time.perf_counter() - t0) * 1e3,
+                              greedy_nms_keep_cuda.launches - k0,
+                              int(out.pseudo_count),
+                              {k: float(v) for k, v in out.metrics.items()}))
+                return state, out
+
+            self.ssod_step = run
+
+    t0 = time.perf_counter()
+    trainer = CityTrainer(cfg, device=dev)
+    check = getattr(trainer, "anchor_check", None)
+    require(check is not None and trainer.spec.nc == CITY_NC
+            and trainer.img_size == 960 and trainer.batch_size == 16
+            and trainer.with_da_loss and trainer.burn_epochs == 0,
+            f"cityscapes: anchor check {check}, nc {trainer.spec.nc}, "
+            f"{trainer.img_size} px, batch {trainer.batch_size}")
+    anchors = np.asarray(trainer.spec.anchors).reshape(3, -1)
+    weak = to_device(next(iter(trainer.target_loader))["images_ori"], dev)
+    pseudo_label_teacher(torch, trainer.state, weak)
+    print(f"[ssod-opts] B: SSODTrainer on {CITY_YAML.name} as written but "
+          f"the data paths and epochs 1 (YOLOv5l, nc {CITY_NC}, 960 px, "
+          f"batch 16 + 16, burn_epochs 0, with_da_loss, uncertain_aug, host "
+          f"augmentation; {trainer.nb} steps on the smoke images, classes "
+          f"mod {CITY_NC}); autoanchor: BPR {check['bpr']:.4f}, evolved "
+          f"anchors {'adopted' if check['adopted'] else 'not adopted'}"
+          + (f" ({', '.join(str([round(float(v), 1) for v in a]) for a in anchors)})"
+             if check["adopted"] else "")
+          + f"; set-up {time.perf_counter() - t0:.1f} s")
+    torch.cuda.reset_peak_memory_stats()
+    records = []
+    make = validator.make_infer_fn
+    validator.make_infer_fn = \
+        lambda *a, **k: RecordingInfer(make(*a, **k), records)
+    for w in wrappers.values():
+        w.launches = 0
+    try:
+        with K1Recorder(torch, nms, (2048,)) as rec:
+            t0 = time.perf_counter()
+            trainer.train()
+            t_run = time.perf_counter() - t0
+    finally:
+        validator.make_infer_fn = make
+    launches = {k: w.launches for k, w in wrappers.items()}
+    peak = torch.cuda.max_memory_allocated()
+    require(len(steps) == trainer.nb and all(k == 1 for _, k, _, _ in steps)
+            and len(rec.calls) == len(steps) and records,
+            f"cityscapes: {len(steps)} steps, K1 per step "
+            f"{[k for _, k, _, _ in steps]}, {len(rec.calls)} recorded, "
+            f"{len(records)} val batches")
+    # the epoch-end val's detections against the plain NMS, batch by batch
+    infer = make(trainer.state.semi_ema.module, CITY_NC, CONF, IOU, MAX_DET,
+                 MAX_NMS, 255.0, trainer.compute_dtype)
+    for bi, (decoded, out) in enumerate(records):
+        ref = infer.nms(decoded, use_kernels=False)
+        require(torch.equal(ref.detections, out.detections)
+                and torch.equal(ref.valid, out.valid),
+                f"cityscapes val batch {bi}: detections differ from the "
+                f"plain NMS")
+    require(all(all(v == v and abs(v) != float("inf") for v in m.values())
+                for *_, m in steps), "cityscapes: a loss is not finite")
+    ms = [s[0] for s in steps]
+    print(f"[time] ssod-opts B: SSOD steps (synchronized) "
+          f"{', '.join(f'{x:.1f}' for x in ms)} ms, median of the last "
+          f"{len(ms) - 1} {statistics.median(ms[1:]):.1f} ms "
+          f"({32 / statistics.median(ms[1:]) * 1e3:.1f} img/s); pseudo "
+          f"labels/img {', '.join(f'{p / 16:.1f}' for _, _, p, _ in steps)};"
+          f" losses {', '.join('%.3f' % m['total'] for *_, m in steps)}; "
+          f"epoch + val {t_run:.1f} s; launches {launches} ({len(records)} "
+          f"val batches, detections == plain NMS); peak memory "
+          f"{peak / 2**30:.2f} GiB | {card}")
+    for call in rec.calls[:-1]:
+        k1_entry(torch, call, "ssod-opts B: a recorded K1 call", 0,
+                 timed=False)
+    entry = k1_entry(torch, rec.calls[-1], "ssod-opts B: cityscapes SSOD "
+                     "steps", len(steps))
+    print(f"[time] ssod-opts B: greedy_nms_keep {tuple(entry['shape'])} "
+          f"kernel {entry['ms']:.4f} ms, plain {entry['plain_ms']:.4f} ms, "
+          f"bound {entry['bound_ms']:.5f} ms ({entry['bound_by']}); all "
+          f"{len(rec.calls)} step launches == greedy_nms_keep | {card}")
+    val_launches = dict(launches, greedy_nms_keep=launches["greedy_nms_keep"]
+                        - len(steps))
+    entries = [entry] + val_entries(
+        torch, records[0][0], "ssod-opts B: cityscapes epoch-end val",
+        val_launches, card, nc=CITY_NC)
+    del trainer
+    return entries
+
+
+def ota_adamw_leg(torch, dev, card, lists, tmp):
+    """Leg C: YOLOv7-L with the anchor OTA loss and AdamW. Returns
+    kernels-line entries."""
+    import gc
+
+    from efficientteacher_torch.ops.nms_cuda import greedy_nms_keep_cuda
+    from efficientteacher_torch.ops.select_cuda import (count_ge_cuda,
+                                                        threshold_compact_cuda)
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    wrappers = {"greedy_nms_keep": greedy_nms_keep_cuda,
+                "threshold_compact": threshold_compact_cuda,
+                "count_ge": count_ge_cuda}
+    cfg = zoo_cfg("yolov7l", "Loss.assigner_type", "SimOTA", "adam", True)
+    n = OTA_STEPS * int(cfg.Dataset.batch_size)
+    sub = subset_lists(lists, {"labelled": n, "val": SPLITS["val"]}, "ota")
+    cfg.merge_from_list(["epochs", 1, "project", tmp, "name", "ota",
+                         "Dataset.train", sub["labelled"],
+                         "Dataset.val", sub["val"]])
+    t0 = time.perf_counter()
+    trainer = zoo_trainer(torch)(cfg, device=dev)
+    require(trainer.opt_cfg.adam and trainer.state.second_moment is not None
+            and trainer.detection_loss.__code__.co_names[0]
+            == "compute_ota_loss" and trainer.nb == OTA_STEPS,
+            f"YOLOv7-L: adam {trainer.opt_cfg.adam}, {trainer.nb} steps")
+    torch.cuda.reset_peak_memory_stats()
+    torch.backends.cudnn.benchmark = True
+    for w in wrappers.values():
+        w.launches = 0
+    trainer.train()
+    launches = {k: w.launches for k, w in wrappers.items()}
+    peak = torch.cuda.max_memory_allocated()
+    steps = list(trainer.log["steps"])
+    for _ in range(Z_WARM):
+        trainer.train_step(trainer.state, *trainer.last_batch,
+                           trainer.last_sched)
+    warm = [ms for ms, _ in trainer.log["steps"][len(steps):]]
+    step_ms = statistics.median(warm)
+    loss_ms, ota_ms, _ = loss_times(
+        torch, trainer, ("yolov5_ota_loss", "simota_match"))
+    require(all(v == v and abs(v) != float("inf")
+                for _, p in steps for v in p.values()),
+            f"YOLOv7-L OTA: losses {steps}")
+    print(f"[ssod-opts] C: Trainer on yolov7l_coco.yaml with "
+          f"Loss.assigner_type SimOTA and adam True (AdamW), batch "
+          f"{trainer.batch_size}@{IMG}, accumulate {trainer.accumulate}; "
+          f"{len(steps)} steps (synchronized) "
+          f"{', '.join(f'{ms:.1f}' for ms, _ in steps)} ms; {Z_WARM} warm "
+          f"{', '.join(f'{ms:.1f}' for ms in warm)}: median {step_ms:.1f} "
+          f"ms, {trainer.batch_size / step_ms * 1e3:.1f} img/s; losses "
+          + "; ".join(", ".join(f"{k} {v:.3f}" for k, v in p.items())
+                      for _, p in steps)
+          + f"; launches {launches}; peak memory {peak / 2**30:.2f} GiB; "
+          f"set-up + epoch {time.perf_counter() - t0:.1f} s | {card}")
+    print(f"[time] ssod-opts C: the OTA loss on the last batch, forward "
+          f"only, {loss_ms:.2f} ms, of which the SimOTA match "
+          f"{ota_ms:.2f} ms ({ota_ms / step_ms:.0%} of the step) | {card}")
+    entries = val_entries(torch, trainer.log["records"][0][0],
+                          "ssod-opts C: YOLOv7-L epoch-end val", launches,
+                          card)
+    del trainer
+    gc.collect()
+    torch.cuda.empty_cache()
+    return entries
+
+
+def ssod_opts_phase(torch, dev, card, lists):
+    """The [ssod-opts] legs; their kernels-line entries."""
+    import tempfile
+
+    with tempfile.TemporaryDirectory() as tmp:
+        entries = ssod_opts_leg(torch, dev, card, lists, tmp)
+        entries += cityscapes_leg(torch, dev, card, lists, tmp)
+        entries += ota_adamw_leg(torch, dev, card, lists, tmp)
     return entries
 
 
@@ -2897,6 +3529,27 @@ def main() -> int:
               f"{t_eager[0]:.4f} ms/call; {tests} IoU tests needed | {card}")
         print_kernel_rows(name, rows[name], card)
 
+    # what ordering equal scores costs (lowest flat index first,
+    # assigners/topk.py): the selection's last top-k at the rows tier's
+    # buffer width, the element tier's and the whole lattice, on the mid
+    # lattice's scores, beside torch.topk (which orders no ties)
+    from efficientteacher_torch.assigners.topk import topk_lower_index_first
+    from efficientteacher_torch.ops.select_cuda import _SLACK
+    widths = (256 * 128, -(-(MAX_NMS + _SLACK) // 128) * 128,
+              flats["mid"][0].shape[1])
+    ties = []
+    for width in widths:
+        x = flats["mid"][0][:, :width].contiguous()
+        ties.append((width, event_ms(
+            torch, lambda: topk_lower_index_first(x, MAX_NMS), launches=10,
+            repeats=3)[0], event_ms(
+            torch, lambda: torch.topk(x, MAX_NMS, 1), launches=10,
+            repeats=3)[0]))
+    print("[time] tie order: top-k of 30000 with equal scores lowest index "
+          "first vs torch.topk, ms: "
+          + "; ".join(f"({B}, {w}) {a:.4f} vs {b:.4f}" for w, a, b in ties)
+          + f" | {card}")
+
     # the regime in which each kernel does its main-path work: K1 and the
     # element compaction in mid, the bisection's count in saturated
     where = {"greedy_nms_keep": "mid", "threshold_compact": "mid",
@@ -2938,6 +3591,7 @@ def main() -> int:
         hostaug_phase(torch, dev, card, lists, dev_aug)
         cli_leg(torch, dev, card, lists)
         kernels += zoo_phase(torch, dev, card, lists)
+        kernels += ssod_opts_phase(torch, dev, card, lists)
     finally:
         shutil.rmtree(DATA_DIR, ignore_errors=True)
     print(f"[time] chip_smoke.py total {time.perf_counter() - t_start:.1f} "

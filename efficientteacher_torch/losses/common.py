@@ -1,7 +1,7 @@
 """Loss primitives (counterpart of `efficientteacher_tpu/losses/common.py`;
 reference models/loss/loss.py:16-60): stable BCE-with-logits with torch's
-`pos_weight` semantics, its focal form, and the masked mean that stands in
-for `.mean()` over a ragged selection."""
+`pos_weight` semantics, its focal form, the masked mean that stands in
+for `.mean()` over a ragged selection, and the losses' input cast."""
 
 from __future__ import annotations
 
@@ -37,3 +37,9 @@ def masked_mean(x: torch.Tensor, mask: torch.Tensor,
     """Mean of `x` where `mask` (broadcastable) is true; 0 where none is."""
     mask = mask.to(x.dtype)
     return (x * mask).sum() / mask.sum().clamp(min=eps)
+
+
+def loss_dtype(x: torch.Tensor) -> torch.Tensor:
+    """`x` in float32, the losses' precision (a bf16 forward's maps are
+    cast up), or in float64 as it is, for float64 parity checks."""
+    return x if x.dtype == torch.float64 else x.float()

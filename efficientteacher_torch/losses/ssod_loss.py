@@ -14,8 +14,14 @@ models/loss/ssod/ssod_loss.py:25-299 ComputeStudentMatchLoss):
   - weights: box/obj from SSOD.{box,obj}_loss_weight, cls * nc/80 * 3/nl
   - a single centre cell per target unless uncertain_aug (ssod_loss.py:66)
 
-Raw maps are the port's (B, na, ny, nx, no). The SimOTA branch
-(`compute_ssod_ota_loss`, SSOD.use_ota) is not ported yet.
+Raw maps are the port's (B, na, ny, nx, no).
+
+`compute_ssod_ota_loss` is the SimOTA branch (SSOD.use_ota; reference
+ssod_loss.py:296-345): the reliable and the uncertain pseudo labels each
+get their own dynamic-k matching over the find-3-positive candidates
+(`losses/yolov5_ota_loss.py`), reliable matches take box, class and
+IoU-soft objectness targets, uncertain matches write their score (or -1
+with ignore_obj) into the objectness map.
 """
 
 from __future__ import annotations
@@ -28,8 +34,8 @@ import torch.nn.functional as F
 
 from ..assigners.yolo_anchor import assign_all_scales
 from ..ops.boxes import bbox_ciou
-from .common import (bce_with_logits, focal_bce_with_logits, masked_mean,
-                     smooth_bce)
+from .common import (bce_with_logits, focal_bce_with_logits, loss_dtype,
+                     masked_mean, smooth_bce)
 from .yolov5_loss import _gather_positives, _scatter_max, decode_pred_boxes
 
 
@@ -111,7 +117,7 @@ def compute_ssod_loss(preds: Sequence[torch.Tensor],
 
     lbox = lobj = lcls = 0.0
     for i, (p, asn) in enumerate(zip(preds, assignments)):
-        p = p.float()
+        p = loss_dtype(p)
         b = p.shape[0]
         ncell = p[..., 4].numel() // b
         ps = _gather_positives(p, asn)
@@ -129,7 +135,7 @@ def compute_ssod_loss(preds: Sequence[torch.Tensor],
         if lc.pseudo_label_with_bbox:
             lbox = lbox + masked_mean(1.0 - iou, k_uc_obj)
         if lc.nc > 1:
-            onehot = F.one_hot(asn.tcls, lc.nc).float()
+            onehot = F.one_hot(asn.tcls, lc.nc).to(p.dtype)
             tmat = onehot * cp + (1.0 - onehot) * cn
             ce = bce_with_logits(ps[..., 5:5 + lc.nc], tmat, lc.cls_pw)
             ce = ce.mean(-1)
@@ -149,6 +155,91 @@ def compute_ssod_loss(preds: Sequence[torch.Tensor],
         else:
             uc_map = _scatter_max(k_score.detach(), asn.flat_cell, k_uc,
                                   ncell)
+            tobj = torch.where(uc_flag, uc_map, tobj)
+        obji = masked_mean(
+            obj_bce(p[..., 4].reshape(b, ncell), tobj.clamp(min=0.0)),
+            tobj >= 0.0)
+        lobj = lobj + obji * lc.balance[i]
+
+    lbox = lbox * lc.box_w
+    lobj = lobj * lc.obj_w
+    lcls = lcls * lc.cls_w
+    loss = (lbox + lobj + lcls) * preds[0].shape[0]
+    return loss, {"ss_box": lbox, "ss_obj": lobj, "ss_cls": lcls}
+
+
+def compute_ssod_ota_loss(preds: Sequence[torch.Tensor],
+                          pseudo_labels: torch.Tensor,
+                          pseudo_mask: torch.Tensor, thr_high: torch.Tensor,
+                          thr_low: torch.Tensor, anchors_grid, strides,
+                          img_size: int, lc: SSODLossConfig,
+                          top_k: int = 10):
+    """The SSOD OTA branch (JAX `compute_ssod_ota_loss`, reference
+    ssod_loss.py:296-345 with targets.shape[1] > 6): one candidate lattice
+    over all pseudo labels, the reliable and the uncertain ones matched
+    apart, the objectness BCE over the cells >= 0. Same arguments as
+    `compute_ssod_loss`, plus the strides and the image size. Returns
+    (loss * B, {ss_box, ss_obj, ss_cls})."""
+    from .yolov5_ota_loss import (_slices, ota_box_targets, ota_candidates,
+                                  simota_match)
+
+    cls_idx = pseudo_labels[..., 0].long()
+    conf = pseudo_labels[..., 5]
+    reliable = pseudo_mask & (conf >= thr_high[cls_idx])
+    uncertain = pseudo_mask & ~reliable & (conf >= thr_low[cls_idx])
+    uc_score = pseudo_labels[..., 6] if lc.pseudo_label_with_obj else conf
+
+    extra = torch.stack([uc_score, reliable.float(), uncertain.float()], -1)
+    labels_ext = torch.cat([pseudo_labels[..., :5], extra], -1)
+    grid_shapes = [(p.shape[2], p.shape[3]) for p in preds]
+    assignments = assign_all_scales(labels_ext, pseudo_mask, grid_shapes,
+                                    anchors_grid, lc.anchor_t,
+                                    single_targets=not lc.uncertain_aug)
+    cand = ota_candidates(preds, assignments, strides)
+    slot_rel = torch.cat([a.valid & (a.extra[..., 1] > 0.5)
+                          for a in assignments], 1)
+    slot_uc = torch.cat([a.valid & (a.extra[..., 2] > 0.5)
+                         for a in assignments], 1)
+    labels5 = pseudo_labels[..., :5]
+    box_px = labels5[..., 1:5] * float(img_size)
+    fg_r, match_r = simota_match(box_px, cls_idx, reliable, cand, slot_rel,
+                                 lc.nc, top_k)
+    fg_u, match_u = simota_match(box_px, cls_idx, uncertain, cand, slot_uc,
+                                 lc.nc, top_k)
+    cp, cn = smooth_bce(lc.label_smoothing)
+
+    def obj_bce(logits, t):
+        if lc.focal_loss > 0:
+            return focal_bce_with_logits(logits, t, 1.5, pos_weight=lc.obj_pw)
+        return bce_with_logits(logits, t, lc.obj_pw)
+
+    lbox = lobj = lcls = 0.0
+    for i, (p, asn, fg_ri, mt_ri, fg_ui, mt_ui) in enumerate(zip(
+            preds, assignments, *(_slices(x, cand.k_sizes)
+                                  for x in (fg_r, match_r, fg_u, match_u)))):
+        p = loss_dtype(p)
+        b, _, ny, nx, _ = p.shape
+        ncell = p[..., 4].numel() // b
+        # reliable: CIoU box and class against the matched pseudo label
+        iou = bbox_ciou(cand.pbox_grid_all[i],
+                        ota_box_targets(labels5, mt_ri, asn, ny, nx))
+        lbox = lbox + masked_mean(1.0 - iou, fg_ri)
+        if lc.nc > 1:
+            onehot = F.one_hot(cls_idx.gather(1, mt_ri), lc.nc).to(p.dtype)
+            t = onehot * cp + (1.0 - onehot) * cn
+            ce = bce_with_logits(cand.ps_all[i][..., 5:5 + lc.nc], t,
+                                 lc.cls_pw).mean(-1)
+            lcls = lcls + masked_mean(ce, fg_ri)
+        # objectness: reliable IoU targets, then the uncertain score / -1
+        tobj = _scatter_max((1.0 - lc.gr) + lc.gr * iou.detach().clamp(
+            min=0.0), asn.flat_cell, fg_ri, ncell)
+        uc_flag = _scatter_max(torch.ones_like(iou), asn.flat_cell, fg_ui,
+                               ncell) > 0
+        if lc.ignore_obj:
+            tobj = torch.where(uc_flag, -1.0, tobj)
+        else:
+            uc_map = _scatter_max(uc_score.gather(1, mt_ui).detach(),
+                                  asn.flat_cell, fg_ui, ncell)
             tobj = torch.where(uc_flag, uc_map, tobj)
         obji = masked_mean(
             obj_bce(p[..., 4].reshape(b, ncell), tobj.clamp(min=0.0)),

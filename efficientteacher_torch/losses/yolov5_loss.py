@@ -9,7 +9,8 @@ models/loss/loss.py:93-215 `ComputeLoss.default_loss`):
   - focal BCE when fl_gamma > 0 (loss.py:112-114)
   - returns (loss * batch size, parts) (loss.py:208-212)
 
-Raw maps are the port's (B, na, ny, nx, no), taken to float32 first. The
+Raw maps are the port's (B, na, ny, nx, no), taken to float32 first
+(float64 stays: `common.loss_dtype`). The
 objectness targets are scattered with a max over duplicate cells, as the
 JAX package does, into a buffer with one extra slot per image that takes
 the invalid slots (`_scatter_max`).
@@ -25,8 +26,8 @@ import torch.nn.functional as F
 
 from ..assigners.yolo_anchor import DenseAssignment, assign_all_scales
 from ..ops.boxes import bbox_ciou
-from .common import (bce_with_logits, focal_bce_with_logits, masked_mean,
-                     smooth_bce)
+from .common import (bce_with_logits, focal_bce_with_logits, loss_dtype,
+                     masked_mean, smooth_bce)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -115,7 +116,7 @@ def compute_loss(preds: Sequence[torch.Tensor], labels: torch.Tensor,
     cp, cn = smooth_bce(lc.label_smoothing)
     lbox = lobj = lcls = 0.0
     for i, (p, asn) in enumerate(zip(preds, assignments)):
-        p = p.float()
+        p = loss_dtype(p)
         b = p.shape[0]
         ncell = p[..., 4].numel() // b
         ps = _gather_positives(p, asn)
@@ -132,7 +133,7 @@ def compute_loss(preds: Sequence[torch.Tensor], labels: torch.Tensor,
         lobj = lobj + obji * lc.balance[i]
 
         if lc.nc > 1:
-            onehot = F.one_hot(asn.tcls, lc.nc).float()
+            onehot = F.one_hot(asn.tcls, lc.nc).to(p.dtype)
             t = onehot * cp + (1.0 - onehot) * cn
             ce = _bce(ps[..., 5:5 + lc.nc], t, lc.cls_pw, lc.fl_gamma)
             # mean over classes, then over positives: torch BCE's mean over

@@ -20,6 +20,13 @@ The two kernels of this path: candidate selection through
 keep mask through `nms_cuda.greedy_nms_keep_cuda`. `use_kernels=False`
 runs their plain PyTorch versions instead on any device: the reference the
 kernels are compared with.
+
+Equal scores are ordered as JAX's plain route orders them
+(`jax.lax.top_k`): lowest flat index first, here through
+`assigners/topk.topk_lower_index_first` in the single-label path, in the
+"exact" selection and in the selection engines' last top-k
+(`select_cuda.py`). The greedy sweep keeps the first of equal-score
+boxes, so the order of ties decides which are kept.
 """
 
 from __future__ import annotations
@@ -28,6 +35,7 @@ from typing import NamedTuple
 
 import torch
 
+from ..assigners.topk import topk_lower_index_first
 from .boxes import xywh2xyxy
 from .nms_cuda import greedy_nms_keep, greedy_nms_keep_cuda
 from .select_cuda import exact_topk_elems, exact_topk_rows
@@ -138,7 +146,7 @@ def _prep_candidates_single(pred, nc, conf_thres, max_nms, ssod, tile,
         keep_row &= allowed[best_idx]
     score = torch.where(keep_row, best_conf, -1.0)
     k_eff = min(max_nms, score.shape[1])
-    top_scores, top_idx = torch.topk(score, k_eff, 1)
+    top_scores, top_idx = topk_lower_index_first(score, k_eff)
     cand_boxes = _gather_rows(boxes_xyxy, top_idx)
     cls = best_idx.gather(1, top_idx).float()
     extra = _gather_rows(extra_mat, top_idx) if extra_mat is not None else None
@@ -181,13 +189,14 @@ def batched_nms(prediction: torch.Tensor, *, nc: int,
       "pallas" / "pallas_rows" — exact_topk_rows (row compaction, with
                   exact_topk_elems as its dense tail)
       "pallas_elems" — exact_topk_elems (element compaction + bisection)
-      "exact"  — torch.topk over the whole lattice
+      "exact"  — a top-k over the whole lattice
       "approx" — exact selection (the JAX package's approximate top-k has
                  no counterpart here)
       None     — "pallas" for CUDA tensors when the lattice holds at least
                  4 * max_nms pairs, else "exact".
-    Every engine returns the exact top-k score multiset (select_cuda's
-    contract), so kept rows agree up to the order of bit-equal scores.
+    Every engine returns the exact top-k (select_cuda's contract), with
+    equal scores lowest index first, so every engine keeps the same
+    rows.
 
     `use_kernels=False` runs the plain PyTorch versions of both kernels on
     any device. With True, CUDA tensors go through the kernels and CPU
@@ -206,7 +215,7 @@ def batched_nms(prediction: torch.Tensor, *, nc: int,
                       else exact_topk_rows)
             top_scores, top_idx = engine(flat, k_eff, use_kernel=use_kernels)
         elif selection in ("exact", "approx"):
-            top_scores, top_idx = torch.topk(flat, k_eff, 1)
+            top_scores, top_idx = topk_lower_index_first(flat, k_eff)
         else:
             raise ValueError(f"unknown selection {selection!r}")
         nms_boxes, cand_valid, rows = _finish_pairs(

@@ -19,11 +19,15 @@ the JAX package's (B, N, T) compare into its sum. The row gather and the
 small top-k stay plain PyTorch, as they were XLA code outside the Pallas
 kernel. `tier_counts` records which tier each call took.
 
-Exactness contract (both engines, as in JAX): the scores are bit-identical
-to `torch.topk`'s over the whole lattice, every returned index is a
-distinct real candidate with exactly that score, and every tie class
-strictly above the k-th score has identical membership. The order among
-bit-equal scores is not part of the contract (`torch.topk` fixes none);
+Exactness contract (both engines): the scores are bit-identical to
+`torch.topk`'s over the whole lattice, every returned index is a distinct
+real candidate with exactly that score, and every tie class strictly
+above the k-th score has identical membership. Beyond JAX's contract,
+equal scores come lowest flat index first, `jax.lax.top_k`'s order on the
+CPU: each engine's compacted buffer holds its survivors in ascending
+index order, and its last top-k is `assigners/topk.topk_lower_index_first`
+(as are the plain top-k tiers). So the result is one answer, the same on
+every route: the index lists of two engines are equal.
 `check_exact_topk` tests the contract.
 
 Not ported (TPU workarounds): the two-float index split `_IDX_SPLIT` (int32
@@ -37,6 +41,7 @@ import collections
 
 import torch
 
+from ..assigners.topk import topk_lower_index_first
 from ._build import check, library
 
 _T_BISECT = 8   # thresholds counted per bisection pass
@@ -48,11 +53,11 @@ _TINY = float.fromhex("0x1p-149")
 
 # engine:tier -> calls, over the process (reset it to count one run):
 #   rows:r1 / rows:r2       row compaction at rows_cap r1 / 4 * r1
-#   rows:topk, elems:topk   lattice too small to compact: torch.topk
+#   rows:topk, elems:topk   lattice too small to compact: a plain top-k
 #   rows:to_elems           too many live rows: the element engine
 #   elems:tau0              all candidates fit the buffer: no bisection
 #   elems:bisect            the bisection found tau
-#   elems:fallback_topk     it did not (> cap equal scores): torch.topk
+#   elems:fallback_topk     it did not (> cap equal scores): a plain top-k
 tier_counts: collections.Counter = collections.Counter()
 
 
@@ -171,14 +176,14 @@ def _elems_impl(scores: torch.Tensor, k: int, use_kernel: bool = True):
     cap = _cdiv(k + _SLACK, 128) * 128
     if n <= cap + 4096:  # compaction can't beat sorting the lattice
         tier_counts["elems:topk"] += 1
-        return torch.topk(scores, k, 1)
+        return topk_lower_index_first(scores, k)
     compact = _compact(use_kernel)
     count = count_ge_cuda if use_kernel else _count_ge
     inf = torch.full((b,), float("inf"), device=scores.device)
 
     def compact_tier(tau):
         buf_s, buf_i = compact(scores, tau.contiguous(), inf, cap)
-        ts, pos = torch.topk(buf_s, k, 1)
+        ts, pos = topk_lower_index_first(buf_s, k)
         idx = buf_i.gather(1, pos).long()
         return ts, torch.where(ts > 0.0, idx, 0)
 
@@ -229,7 +234,7 @@ def _elems_impl(scores: torch.Tensor, k: int, use_kernel: bool = True):
     # degenerate spectra (> cap candidates within one ulp): plain top-k,
     # still exact
     tier_counts["elems:fallback_topk"] += 1
-    return torch.topk(scores, k, 1)
+    return topk_lower_index_first(scores, k)
 
 
 def exact_topk_elems(scores: torch.Tensor, k: int, use_kernel: bool = True):
@@ -256,7 +261,7 @@ def exact_topk_rows(scores: torch.Tensor, k: int, use_kernel: bool = True):
     r2 = min(4 * r1, rpad)
     if r1 * 128 >= n:
         tier_counts["rows:topk"] += 1
-        return torch.topk(scores, k, 1)
+        return topk_lower_index_first(scores, k)
     s3 = torch.nn.functional.pad(scores, (0, r * 128 - n),
                                  value=-1.0).view(b, r, 128)
     rowlive = (s3 > 0.0).any(-1)                                 # (B, r)
@@ -274,7 +279,7 @@ def exact_topk_rows(scores: torch.Tensor, k: int, use_kernel: bool = True):
     rsel = buf_i.clamp(min=0).long()
     rows = s3.gather(1, rsel[:, :, None].expand(-1, -1, 128))
     rows = torch.where(live[:, :, None], rows, -1.0)
-    ts, pos = torch.topk(rows.view(b, rows_cap * 128), k, 1)
+    ts, pos = topk_lower_index_first(rows.view(b, rows_cap * 128), k)
     idx = rsel.gather(1, pos // 128) * 128 + pos % 128
     return ts, torch.where(ts > 0.0, idx, 0)
 

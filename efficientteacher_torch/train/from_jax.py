@@ -25,14 +25,18 @@ def train_state_from_jax(jax_state, model: torch.nn.Module) -> TrainState:
     """A JAX `TrainState` or `SSODTrainState` whose leaves are numpy arrays
     (any object with its attribute layout) -> the port's state around
     `model`, which takes the JAX params and batch stats (strict=True):
-    Nesterov momentum buffers, accumulated gradients, the EMA and
-    semi-EMA (parameters and statistics) and the counters."""
+    Nesterov momentum buffers (AdamW's two moments, when the JAX state
+    holds {"m", "v"}), accumulated gradients, the EMA and semi-EMA
+    (parameters and statistics) and the counters."""
     s = jax_state
     model.load_state_dict(state_dict_from_jax(s.params, s.batch_stats),
                           strict=True)
+    buf = s.opt.momentum_buf
+    adam = isinstance(buf, dict) and set(buf) == {"m", "v"}
     fields = dict(
         model=model, groups=param_group_labels(model),
-        momentum_buf=params_from_jax(model, s.opt.momentum_buf),
+        momentum_buf=params_from_jax(model, buf["m"] if adam else buf),
+        second_moment=params_from_jax(model, buf["v"]) if adam else None,
         acc_grads=params_from_jax(model, s.acc_grads),
         ema=_ema_from_jax(model, s.ema) if s.ema is not None else None,
         acc_count=int(s.acc_count), step=int(s.step),

@@ -8,9 +8,9 @@
     rise from 0, momentum ramps warmup_momentum -> momentum
     (trainer.py:388-397)
 
-The update itself (Nesterov SGD, torch semantics, fused with gradient
-accumulation and the EMA chain) is `train_state.apply_gradients_accumulating`.
-AdamW (`adam=True`) is not ported yet.
+The update itself (Nesterov SGD, torch semantics, or AdamW with
+`adam=True`, fused with gradient accumulation and the EMA chain) is
+`train_state.apply_gradients_accumulating`.
 """
 
 from __future__ import annotations

@@ -13,12 +13,16 @@ trainer/ssod_trainer.py:587-680 train_instance):
 
 The teacher is the primary EMA (the semi-EMA is for validation and
 checkpoints). Thresholds and decays arrive per call, so epoch-boundary
-updates need nothing rebuilt. The SimOTA branch (SSOD.use_ota) and extra
-teachers are not ported yet.
+updates need nothing rebuilt. Extra teachers (frozen eval-mode models of
+the student's architecture, each with its class map) run on the weak view
+beside the EMA, and their sets merge into the pseudo labels
+(`create_pseudo_labels_multi`); `use_ota` swaps the SSOD loss for its
+SimOTA branch (`compute_ssod_ota_loss`, JAX ssod_step.py:89-176).
 
 `on_phase`, where a caller passes it, is called with a phase name after
-each phase has been enqueued ("teacher", "pseudo_labels",
-"student_fwd_bwd", "optimizer"): a hook for timing, e.g. by CUDA events.
+each phase has been enqueued ("teacher", "extra_teachers" when there are
+any, "pseudo_labels", "student_fwd_bwd", "optimizer"): a hook for timing,
+e.g. by CUDA events.
 """
 
 from __future__ import annotations
@@ -30,9 +34,11 @@ from typing import Callable, NamedTuple, Optional
 import torch
 
 from ..losses.domain_loss import domain_loss, target_loss
-from ..losses.ssod_loss import SSODLossConfig, compute_ssod_loss
+from ..losses.ssod_loss import (SSODLossConfig, compute_ssod_loss,
+                                compute_ssod_ota_loss)
 from ..losses.yolov5_loss import YoloV5LossConfig, compute_loss
-from ..ssod.pseudo_label import create_pseudo_labels
+from ..ssod.pseudo_label import (create_pseudo_labels,
+                                 create_pseudo_labels_multi)
 from ..utils.precision import autocast
 from .optim import OptimizerConfig
 from .supervised import (Schedule, apply_grads, detached, forward_train,
@@ -86,12 +92,18 @@ def make_ssod_train_step(
         nms_iou_thres: float, max_pl: int, multi_label: bool,
         teacher_loss_weight: float, da_loss_weight: float,
         with_da_loss: bool, norm_scale: float = 255.0,
-        compute_dtype: torch.dtype = torch.bfloat16):
+        compute_dtype: torch.dtype = torch.bfloat16, extra_teachers=None,
+        use_ota: bool = False, ota_top_k: int = 10):
     """(state, sup_images, sup_labels, sup_mask, un_strong, un_weak, m_s,
     thr_high, thr_low, sched, semi_decay, on_phase=None) -> (state,
     SSODBatchOut). Images uint8 NHWC; anchors_grid (nl, na, 2) on the
-    step's device. The model is the state's (an SSODModel)."""
+    step's device. The model is the state's (an SSODModel).
+
+    extra_teachers: (module, class map or None) pairs, the modules frozen
+    in eval mode on the step's device (`SSODTrainer._load_extra_teachers`).
+    use_ota / ota_top_k: the SSOD OTA loss and its dynamic-k candidates."""
     img_size, nc = spec.img_size, spec.nc
+    extra_teachers = list(extra_teachers or [])
 
     def train_step(state: SSODTrainState, sup_images, sup_labels, sup_mask,
                    un_strong, un_weak, m_s, thr_high, thr_low,
@@ -102,15 +114,23 @@ def make_ssod_train_step(
 
         # 1-2. the primary EMA's pseudo labels on the weak view
         teacher = state.ema.module
+        tx = to_input(un_weak, compute_dtype, norm_scale)
         with torch.no_grad(), autocast(un_weak.device, compute_dtype):
-            (decoded, _), _ = teacher(
-                to_input(un_weak, compute_dtype, norm_scale), decode=True,
-                with_domain=False)
-        on_phase("teacher")
-        pl = create_pseudo_labels(
-            decoded, m_s, img_size=img_size, nc=nc,
-            conf_thres=nms_conf_thres, iou_thres=nms_iou_thres,
-            max_pl=max_pl, multi_label=multi_label)
+            (decoded, _), _ = teacher(tx, decode=True, with_domain=False)
+            on_phase("teacher")
+            extra = [module(tx, decode=True)[0]
+                     for module, _ in extra_teachers]
+        nms_kw = dict(img_size=img_size, nc=nc, conf_thres=nms_conf_thres,
+                      iou_thres=nms_iou_thres, max_pl=max_pl,
+                      multi_label=multi_label)
+        if extra_teachers:
+            on_phase("extra_teachers")
+            pl = create_pseudo_labels_multi(
+                [decoded, *extra],
+                [None, *(cmap for _, cmap in extra_teachers)], m_s,
+                **nms_kw)
+        else:
+            pl = create_pseudo_labels(decoded, m_s, **nms_kw)
         on_phase("pseudo_labels")
 
         # 3-5. the student on labelled + strong images
@@ -121,9 +141,15 @@ def make_ssod_train_step(
         sup_loss, sup_parts = compute_loss(
             [r[:bs_sup] for r in raw], sup_labels, sup_mask, anchors_grid,
             sup_cfg)
-        un_loss, un_parts = compute_ssod_loss(
-            [r[bs_sup:] for r in raw], pl.labels, pl.mask, thr_high,
-            thr_low, anchors_grid, ssod_cfg)
+        un_raw = [r[bs_sup:] for r in raw]
+        if use_ota:
+            un_loss, un_parts = compute_ssod_ota_loss(
+                un_raw, pl.labels, pl.mask, thr_high, thr_low, anchors_grid,
+                spec.strides, img_size, ssod_cfg, top_k=ota_top_k)
+        else:
+            un_loss, un_parts = compute_ssod_loss(
+                un_raw, pl.labels, pl.mask, thr_high, thr_low, anchors_grid,
+                ssod_cfg)
         un_loss = torch.where(pl.invalid, 0.0, un_loss)
         total = sup_loss + un_loss * teacher_loss_weight
         if with_da_loss:

@@ -18,28 +18,44 @@ Parity with reference trainer/ssod_trainer.py:53-714:
     student and the teacher is seeded (:305-316); afterwards mean-teacher
   - epoch_adaptor (:685-697): the UNLABELED loader drives the epoch; labeled
     batches come from an endless iterator
-  - after_epoch (:319-419): cosine EMA decay, validation of the (semi-)EMA
-    teacher, teacher saved as the ckpt `ema`
+  - after_epoch (:319-419): the LabelMatch threshold refresh, cosine EMA
+    decay, validation of the (semi-)EMA teacher, teacher saved as the
+    ckpt `ema`
   - pseudo-label quality meters (:655-680), on the logged batches only
+  - `SSOD.pseudo_label_type: LabelMatch` (`ssod/labelmatch.py`): every
+    step's NMS (conf, class) before the warp is collected, and from the
+    epoch that reaches both `burn_epochs` and `dynamic_thres_epoch` on
+    each epoch end refreshes the per-class thresholds the next epoch's
+    steps take; otherwise the thresholds are ignore_thres_high/low
+  - `SSOD.extra_teachers` (:96-203): port checkpoints loaded into frozen
+    eval-mode copies of the student's architecture (its detector without
+    the discriminators), their classes mapped into `Dataset.names` by
+    `SSOD.extra_teachers_class_names` (-1 drops a class); their pseudo
+    labels merge with the EMA's in every step
+  - `SSOD.use_ota`: the SSOD loss's SimOTA branch, at top_k 1 (the
+    reference builds its SSOD assigner without top_k, ssod_loss.py:71-72)
 
 Differences from the JAX trainer:
   - pseudo labels are copied to the host only on the batches it logs
     (every 50th), not on every step: the FairPseudoLabel path needs them
-    nowhere else, and each copy waits for the card;
+    nowhere else, and each copy waits for the card; under LabelMatch
+    each step also copies its NMS (conf, class, valid), one small copy,
+    which the JAX trainer makes on every step whatever the creator;
   - the endless labelled iterator iterates its loader again on each pass
     (`_cycle`); `itertools.cycle` keeps every batch of the first pass;
   - `resume` restores the state (the JAX SSOD trainer's build_optimizer
     never calls `_resume`), so `last.ckpt` holds the optimizer momentum
     and, past seeding, the student's EMA (the pseudo-label teacher) with
-    its count as `student_ema`, beside the teacher (semi-EMA) as `ema`.
-Not ported yet (NotImplementedError): LabelMatch (`pseudo_label_type:
-LabelMatch`, ROADMAP Q1.6), extra teachers, the SSOD OTA loss and the
-SSOD losses of the anchor-free heads (Q1.10); the pseudo-label debug
-plots are skipped (Q1.8).
+    its count as `student_ema`, beside the teacher (semi-EMA) as `ema`,
+    and under LabelMatch its thresholds, class totals and uncollected
+    scores (in the `optimizer` entry, float32 and float64 as they are).
+Not ported yet (NotImplementedError): the SSOD losses of the anchor-free
+heads (ROADMAP Q1.10); the pseudo-label debug plots are skipped (Q1.8).
 """
 
 from __future__ import annotations
 
+import dataclasses
 import logging
 
 import numpy as np
@@ -48,11 +64,14 @@ import torch
 from ..data.datasets_ssod import create_target_dataloader
 from ..eval.metrics import fitness
 from ..losses.ssod_loss import SSODLossConfig
+from ..models import build_model
 from ..models.heads import head_model_type
 from ..ops.augment_device import device_ssod_views, step_seed
 from ..parallel.distributed import to_host
+from ..ssod.labelmatch import LabelMatch
 from ..ssod.quality import check_pseudo_label, check_pseudo_label_with_gt
-from ..utils.checkpoint import load_module_variables, module_variables
+from ..utils.checkpoint import (load_eval_variables, load_module_variables,
+                                module_variables)
 from .optim import OptimizerConfig
 from .ssod_step import (create_ssod_train_state, make_burn_in_train_step,
                         make_ssod_train_step, seed_teacher_from_ema)
@@ -72,14 +91,6 @@ class SSODTrainer(Trainer):
     ssod_model = True
 
     def set_env(self, cfg):
-        if str(cfg.SSOD.pseudo_label_type) == "LabelMatch":
-            raise NotImplementedError(
-                "LabelMatch is not ported yet (ROADMAP Q1.6); "
-                "use pseudo_label_type: FairPseudoLabel")
-        if cfg.SSOD.extra_teachers or cfg.SSOD.use_ota:
-            raise NotImplementedError(
-                "extra teachers and the SSOD OTA loss are not ported yet "
-                "(ROADMAP Q1.10)")
         super().set_env(cfg)
         if (cfg.Dataset.device_aug
                 and float(cfg.SSOD.ssod_hyp.autoaugment) > 0
@@ -101,6 +112,11 @@ class SSODTrainer(Trainer):
         self.da_loss_weights = float(cfg.SSOD.da_loss_weights)
         self.target_with_gt = bool(cfg.SSOD.ssod_hyp.with_gt or cfg.SSOD.debug)
         self.ssod_hyp = {k: cfg.SSOD.ssod_hyp[k] for k in cfg.SSOD.ssod_hyp}
+        # dynamic per-class thresholds only under the LabelMatch creator
+        # (reference ssod_trainer.py:320-323)
+        self.use_labelmatch = str(cfg.SSOD.pseudo_label_type) == "LabelMatch"
+        self.dynamic_thres_epoch = int(cfg.SSOD.dynamic_thres_epoch)
+        self.label_match = None
         self.teacher_seeded = False
         # monotonic batch counter shared by the burn-in and mean-teacher
         # phases so the warmup/accumulate interpolation never jumps when the
@@ -139,8 +155,11 @@ class SSODTrainer(Trainer):
     def _restore(self, ckpt):
         """The base restore (student, EMA, momentum, epoch), then the
         teacher chain of a checkpoint saved past seeding: its `ema` is the
-        semi-EMA and `student_ema` the EMA, each with its count."""
+        semi-EMA and `student_ema` the EMA, each with its count.
+        LabelMatch's state waits for `_restore_label_match`."""
         super()._restore(ckpt)
+        # LabelMatch's state is read in build_loss, where LabelMatch is made
+        self._resumed_optimizer = ckpt.get("optimizer")
         if "student_ema" not in ckpt:
             return  # saved before seeding: `ema` is the EMA
         st, ent = self.state, ckpt["student_ema"]
@@ -151,6 +170,13 @@ class SSODTrainer(Trainer):
         # a graceful stop in the seeding epoch re-runs it, seeding again
         self.teacher_seeded = self.start_epoch > self.burn_epochs
 
+    def _restore_label_match(self):
+        """LabelMatch's state from the resumed `last.ckpt`, read once the
+        LabelMatch object exists (build_loss)."""
+        opt = getattr(self, "_resumed_optimizer", None) or {}
+        if "labelmatch" in opt:
+            self.label_match.load_state_dict(opt["labelmatch"])
+
     def build_loss(self, cfg):
         super().build_loss(cfg)
         if head_model_type(self.spec.head) != "yolov5":
@@ -159,17 +185,60 @@ class SSODTrainer(Trainer):
                 "ported yet (ROADMAP Q1.10); the port's SSOD trainer runs "
                 "anchor heads")
         self.ssod_loss_cfg = SSODLossConfig.from_cfg(cfg, nl=self.spec.nl)
-        # FairPseudoLabel's fixed per-class thresholds (LabelMatch would
-        # refresh them per epoch)
+        # the per-class thresholds: FairPseudoLabel's fixed ones, or
+        # LabelMatch's, refreshed per epoch (`_thresholds`)
         nc = self.spec.nc
         s = cfg.SSOD
         self.cls_thr_high = torch.full((nc,), float(s.ignore_thres_high),
                                        device=self.device)
         self.cls_thr_low = torch.full((nc,), float(s.ignore_thres_low),
                                       device=self.device)
+        if self.use_labelmatch:
+            self.label_match = LabelMatch(
+                cfg, target_data_len=len(self.target_loader.ds),
+                label_num_per_img=self.dataset.label_num_per_image,
+                cls_ratio_gt=self.dataset.cls_ratio_gt)
+            self._restore_label_match()
+
+    def _load_extra_teachers(self, cfg):
+        """(module, class map or None) per `SSOD.extra_teachers` entry:
+        each port checkpoint (its `ema` entry if it has one) in a frozen
+        eval-mode detector of the student's spec, without the
+        discriminators (a checkpoint's own are not read); the class map
+        from `SSOD.extra_teachers_class_names[i]` against `Dataset.names`,
+        -1 for a name the dataset lacks (JAX ssod_trainer.py:146-167)."""
+        names = [str(n) for n in cfg.Dataset.names]
+        name_lists = list(cfg.SSOD.extra_teachers_class_names)
+        spec = dataclasses.replace(self.spec, train_domain=False)
+        out = []
+        for i, path in enumerate(cfg.SSOD.extra_teachers):
+            if str(path).endswith(".pt"):
+                raise NotImplementedError(
+                    "extra teachers from a reference .pt are not ported yet "
+                    "(ROADMAP Q1.11); give a port checkpoint")
+            module = build_model(spec, device=self.device)
+            variables = load_eval_variables(str(path))
+            own = module_variables(module)
+            load_module_variables(module, {
+                g: {k: variables[g][k] for k in own[g] if k in variables[g]}
+                for g in ("params", "batch_stats")})
+            module = module.float().eval().requires_grad_(False)
+            if self.device.type == "cuda":
+                module = module.to(memory_format=torch.channels_last)
+            cmap = None
+            if i < len(name_lists) and name_lists[i]:
+                cmap = torch.tensor(
+                    [names.index(str(n)) if str(n) in names else -1
+                     for n in name_lists[i]], dtype=torch.long,
+                    device=self.device)
+            out.append((module, cmap))
+            LOGGER.info("loaded extra teacher %s", path)
+        return out
 
     def build_step(self):
         cfg = self.cfg
+        self.extra_teachers = (self._load_extra_teachers(cfg)
+                               if cfg.SSOD.extra_teachers else [])
         self.burn_step = make_burn_in_train_step(
             self.loss_cfg, self.anchors_grid, self.opt_cfg,
             with_da_loss=self.with_da_loss,
@@ -189,6 +258,11 @@ class SSODTrainer(Trainer):
             with_da_loss=self.with_da_loss,
             norm_scale=float(cfg.Dataset.norm_scale),
             compute_dtype=self.compute_dtype,
+            extra_teachers=self.extra_teachers,
+            use_ota=bool(cfg.SSOD.use_ota),
+            # the reference's SSOD assigner is built without top_k: the
+            # YOLOAnchorAssigner default 1 (ssod_loss.py:71-72)
+            ota_top_k=1,
         )
 
     # -- epoch logic --------------------------------------------------------
@@ -202,6 +276,9 @@ class SSODTrainer(Trainer):
         return self.ema_rate
 
     def train_in_epoch(self):
+        if self.label_match is not None:
+            # what a graceful stop in this epoch saves: it re-runs the epoch
+            self._label_match_at_start = self.label_match.state_dict()
         if self.epoch == self.burn_epochs and not self.teacher_seeded:
             LOGGER.info("burn-in complete: seeding teacher from EMA")
             self.state = seed_teacher_from_ema(self.state)
@@ -233,8 +310,17 @@ class SSODTrainer(Trainer):
             if self.stop.requested:
                 break
 
+    def _thresholds(self):
+        """The per-class (high, low) thresholds of this epoch's steps."""
+        if self.label_match is None:
+            return self.cls_thr_high, self.cls_thr_low
+        lm = self.label_match
+        return (torch.as_tensor(lm.cls_thr_high, device=self.device),
+                torch.as_tensor(lm.cls_thr_low, device=self.device))
+
     def _train_with_unlabeled(self):
         semi_decay = self._semi_decay()
+        thr_high, thr_low = self._thresholds()
         # the unlabeled loader drives; labeled batches from an endless iter
         unlabeled = self.target_loader
         labeled_iter = _cycle(self.train_loader)
@@ -263,9 +349,17 @@ class SSODTrainer(Trainer):
                 t_labels, t_mask = tbatch.get("labels"), tbatch.get("mask")
             self.state, out = self.ssod_step(
                 self.state, s_imgs, s_labels, s_mask,
-                t_strong, t_weak, t_ms,
-                self.cls_thr_high, self.cls_thr_low, sched, semi_decay,
+                t_strong, t_weak, t_ms, thr_high, thr_low, sched,
+                semi_decay,
             )
+            if self.label_match is not None:
+                # every NMS detection's (conf, class) before the warp
+                # (reference utils/labelmatch.py:283-299): one host copy
+                nms = to_host(torch.stack(
+                    [out.nms_conf, out.nms_cls, out.nms_valid.float()], -1))
+                self.label_match.collect(
+                    np.where(nms[..., 2] > 0, nms[..., 0], 0.0),
+                    nms[..., 1])
             if i % 50 == 0:
                 metrics = {k: float(v) for k, v in out.metrics.items()
                            if k not in ("loss", "total")}
@@ -286,6 +380,13 @@ class SSODTrainer(Trainer):
                 break
 
     def after_epoch(self):
+        if self.label_match is not None and self.epoch >= self.burn_epochs \
+                and self.epoch >= self.dynamic_thres_epoch:
+            lm = self.label_match
+            lm.update_epoch_cls_thr(max(self.epoch - self.burn_epochs, 0))
+            LOGGER.info("labelmatch thr_high[:5]=%s thr_low[:5]=%s",
+                        np.round(lm.cls_thr_high[:5], 3),
+                        np.round(lm.cls_thr_low[:5], 3))
         # validate the teacher (semi_ema after burn-in, else EMA)
         results = (0.0, 0.0, 0.0, 0.0)
         if self.val_loader is not None and not self.noval:
@@ -316,7 +417,9 @@ class SSODTrainer(Trainer):
     def _save_ckpt(self, name: str, fi: float, epoch=None):
         """Saves the teacher (semi_ema) as the ckpt `ema` entry after burn-in
         (reference ssod_trainer.py:393-409). `last.ckpt` also holds what
-        resume needs: the optimizer state and, past seeding, the EMA."""
+        resume needs: the optimizer state, LabelMatch's (as it stood at the
+        epoch's start when a graceful stop saves, `epoch` given) and, past
+        seeding, the EMA."""
         st = self.state
         ema_src = st.semi_ema if self.teacher_seeded else st.ema
         student = module_variables(st.model)
@@ -324,6 +427,10 @@ class SSODTrainer(Trainer):
         opt = extra = None
         if name == "last.ckpt":
             opt = self._optimizer_state()
+            if self.label_match is not None:
+                opt["labelmatch"] = (self._label_match_at_start
+                                     if epoch is not None
+                                     else self.label_match.state_dict())
             if self.teacher_seeded:
                 extra = {"student_ema": {**module_variables(st.ema.module),
                                          "updates": st.ema.updates}}

@@ -20,6 +20,13 @@ EMA semantics, as the JAX package's:
 Counters are Python integers: whether a step fires is known on the host,
 so a held step costs one accumulation and nothing else (the JAX package
 selects with `where` instead, to keep one traced program).
+
+The optimizer is Nesterov SGD, or AdamW with `adam=True` (JAX
+optim.py:144-182, reference trainer.py:213): betas (momentum, 0.999),
+eps 1e-8, bias correction by the count of fired steps, the decoupled decay
+on the `weight` group only; `momentum_buf` then holds the first moment and
+`second_moment` the second. Accumulation, warmup and the EMA chain are
+SGD's.
 """
 
 from __future__ import annotations
@@ -83,6 +90,8 @@ class TrainState:
     acc_count: int = 0   # micro-steps accumulated since the last fired step
     step: int = 0        # global iteration counter (ni)
     opt_step: int = 0    # fired optimizer steps
+    # AdamW's second moment, float32, one per parameter (None under SGD)
+    second_moment: Optional[List[torch.Tensor]] = None
 
     @property
     def params(self) -> List[torch.Tensor]:
@@ -91,8 +100,6 @@ class TrainState:
 
 def create_train_state(model: nn.Module, oc: OptimizerConfig,
                        with_ema: bool = True) -> TrainState:
-    if oc.adam:
-        raise NotImplementedError("AdamW is not ported yet; use SGD")
     params = list(model.parameters())
     if any(p.dtype != torch.float32 for p in params):
         raise TypeError("the port trains float32 master weights; compute "
@@ -100,7 +107,8 @@ def create_train_state(model: nn.Module, oc: OptimizerConfig,
     zeros = lambda: [torch.zeros_like(p) for p in params]  # noqa: E731
     return TrainState(model=model, groups=param_group_labels(model),
                       momentum_buf=zeros(), acc_grads=zeros(),
-                      ema=init_ema(model) if with_ema else None)
+                      ema=init_ema(model) if with_ema else None,
+                      second_moment=zeros() if oc.adam else None)
 
 
 def _blend_(dst: List[torch.Tensor], src: List[torch.Tensor], d) -> None:
@@ -109,6 +117,27 @@ def _blend_(dst: List[torch.Tensor], src: List[torch.Tensor], d) -> None:
     d = np.float32(d)
     torch._foreach_mul_(dst, float(d))
     torch._foreach_add_(dst, src, alpha=float(np.float32(1.0) - d))
+
+
+def _adamw_(p, g, m, v, lr: float, wd: float, b1: float, t: int) -> None:
+    """One AdamW update of p, m and v in place, from the summed gradient
+    g. The bias corrections are formed in float32, as JAX forms them."""
+    b2, eps = 0.999, 1e-8
+    f32 = np.float32
+    bc1 = float(f32(1.0) - f32(b1) ** f32(t))
+    bc2 = float(f32(1.0) - f32(b2) ** f32(t))
+    torch._foreach_mul_(m, b1)
+    torch._foreach_add_(m, g, alpha=1.0 - b1)
+    torch._foreach_mul_(v, b2)
+    torch._foreach_addcmul_(v, g, g, value=1.0 - b2)
+    denom = torch._foreach_div(v, bc2)
+    torch._foreach_sqrt_(denom)
+    torch._foreach_add_(denom, eps)
+    step = torch._foreach_div(m, bc1)
+    torch._foreach_div_(step, denom)
+    if wd:
+        torch._foreach_mul_(p, 1.0 - lr * wd)
+    torch._foreach_add_(p, step, alpha=-lr)
 
 
 @torch.no_grad()
@@ -127,6 +156,11 @@ def apply_gradients_accumulating(
       - the accumulators are zeroed;
       - EMA <- new params and the model's BatchNorm statistics (ramped);
       - with `semi_decay` and a semi-EMA: semi-EMA <- new EMA (constant).
+
+    With `oc.adam`, AdamW instead on the summed gradient g (JAX
+    optim.py:144-182): m = b1 m + (1 - b1) g, v = b2 v + (1 - b2) g^2,
+    p = p (1 - lr wd) - lr m^ / (sqrt(v^) + eps), m^ and v^ bias-corrected
+    by the fired-step count, b1 the configured momentum (not the warmup's).
 
     A held call changes nothing but the accumulators and the counters. The
     model's BatchNorm statistics are whatever its forward left. Returns
@@ -148,13 +182,18 @@ def apply_gradients_accumulating(
         p = [params[i] for i in idx]
         dg = [state.acc_grads[i] for i in idx]  # becomes dg, then the step
         buf = [state.momentum_buf[i] for i in idx]
-        if group == "weight" and oc.weight_decay:
-            torch._foreach_add_(dg, p, alpha=oc.weight_decay)
+        lr = lr_bias if group == "bias" else lr_rest
+        wd = oc.weight_decay if group == "weight" else 0.0
+        if oc.adam:
+            _adamw_(p, dg, buf, [state.second_moment[i] for i in idx],
+                    lr, wd, oc.momentum, state.opt_step)
+            continue
+        if wd:
+            torch._foreach_add_(dg, p, alpha=wd)
         torch._foreach_mul_(buf, momentum)
         torch._foreach_add_(buf, dg)
         torch._foreach_add_(dg, buf, alpha=momentum)
-        torch._foreach_add_(p, dg,
-                            alpha=-(lr_bias if group == "bias" else lr_rest))
+        torch._foreach_add_(p, dg, alpha=-lr)
     torch._foreach_zero_(state.acc_grads)
     if state.ema is None:
         return state

@@ -6,10 +6,18 @@ Parity with reference trainer/trainer.py:43-542:
   - build_model: model from cfg, warm-start via shape-matched partial load
     (intersect, trainer.py:132-144), EMA in the train state
   - build_optimizer: accumulate = 64/batch, scaled weight decay
-    (trainer.py:195-197), SGD nesterov, one_cycle or linear LR; full resume
+    (trainer.py:195-197), SGD nesterov or AdamW (`adam`), one_cycle or
+    linear LR; full resume (AdamW's two moments included)
+  - autoanchor (`noautoanchor: False`, skipped on resume; JAX
+    trainer.py:293-326): after the loaders, the labels' best possible
+    recall against the anchors and, below 0.98, k-means + GA anchors
+    (`data/autoanchor.py`), adopted by the spec, every anchor head's
+    decode anchors (student and EMAs) and `anchors_grid` before the loss
+    and the step are built
   - warmup iterations nw = clamp(round(warmup_epochs*nb), 1000, half-run)
     (trainer.py:372-376)
-  - build_loss: the Loss.type dispatch, ComputeLoss (YOLOv5),
+  - build_loss: the Loss.type dispatch, ComputeLoss (YOLOv5; with
+    `Loss.assigner_type: SimOTA` the anchor OTA loss, YOLOv7's),
     ComputeXLoss / ComputeFastXLoss (YOLOX, SimOTA) and ComputeTalLoss (the
     TAL heads), with JAX's early ValueError on an anchor-free loss paired
     with an anchor head (JAX trainer.py:336-349)
@@ -37,12 +45,10 @@ checkpoint of a LinearAdd model) re-initialise the RealVGG kernels of a
 run from scratch and mask their gradients (`train/repopt.py`).
 
 Not ported yet, each raising NotImplementedError or skipped as the JAX
-trainer skips them when their dependencies are missing: autoanchor
-(`noautoanchor: False`, ROADMAP Q1.7), AdamW (Q1.10), the
-YOLOv7 OTA loss (`ComputeLoss` with `assigner_type: SimOTA`, Q1.10), warm
-starts from a reference `.pt` (Q1.11), DDP (Q1.5), and the loggers and
-plots (Q1.8, skipped), the JAX trainer's `profile_steps`
-(`torch.profiler` serves).
+trainer skips them when their dependencies are missing: warm starts from
+a reference `.pt` (ROADMAP Q1.11), DDP (Q1.5), and the loggers and plots
+(Q1.8, skipped), the JAX trainer's `profile_steps` (`torch.profiler`
+serves).
 """
 
 from __future__ import annotations
@@ -58,12 +64,14 @@ import numpy as np
 import torch
 
 from ..configs import CfgNode
+from ..data.autoanchor import check_anchors
 from ..data.datasets import (BatchLoader, LoadImagesAndLabels,
                              create_dataloader)
 from ..eval import validator
 from ..eval.metrics import MetricMeter, fitness
 from ..losses.tal_loss import TALLossConfig, compute_tal_loss
 from ..losses.yolov5_loss import YoloV5LossConfig, compute_loss
+from ..losses.yolov5_ota_loss import compute_ota_loss
 from ..losses.yolox_loss import YoloXLossConfig, compute_yolox_loss
 from ..models import build_model, spec_from_cfg
 from ..models.heads import head_model_type
@@ -112,15 +120,12 @@ class Trainer:
         self.build_model(cfg)
         self.build_optimizer(cfg)
         self.build_dataloader(cfg)
+        self.autoanchor(cfg)
         self.build_loss(cfg)
         self.build_step()
 
     # -- lifecycle ----------------------------------------------------------
     def set_env(self, cfg):
-        if not cfg.noautoanchor and not cfg.resume:
-            raise NotImplementedError(
-                "autoanchor is not ported yet (ROADMAP Q1.7); set "
-                "noautoanchor: True")
         self.epochs = cfg.epochs
         self.batch_size = cfg.Dataset.batch_size
         self.save_dir = increment_path(
@@ -227,16 +232,24 @@ class Trainer:
                 for (name, _), buf in zip(st.model.named_parameters(),
                                           st.momentum_buf):
                     buf.copy_(opt["momentum_buf"][name])
+                if st.second_moment is not None:
+                    for (name, _), v in zip(st.model.named_parameters(),
+                                            st.second_moment):
+                        v.copy_(opt["second_moment"][name])
             st.opt_step = int(opt["step"])
 
     def _optimizer_state(self):
-        """The momentum and the fired-step count, by parameter name: the
-        `optimizer` entry of `last.ckpt` (the resume source; the reference
-        keeps it in last.pt and strips it from best)."""
+        """The momentum (AdamW: both moments) and the fired-step count, by
+        parameter name: the `optimizer` entry of `last.ckpt` (the resume
+        source; the reference keeps it in last.pt and strips it from
+        best)."""
         st = self.state
         names = [n for n, _ in st.model.named_parameters()]
-        return {"momentum_buf": dict(zip(names, st.momentum_buf)),
-                "step": st.opt_step}
+        out = {"momentum_buf": dict(zip(names, st.momentum_buf)),
+               "step": st.opt_step}
+        if st.second_moment is not None:
+            out["second_moment"] = dict(zip(names, st.second_moment))
+        return out
 
     def build_dataloader(self, cfg):
         """Set the loaders (JAX trainer.py build_dataloader):
@@ -287,6 +300,45 @@ class Trainer:
                               batch_size=self.batch_size, pin_memory=pin)
             if cfg.Dataset.val else None)
 
+    def autoanchor(self, cfg):
+        """The train-start anchor check behind `noautoanchor`, skipped on
+        resume and for anchor-free heads (JAX trainer.py:293-326;
+        reference utils/autoanchor.py:26-49): the best possible recall of
+        the dataset's labels against the anchors and, below 0.98, evolved
+        anchors, which are adopted when their recall is higher. Adopted
+        anchors go into the spec, the decode anchors of every head of the
+        student and its EMAs, and `anchors_grid`. Sets `self.anchor_check`
+        = {"bpr", "adopted"} when the check runs."""
+        if cfg.noautoanchor or cfg.resume \
+                or head_model_type(self.spec.head) != "yolov5":
+            return
+        nl = self.spec.nl
+        anchors_px = np.asarray(self.spec.anchors,
+                                np.float32).reshape(nl, -1, 2)
+        new_px, bpr = check_anchors(self.dataset, anchors_px,
+                                    self.spec.strides, self.img_size,
+                                    anchor_t=float(cfg.Loss.anchor_t))
+        adopted = not np.allclose(new_px, anchors_px)
+        self.anchor_check = {"bpr": bpr, "adopted": adopted}
+        if not adopted:
+            return
+        LOGGER.info("autoanchor: adopting evolved anchors (BPR %.4f)", bpr)
+        new_px = np.asarray(new_px, np.float32)
+        self.spec = dataclasses.replace(
+            self.spec, anchors=tuple(tuple(float(v) for v in sc.reshape(-1))
+                                     for sc in new_px))
+        st = self.state
+        modules = [st.model] + [e.module for e in (
+            st.ema, getattr(st, "semi_ema", None)) if e is not None]
+        with torch.no_grad():
+            for module in modules:
+                for m in module.modules():
+                    if isinstance(getattr(m, "anchors_px", None),
+                                  torch.Tensor):
+                        m.anchors_px.copy_(torch.from_numpy(new_px))
+        s = np.asarray(self.spec.strides, np.float32)[:, None, None]
+        self.anchors_grid = torch.from_numpy(new_px / s).to(self.device)
+
     def augment(self, images, labels, mask, stream: int, ni: int,
                 part: int = 0):
         """The labelled batch augmented on the card (under device_aug),
@@ -300,9 +352,9 @@ class Trainer:
 
     def build_loss(self, cfg):
         """Loss.type dispatch (JAX trainer.py:330-394): ComputeLoss for
-        anchor heads, ComputeXLoss / ComputeFastXLoss (YOLOX) and
-        ComputeTalLoss (the TAL heads), each set as the step's
-        `detection_loss`."""
+        anchor heads (its OTA form with assigner_type SimOTA),
+        ComputeXLoss / ComputeFastXLoss (YOLOX) and ComputeTalLoss (the TAL
+        heads), each set as the step's `detection_loss`."""
         loss_type = cfg.Loss.type
         # fail early on a head/loss family mismatch: the default Loss.type
         # is ComputeXLoss, which only fits anchor-free heads; with an
@@ -316,15 +368,19 @@ class Trainer:
                 "'ComputeLoss' (every shipped anchor-head YAML does)")
         self.loss_cfg = YoloV5LossConfig.from_cfg(cfg, nl=self.spec.nl)
         if loss_type == "ComputeLoss":
-            if cfg.Loss.assigner_type == "SimOTA":
-                raise NotImplementedError(
-                    "the YOLOv7 OTA loss (Loss.type 'ComputeLoss' with "
-                    "assigner_type 'SimOTA') is not ported yet (ROADMAP "
-                    "Q1.10)")
             anchors, lc = self.anchors_grid, self.loss_cfg
+            if cfg.Loss.assigner_type == "SimOTA":
+                # the anchor OTA loss (reference ComputeLoss.ota_loss,
+                # loss.py:215-303; JAX trainer.py:354-365)
+                strides, img = self.spec.strides, self.img_size
+                top_k = int(cfg.Loss.top_k)  # reference loss.py:131-137
 
-            def det_loss(raw, labels, mask):
-                return compute_loss(raw, labels, mask, anchors, lc)
+                def det_loss(raw, labels, mask):
+                    return compute_ota_loss(raw, labels, mask, anchors,
+                                            strides, img, lc, top_k=top_k)
+            else:
+                def det_loss(raw, labels, mask):
+                    return compute_loss(raw, labels, mask, anchors, lc)
 
         elif loss_type in ("ComputeXLoss", "ComputeFastXLoss"):
             det_loss = self._yolox_loss(use_l1=False)

@@ -196,6 +196,48 @@ def test_pseudo_labels_through_k1_match_plain(card):
     assert int(got.mask.sum(1).min()) > 0
 
 
+@pytest.mark.parametrize("k", [128, 256, 512])
+def test_nms_kernel_at_the_merge_shapes(card, k):
+    """K1 at the multi-teacher merge's shapes: (B, k) with
+    k = max(128, next_pow2(D_total)) and tile min(256, k), no stop_at
+    (`ssod/pseudo_label.class_agnostic_merge`): crowded fields, the valid
+    rows a prefix as the merge's score sort leaves them."""
+    rng = np.random.default_rng(k)
+    for n_valid in (k // 2 + 7, k, 0):
+        boxes, valid = _fields(rng, k, n_valid)
+        valid[1] = valid[0]
+        _check_nms(boxes.to(card), valid.to(card), min(256, k), None)
+
+
+def test_multi_teacher_pseudo_labels_through_k1_match_plain(card):
+    """`create_pseudo_labels_multi` at the main path's shapes: two
+    teachers of 16 x 25,200 YOLOv5l rows (the extra one's classes
+    permuted, some dropped), max_pl 100: K1 at (16, 2048) twice, then the
+    merge's K1 at (16, 256); every output equal to the plain versions'."""
+    from efficientteacher_torch.ssod.pseudo_label import (
+        create_pseudo_labels_multi)
+
+    rng = np.random.default_rng(17)
+    main = _decoded_field(rng, 16, 25200, 80, 640).to(card)
+    extra = _decoded_field(rng, 16, 25200, 80, 640).to(card)
+    cmap = torch.from_numpy(rng.permutation(80)).to(card)
+    cmap[::7] = -1
+    m_s = torch.zeros(16, 13)
+    m_s[:, 1:10] = torch.eye(3).flatten()
+    m_s[:, 10] = 1.0
+    kw = dict(img_size=640, nc=80, conf_thres=0.1, iou_thres=0.65,
+              max_pl=100)
+    before = greedy_nms_keep_cuda.launches
+    got = create_pseudo_labels_multi([main, extra], [None, cmap],
+                                     m_s.to(card), **kw)
+    assert greedy_nms_keep_cuda.launches == before + 3
+    ref = create_pseudo_labels_multi([main, extra], [None, cmap],
+                                     m_s.to(card), use_kernels=False, **kw)
+    for a, b in zip(got, ref):
+        assert torch.equal(a, b)
+    assert int(got.mask.sum(1).min()) > 0
+
+
 def test_ssod_step_on_the_card(card):
     """One burn-in and two SSOD steps (held, fired) of a width-0.25 SSOD
     model, 2 + 2 images at 256 px (4032 rows: K1 at (2, 2048)), bf16

@@ -83,6 +83,9 @@ MODULES = [
     "efficientteacher_torch.utils.checkpoint",
     "efficientteacher_torch.utils.general",
     "efficientteacher_torch.utils.shutdown",
+    "efficientteacher_torch.losses.yolov5_ota_loss",
+    "efficientteacher_torch.ssod.labelmatch",
+    "efficientteacher_torch.data.autoanchor",
     "chip_smoke",
     "ab_kernels",
 ]
@@ -118,3 +121,18 @@ def test_chip_smoke_refuses_to_run_without_a_card(tmp_path):
     proc = subprocess.run([sys.executable, str(lone)], cwd=tmp_path, env=env,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode != 0 and '"ok"' not in proc.stdout
+
+
+def test_port_sources_import_no_sklearn_or_jax_even_lazily():
+    """No import statement anywhere in the port's sources (function-level
+    ones included, which the import check above cannot see) names sklearn,
+    jax, flax or the JAX package: LabelMatch fits its own mixture."""
+    import re
+
+    pattern = re.compile(r"^\s*(from|import)\s+(sklearn|jax|jaxlib|flax|"
+                         r"efficientteacher_tpu)\b", re.M)
+    bad = [str(p.relative_to(REPO))
+           for p in sorted((REPO / "efficientteacher_torch").rglob("*.py"))
+           + [REPO / "chip_smoke.py"]
+           if pattern.search(p.read_text())]
+    assert not bad, bad

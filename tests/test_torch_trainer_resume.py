@@ -275,26 +275,29 @@ def test_graceful_stop_handler_sets_flag_and_uninstall_restores():
 
 
 @pytest.mark.parametrize("override,cls", [
-    # Dataset.device_aug is ported now: the SSOD OTA loss stands in
-    ({"SSOD.use_ota": True}, SSODTrainer),
-    ({"noautoanchor": False}, Trainer),
-    # ComputeXLoss is ported now (with an anchor head it is JAX's
-    # ValueError): the YOLOv7 OTA loss stands in
-    ({"Loss.type": "ComputeLoss", "Loss.assigner_type": "SimOTA"}, Trainer),
-    ({"SSOD.pseudo_label_type": "LabelMatch"}, SSODTrainer),
-    # the host augmentation (device_aug False), then RepOpt, are ported
-    # now: AdamW stands in
-    ({"adam": True}, Trainer),
+    # the SSOD OTA loss, autoanchor, the YOLOv7 OTA loss, LabelMatch and
+    # AdamW are ported now; what is still refused stands in, case by case:
+    # a reference .pt as an extra teacher (ROADMAP Q1.11)
+    ({"SSOD.extra_teachers": ["teacher.pt"]}, SSODTrainer),
+    # a warm start from a reference .pt (Q1.11)
+    ({"weights": "yolov5s.pt"}, Trainer),
+    # RepOpt's scales from a reference .pt (Q1.11)
+    ({"Model.RepOpt": True, "Model.RepScale_weight": "scales.pt"}, Trainer),
+    # the SSOD losses of an anchor-free head (Q1.10)
+    ({"Model.Head.name": "YoloX", "Loss.type": "ComputeXLoss"}, SSODTrainer),
+    # the keypoint loss (Q1.10), refused at the first step
+    ({"Dataset.np": 5}, Trainer),
 ])
 def test_refuses_what_is_not_ported(tmp_path, override, cls):
     cfg = get_cfg()
     cfg.merge_from_list(TINY + ["project", str(tmp_path)])
     for k, v in override.items():
         cfg.merge_from_list([k, v])
-    if "Loss.type" in override:  # refused after the loaders are set
-        cls = type("T", (cls,), {"build_dataloader": PortSup.build_dataloader})
+    # in-memory loaders: some refusals come after the loaders, one at the
+    # first step
+    cls = {Trainer: PortSup, SSODTrainer: PortSSOD}[cls]
     with pytest.raises(NotImplementedError):
-        cls(cfg, compute_dtype=torch.float32, device="cpu")
+        cls(cfg, compute_dtype=torch.float32, device="cpu").train()
 
 
 def test_needs_a_card_unless_asked_for_the_cpu(tmp_path, monkeypatch):
