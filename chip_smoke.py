@@ -92,7 +92,26 @@ read just after:
     burn_epochs 0) on the smoke images with their classes mod 8: the
     anchor check's BPR and whether it adopted new anchors, the step ms.
     C: yolov7l_coco.yaml with `Loss.assigner_type: SimOTA` and `adam:
-    True` at 64@640: step ms, the SimOTA share, peak memory.
+    True` at 64@640: step ms, the SimOTA share, peak memory;
+  - ptbridge: a seeded YOLOv5l (main YAML, nc 80) at the mid density
+    pickled as the reference saves it (fp16 `model` and `ema` module
+    trees, the port's classes under `models.*` only while saving):
+    `cli.val` on it equals `cli.val` on a port checkpoint of the same fp16
+    weights (results and COCO JSON rows), each batch's NMS == the plain
+    NMS; configs/ssod/voc/yolov5l_voc_burn.yaml warm-started from it (1
+    burn-in epoch of 4 steps at 32 + 32, the smoke images' classes mod
+    20; the YAML: 96, 300 epochs) and yolov5l_transfer_ssod.yaml from an
+    nc 365 `.pt` (matched counts, the head skipped on shape);
+  - ddp: the trainer cell's config (main YAML, 32 + 32, device_aug)
+    through `cli.train` in a process of its own (`--ddp-child`), 1
+    burn-in + 1 SSOD epoch of 4 steps, once in a world-size-1 NCCL group
+    (torchrun's environment given by hand) and once without: losses and
+    final weights against each other, step ms of both;
+  - kp: configs/sup/public/yolov5l_coco.yaml with Dataset.np 5 (nc 80,
+    batch 32) on a keypoint copy of the smoke images (5 seeded points in
+    each box): 3 warm + 2 timed steps, then `cli.val --val-kp` at the mid
+    density, its landmark NMS held against the plain NMS and its K1
+    launches timed.
 
 It times the forward, the NMS, the selection engine against `torch.topk`,
 the training steps and their phases (CUDA events), and each kernel
@@ -2802,17 +2821,21 @@ def city_cfg(*overrides):
     return cfg
 
 
-def subset_lists(lists, n, tag, classes=None):
+def subset_lists(lists, n, tag, classes=None, keypoints=0):
     """The first `n` images of each split as new list files; with
-    `classes`, in a directory of their own whose label files take each
-    class mod `classes` (the images are symlinks)."""
+    `classes` or `keypoints`, in a directory of their own whose label
+    files take each class mod `classes` and, after each box, `keypoints`
+    points drawn inside it (seeded by the file's stem) (the images are
+    symlinks)."""
+    import numpy as np
+
     out = {}
     for split, lst in lists.items():
         if split not in SPLITS:
             continue
         lines = Path(lst).read_text().splitlines()[:n.get(split, 0)]
         root = Path(lst).parent
-        if classes is not None:
+        if classes is not None or keypoints:
             root = DATA_DIR / f"{tag}_{split}"
             (root / "images").mkdir(parents=True, exist_ok=True)
             (root / "labels").mkdir(parents=True, exist_ok=True)
@@ -2824,9 +2847,17 @@ def subset_lists(lists, n, tag, classes=None):
                     os.symlink(src, dst)
                 rows = (src.parent.parent / "labels" / f"{src.stem}.txt"
                         ).read_text().splitlines()
-                (root / "labels" / f"{src.stem}.txt").write_text("".join(
-                    f"{int(r.split()[0]) % classes} "
-                    f"{' '.join(r.split()[1:])}\n" for r in rows))
+                rng = np.random.default_rng(int(src.stem))
+                text = ""
+                for r in rows:
+                    c, *box = r.split()
+                    c = int(c) % classes if classes is not None else int(c)
+                    cx, cy, bw, bh = map(float, box)
+                    pts = rng.uniform(-0.5, 0.5, (keypoints, 2)) \
+                        * (bw, bh) + (cx, cy)
+                    text += f"{c} {' '.join(box)}" + "".join(
+                        f" {v:.6f}" for v in pts.ravel()) + "\n"
+                (root / "labels" / f"{src.stem}.txt").write_text(text)
                 new.append(str(dst))
             lines = new
         sub = root / f"{split}_{tag}.txt"
@@ -3370,6 +3401,579 @@ def ssod_opts_phase(torch, dev, card, lists):
     return entries
 
 
+# [ptbridge], [ddp], [kp]: the reference .pt bridge, DDP through
+# torch.distributed and the keypoint path, each at full width.
+VOC_YAML = (Path(__file__).resolve().parent
+            / "configs/ssod/voc/yolov5l_voc_burn.yaml")
+TRANSFER_YAML = (Path(__file__).resolve().parent
+                 / "configs/ssod/custom/yolov5l_transfer_ssod.yaml")
+KP_YAML = _CFGS / "yolov5l_coco.yaml"
+PT_STEPS = 4        # the VOC warm start's burn-in steps (the YAML: 300 epochs)
+DDP_STEPS = 4       # steps per epoch of each [ddp] run
+KP_NP, KP_WARM, KP_TIMED = 5, 3, 2
+FP16_MAX = 65504.0
+
+
+class _Every:
+    """Every K: a K1Recorder that keeps all calls."""
+
+    def __contains__(self, k):
+        return True
+
+
+def yaml_cfg(yaml, *overrides):
+    from efficientteacher_torch.configs import get_cfg
+
+    cfg = get_cfg()
+    cfg.merge_from_file(str(yaml))
+    cfg.merge_from_list(list(overrides))
+    return cfg
+
+
+def recorded_cli_val(torch, argv, num_points=0):
+    """cli.val with `argv`, every batch's NMS output recorded and held
+    against the plain NMS on its decoded tensor afterwards; the kernels'
+    launches in the call. Returns (results, launches, first decoded)."""
+    from efficientteacher_torch.cli import val as cli_val
+    from efficientteacher_torch.eval import validator
+    from efficientteacher_torch.ops.nms_cuda import greedy_nms_keep_cuda
+    from efficientteacher_torch.ops.select_cuda import (count_ge_cuda,
+                                                        threshold_compact_cuda)
+
+    wrappers = {"greedy_nms_keep": greedy_nms_keep_cuda,
+                "threshold_compact": threshold_compact_cuda,
+                "count_ge": count_ge_cuda}
+    records, made = [], []
+    make = validator.make_infer_fn
+
+    def recording(*a, **k):
+        made.append(make(*a, **k))
+        return RecordingInfer(made[-1], records)
+
+    for w in wrappers.values():
+        w.launches = 0
+    validator.make_infer_fn = recording
+    try:
+        got = cli_val.main(argv)
+    finally:
+        validator.make_infer_fn = make
+    launches = {k: w.launches for k, w in wrappers.items()}
+    for bi, (decoded, out) in enumerate(records):
+        ref = made[0].nms(decoded, use_kernels=False)
+        require(torch.equal(ref.detections, out.detections)
+                and torch.equal(ref.valid, out.valid),
+                f"cli.val {argv[3]} batch {bi}: detections differ from the "
+                f"plain NMS")
+    return got, launches, records[0][0]
+
+
+def ptbridge_leg(torch, dev, card, lists, tmp):
+    """[ptbridge]: a seeded YOLOv5l (main YAML, nc 80 @640) at the mid
+    density, pickled as the reference saves it (fp16 `model` and `ema`
+    module trees, its classes under `models.*` only while saving); cli.val
+    on it against cli.val on a port checkpoint of the same fp16-rounded
+    weights over the 64 val images at batch 32 (the same results and the
+    same COCO JSON detections), each batch held against the plain NMS;
+    the VOC burn-in YAML warm-started from it (1 burn-in epoch of
+    PT_STEPS steps at 32 + 32, the smoke images' classes mod 20); the
+    transfer YAML warm-started from an nc 365 `.pt` (built, not trained).
+    Returns kernels-line entries."""
+    import gc
+
+    from efficientteacher_torch.data.datasets import create_dataloader
+    from efficientteacher_torch.models import build_model, spec_from_cfg
+    from efficientteacher_torch.utils.checkpoint import (module_variables,
+                                                         save_checkpoint)
+    from efficientteacher_torch.utils.torch_import import save_reference_pt
+
+    tmp = Path(tmp)
+    cfg = ssod_cfg(*data_overrides(lists))
+    spec = dataclasses.replace(spec_from_cfg(cfg), train_domain=False)
+    model = build_model(spec, device=dev,
+                        generator=torch.Generator().manual_seed(SEED + 2))
+    loader = create_dataloader(cfg, "val", augment=False, batch_size=T_BATCH,
+                               pin_memory=True)
+    calib = next(iter(loader))["images"][:8].to(dev)
+    shift = mid_val_teacher(torch, model.eval(), calib)
+    pt, ckpt = tmp / "eff-yolov5l.pt", tmp / "eff-yolov5l.ckpt"
+    t0 = time.perf_counter()
+    save_reference_pt(pt, model, model, epoch=-1)
+    t_save = time.perf_counter() - t0
+    v = module_variables(model)
+    save_checkpoint(ckpt, params=v["params"], batch_stats=v["batch_stats"],
+                    ema_params=v["params"], ema_batch_stats=v["batch_stats"])
+    del model
+    overrides = [str(x) for x in ("Dataset.val", lists["val"])]
+    out = {}
+    for name, path in (("pt", pt), ("ckpt", ckpt)):
+        pred = tmp / f"{name}.json"
+        t0 = time.perf_counter()
+        got, launches, decoded = recorded_cli_val(torch, [
+            "--cfg", str(MAIN_YAML), "--weights", str(path), "--batch-size",
+            str(T_BATCH), "--save-json", str(pred), *overrides])
+        out[name] = (got, launches, decoded, time.perf_counter() - t0,
+                     json.loads(pred.read_text()))
+    (got, launches, decoded, t_pt, rows), other = out["pt"], out["ckpt"]
+    require(tuple(got) == tuple(other[0]) and rows == other[4],
+            f"cli.val on the .pt {got} ({len(rows)} detections) != on the "
+            f"port checkpoint {other[0]} ({len(other[4])})")
+    require(launches["greedy_nms_keep"] > 0
+            and launches["threshold_compact"] > 0,
+            f"cli.val on the .pt at the mid density launched {launches}")
+    print(f"[ptbridge] YOLOv5l (nc {NC}, {IMG} px) at the mid density "
+          f"(objectness {shift[0]:+.3f}, {shift[1]:.0f} candidates/img) "
+          f"pickled as the reference saves it ({pt.stat().st_size / 1e6:.1f}"
+          f" MB fp16 model + ema, {t_save:.1f} s): cli.val --weights "
+          f"{pt.name} {t_pt:.1f} s, P/R/mAP50/mAP "
+          f"{'/'.join(f'{x:.4f}' for x in got)}, {len(rows)} detections == "
+          f"cli.val on a port checkpoint of the same fp16 weights "
+          f"({other[3]:.1f} s), each batch == the plain NMS; launches "
+          f"{launches} | {card}")
+    require(other[1] == launches, f"cli.val launches on the .pt {launches}"
+            f" != on the port checkpoint {other[1]}")
+    entries = val_entries(torch, decoded, "ptbridge: cli.val on the .pt "
+                          "and on the port checkpoint", launches, card)
+    for e in entries:
+        per = {"cli.val .pt": launches[e["name"]],
+               "cli.val port checkpoint": other[1][e["name"]]}
+        e.update(launches=sum(per.values()), launches_per_path=per)
+    del decoded, out
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the VOC burn-in YAML's warm start, trained
+    n = PT_STEPS * T_BATCH
+    voc = subset_lists(lists, {"labelled": n, "unlabelled": n,
+                               "val": SPLITS["val"]}, "voc", classes=20)
+    cls = smoke_trainer(torch)
+    t = cls(yaml_cfg(VOC_YAML, "weights", str(pt), "epochs", 1,
+                     "hyp.burn_epochs", 1, "Dataset.batch_size", T_BATCH,
+                     "noval", True, "project", str(tmp), "name", "voc",
+                     *data_overrides(voc)), device=dev)
+    counts = t.warm_start_counts
+    t.train()
+    steps = [r for r in t.log["steps"] if r["kind"] == "burn-in"]
+    require(len(steps) == PT_STEPS and all(
+        all(x == x and abs(x) != float("inf") for x in r["losses"].values())
+        for r in steps), f"VOC burn-in steps {steps}")
+    n_head = len([k for k in module_variables(t.model)["params"]
+                  if k.startswith("head.m.")])
+    n_det = len([k for k in module_variables(t.model)["params"]
+                 if k.startswith("det_")])
+    (cp, tp), (cs, ts) = counts["params"], counts["batch_stats"]
+    require(cs == ts and cp == tp - n_head - n_det,
+            f"VOC warm start matched {counts} (head {n_head}, "
+            f"discriminators {n_det})")
+    ms = statistics.median(r["ms"] for r in steps[1:])
+    print(f"[ptbridge] {VOC_YAML.relative_to(VOC_YAML.parents[3])} warm-"
+          f"started from it: {cp}/{tp} params, {cs}/{ts} stats (the nc 20 "
+          f"head's {n_head} and the discriminators' {n_det} tensors are "
+          f"not in the .pt); 1 burn-in epoch of {PT_STEPS} steps at "
+          f"{T_BATCH} (the YAML: 96, 300 epochs), step {ms:.1f} ms (median "
+          f"after the first), losses "
+          + ", ".join(f"{k} {v:.4f}" for k, v in steps[-1]["losses"].items()
+                      if k != "loss") + f" | {card}")
+    del t
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the transfer YAML: an obj365 (nc 365) .pt into its nc 2 model
+    src = build_model(dataclasses.replace(spec, nc=365), device=dev,
+                      generator=torch.Generator().manual_seed(SEED + 3))
+    pt365 = tmp / "efficient-yolov5l-obj365.pt"
+    save_reference_pt(pt365, src, src)
+    del src
+    sub = subset_lists(lists, {"labelled": T_BATCH, "unlabelled": T_BATCH,
+                               "val": T_BATCH}, "transfer", classes=2)
+    t = cls(yaml_cfg(TRANSFER_YAML, "weights", str(pt365),
+                     "Dataset.batch_size", T_BATCH, "project", str(tmp),
+                     "name", "transfer", *data_overrides(sub)), device=dev)
+    (cp, tp), (cs, ts) = (t.warm_start_counts["params"],
+                          t.warm_start_counts["batch_stats"])
+    require(cs == ts and cp == tp - n_head - n_det,
+            f"transfer warm start matched {t.warm_start_counts}")
+    print(f"[ptbridge] {TRANSFER_YAML.relative_to(TRANSFER_YAML.parents[3])}"
+          f" warm-started from an nc 365 .pt: {cp}/{tp} params, {cs}/{ts} "
+          f"stats; the head's {n_head} tensors skipped on shape (365 -> 2 "
+          f"classes), the discriminators' {n_det} not in the .pt")
+    del t
+    gc.collect()
+    torch.cuda.empty_cache()
+    return entries
+
+
+def ddp_child(out: str, argv) -> int:
+    """One [ddp] run (a process of its own): cli.train with `argv`, every
+    step synchronised and timed, its losses read, each pseudo-label K1
+    launch recorded and held against the plain version, each val batch's
+    NMS against the plain NMS; writes `out` (JSON) and `out`.pt (the
+    student's final float32 weights, the last recorded K1 call)."""
+    import torch
+
+    from efficientteacher_torch.cli import train as cli_train
+    from efficientteacher_torch.ops import nms
+    from efficientteacher_torch.ops.nms_cuda import greedy_nms_keep_cuda
+    from efficientteacher_torch.ops.select_cuda import (count_ge_cuda,
+                                                        threshold_compact_cuda)
+    from efficientteacher_torch.parallel import distributed
+    from efficientteacher_torch.train.ssod_trainer import SSODTrainer
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.benchmark = False
+    wrappers = {"greedy_nms_keep": greedy_nms_keep_cuda,
+                "threshold_compact": threshold_compact_cuda,
+                "count_ge": count_ge_cuda}
+    rec = {"steps": [], "vals": 0}
+    held = {}
+
+    class Run(smoke_trainer(torch)):
+        def build_step(self):
+            super().build_step()
+            held["trainer"] = self
+            rec["group"] = (distributed.group_active() and
+                            torch.distributed.get_backend(),
+                            distributed.world_size())
+            for attr, kind in (("burn_step", "burn-in"),
+                               ("ssod_step", "ssod")):
+                def run(state, *a, _step=getattr(self, attr), _kind=kind):
+                    calls = held["k1"].calls
+                    n0 = len(calls)
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    state, o = _step(state, *a)
+                    torch.cuda.synchronize()
+                    parts = o if _kind == "burn-in" else o.metrics
+                    rec["steps"].append({
+                        "kind": _kind,
+                        "ms": (time.perf_counter() - t0) * 1e3,
+                        "k1": len(calls) - n0,
+                        "losses": {k: float(v) for k, v in parts.items()}})
+                    if len(calls) > n0:
+                        held["step_call"] = calls[-1]
+                    return state, o
+                setattr(self, attr, run)
+
+        def _validate(self, ema):
+            rec["vals"] += 1
+            return super()._validate(ema)
+
+    real = SSODTrainer
+    import efficientteacher_torch.train.ssod_trainer as mod
+    mod.SSODTrainer = Run
+    for w in wrappers.values():
+        w.launches = 0
+    try:
+        with K1Recorder(torch, nms, _Every()) as k1:
+            held["k1"] = k1
+            cli_train.main(argv)
+    finally:
+        mod.SSODTrainer = real
+    rec["launches"] = {k: w.launches for k, w in wrappers.items()}
+    # the steps' K1 calls held here; the val batches' NMS were held whole
+    # (SmokeTrainer._validate), and the group's run holds its validation
+    # lattice's K1, K2 and count against their plain versions
+    for call in k1.calls:
+        if call[0].shape[1] == 2048:
+            k1_entry(torch, call, "ddp: a recorded K1 call", 0, timed=False)
+    t = held["trainer"]
+    rec["val_batches"] = sum(v["batches"] for v in t.log["vals"])
+    rec["val_launches"] = {k: sum(v["launches"][k] for v in t.log["vals"])
+                           for k in wrappers}
+    rec["step_launches"] = {k: n - rec["val_launches"][k]
+                            for k, n in rec["launches"].items()}
+    if rec["group"][0]:
+        rec["val_entries"] = val_entries(
+            torch, t.val_decoded, "ddp: cli.train's epoch-end validation",
+            rec["val_launches"], os.environ["CHIP_SMOKE_CARD"])
+    sd = lambda m: {k: v.detach().float().cpu()  # noqa: E731
+                    for k, v in m.state_dict().items()}
+    torch.save({"model": sd(t.state.model), "ema": sd(t.state.ema.module),
+                "k1": [x.cpu() if torch.is_tensor(x) else x
+                       for x in held["step_call"]]}, out + ".pt")
+    Path(out).write_text(json.dumps(rec))
+    return 0
+
+
+def ddp_leg(torch, dev, card, lists, tmp):
+    """[ddp]: the trainer cell's config (main YAML, 32 + 32,
+    Dataset.device_aug True) through cli.train in a process of its own,
+    1 burn-in and 1 SSOD epoch of DDP_STEPS steps, 2 val batches at each
+    epoch end: once in a world-size-1 NCCL group (torchrun's environment
+    given by hand), once without a group. Their losses and final weights
+    (student and teacher) must be bit-equal; the step ms of both. Returns
+    kernels-line entries: the SSOD steps' K1 and the validations' K1, K2
+    and count, each with both runs' launches."""
+    import socket
+
+    n = DDP_STEPS * T_BATCH
+    sub = subset_lists(lists, {"labelled": n, "unlabelled": n,
+                               "val": SPLITS["val"]}, "ddp")
+    runs = {}
+    for name in ("group", "alone"):
+        out = str(Path(tmp) / f"ddp_{name}.json")
+        argv = [str(x) for x in (
+            "--cfg", MAIN_YAML, "epochs", 2, "hyp.burn_epochs", 1,
+            "Dataset.device_aug", True, "project", tmp, "name", name,
+            *data_overrides(sub))]
+        env = {k: v for k, v in os.environ.items()
+               if k not in ("RANK", "WORLD_SIZE", "LOCAL_RANK",
+                            "MASTER_ADDR", "MASTER_PORT")}
+        env["CHIP_SMOKE_CARD"] = card
+        if name == "group":
+            with socket.socket() as s:
+                s.bind(("127.0.0.1", 0))
+                port = s.getsockname()[1]
+            env.update(RANK="0", WORLD_SIZE="1", LOCAL_RANK="0",
+                       MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port))
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, str(Path(__file__).resolve()), "--ddp-child",
+             out, *argv], env=env, capture_output=True, text=True,
+            timeout=400)
+        wall = time.perf_counter() - t0
+        require(proc.returncode == 0,
+                f"[ddp] {name}: exit {proc.returncode}\n{proc.stderr[-3000:]}")
+        for line in proc.stdout.splitlines():  # the lattice's checks
+            if line.startswith(("[k2]", "[count]", "[time]")):
+                print(line)
+        rec = json.loads(Path(out).read_text())
+        rec["wall"] = wall
+        rec["state"] = torch.load(out + ".pt", weights_only=False)
+        runs[name] = rec
+    g, a = runs["group"], runs["alone"]
+    require(g["group"] == ["nccl", 1] and a["group"] == [False, 1],
+            f"[ddp] groups {g['group']}, {a['group']}")
+    for r in (g, a):
+        k1 = [s["k1"] for s in r["steps"]]
+        require(len(r["steps"]) == 2 * DDP_STEPS
+                and k1 == [0] * DDP_STEPS + [1] * DDP_STEPS
+                and r["step_launches"] == {"greedy_nms_keep": DDP_STEPS,
+                                           "threshold_compact": 0,
+                                           "count_ge": 0}
+                and r["val_launches"]["greedy_nms_keep"] == r["val_batches"]
+                and r["vals"] == 2, f"[ddp] run: K1 calls per step {k1}, "
+                f"launches in the steps {r['step_launches']}, in the "
+                f"validations {r['val_launches']}, {r['vals']} validations")
+    require(g["val_launches"] == a["val_launches"],
+            f"[ddp] validation launches, group {g['val_launches']} != alone "
+            f"{a['val_launches']}")
+    # the group changes nothing at world size 1: bit-equal, as measured
+    # in every run so far (two processes, cuDNN's search off)
+    diff_losses = [(i, k) for i, (x, y) in enumerate(zip(g["steps"],
+                                                          a["steps"]))
+                   for k in y["losses"] if x["losses"][k] != y["losses"][k]]
+    diff_w = [f"{m} {k}" for m in ("model", "ema")
+              for k, v in a["state"][m].items()
+              if not torch.equal(g["state"][m][k], v)]
+    require(not diff_losses and not diff_w,
+            f"[ddp] group vs no group not bit-equal: losses at (step, part) "
+            f"{diff_losses[:5]}, tensors {diff_w[:5]} ({len(diff_w)} in all)")
+    med = {name: {kind: statistics.median(
+        [s["ms"] for s in r["steps"] if s["kind"] == kind][1:])
+        for kind in ("burn-in", "ssod")} for name, r in runs.items()}
+    print(f"[ddp] cli.train on the main YAML (YOLOv5l, nc {NC}, {IMG} px, "
+          f"bf16, {T_BATCH} + {T_BATCH}, Dataset.device_aug), 1 burn-in + 1 "
+          f"SSOD epoch of {DDP_STEPS} steps, 2 val batches per epoch end, "
+          f"each in a process of its own: in a world-size-1 NCCL group "
+          f"(wall {g['wall']:.1f} s) and without a group ({a['wall']:.1f} "
+          f"s); every SSOD step's K1 at ({T_BATCH}, 2048) and every val "
+          f"batch's NMS == the plain version in both; launches per run: "
+          f"steps {g['step_launches']}, validations {g['val_launches']}")
+    for (x, y) in zip(g["steps"], a["steps"]):
+        print(f"[ddp] {x['kind']} losses, group | alone: "
+              + ", ".join(f"{k} {x['losses'][k]:.5f} | {y['losses'][k]:.5f}"
+                          for k in y["losses"] if k not in ("loss", "total")))
+    n_t = len(a["state"]["model"]) + len(a["state"]["ema"])
+    print(f"[ddp] group vs alone: all {2 * DDP_STEPS} steps' losses and "
+          f"the {n_t} tensors of the final student and teacher bit-equal")
+    print(f"[time] ddp: step ms (median after each kind's first, "
+          f"synchronised) burn-in {med['group']['burn-in']:.1f} in the "
+          f"group vs {med['alone']['burn-in']:.1f} alone, SSOD "
+          f"{med['group']['ssod']:.1f} vs {med['alone']['ssod']:.1f}: the "
+          f"gap is the world-size-1 gradient all-reduce and the losses' "
+          f"count all-reduces (the synchronised BatchNorm runs only past "
+          f"one rank) | {card}")
+    call = g["state"]["k1"]
+    call = tuple(x.to(dev) if torch.is_tensor(x) else x for x in call)
+    per = {name: r["step_launches"]["greedy_nms_keep"]
+           for name, r in runs.items()}
+    step = k1_entry(torch, call, "ddp: cli.train's SSOD steps (pseudo-label "
+                    "NMS; the group's last call timed)", sum(per.values()))
+    step["launches_per_path"] = per
+    entries = [step]
+    for e in g["val_entries"]:
+        per = {name: r["val_launches"][e["name"]]
+               for name, r in runs.items()}
+        e.update(launches=sum(per.values()), launches_per_path=per)
+        entries.append(e)
+    require({e["name"] for e in g["val_entries"]}
+            == {k for k, v in g["val_launches"].items() if v},
+            f"[ddp] validation entries {[e['name'] for e in entries]}")
+    return entries
+
+
+def kp_step_stats(torch, model, labels, mask, nc=NC, npk=KP_NP):
+    """After a [kp] step: the largest entry of the model's tensors, the
+    largest landmark bias of the head, and the share of the batch's visible
+    keypoints that lie outside their own box."""
+    sd = model.state_dict()
+    big = max(float(t.abs().max()) for t in sd.values()
+              if t.is_floating_point())
+    lmk = max(float(conv.bias.detach().view(3, -1)[:, 5 + nc:].abs().max())
+              for conv in model.head.m)
+    lb = labels[mask].float()
+    kp = lb[:, 5:5 + 2 * npk].view(-1, npk, 2)
+    vis = (kp > 0).all(-1)
+    off = (kp - lb[:, None, 1:3]).abs() > lb[:, None, 3:5] / 2
+    outside = float((off.any(-1) & vis).sum()) / max(1, int(vis.sum()))
+    return big, lmk, outside
+
+
+def kp_leg(torch, dev, card, lists, tmp):
+    """[kp]: configs/sup/public/yolov5l_coco.yaml with Dataset.np 5 (nc 80
+    @640, batch 32) on a keypoint copy of the smoke images (5 seeded
+    points inside each box): KP_WARM + KP_TIMED steps, each followed by
+    the largest tensor entry, the head's largest landmark bias and the
+    share of the batch's keypoints outside their box; then cli.val
+    --val-kp, each batch's landmark NMS held against the plain NMS, on the
+    weights after the last step whose tensors, after the mid-density
+    calibration, fit fp16 (the checkpoint is saved fp16, as the trainer
+    saves them). Returns kernels-line entries."""
+    import gc
+
+    from efficientteacher_torch.models import build_model, spec_from_cfg
+    from efficientteacher_torch.ops import nms
+    from efficientteacher_torch.utils.checkpoint import (module_variables,
+                                                         save_checkpoint)
+
+    n = (KP_WARM + KP_TIMED) * T_BATCH
+    sub = subset_lists(lists, {"labelled": n, "val": SPLITS["val"]}, "kp",
+                       keypoints=KP_NP)
+    overrides = [str(x) for x in (
+        "Dataset.np", KP_NP, "Dataset.batch_size", T_BATCH, "epochs", 1,
+        "noval", True, "project", tmp, "name", "kp", "Dataset.train",
+        sub["labelled"], "Dataset.val", sub["val"])]
+    cfg = yaml_cfg(KP_YAML, *overrides)
+
+    class KpTrainer(zoo_trainer(torch)):
+        def build_step(self):
+            super().build_step()
+            step = self.train_step
+            self.kp_log = []
+
+            def run(state, *args):
+                state, parts = step(state, *args)
+                big, lmk, outside = kp_step_stats(torch, state.model,
+                                                  args[1], args[2])
+                snap = ({k: v.detach().cpu().clone() for k, v in
+                         state.model.state_dict().items()}
+                        if big < FP16_MAX else None)
+                self.kp_log.append((big, lmk, outside,
+                                    float(args[3].lr_bias), snap))
+                return state, parts
+
+            self.train_step = run
+
+    t = KpTrainer(cfg, device=dev)
+    t.train()
+    steps, kp_log = t.log["steps"], t.kp_log
+    require(len(steps) == len(kp_log) == KP_WARM + KP_TIMED and all(
+        "kp" in p and all(x == x and abs(x) != float("inf")
+                          for x in p.values()) for _, p in steps),
+            f"kp steps {steps}")
+    ms = statistics.median(m for m, _ in steps[KP_WARM:])
+    del t
+    gc.collect()
+    torch.cuda.empty_cache()
+    # the weights of the last step that still fit fp16 after calibration
+    model = build_model(spec_from_cfg(cfg), device=dev)
+    calib = None
+    for i in reversed(range(len(kp_log))):
+        if kp_log[i][4] is None:
+            continue
+        model.load_state_dict(kp_log[i][4])
+        if calib is None:
+            from efficientteacher_torch.data.datasets import create_dataloader
+
+            calib = next(iter(create_dataloader(
+                cfg, "val", augment=False, batch_size=T_BATCH,
+                pin_memory=True)))["images"][:8].to(dev)
+        shift = mid_val_teacher(torch, model.eval(), calib)
+        v = module_variables(model)
+        big = max(float(x.abs().max()) for g in v.values()
+                  for x in g.values())
+        if big < FP16_MAX:
+            break
+    else:
+        raise SmokeFailure(f"[kp] no step's weights fit fp16 after the "
+                           f"calibration: {[x[:4] for x in kp_log]}")
+    chosen, stats = i + 1, [x[:4] for x in kp_log]
+    mid = Path(tmp) / "kp_mid.ckpt"
+    save_checkpoint(mid, params=v["params"], batch_stats=v["batch_stats"],
+                    ema_params=v["params"], ema_batch_stats=v["batch_stats"])
+    del model, kp_log
+    with K1Recorder(torch, nms, _Every()) as k1:
+        t0 = time.perf_counter()
+        got, launches, _ = recorded_cli_val(torch, [
+            "--cfg", str(KP_YAML), "--weights", str(mid), "--batch-size",
+            str(T_BATCH), "--val-kp", *overrides])
+        t_val = time.perf_counter() - t0
+    require(launches["greedy_nms_keep"] == len(k1.calls) > 0
+            and all(x == x for x in got),
+            f"cli.val --val-kp: launches {launches}, {len(k1.calls)} K1 "
+            f"calls recorded, results {got}")
+    for call in k1.calls[:-1]:
+        k1_entry(torch, call, "kp: a recorded K1 call", 0, timed=False)
+    entry = k1_entry(torch, k1.calls[-1], "kp: cli.val --val-kp's landmark "
+                     "NMS", launches["greedy_nms_keep"])
+    parts = steps[-1][1]
+    print(f"[kp] {KP_YAML.relative_to(KP_YAML.parents[3])} with Dataset.np "
+          f"{KP_NP} (YOLOv5l, nc {NC}, {IMG} px, bf16, batch {T_BATCH}, host "
+          f"augmentation) on a keypoint copy of the smoke images ({KP_NP} "
+          f"seeded points inside each box): step {ms:.1f} ms (median of "
+          f"{KP_TIMED} after {KP_WARM} warm), "
+          f"{T_BATCH / ms * 1e3:.1f} img/s; loss parts "
+          + ", ".join(f"{k} {v:.4f}" for k, v in parts.items()
+                      if k not in ("loss", "kp")) + f" | {card}")
+    for j, ((_, p), (big, lmk, outside, lr)) in enumerate(zip(steps,
+                                                              stats)):
+        print(f"[kp] step {j + 1} (bias lr {lr:.4f}): landmark term "
+              f"{p['kp']:.1f}, largest tensor entry {big:.4g}, largest "
+              f"landmark bias {lmk:.4g}, visible keypoints outside their "
+              f"box {outside:.1%}")
+    print(f"[kp] cli.val --val-kp on the weights after step {chosen} (the "
+          f"last whose tensors fit fp16 after the mid-density calibration; "
+          f"saved fp16), objectness {shift[0]:+.3f}, {shift[1]:.0f} "
+          f"candidates/img on the multi-label lattice: {t_val:.1f} s, OKS "
+          f"P/R/mAP50/mAP {'/'.join(f'{x:.4f}' for x in got)}; the "
+          f"landmark NMS (obj-gated, single label) at "
+          f"{tuple(k1.calls[-1][0].shape[:2])}, each batch == the plain "
+          f"NMS; launches {launches} | {card}")
+    print(f"[time] kp: greedy_nms_keep {tuple(entry['shape'])} tile "
+          f"{entry['tile']} ({entry['valid_per_img']:.1f} valid rows/img, "
+          f"{entry['kept']} kept) kernel {entry['ms']:.4f} ms, plain "
+          f"{entry['plain_ms']:.4f} ms, bound {entry['bound_ms']:.5f} ms "
+          f"({entry['bound_by']}) | {card}")
+    return [entry]
+
+
+def slice11_phase(torch, dev, card, lists):
+    """The [ptbridge], [ddp] and [kp] legs; their kernels-line entries."""
+    import tempfile
+
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        entries = ptbridge_leg(torch, dev, card, lists, tmp)
+        t1 = time.perf_counter()
+        entries += ddp_leg(torch, dev, card, lists, tmp)
+        t2 = time.perf_counter()
+        entries += kp_leg(torch, dev, card, lists, tmp)
+        print(f"[time] ptbridge {t1 - t0:.1f} s, ddp {t2 - t1:.1f} s, kp "
+              f"{time.perf_counter() - t2:.1f} s | {card}")
+    return entries
+
+
 def main() -> int:
     import torch
 
@@ -3592,6 +4196,7 @@ def main() -> int:
         cli_leg(torch, dev, card, lists)
         kernels += zoo_phase(torch, dev, card, lists)
         kernels += ssod_opts_phase(torch, dev, card, lists)
+        kernels += slice11_phase(torch, dev, card, lists)
     finally:
         shutil.rmtree(DATA_DIR, ignore_errors=True)
     print(f"[time] chip_smoke.py total {time.perf_counter() - t_start:.1f} "
@@ -3604,6 +4209,8 @@ def main() -> int:
 
 if __name__ == "__main__":
     try:
+        if sys.argv[1:2] == ["--ddp-child"]:  # one [ddp] run
+            sys.exit(ddp_child(sys.argv[2], sys.argv[3:]))
         sys.exit(main())
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)

@@ -5,20 +5,22 @@ val.py:468-512).
         --weights runs/train/exp/weights/best.ckpt [key value ...]
 
 Builds the config's model, loads the checkpoint's EMA (the teacher of an
-SSOD run) and runs `validator.run` over `create_dataloader(cfg, "val",
+SSOD run; a port checkpoint or a reference `.pt`, `utils/torch_import.py`,
+every tensor of the model matched) and runs `validator.run` over `create_dataloader(cfg, "val",
 augment=False)` (the rect loader under `Dataset.rect`), on the CUDA card
 unless the override `device cpu` is given. It takes the JAX CLI's flags:
 --save-json writes the COCO-format predictions (80->91 category ids when
 the model has 80 classes and the val path names coco) and --coco-gt runs
-COCOeval on them (`eval/coco.py`). Those whose feature is not ported raise
-NotImplementedError: --plots, --val-kp, and weights from a reference `.pt`
-(ROADMAP Q1.8, Q1.10 and Q1.11). --selection approx runs the exact
+COCOeval on them (`eval/coco.py`); --val-kp scores the keypoints of a
+`Dataset.np` model by OKS (`eval/keypoint_metrics.py`). --plots raises
+NotImplementedError (ROADMAP Q1.8). --selection approx runs the exact
 selection. Prints and returns (P, R, mAP50, mAP50-95).
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import logging
 
 from . import compute_dtype, resolve_device
@@ -53,21 +55,21 @@ def main(argv=None):
     from ..data.datasets import create_dataloader
     from ..eval import validator
     from ..models import build_model, spec_from_cfg
-    from ..utils.checkpoint import load_eval_variables, load_module_variables
+    from ..utils.torch_import import load_weights_into
 
     cfg = get_cfg()
     cfg.merge_from_file(opt.cfg)
     if opt.opts:
         cfg.merge_from_list(opt.opts)
     cfg.freeze()
-    if opt.weights.endswith(".pt"):
-        raise NotImplementedError(
-            "weights from a reference .pt are not ported yet (ROADMAP, Queue "
-            "1 item 9)")
     device = resolve_device(cfg.device)
-    spec = spec_from_cfg(cfg)
+    # the detector alone, as JAX's val builds it (ssod=False): an SSOD
+    # checkpoint's discriminators are not read
+    spec = dataclasses.replace(spec_from_cfg(cfg), train_domain=False)
     model = build_model(spec, device=device)
-    load_module_variables(model, load_eval_variables(opt.weights))
+    # a port checkpoint or a reference .pt, its EMA preferred; every
+    # tensor of the model must be found
+    load_weights_into(model, opt.weights, strict=True)
     model.eval()
     loader = create_dataloader(cfg, "val", augment=False,
                                batch_size=opt.batch_size,

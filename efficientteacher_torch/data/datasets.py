@@ -593,6 +593,10 @@ class BatchLoader:
 
     def __len__(self):
         n = len(self.ds)
+        if self.shard_across_processes:
+            from ..parallel.distributed import process_slice
+
+            n = len(process_slice(range(n)))
         return n // self.bs if self.drop_last else math.ceil(n / self.bs)
 
     def _indices(self):

@@ -34,8 +34,7 @@ from ..utils import native_loader as nl
 
 IMG_FORMATS = {"bmp", "jpg", "jpeg", "png", "tif", "tiff", "webp"}
 JPEG_SUFFIXES = {"jpg", "jpeg"}
-_TODO = ("ROADMAP, \"Next, in order\" item 2.9: image formats other than "
-         "JPEG and 8-bit PNG")
+_TODO = "ROADMAP Q1.9: image formats other than JPEG and 8-bit PNG"
 _PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
 _PNG_CHANNELS = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}   # colour type -> samples
 

@@ -13,7 +13,7 @@ reference utils/metrics.py:
     dedup by IoU order (val.py:123-145)
 
 The PR/F1 curve plots (`ap_per_class(plot_dir=...)`) are not ported yet:
-they wait for the loggers and plots (ROADMAP, Queue 1 item 6).
+they wait for the loggers and plots (ROADMAP Q1.8).
 """
 
 from __future__ import annotations
@@ -92,8 +92,8 @@ def ap_per_class(
     not ported yet, so it raises NotImplementedError."""
     if plot_dir is not None:
         raise NotImplementedError(
-            "PR/F1 curve plots are not ported yet (ROADMAP, Queue 1 item 6: "
-            "loggers and plots)")
+            "PR/F1 curve plots are not ported yet (ROADMAP Q1.8: loggers "
+            "and plots)")
     order = np.argsort(-conf)
     tp, conf, pred_cls = tp[order], conf[order], pred_cls[order]
     unique_classes = np.unique(target_cls)

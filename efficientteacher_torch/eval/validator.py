@@ -12,10 +12,13 @@ Parity with reference val.py:148-465 `val.run`:
 Only the compact (max_det, 6) detections and their `valid` mask cross to
 the host, one batch behind the device (see `run`). The JAX version's `mesh`
 argument is dropped: the port runs on one card; data parallelism comes with
-DDP. COCO JSON output and COCOeval (`save_json`, `coco_gt_json`,
-`is_coco`) are as in JAX (`eval/coco.py`). Not ported yet, so they raise
-NotImplementedError: keypoint validation (`num_points`, `val_kp`, ROADMAP
-Q1.10) and the PR-curve plots (`plots_dir`, Q1.8).
+DDP, where rank 0 alone validates the whole set, as the reference does
+(`train/trainer.py`). COCO JSON output and COCOeval (`save_json`,
+`coco_gt_json`, `is_coco`) are as in JAX (`eval/coco.py`). Keypoint models
+(`num_points`): the landmark NMS, the keypoints scaled to native pixels
+per coordinate (`_scale_landmarks_to_native`) and, with `val_kp`, OKS true
+positives (`eval/keypoint_metrics.py`). The PR-curve plots (`plots_dir`)
+raise NotImplementedError (ROADMAP Q1.8).
 """
 
 from __future__ import annotations
@@ -34,6 +37,7 @@ from ..parallel.distributed import to_device
 from ..utils.precision import autocast
 from .coco import (coco80_to_coco91_class, coco_image_id,
                    detections_to_json, run_cocoeval)
+from .keypoint_metrics import process_batch_kp
 from .metrics import ConfusionMatrix, ap_per_class, process_batch
 
 LOGGER = logging.getLogger(__name__)
@@ -62,6 +66,51 @@ def _scale_to_native(boxes: np.ndarray, letterbox_hw: Tuple[int, int],
     out[:, [0, 2]] = out[:, [0, 2]].clip(0, nw)
     out[:, [1, 3]] = out[:, [1, 3]].clip(0, nh)
     return out
+
+
+def _scale_landmarks_to_native(kps: np.ndarray, letterbox_hw, native_hw,
+                               ratio_pad=None,
+                               preserve_invisible: bool = False
+                               ) -> np.ndarray:
+    """Interleaved (N, 2 np) keypoint pixels in the letterboxed frame ->
+    native pixels, each coordinate clamped to the image (reference
+    utils/general.py:717-750; JAX validator.py:109). With
+    `preserve_invisible` (the ground truth's path) coordinates < 0, the
+    dataset's mark of an invisible point, stay -1."""
+    lh, lw = letterbox_hw
+    nh, nw = native_hw
+    if ratio_pad is not None:
+        gain = ratio_pad[0][0]
+        padw, padh = ratio_pad[1]
+    else:
+        gain = min(lh / nh, lw / nw)
+        padw = (lw - nw * gain) / 2
+        padh = (lh - nh * gain) / 2
+    out = kps.astype(np.float32).copy()
+    invisible = out < 0
+    out[:, 0::2] = ((out[:, 0::2] - padw) / gain).clip(0, nw)
+    out[:, 1::2] = ((out[:, 1::2] - padh) / gain).clip(0, nh)
+    if preserve_invisible:
+        out[invisible] = -1.0
+    return out
+
+
+def _gt_keypoints(lab: np.ndarray, num_points: int, letterbox_hw,
+                  native_hw, ratio_pad) -> np.ndarray:
+    """The labels' normalised keypoint columns -> native pixels, invisible
+    points -1 (JAX validator.py:274-285)."""
+    n2 = 2 * num_points
+    if not len(lab):
+        return np.zeros((0, n2), np.float32)
+    lh, lw = letterbox_hw
+    gt_kp = lab[:, 5:5 + n2].astype(np.float32).copy()
+    inv = gt_kp < 0
+    gt_kp[:, 0::2] *= lw
+    gt_kp[:, 1::2] *= lh
+    gt_kp[inv] = -1.0
+    return _scale_landmarks_to_native(gt_kp, letterbox_hw, native_hw,
+                                      ratio_pad=ratio_pad,
+                                      preserve_invisible=True)
 
 
 class InferFn:
@@ -169,25 +218,28 @@ def run(
     (pycocotools if present, else the re-scorer of `eval/coco.py`) and
     its (mAP@0.5, mAP@[.5:.95]) is printed.
 
+    num_points > 0: a keypoint model; its detections carry 2 num_points
+    keypoint columns through the landmark NMS (reference val.py:333),
+    scaled to native pixels. val_kp: the true positives are OKS matches
+    over [.5:.95] (reference process_batch_oks, val.py:80-96) instead of
+    box IoU; the labels then carry the keypoint columns after [cls, xywh].
+
     `names` (the class names) would label the plots, which are not ported.
     `selection` names the JAX NMS's candidate-selection engine: the port
     has one, exact, so "pallas" and "exact" are it and "approx" (JAX's
-    approximate top-k) is served exactly too (ROADMAP, Queue 1 item 10)."""
+    approximate top-k) is served exactly too (ROADMAP Q1.12)."""
     if selection not in (None, "pallas", "exact", "approx"):
         raise ValueError(f"selection {selection!r}: pallas, exact or approx")
     if selection == "approx":
         LOGGER.info("selection 'approx' runs the exact selection")
-    if num_points or val_kp:
-        raise NotImplementedError(
-            "keypoint validation is not ported yet (ROADMAP, Queue 1 item 7:"
-            " the keypoint path)")
     if plots_dir is not None:
         raise NotImplementedError(
-            "validation plots are not ported yet (ROADMAP, Queue 1 item 6: "
-            "loggers and plots)")
+            "validation plots are not ported yet (ROADMAP Q1.8: loggers and "
+            "plots)")
     device = next(model.parameters()).device
     infer = make_infer_fn(model, nc, conf_thres, iou_thres, max_det, max_nms,
-                          norm_scale, compute_dtype)
+                          norm_scale, compute_dtype, num_points=num_points)
+    n2 = 2 * num_points
     class_map = (coco80_to_coco91_class() if is_coco
                  else list(range(max(nc, 1000))))
     iouv = np.linspace(0.5, 0.95, 10)
@@ -232,6 +284,10 @@ def run(
                 det = det.copy()
                 det[:, :4] = _scale_to_native(
                     det[:, :4], (lh, lw), native_hw, ratio_pad=rp)
+                if num_points > 0:  # keypoints follow [xyxy, conf, cls]
+                    det[:, 6:6 + n2] = _scale_landmarks_to_native(
+                        det[:, 6:6 + n2], (lh, lw), native_hw,
+                        ratio_pad=rp)
             if cm is not None:
                 cm.process_batch(det, lxyxy)
             if save_json is not None and len(det):
@@ -242,8 +298,18 @@ def run(
                     indices[bi] if indices is not None else base_idx + bi)
                 json_preds.extend(
                     detections_to_json(det[:, :6], img_id, class_map))
+            if num_points > 0 and val_kp:
+                gt_kp = _gt_keypoints(np.asarray(lab), num_points, (lh, lw),
+                                      native_hw, rp)
+                correct = process_batch_kp(
+                    det[:, 6:6 + n2].reshape(-1, num_points, 2),
+                    det[:, 4] if len(det) else np.zeros(0),
+                    det[:, 5] if len(det) else np.zeros(0),
+                    gt_kp.reshape(-1, num_points, 2), lxyxy[:, 0], iouv)
+            else:
+                correct = process_batch(det, lxyxy, iouv)
             stats.append((
-                process_batch(det, lxyxy, iouv),
+                correct,
                 det[:, 4] if len(det) else np.zeros(0),
                 det[:, 5] if len(det) else np.zeros(0),
                 lxyxy[:, 0],

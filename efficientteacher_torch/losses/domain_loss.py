@@ -10,12 +10,14 @@ from typing import Sequence
 
 import torch
 
+from .common import batch_mean
+
 
 def domain_focal_loss(logits: torch.Tensor, target_cls: int,
                       gamma: float = 2.0) -> torch.Tensor:
     """Softmax focal loss over (N, 2) logits, mean."""
     logp = torch.log_softmax(logits, -1)[:, target_cls]
-    return (-((1.0 - logp.exp()) ** gamma) * logp).mean()
+    return batch_mean(-((1.0 - logp.exp()) ** gamma) * logp)
 
 
 def _flatten(features: Sequence[torch.Tensor]) -> torch.Tensor:

@@ -34,8 +34,8 @@ import torch.nn.functional as F
 
 from ..assigners.yolo_anchor import assign_all_scales
 from ..ops.boxes import bbox_ciou
-from .common import (bce_with_logits, focal_bce_with_logits, loss_dtype,
-                     masked_mean, smooth_bce)
+from .common import (batch_scale, bce_with_logits, focal_bce_with_logits,
+                     loss_dtype, masked_mean, smooth_bce)
 from .yolov5_loss import _gather_positives, _scatter_max, decode_pred_boxes
 
 
@@ -164,7 +164,7 @@ def compute_ssod_loss(preds: Sequence[torch.Tensor],
     lbox = lbox * lc.box_w
     lobj = lobj * lc.obj_w
     lcls = lcls * lc.cls_w
-    loss = (lbox + lobj + lcls) * preds[0].shape[0]
+    loss = (lbox + lobj + lcls) * batch_scale(preds[0].shape[0])
     return loss, {"ss_box": lbox, "ss_obj": lobj, "ss_cls": lcls}
 
 
@@ -249,5 +249,5 @@ def compute_ssod_ota_loss(preds: Sequence[torch.Tensor],
     lbox = lbox * lc.box_w
     lobj = lobj * lc.obj_w
     lcls = lcls * lc.cls_w
-    loss = (lbox + lobj + lcls) * preds[0].shape[0]
+    loss = (lbox + lobj + lcls) * batch_scale(preds[0].shape[0])
     return loss, {"ss_box": lbox, "ss_obj": lobj, "ss_cls": lcls}

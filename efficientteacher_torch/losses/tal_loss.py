@@ -28,6 +28,7 @@ import torch.nn.functional as F
 from ..assigners.tal import tal_assign
 from ..models.heads.yolov6 import dfl_project
 from ..ops.boxes import iou_loss
+from ..parallel.distributed import global_sum
 from .common import bce_with_logits
 
 
@@ -120,7 +121,8 @@ def compute_tal_loss(preds: Sequence[torch.Tensor], labels: torch.Tensor,
     asn = tal_assign(torch.sigmoid(cls_logits.detach()), pred_xyxy.detach(),
                      anc, gt_cls, gt_xyxy, label_mask.bool(), nc=lc.nc,
                      top_k=lc.top_k)
-    score_sum = asn.target_scores.sum().clamp(min=1.0)
+    # the global batch's sum under DDP (losses/common.py)
+    score_sum = global_sum(asn.target_scores.sum()).clamp(min=1.0)
     fg = asn.fg_mask
 
     loss_cls = bce_with_logits(cls_logits, asn.target_scores).sum() / score_sum

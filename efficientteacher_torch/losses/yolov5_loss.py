@@ -7,6 +7,8 @@ models/loss/loss.py:93-215 `ComputeLoss.default_loss`):
   - class BCE with smoothed targets (loss.py:182-186)
   - weights box * 3/nl, cls * nc/80 * 3/nl, obj as is (loss.py:122-124)
   - focal BCE when fl_gamma > 0 (loss.py:112-114)
+  - with `num_keypoints` (Dataset.np) the landmark term: the wing loss of
+    the keypoint offsets, times kp_w (loss.py:175-179), as parts["kp"]
   - returns (loss * batch size, parts) (loss.py:208-212)
 
 Raw maps are the port's (B, na, ny, nx, no), taken to float32 first
@@ -26,7 +28,8 @@ import torch.nn.functional as F
 
 from ..assigners.yolo_anchor import DenseAssignment, assign_all_scales
 from ..ops.boxes import bbox_ciou
-from .common import (bce_with_logits, focal_bce_with_logits, loss_dtype,
+from .common import (batch_mean, batch_scale, bce_with_logits,
+                     focal_bce_with_logits, landmarks_loss, loss_dtype,
                      masked_mean, smooth_bce)
 
 
@@ -106,15 +109,13 @@ def compute_loss(preds: Sequence[torch.Tensor], labels: torch.Tensor,
     """preds: per-scale raw maps (B, na, ny, nx, no); labels (B, M, 5)
     [cls, cx, cy, w, h] normalized; label_mask (B, M); anchors_grid
     (nl, na, 2) in grid units. Returns (loss * B, parts)."""
-    if lc.num_keypoints > 0:
-        raise NotImplementedError(
-            "the keypoint loss is not ported yet (num_keypoints > 0)")
     grid_shapes = [(p.shape[2], p.shape[3]) for p in preds]
     assignments = assign_all_scales(labels, label_mask, grid_shapes,
                                     anchors_grid, lc.anchor_t,
                                     lc.single_targets)
     cp, cn = smooth_bce(lc.label_smoothing)
-    lbox = lobj = lcls = 0.0
+    lbox = lobj = lcls = lmark = 0.0
+    npk = lc.num_keypoints
     for i, (p, asn) in enumerate(zip(preds, assignments)):
         p = loss_dtype(p)
         b = p.shape[0]
@@ -128,9 +129,12 @@ def compute_loss(preds: Sequence[torch.Tensor], labels: torch.Tensor,
 
         tobj_val = (1.0 - lc.gr) + lc.gr * iou.detach().clamp(min=0.0)
         tobj = _scatter_max(tobj_val, asn.flat_cell, asn.valid, ncell)
-        obji = _bce(p[..., 4].reshape(b, ncell), tobj, lc.obj_pw,
-                    lc.fl_gamma).mean()
+        obji = batch_mean(_bce(p[..., 4].reshape(b, ncell), tobj,
+                               lc.obj_pw, lc.fl_gamma))
         lobj = lobj + obji * lc.balance[i]
+
+        if npk > 0:
+            lmark = lmark + _landmark_term(p, ps, asn, lc)
 
         if lc.nc > 1:
             onehot = F.one_hot(asn.tcls, lc.nc).to(p.dtype)
@@ -143,5 +147,31 @@ def compute_loss(preds: Sequence[torch.Tensor], labels: torch.Tensor,
     lbox = lbox * lc.box_w
     lobj = lobj * lc.obj_w
     lcls = lcls * lc.cls_w
-    loss = (lbox + lobj + lcls) * preds[0].shape[0]
-    return loss, {"box": lbox, "obj": lobj, "cls": lcls, "loss": loss}
+    parts = {"box": lbox, "obj": lobj, "cls": lcls}
+    total = lbox + lobj + lcls
+    if npk > 0:
+        parts["kp"] = lmark * lc.kp_w
+        total = total + parts["kp"]
+    loss = total * batch_scale(preds[0].shape[0])
+    return loss, {**parts, "loss": loss}
+
+
+def _landmark_term(p: torch.Tensor, ps: torch.Tensor, asn: DenseAssignment,
+                   lc: YoloV5LossConfig) -> torch.Tensor:
+    """One scale's keypoint loss (reference loss.py:175-179, JAX
+    yolov5_loss.py:157-178): the wing loss of the anchor-scaled predicted
+    offsets against the targets relative to the positive's cell, over the
+    visible points. The normalised keypoints ride in `asn.extra`; the
+    cell is read back from `flat_cell`, (a ny + gj) nx + gi."""
+    npk = lc.num_keypoints
+    ny, nx = p.shape[2], p.shape[3]
+    b, k = asn.extra.shape[:2]
+    kp_n = asn.extra[..., :2 * npk].reshape(b, k, npk, 2)
+    kp_t = kp_n * torch.tensor([nx, ny], dtype=p.dtype, device=p.device)
+    cell = asn.flat_cell % (ny * nx)
+    cell_xy = torch.stack([cell % nx, cell // nx], -1).to(p.dtype)
+    kp_rel = kp_t - cell_xy[:, :, None, :]
+    visible = (kp_n > 0) & asn.valid[:, :, None, None]
+    pk = ps[..., 5 + lc.nc:].reshape(kp_t.shape) \
+        * asn.anchor_wh[:, :, None, :]
+    return landmarks_loss(pk, kp_rel, visible)

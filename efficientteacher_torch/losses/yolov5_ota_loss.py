@@ -38,7 +38,8 @@ import torch.nn.functional as F
 from ..assigners.topk import topk_lower_index_first
 from ..assigners.yolo_anchor import DenseAssignment, assign_all_scales
 from ..ops.boxes import bbox_ciou, bbox_iou
-from .common import bce_with_logits, loss_dtype, masked_mean, smooth_bce
+from .common import (batch_mean, batch_scale, bce_with_logits, loss_dtype,
+                     masked_mean, smooth_bce)
 from .yolov5_loss import (YoloV5LossConfig, _gather_positives, _scatter_max,
                           compute_loss, decode_pred_boxes)
 
@@ -183,8 +184,8 @@ def compute_ota_loss(preds: Sequence[torch.Tensor], labels: torch.Tensor,
         tobj = _scatter_max((1.0 - lc.gr) + lc.gr * iou.detach().clamp(
             min=0.0), asn.flat_cell, fg_i, ncell)
         # the reference's OTA pass reads pi[..., -1] for objectness
-        obji = bce_with_logits(p[..., -1].reshape(bsz, ncell), tobj,
-                               lc.obj_pw).mean()
+        obji = batch_mean(bce_with_logits(p[..., -1].reshape(bsz, ncell),
+                                          tobj, lc.obj_pw))
         lobj = lobj + obji * lc.balance[i]
         if nc > 1:
             onehot = F.one_hot(gt_cls.gather(1, mt_i), nc).to(p.dtype)
@@ -200,5 +201,5 @@ def compute_ota_loss(preds: Sequence[torch.Tensor], labels: torch.Tensor,
     lbox = lbox + classic["box"]
     lobj = lobj + classic["obj"]
     lcls = lcls + classic["cls"]
-    loss = (lbox + lobj + lcls) * preds[0].shape[0]
+    loss = (lbox + lobj + lcls) * batch_scale(preds[0].shape[0])
     return loss, {"box": lbox, "obj": lobj, "cls": lcls, "loss": loss}

@@ -32,6 +32,7 @@ import torch.nn.functional as F
 
 from ..assigners.simota import simota_assign
 from ..ops.boxes import bbox_iou
+from ..parallel.distributed import global_sum
 from .common import bce_with_logits
 
 
@@ -150,7 +151,8 @@ def compute_yolox_loss(preds: Sequence[torch.Tensor], labels: torch.Tensor,
     asn = simota_assign(gt_boxes, gt_cls, label_mask, boxes.detach(),
                         cls_logits.detach(), obj_logits.detach(), centers,
                         strides, nc=nc, top_k=lc.top_k)
-    num_fg = asn.num_fg.float().clamp(min=1.0)
+    # the global batch's count under DDP (losses/common.py)
+    num_fg = global_sum(asn.num_fg.float()).clamp(min=1.0)
     fg = asn.fg_mask
 
     reg_t = gt_boxes.gather(1, asn.matched_gt[..., None].expand(-1, -1, 4))

@@ -36,6 +36,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..parallel.distributed import world_size
+
 
 def make_divisible(x: float, divisor: int = 8) -> int:
     """Round a channel count up to a multiple (reference
@@ -100,12 +102,36 @@ class BatchNorm2d(nn.BatchNorm2d):
         self.num_batches_tracked.add_(1)
         m = (self.momentum if self.momentum is not None
              else 1.0 / float(self.num_batches_tracked))
+        if world_size() > 1:
+            return self._synced(x, m)
         n = x.numel() // x.shape[1]
         var = self.running_var * (n / (n - 1))
         out = F.batch_norm(x, self.running_mean, var, self.weight, self.bias,
                            True, m, self.eps)
         torch.mul(var, (n - 1) / n, out=self.running_var)
         return out
+
+    def _synced(self, x, m: float):
+        """Train mode under DDP with more than one rank: the global batch's
+        statistics, as JAX's BatchNorm always reduces over the global
+        batch (`efficientteacher_tpu/parallel/mesh.py:9-11`). Mean, then
+        the biased variance about it, each summed over the ranks by an
+        all-reduce that autograd passes back (every rank holds as many
+        images), in float32; the running statistics take the biased
+        variance, as above."""
+        from torch.distributed.nn.functional import all_reduce
+
+        xf = x.float()
+        n = xf.numel() // xf.shape[1] * world_size()
+        mean = all_reduce(xf.sum((0, 2, 3))) / n
+        d = xf - mean[None, :, None, None]
+        var = all_reduce((d * d).sum((0, 2, 3))) / n
+        with torch.no_grad():
+            self.running_mean.mul_(1.0 - m).add_(mean, alpha=m)
+            self.running_var.mul_(1.0 - m).add_(var, alpha=m)
+        scale = self.weight * torch.rsqrt(var + self.eps)
+        out = d * scale[None, :, None, None] + self.bias[None, :, None, None]
+        return out.to(x.dtype)
 
 
 class ConvBase(nn.Module):

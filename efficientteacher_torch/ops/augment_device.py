@@ -48,11 +48,13 @@ CUT_SCALES = [0.5] * 1 + [0.25] * 2 + [0.125] * 4 + [0.0625] * 8 \
     + [0.03125] * 16
 
 
-def step_seed(stream: int, ni: int, part: int = 0) -> int:
+def step_seed(stream: int, ni: int, part: int = 0, rank: int = 0) -> int:
     """The seed of the draws of step `ni` in `stream` (the trainers use 0
     for the supervised loop, 1 for burn-in, 2 for the SSOD loop, whose
-    labelled and unlabelled draws are `part` 0 and 1)."""
-    h = hashlib.blake2b(f"{stream}/{ni}/{part}".encode(), digest_size=8)
+    labelled and unlabelled draws are `part` 0 and 1). A DDP rank past 0
+    draws its own (its share of the batch holds other images)."""
+    key = f"{stream}/{ni}/{part}" + (f"/{rank}" if rank else "")
+    h = hashlib.blake2b(key.encode(), digest_size=8)
     return int.from_bytes(h.digest(), "little") & ((1 << 63) - 1)
 
 

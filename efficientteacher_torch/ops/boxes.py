@@ -10,6 +10,7 @@ bit for bit:
     utils/metrics.py:207-249 and the SIoU of models/loss/loss.py:726-859;
     bbox_ciou is its xywh CIoU, the form the YOLOv5 losses call
   - iou_loss: 1 - bbox_iou by name (the anchor-free losses' dispatch)
+  - scale_coords_landmarks: reference utils/general.py:717-750
 """
 
 from __future__ import annotations
@@ -123,3 +124,31 @@ def iou_loss(pred: torch.Tensor, target: torch.Tensor, iou_type: str = "giou",
     """1 - bbox_iou of the named kind (JAX ops/boxes.py:248)."""
     return 1.0 - bbox_iou(pred, target, x1y1x2y2=x1y1x2y2,
                           **_IOU_KIND[iou_type])
+
+
+def scale_coords_landmarks(img1_shape, coords: torch.Tensor, img0_shape,
+                           num_points: int, ratio_pad=None) -> torch.Tensor:
+    """Interleaved landmark columns [x0 y0 x1 y1 ...] from the letterboxed
+    `img1_shape` (h, w) to the native `img0_shape`: each coordinate
+    pad-shifted, divided by the gain, and clamped to the native image on
+    its own (landmarks clamp per coordinate, boxes per corner). Columns
+    past 2 num_points pass through."""
+    if ratio_pad is None:
+        gain = min(img1_shape[0] / img0_shape[0],
+                   img1_shape[1] / img0_shape[1])
+        pad = ((img1_shape[1] - img0_shape[1] * gain) / 2,
+               (img1_shape[0] - img0_shape[0] * gain) / 2)
+    else:
+        gain = ratio_pad[0][0]
+        pad = ratio_pad[1]
+    n2 = num_points * 2
+    pts = coords[..., :n2].reshape(coords.shape[:-1] + (num_points, 2))
+    shift = torch.tensor([pad[0], pad[1]], dtype=coords.dtype,
+                         device=coords.device)
+    hi = torch.tensor([img0_shape[1], img0_shape[0]], dtype=coords.dtype,
+                      device=coords.device)
+    pts = torch.minimum(((pts - shift) / gain).clamp(min=0.0), hi)
+    out = pts.reshape(coords.shape[:-1] + (n2,))
+    if coords.shape[-1] > n2:
+        out = torch.cat([out, coords[..., n2:]], -1)
+    return out

@@ -22,6 +22,8 @@ than tol, and `predict` / `score_samples` read the final parameters.
 The scores are kept per class as arrays (the JAX class appends Python
 floats one by one); `state_dict` / `load_state_dict` carry the thresholds,
 the class totals and the scores not yet consumed, for an exact resume.
+Under DDP each rank collects its own steps' scores and `gather` unites
+them before a refresh (JAX needs none: its step output is global).
 """
 
 from __future__ import annotations
@@ -31,6 +33,8 @@ from typing import List
 
 import numpy as np
 import torch
+
+from ..parallel.distributed import gather_objects
 
 
 class GaussianMixture1D:
@@ -153,6 +157,21 @@ class LabelMatch:
     def _scores(self, c: int) -> np.ndarray:
         parts = self.score_list_epoch[c]
         return np.concatenate(parts) if parts else np.zeros(0, np.float32)
+
+    def gather(self) -> None:
+        """Under DDP every rank's collected scores, per class in rank order,
+        on every rank (the reference's all_gather of the score lists,
+        utils/labelmatch.py:100-117), so that each derives the same
+        thresholds; a no-op in one process. A collective."""
+        ranks = gather_objects([self._scores(c) for c in range(self.nc)])
+        if len(ranks) > 1:
+            self.score_list_epoch = [
+                [r[c] for r in ranks if len(r[c])] for c in range(self.nc)]
+
+    def drop_scores(self) -> None:
+        """Forget the collected scores (a DDP rank past 0 after `gather`:
+        rank 0 holds them all)."""
+        self.score_list_epoch = [[] for _ in range(self.nc)]
 
     def update_epoch_cls_thr(self, epoch: int) -> None:
         """Refresh both thresholds of every class from the collected

@@ -10,7 +10,7 @@ import torch
 from ..utils.jax_import import params_from_jax, state_dict_from_jax
 from .optim import param_group_labels
 from .ssod_step import SSODTrainState
-from .train_state import EMAState, TrainState, init_ema
+from .train_state import EMAState, TrainState, _flat_views, init_ema
 
 
 def _ema_from_jax(model: torch.nn.Module, ema) -> EMAState:
@@ -33,11 +33,13 @@ def train_state_from_jax(jax_state, model: torch.nn.Module) -> TrainState:
                           strict=True)
     buf = s.opt.momentum_buf
     adam = isinstance(buf, dict) and set(buf) == {"m", "v"}
+    acc_flat, acc_grads = _flat_views(list(model.parameters()))
+    torch._foreach_copy_(acc_grads, params_from_jax(model, s.acc_grads))
     fields = dict(
         model=model, groups=param_group_labels(model),
         momentum_buf=params_from_jax(model, buf["m"] if adam else buf),
         second_moment=params_from_jax(model, buf["v"]) if adam else None,
-        acc_grads=params_from_jax(model, s.acc_grads),
+        acc_grads=acc_grads, acc_flat=acc_flat,
         ema=_ema_from_jax(model, s.ema) if s.ema is not None else None,
         acc_count=int(s.acc_count), step=int(s.step),
         opt_step=int(s.opt.step))

@@ -123,17 +123,12 @@ def reinitialize_from_scales(model: nn.Module, scales: Scales,
 
 def load_repscale_scales(path: str) -> Scales:
     """`Model.RepScale_weight` -> the block scales: a port checkpoint
-    (`utils/checkpoint.py`) of a LinearAdd model, its EMA preferred
-    (reference trainer/trainer.py:219-236). A reference `.pt` is ROADMAP
-    Q1.11."""
-    if str(path).endswith(".pt"):
-        raise NotImplementedError(
-            "RepScale_weight from a reference .pt is not ported yet "
-            "(ROADMAP Q1.11); give a port checkpoint")
-    from ..utils.checkpoint import load_checkpoint
+    (`utils/checkpoint.py`) or a reference `.pt` (`utils/torch_import.py`)
+    of a LinearAdd model, its EMA preferred (reference
+    trainer/trainer.py:219-236)."""
+    from ..utils.torch_import import read_variables
 
-    ckpt = load_checkpoint(path)
-    scales = extract_scales((ckpt.get("ema") or ckpt["model"])["params"])
+    scales = extract_scales(read_variables(path)["params"])
     if not scales:
         raise ValueError(
             f"no LinearAdd/CSLA scale branches found in {path!r} — "

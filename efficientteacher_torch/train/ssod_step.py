@@ -37,6 +37,7 @@ from ..losses.domain_loss import domain_loss, target_loss
 from ..losses.ssod_loss import (SSODLossConfig, compute_ssod_loss,
                                 compute_ssod_ota_loss)
 from ..losses.yolov5_loss import YoloV5LossConfig, compute_loss
+from ..parallel.distributed import global_sum
 from ..ssod.pseudo_label import (create_pseudo_labels,
                                  create_pseudo_labels_multi)
 from ..utils.precision import autocast
@@ -150,7 +151,9 @@ def make_ssod_train_step(
             un_loss, un_parts = compute_ssod_loss(
                 un_raw, pl.labels, pl.mask, thr_high, thr_low, anchors_grid,
                 ssod_cfg)
-        un_loss = torch.where(pl.invalid, 0.0, un_loss)
+        # no pseudo label in the whole (global, under DDP) batch
+        invalid = global_sum(pl.mask.any().float()) == 0
+        un_loss = torch.where(invalid, 0.0, un_loss)
         total = sup_loss + un_loss * teacher_loss_weight
         if with_da_loss:
             total, sup_parts = _add_domain_losses(

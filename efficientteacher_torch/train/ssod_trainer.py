@@ -27,7 +27,8 @@ Parity with reference trainer/ssod_trainer.py:53-714:
     epoch that reaches both `burn_epochs` and `dynamic_thres_epoch` on
     each epoch end refreshes the per-class thresholds the next epoch's
     steps take; otherwise the thresholds are ignore_thres_high/low
-  - `SSOD.extra_teachers` (:96-203): port checkpoints loaded into frozen
+  - `SSOD.extra_teachers` (:96-203): port checkpoints or reference `.pt`
+    files (`utils/torch_import.py`), shape-matched, loaded into frozen
     eval-mode copies of the student's architecture (its detector without
     the discriminators), their classes mapped into `Dataset.names` by
     `SSOD.extra_teachers_class_names` (-1 drops a class); their pseudo
@@ -49,8 +50,8 @@ Differences from the JAX trainer:
     its count as `student_ema`, beside the teacher (semi-EMA) as `ema`,
     and under LabelMatch its thresholds, class totals and uncollected
     scores (in the `optimizer` entry, float32 and float64 as they are).
-Not ported yet (NotImplementedError): the SSOD losses of the anchor-free
-heads (ROADMAP Q1.10); the pseudo-label debug plots are skipped (Q1.8).
+Not ported (NotImplementedError): the SSOD losses of the anchor-free
+heads (ROADMAP Q1.12); the pseudo-label debug plots are skipped (Q1.8).
 """
 
 from __future__ import annotations
@@ -70,8 +71,8 @@ from ..ops.augment_device import device_ssod_views, step_seed
 from ..parallel.distributed import to_host
 from ..ssod.labelmatch import LabelMatch
 from ..ssod.quality import check_pseudo_label, check_pseudo_label_with_gt
-from ..utils.checkpoint import (load_eval_variables, load_module_variables,
-                                module_variables)
+from ..utils.checkpoint import load_module_variables, module_variables
+from ..utils.torch_import import load_weights_into
 from .optim import OptimizerConfig
 from .ssod_step import (create_ssod_train_state, make_burn_in_train_step,
                         make_ssod_train_step, seed_teacher_from_ema)
@@ -176,14 +177,16 @@ class SSODTrainer(Trainer):
         opt = getattr(self, "_resumed_optimizer", None) or {}
         if "labelmatch" in opt:
             self.label_match.load_state_dict(opt["labelmatch"])
+            if not self.is_main:  # rank 0's scores are every rank's
+                self.label_match.drop_scores()
 
     def build_loss(self, cfg):
         super().build_loss(cfg)
         if head_model_type(self.spec.head) != "yolov5":
             raise NotImplementedError(
                 f"the SSOD losses of the {self.spec.head!r} head are not "
-                "ported yet (ROADMAP Q1.10); the port's SSOD trainer runs "
-                "anchor heads")
+                "ported (ROADMAP Q1.12: the JAX SSOD step has none); the "
+                "port's SSOD trainer runs anchor heads")
         self.ssod_loss_cfg = SSODLossConfig.from_cfg(cfg, nl=self.spec.nl)
         # the per-class thresholds: FairPseudoLabel's fixed ones, or
         # LabelMatch's, refreshed per epoch (`_thresholds`)
@@ -212,16 +215,8 @@ class SSODTrainer(Trainer):
         spec = dataclasses.replace(self.spec, train_domain=False)
         out = []
         for i, path in enumerate(cfg.SSOD.extra_teachers):
-            if str(path).endswith(".pt"):
-                raise NotImplementedError(
-                    "extra teachers from a reference .pt are not ported yet "
-                    "(ROADMAP Q1.11); give a port checkpoint")
             module = build_model(spec, device=self.device)
-            variables = load_eval_variables(str(path))
-            own = module_variables(module)
-            load_module_variables(module, {
-                g: {k: variables[g][k] for k in own[g] if k in variables[g]}
-                for g in ("params", "batch_stats")})
+            load_weights_into(module, str(path))
             module = module.float().eval().requires_grad_(False)
             if self.device.type == "cuda":
                 module = module.to(memory_format=torch.channels_last)
@@ -303,11 +298,10 @@ class SSODTrainer(Trainer):
                 self._semi_decay(),
             )
             if i % 50 == 0:
-                self.meter.update({k: float(v) for k, v in parts.items()
-                                   if k != "loss"})
+                self.meter.update(self._logged(parts))
                 LOGGER.info("burn epoch %d it %d/%d %s", self.epoch, i,
                             self.nb, self.meter)
-            if self.stop.requested:
+            if self._stop_requested():
                 break
 
     def _thresholds(self):
@@ -339,7 +333,7 @@ class SSODTrainer(Trainer):
                 # its labels and M_s are made there
                 t_weak, t_labels, t_mask = self._to_device(
                     tbatch["images_ori"], tbatch["labels"], tbatch["mask"])
-                self.aug_gen.manual_seed(step_seed(2, ni, 1))
+                self.aug_gen.manual_seed(step_seed(2, ni, 1, self.rank))
                 t_strong, t_labels, t_mask, t_weak, t_ms = device_ssod_views(
                     self.aug_gen, t_weak, t_labels.float(), t_mask,
                     self.ssod_hyp, max_out=int(self.cfg.Dataset.max_targets))
@@ -361,8 +355,7 @@ class SSODTrainer(Trainer):
                     np.where(nms[..., 2] > 0, nms[..., 0], 0.0),
                     nms[..., 1])
             if i % 50 == 0:
-                metrics = {k: float(v) for k, v in out.metrics.items()
-                           if k not in ("loss", "total")}
+                metrics = self._logged(out.metrics)
                 pl_np = to_host(out.pseudo_labels)
                 mask_np = to_host(out.pseudo_mask)
                 if self.target_with_gt:
@@ -376,17 +369,25 @@ class SSODTrainer(Trainer):
                 self.meter.update(metrics)
                 LOGGER.info("ssod epoch %d it %d/%d %s", self.epoch, i,
                             n_iter, self.meter)
-            if self.stop.requested:
+            if self._stop_requested():
                 break
 
     def after_epoch(self):
-        if self.label_match is not None and self.epoch >= self.burn_epochs \
-                and self.epoch >= self.dynamic_thres_epoch:
-            lm = self.label_match
-            lm.update_epoch_cls_thr(max(self.epoch - self.burn_epochs, 0))
-            LOGGER.info("labelmatch thr_high[:5]=%s thr_low[:5]=%s",
-                        np.round(lm.cls_thr_high[:5], 3),
-                        np.round(lm.cls_thr_low[:5], 3))
+        lm = self.label_match
+        if lm is not None:
+            # under DDP: every rank's scores on every rank, so the ranks
+            # derive the same thresholds; rank 0 alone keeps what is not
+            # consumed (its last.ckpt holds them all)
+            lm.gather()
+            if self.epoch >= self.burn_epochs \
+                    and self.epoch >= self.dynamic_thres_epoch:
+                lm.update_epoch_cls_thr(max(self.epoch - self.burn_epochs,
+                                            0))
+                LOGGER.info("labelmatch thr_high[:5]=%s thr_low[:5]=%s",
+                            np.round(lm.cls_thr_high[:5], 3),
+                            np.round(lm.cls_thr_low[:5], 3))
+            if not self.is_main:
+                lm.drop_scores()
         # validate the teacher (semi_ema after burn-in, else EMA)
         results = (0.0, 0.0, 0.0, 0.0)
         if self.val_loader is not None and not self.noval:

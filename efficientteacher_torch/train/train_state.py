@@ -40,6 +40,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from ..parallel.distributed import all_reduce_
 from .optim import GROUPS, OptimizerConfig, param_group_labels
 
 
@@ -92,6 +93,8 @@ class TrainState:
     opt_step: int = 0    # fired optimizer steps
     # AdamW's second moment, float32, one per parameter (None under SGD)
     second_moment: Optional[List[torch.Tensor]] = None
+    # the one buffer `acc_grads` are views of: the DDP all-reduce's
+    acc_flat: Optional[torch.Tensor] = None
 
     @property
     def params(self) -> List[torch.Tensor]:
@@ -105,10 +108,24 @@ def create_train_state(model: nn.Module, oc: OptimizerConfig,
         raise TypeError("the port trains float32 master weights; compute "
                         "in bf16 by autocast")
     zeros = lambda: [torch.zeros_like(p) for p in params]  # noqa: E731
+    acc_flat, acc_grads = _flat_views(params)
     return TrainState(model=model, groups=param_group_labels(model),
-                      momentum_buf=zeros(), acc_grads=zeros(),
+                      momentum_buf=zeros(), acc_grads=acc_grads,
                       ema=init_ema(model) if with_ema else None,
-                      second_moment=zeros() if oc.adam else None)
+                      second_moment=zeros() if oc.adam else None,
+                      acc_flat=acc_flat)
+
+
+def _flat_views(params: List[torch.Tensor]):
+    """One zeroed float32 buffer and, per parameter, a view of it with the
+    parameter's shape and strides (channels-last kernels stay so)."""
+    flat = torch.zeros(sum(p.numel() for p in params), dtype=torch.float32,
+                       device=params[0].device)
+    views, off = [], 0
+    for p in params:
+        views.append(flat.as_strided(p.shape, p.stride(), off))
+        off += p.numel()
+    return flat, views
 
 
 def _blend_(dst: List[torch.Tensor], src: List[torch.Tensor], d) -> None:
@@ -163,8 +180,10 @@ def apply_gradients_accumulating(
     by the fired-step count, b1 the configured momentum (not the warmup's).
 
     A held call changes nothing but the accumulators and the counters. The
-    model's BatchNorm statistics are whatever its forward left. Returns
-    `state`, updated in place."""
+    model's BatchNorm statistics are whatever its forward left. Under DDP
+    the accumulators (one buffer) are summed over the ranks before a
+    fired step, whenever a group exists: every rank then applies the
+    global batch's gradient. Returns `state`, updated in place."""
     params = state.params
     live = [i for i, g in enumerate(grads) if g is not None]
     torch._foreach_add_([state.acc_grads[i] for i in live],
@@ -175,6 +194,8 @@ def apply_gradients_accumulating(
         return state
     state.acc_count = 0
     state.opt_step += 1
+    # DDP: the global batch's gradient, once per optimizer step
+    all_reduce_(state.acc_flat)
     for group in GROUPS:
         idx = [i for i, g in enumerate(state.groups) if g == group]
         if not idx:

@@ -44,11 +44,19 @@ RepOpt (`Model.RepOpt`): the scales of `Model.RepScale_weight` (a port
 checkpoint of a LinearAdd model) re-initialise the RealVGG kernels of a
 run from scratch and mask their gradients (`train/repopt.py`).
 
-Not ported yet, each raising NotImplementedError or skipped as the JAX
-trainer skips them when their dependencies are missing: warm starts from
-a reference `.pt` (ROADMAP Q1.11), DDP (Q1.5), and the loggers and plots
-(Q1.8, skipped), the JAX trainer's `profile_steps` (`torch.profiler`
-serves).
+Warm starts (`weights`) read a port checkpoint or a reference `.pt`
+(`utils/torch_import.py`), shape-matched.
+
+DDP (`parallel/distributed.py`): each rank steps on its share of the
+global batch, with the global batch's loss normalisers, BatchNorm
+statistics and gradient (summed once per optimizer step), so the weights,
+the EMA and the statistics stay the same on every rank; rank 0 alone
+makes the run directory, writes `results.csv` and the checkpoints, and
+validates the whole val set while the others wait for its results.
+
+Not ported yet, skipped as the JAX trainer skips them when their
+dependencies are missing: the loggers and plots (ROADMAP Q1.8), and the
+JAX trainer's `profile_steps` (`torch.profiler` serves, Q1.12).
 """
 
 from __future__ import annotations
@@ -76,14 +84,16 @@ from ..losses.yolox_loss import YoloXLossConfig, compute_yolox_loss
 from ..models import build_model, spec_from_cfg
 from ..models.heads import head_model_type
 from ..ops.augment_device import device_augment_batch, step_seed
-from ..parallel.distributed import (is_main_process, per_process_batch,
-                                    to_device)
+from ..parallel.distributed import (broadcast_object, global_sum,
+                                    group_active, is_main_process,
+                                    per_process_batch, to_device,
+                                    world_size)
 from ..utils.callbacks import Callbacks
-from ..utils.checkpoint import (AsyncCheckpointer, intersect_trees,
-                                load_checkpoint, load_module_variables,
-                                module_variables)
+from ..utils.checkpoint import (AsyncCheckpointer, load_checkpoint,
+                                load_module_variables, module_variables)
 from ..utils.general import check_img_size, increment_path
 from ..utils.shutdown import GracefulStop
+from ..utils.torch_import import load_weights_into
 from .optim import OptimizerConfig
 from .repopt import (build_grad_masks, load_repscale_scales,
                      reinitialize_from_scales)
@@ -128,14 +138,17 @@ class Trainer:
     def set_env(self, cfg):
         self.epochs = cfg.epochs
         self.batch_size = cfg.Dataset.batch_size
-        self.save_dir = increment_path(
-            Path(cfg.project or "runs/train") / (cfg.name or "exp"),
-            exist_ok=cfg.exist_ok, mkdir=True,
-        )
-        (self.save_dir / "weights").mkdir(parents=True, exist_ok=True)
         self.is_main = is_main_process()
+        self.rank = 0 if self.is_main else torch.distributed.get_rank()
+        # rank 0 alone makes the run directory and writes into it
+        save_dir = None
         if self.is_main:
-            (self.save_dir / "opt.yaml").write_text(cfg.dump())
+            save_dir = increment_path(
+                Path(cfg.project or "runs/train") / (cfg.name or "exp"),
+                exist_ok=cfg.exist_ok, mkdir=True)
+            (save_dir / "weights").mkdir(parents=True, exist_ok=True)
+            (save_dir / "opt.yaml").write_text(cfg.dump())
+        self.save_dir = Path(broadcast_object(save_dir and str(save_dir)))
         self.img_size = check_img_size(cfg.Dataset.img_size, 32)
         self.noval = cfg.noval
         self.nosave = cfg.nosave
@@ -180,23 +193,13 @@ class Trainer:
             .reshape(self.spec.nl, -1, 2) / s).to(self.device)
 
     def _warm_start(self, weights: str, model: torch.nn.Module):
-        """Shape-matched partial load from a port checkpoint (its `ema`
-        entry if it has one), in place."""
-        if weights.endswith(".pt"):
-            raise NotImplementedError(
-                "warm starts from a reference .pt are not ported yet "
-                "(ROADMAP Q1.11)")
-        ckpt = load_checkpoint(weights)
-        ent = ckpt.get("ema") or ckpt["model"]
-        own = module_variables(model)
-        params, c1, t1 = intersect_trees(ent["params"], own["params"])
-        stats, c2, t2 = intersect_trees(ent["batch_stats"],
-                                        own["batch_stats"])
-        load_module_variables(model, {"params": params, "batch_stats": stats})
-        LOGGER.info(
-            "warm start: %d/%d params, %d/%d stats from %s",
-            c1, t1, c2, t2, weights,
-        )
+        """Shape-matched partial load, in place, from a port checkpoint
+        (its `ema` entry if it has one) or a reference `.pt`
+        (`utils/torch_import.py`)."""
+        c = load_weights_into(model, weights)
+        LOGGER.info("warm start: %d/%d params, %d/%d stats from %s",
+                    *c["params"], *c["batch_stats"], weights)
+        self.warm_start_counts = c
 
     def build_optimizer(self, cfg):
         nbs = 64
@@ -345,7 +348,7 @@ class Trainer:
         drawn from step_seed(stream, ni, part); else as it is."""
         if not self.device_aug:
             return images, labels, mask
-        self.aug_gen.manual_seed(step_seed(stream, ni, part))
+        self.aug_gen.manual_seed(step_seed(stream, ni, part, self.rank))
         return device_augment_batch(
             self.aug_gen, images, labels.float(), mask, self.aug_hyp,
             max_out=int(self.cfg.Dataset.max_targets))
@@ -462,24 +465,47 @@ class Trainer:
                 self.state, images, labels, mask, sched
             )
             if i % 50 == 0:
-                self.meter.update(
-                    {k: float(v) for k, v in parts.items() if k != "loss"}
-                )
+                self.meter.update(self._logged(parts))
                 LOGGER.info("epoch %d it %d/%d %s", self.epoch, i, self.nb,
                             self.meter)
             self.callbacks.run("on_train_batch_end")
-            if self.stop.requested:
+            if self._stop_requested():
                 break
 
+    def _stop_requested(self) -> bool:
+        """A graceful stop asked for (SIGTERM / Ctrl-C); under DDP with more
+        than one rank, asked for on any rank, so that all stop at the same
+        step (one all-reduce per step)."""
+        if world_size() == 1:
+            return self.stop.requested
+        flag = torch.tensor([float(self.stop.requested)], device=self.device)
+        self.stop.requested = bool(global_sum(flag).item() > 0)
+        return self.stop.requested
+
     def _validate(self, ema):
-        """validator.run over the val loader with `ema` (an EMAState)."""
-        results, _, _ = validator.run(
-            ema.module, self.val_loader, nc=self.spec.nc,
-            conf_thres=float(self.cfg.val_conf_thres),
-            norm_scale=float(self.cfg.Dataset.norm_scale),
-            compute_dtype=self.compute_dtype,
-        )
-        return results
+        """validator.run over the whole val loader with `ema` (an
+        EMAState) on rank 0, its results on every rank (the others wait
+        for them, as the reference's ranks wait for rank 0's val)."""
+        results = None
+        if self.is_main:
+            results, _, _ = validator.run(
+                ema.module, self.val_loader, nc=self.spec.nc,
+                conf_thres=float(self.cfg.val_conf_thres),
+                norm_scale=float(self.cfg.Dataset.norm_scale),
+                compute_dtype=self.compute_dtype,
+            )
+        return broadcast_object(results)
+
+    @staticmethod
+    def _logged(parts: dict) -> dict:
+        """A step's loss parts as floats, summed over the ranks under DDP
+        (each rank's are its share of the global batch's)."""
+        keys = [k for k in parts if k not in ("loss", "total")]
+        if not keys or not group_active():
+            return {k: float(parts[k]) for k in keys}
+        vals = torch.stack([torch.as_tensor(parts[k]).detach().double()
+                            .reshape(()) for k in keys])
+        return dict(zip(keys, global_sum(vals).tolist()))
 
     def after_epoch(self):
         results = (0.0, 0.0, 0.0, 0.0)

@@ -5,8 +5,8 @@ handful of images), writing results.csv, last.ckpt and best.ckpt; then
 `cli.val` on best.ckpt, last.ckpt, or a copy whose teacher detects (its
 objectness and class biases raised), gives exactly what `validator.run`
 gives on the same weights and loader, and `cli.val --save-json --coco-gt`
-writes the JSON `validator.run` writes. Flags whose feature is not ported
-raise, as do weights from a reference .pt."""
+writes the JSON `validator.run` writes. --plots, whose feature is not
+ported, raises."""
 
 import json
 from pathlib import Path
@@ -138,8 +138,9 @@ def test_cli_val_save_json_equals_validator_run(run, tmp_path, capsys):
     assert all(np.isfinite(pair)) and pair[0] > 0
 
 
-@pytest.mark.parametrize("flag", [["--plots", "plots"], ["--val-kp"],
-                                  ["--weights", "yolov5l.pt"]])
+# --val-kp and a reference .pt are ported (tests/test_torch_keypoints.py,
+# tests/test_torch_pt_bridge.py); the plots wait for ROADMAP Q1.8
+@pytest.mark.parametrize("flag", [["--plots", "plots"]])
 def test_cli_val_refuses_what_is_not_ported(run, flag):
     root, overrides, _ = run
     weights = root / "runs" / "ssod" / "weights" / "best.ckpt"

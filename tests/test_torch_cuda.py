@@ -663,3 +663,139 @@ def test_fused_deploy_model_on_the_card(card, yaml):
                                    rtol=0, atol=5e-4 * scale, err_msg=name)
     assert torch.equal(got.detections, ref.detections)
     assert torch.equal(got.valid, ref.valid)
+
+
+def test_landmark_nms_through_k1_matches_plain(card):
+    """The keypoint validation's NMS (`validator.make_infer_fn` with
+    num_points 5: obj-gated, single label, 10 keypoint columns riding
+    along) on 32 images of 25,200 YOLOv5l rows: one K1 launch, the output
+    equal to the plain version's, keypoints included."""
+    from efficientteacher_torch.eval.validator import make_infer_fn
+
+    rng = np.random.default_rng(19)
+    decoded = _decoded_field(rng, 32, 25200, 80, 640)
+    kps = torch.from_numpy(rng.uniform(0, 640, (32, 25200, 10)).astype(
+        np.float32))
+    decoded = torch.cat([decoded, kps], -1).to(card)
+    infer = make_infer_fn(torch.nn.Identity(), 80, 0.001, 0.6, 300, 30000,
+                          255.0, num_points=5)
+    before = greedy_nms_keep_cuda.launches
+    got = infer.nms(decoded)
+    assert greedy_nms_keep_cuda.launches == before + 1
+    ref = infer.nms(decoded, use_kernels=False)
+    assert got.detections.shape[-1] == 6 + 10
+    assert torch.equal(got.detections, ref.detections)
+    assert torch.equal(got.valid, ref.valid)
+    assert int(got.valid.sum(1).min()) > 0
+
+
+def test_pt_weights_serve_through_the_kernels(card, tmp_path):
+    """A reference-style fp16 `.pt` of a width-0.25 YOLOv5 (nc 80, 640
+    px) loaded into a model on the card: every tensor matched, the eval
+    program at a mid density (objectness raised) launches K1 and K2, and
+    its output equals the plain NMS's on the same decoded tensor."""
+    from efficientteacher_torch.eval.validator import make_infer_fn
+    from efficientteacher_torch.models import ModelSpec, build_model
+    from efficientteacher_torch.utils.torch_import import (load_weights_into,
+                                                           save_reference_pt)
+
+    spec = ModelSpec(width_multiple=0.25, depth_multiple=0.33, img_size=640)
+    src = build_model(spec, device="cpu",
+                      generator=torch.Generator().manual_seed(3))
+    with torch.no_grad():
+        for conv in src.head.m:
+            conv.bias.view(3, 85)[:, 4] += 1.0
+    save_reference_pt(tmp_path / "w.pt", src, src)
+    model = build_model(spec, device=card).eval()
+    counts = load_weights_into(model, tmp_path / "w.pt", strict=True)
+    assert all(c == t for c, t in counts.values())
+    infer = make_infer_fn(model, 80, 0.001, 0.6, 300, 30000, 255.0)
+    images = torch.randint(0, 256, (8, 640, 640, 3), dtype=torch.uint8,
+                           generator=torch.Generator().manual_seed(4))
+    decoded = infer.forward(images.to(card))
+    k1, k2 = greedy_nms_keep_cuda.launches, threshold_compact_cuda.launches
+    got = infer.nms(decoded)
+    assert greedy_nms_keep_cuda.launches == k1 + 1
+    assert threshold_compact_cuda.launches > k2
+    ref = infer.nms(decoded, use_kernels=False)
+    assert torch.equal(got.detections, ref.detections)
+    assert torch.equal(got.valid, ref.valid)
+
+
+def test_ssod_step_in_a_world_one_nccl_group(card):
+    """The SSOD step (width 0.25, 2 + 2 images at 256 px, K1 at (2, 2048))
+    inside a world-size-1 NCCL group, as `cli.train` under torchrun runs
+    it: the gradient and the losses' counts go through all-reduces; one
+    K1 launch per step, and the weights and losses are bit-equal to the
+    same steps run after the group is gone (a world of one changes no
+    number)."""
+    import copy
+    import socket
+
+    import torch.distributed as dist
+
+    from efficientteacher_torch.losses.ssod_loss import SSODLossConfig
+    from efficientteacher_torch.losses.yolov5_loss import YoloV5LossConfig
+    from efficientteacher_torch.models import ModelSpec, build_model
+    from efficientteacher_torch.parallel.distributed import group_active
+    from efficientteacher_torch.train.optim import OptimizerConfig
+    from efficientteacher_torch.train.ssod_step import (
+        create_ssod_train_state, make_ssod_train_step, seed_teacher_from_ema)
+    from efficientteacher_torch.train.supervised import Schedule
+
+    spec = ModelSpec(width_multiple=0.25, depth_multiple=0.33, img_size=256,
+                     train_domain=True)
+    model = build_model(spec, device=card,
+                        generator=torch.Generator().manual_seed(0))
+    with torch.no_grad():
+        for conv in model.head.m:
+            conv.bias.view(3, 85)[:, 4] += 4.0
+            conv.bias.view(3, 85)[:, 5:] += 5.0
+    anchors = (torch.tensor(spec.anchors).view(3, 3, 2)
+               / torch.tensor(spec.strides).view(3, 1, 1)).to(card)
+    oc = OptimizerConfig(lr0=0.01, lrf=1.0)
+    g = torch.Generator().manual_seed(1)
+    img = lambda: torch.randint(0, 256, (2, 256, 256, 3), generator=g,  # noqa
+                                dtype=torch.uint8).to(card)
+    sup, strong, weak = img(), img(), img()
+    labels = torch.tensor([[[3, 0.5, 0.5, 0.2, 0.3]]] * 2).to(card)
+    mask = torch.ones(2, 1, dtype=torch.bool, device=card)
+    m_s = torch.zeros(2, 13)
+    m_s[:, 1:10] = torch.eye(3).flatten()
+    m_s[:, 10] = 1.0
+    sup_cfg = YoloV5LossConfig(nc=80, obj_w=0.7, cls_w=0.3)
+    step = make_ssod_train_step(
+        sup_cfg, SSODLossConfig(nc=80, obj_w=0.7, cls_w=0.3), anchors, oc,
+        spec, nms_conf_thres=0.1, nms_iou_thres=0.65, max_pl=100,
+        multi_label=False, teacher_loss_weight=3.0, da_loss_weight=0.01,
+        with_da_loss=False)
+    thr = (torch.full((80,), 0.6, device=card),
+           torch.full((80,), 0.1, device=card))
+
+    def run(state):
+        losses = []
+        for _ in range(2):
+            launches = greedy_nms_keep_cuda.launches
+            state, out = step(state, sup, labels, mask, strong, weak,
+                              m_s.to(card), *thr,
+                              Schedule.make(0.01, 0.01, 0.937, 1), 0.999)
+            assert greedy_nms_keep_cuda.launches == launches + 1
+            losses.append(float(out.metrics["total"]))
+        return state, losses
+
+    state = seed_teacher_from_ema(create_ssod_train_state(model, oc))
+    alone = copy.deepcopy(state)
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{port}",
+                            rank=0, world_size=1)
+    try:
+        assert group_active()
+        state, in_group = run(state)
+    finally:
+        dist.destroy_process_group()
+    alone, without = run(alone)
+    assert in_group == without
+    for a, b in zip(state.params, alone.params):
+        assert torch.equal(a, b)

@@ -86,6 +86,8 @@ MODULES = [
     "efficientteacher_torch.losses.yolov5_ota_loss",
     "efficientteacher_torch.ssod.labelmatch",
     "efficientteacher_torch.data.autoanchor",
+    "efficientteacher_torch.utils.torch_import",
+    "efficientteacher_torch.eval.keypoint_metrics",
     "chip_smoke",
     "ab_kernels",
 ]

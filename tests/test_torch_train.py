@@ -241,12 +241,11 @@ def test_loss_config_from_cfg_matches_jax():
     cfg.Loss.cls, cfg.Loss.obj = 0.3, 0.7
     assert vars(YoloV5LossConfig.from_cfg(cfg)) == \
         vars(JaxLossConfig.from_cfg(cfg))
+    # with keypoints (Dataset.np) the config carries them as JAX's does;
+    # the landmark term itself is held in tests/test_torch_keypoints.py
     cfg.Dataset.np = 5
-    maps, labels, mask = _loss_inputs(1, [1, 1])
-    with pytest.raises(NotImplementedError, match="keypoint"):
-        compute_loss([port_tensor(m) for m in maps], port_tensor(labels),
-                     port_tensor(mask), ANCHORS_GRID,
-                     YoloV5LossConfig.from_cfg(cfg))
+    assert vars(YoloV5LossConfig.from_cfg(cfg)) == \
+        vars(JaxLossConfig.from_cfg(cfg))
 
 
 # --- optimizer -------------------------------------------------------------

@@ -275,26 +275,18 @@ def test_graceful_stop_handler_sets_flag_and_uninstall_restores():
 
 
 @pytest.mark.parametrize("override,cls", [
-    # the SSOD OTA loss, autoanchor, the YOLOv7 OTA loss, LabelMatch and
-    # AdamW are ported now; what is still refused stands in, case by case:
-    # a reference .pt as an extra teacher (ROADMAP Q1.11)
-    ({"SSOD.extra_teachers": ["teacher.pt"]}, SSODTrainer),
-    # a warm start from a reference .pt (Q1.11)
-    ({"weights": "yolov5s.pt"}, Trainer),
-    # RepOpt's scales from a reference .pt (Q1.11)
-    ({"Model.RepOpt": True, "Model.RepScale_weight": "scales.pt"}, Trainer),
-    # the SSOD losses of an anchor-free head (Q1.10)
+    # the SSOD OTA loss, autoanchor, the YOLOv7 OTA loss, LabelMatch, AdamW,
+    # the reference .pt (tests/test_torch_pt_bridge.py) and the keypoint
+    # loss (tests/test_torch_keypoints.py) are ported now; what is still
+    # refused: the SSOD losses of an anchor-free head (ROADMAP Q1.12)
     ({"Model.Head.name": "YoloX", "Loss.type": "ComputeXLoss"}, SSODTrainer),
-    # the keypoint loss (Q1.10), refused at the first step
-    ({"Dataset.np": 5}, Trainer),
 ])
 def test_refuses_what_is_not_ported(tmp_path, override, cls):
     cfg = get_cfg()
     cfg.merge_from_list(TINY + ["project", str(tmp_path)])
     for k, v in override.items():
         cfg.merge_from_list([k, v])
-    # in-memory loaders: some refusals come after the loaders, one at the
-    # first step
+    # in-memory loaders: the refusal comes after the loaders
     cls = {Trainer: PortSup, SSODTrainer: PortSSOD}[cls]
     with pytest.raises(NotImplementedError):
         cls(cfg, compute_dtype=torch.float32, device="cpu").train()

@@ -5,7 +5,10 @@
 shrunk to the test network (width 0.125, depth 0.34, nc 1, 128 px), batch
 4, warmup over the first 2 iterations, each trainer with its own
 host-augmented loaders (JAX's process engine, the port's threads) over
-one seeded dataset on disk. YOLOX trains 2 epochs with
+one seeded dataset on disk. `yolov5l_coco.yaml` with `Dataset.np 5`
+(the keypoint path: the landmark term at the warmup's bias lr 0.1) trains
+on a copy of that dataset whose boxes carry 5 seeded points each, one in
+five invisible. YOLOX trains 2 epochs with
 `hyp.no_aug_epochs 1`, so its second epoch is the no-aug tail that closes
 mosaic and turns on the L1 term; YOLOv8 trains 1 epoch with it; the
 YOLOv7 and YOLOv6 YAMLs train 1 epoch with mosaic (`hyp.no_aug_epochs
@@ -23,7 +26,8 @@ steps and part ways (measured: a 5e-4 loss difference at the second step,
 10% of the accumulated gradient by the fourth). From one state, one step
 is well posed.
 
-Held exactly: the images and labels each step receives, the schedule,
+Held exactly: the images and labels (keypoints included) each step
+receives, the schedule,
 the counters, the loss parts' names (L1 only in the tail) and the
 results.csv epochs. Held to a tolerance: each step's losses rtol 1e-3
 (1.3e-4 measured),
@@ -64,7 +68,7 @@ Also: JAX's ValueError on an anchor-free loss with an anchor head, the
 YOLOv6 / YOLOv7 YAMLs building their Trainer (they raised before these
 families were ported), the YOLOv7 OTA loss building and training (it
 raised before it was ported), the refusal that remains (the SSOD trainer
-on an anchor-free head: ROADMAP Q1.10), and `cli.train` /
+on an anchor-free head: ROADMAP Q1.12), and `cli.train` /
 `cli.val` with `device cpu` on the YOLOX, YOLOv8, YOLOv7-L and YOLOv6-s
 YAMLs shrunk, cli.val equal to `validator.run` on best.ckpt and on a copy
 whose scores are raised so it detects."""
@@ -117,9 +121,11 @@ YAMLS = {"yolox": PUBLIC / "yolox_coco.yaml",
          "yolov7l": PUBLIC / "yolov7l_coco.yaml",
          "yolov7s_simota": PUBLIC / "yolov7s_coco_simota.yaml",
          "yolov6s": PUBLIC / "yolov6s_coco.yaml",
-         "yolov6s_repopt": PUBLIC / "yolov6s_coco_repopt_finetune.yaml"}
+         "yolov6s_repopt": PUBLIC / "yolov6s_coco_repopt_finetune.yaml",
+         "yolov5l_kp": PUBLIC / "yolov5l_coco.yaml"}
 EPOCHS = {"yolox": 2, "yolov8": 1, "yolov7l": 1, "yolov7s_simota": 1,
-          "yolov6s": 1, "yolov6s_repopt": 1}
+          "yolov6s": 1, "yolov6s_repopt": 1, "yolov5l_kp": 1}
+KP = 5  # Dataset.np of the keypoint family
 SHRINK = ["Model.width_multiple", 0.125, "Model.depth_multiple", 0.34,
           "Dataset.nc", 1, "Dataset.img_size", 128, "Dataset.max_targets",
           16]
@@ -130,7 +136,8 @@ LOSS_PARTS = {"yolox": {"iou", "obj", "cls", "loss"},
               "yolov7l": {"box", "obj", "cls", "loss"},
               "yolov8": {"box", "cls", "dfl", "loss"},
               "yolov6s": {"box", "cls", "dfl", "loss"},
-              "yolov6s_repopt": {"box", "cls", "dfl", "loss"}}
+              "yolov6s_repopt": {"box", "cls", "dfl", "loss"},
+              "yolov5l_kp": {"box", "obj", "cls", "kp", "loss"}}
 
 
 def _overrides(family, lst, project):
@@ -140,6 +147,22 @@ def _overrides(family, lst, project):
         "Dataset.loader", "process", "Dataset.workers", 2,
         "hyp.warmup_epochs", 1, "hyp.scale", 0.5, "hyp.no_aug_epochs", tail,
         "epochs", EPOCHS[family], "project", str(project)]
+
+
+def add_keypoints(lst, n=KP, seed=23):
+    """Give every box of the dataset in `lst` `n` seeded points inside it,
+    one in five invisible (-1 -1), in its label file."""
+    rng = np.random.default_rng(seed)
+    for img in Path(lst).read_text().split():
+        lbl = Path(img.replace("/images/", "/labels/")).with_suffix(".txt")
+        rows = []
+        for row in lbl.read_text().splitlines():
+            _, cx, cy, w, h = map(float, row.split())
+            kp = (np.array([cx, cy]) + rng.uniform(-0.5, 0.5, (n, 2))
+                  * np.array([w, h]))
+            kp[rng.uniform(size=n) < 0.2] = -1.0
+            rows.append(row + "".join(f" {x:.6f}" for x in kp.ravel()))
+        lbl.write_text("\n".join(rows))
 
 
 def write_repscale(root, width=0.125, depth=0.34, img=128):
@@ -321,13 +344,16 @@ def assert_states_within_float32(got, want, ref64, tol, grad_tol):
         want.acc_count, want.step, want.opt_step)
 
 
-@pytest.fixture(scope="module", params=list(YAMLS))
-def zoo_runs(request, tmp_path_factory):
-    family = request.param
+def _zoo_run(family, tmp_path_factory):
+    """Both trainers on `family`'s YAML shrunk (module docstring): JAX's,
+    then the port's, each port step from JAX's state before it."""
     tmp = tmp_path_factory.mktemp(family)
     lst = write_dataset(tmp / "data", SIZES, seed=22, nc=1, name="train",
                         blur=False)
     jextra = pextra = []
+    if family == "yolov5l_kp":
+        add_keypoints(lst)
+        jextra = pextra = ["Dataset.np", KP]
     if family == "yolov6s_repopt":
         jpath, ppath = write_repscale(tmp)
         jextra = ["Model.RepScale_weight", str(jpath)]
@@ -358,8 +384,30 @@ def zoo_runs(request, tmp_path_factory):
     return family, jt, pt
 
 
+@pytest.fixture(scope="module", params=[f for f in YAMLS if f != "yolov5l_kp"])
+def zoo_runs(request, tmp_path_factory):
+    return _zoo_run(request.param, tmp_path_factory)
+
+
+@pytest.fixture(scope="module")
+def kp_run(tmp_path_factory):
+    return _zoo_run("yolov5l_kp", tmp_path_factory)
+
+
 def test_zoo_batches_schedule_and_counters_exact(zoo_runs):
-    family, jt, pt = zoo_runs
+    check_batches_schedule_and_counters(zoo_runs)
+
+
+def test_keypoint_trainer_batches_schedule_and_counters_exact(kp_run):
+    """The keypoint columns each step receives (the host augmentation's
+    mosaic, affine and flips included) equal JAX's: the trainer's data
+    path at np 5."""
+    check_batches_schedule_and_counters(kp_run)
+    assert all(lb.shape[1] == 5 + 2 * KP for lb in kp_run[2].log["labels"])
+
+
+def check_batches_schedule_and_counters(runs):
+    family, jt, pt = runs
     j, p = jt.log, pt.log
     assert pt.train_loader.ds.augment and jt.train_loader.ds.augment
     assert len(p["images"]) == len(j["images"]) == 2 * EPOCHS[family]
@@ -392,7 +440,22 @@ def test_zoo_state_after_each_step_within_tolerance(zoo_runs):
 
 
 def test_zoo_losses_and_results_within_tolerance(zoo_runs):
-    family, jt, pt = zoo_runs
+    check_losses_and_results(zoo_runs)
+
+
+def test_keypoint_trainer_losses_and_results_within_tolerance(kp_run):
+    """Each step's loss parts at np 5, the landmark term "kp" among them,
+    from JAX's state before the step, and the epoch's results. The state
+    after each step is held in float64 instead (tests/
+    test_torch_keypoints.py::test_supervised_steps_match_jax_in_float64):
+    on this net JAX's first float32 step lands 0.4 of a head bias's
+    largest entry from the port's float64 step, the port's float32 step
+    2e-5 (measured), and the steps after it amplify such gaps."""
+    check_losses_and_results(kp_run)
+
+
+def check_losses_and_results(runs):
+    family, jt, pt = runs
     names = LOSS_PARTS[family]
     for (ep, got), (jep, want) in zip(pt.log["steps"], jt.log["steps"],
                                       strict=True):
@@ -469,7 +532,7 @@ def test_unported_families_raise_naming_the_roadmap(tmp_path, yaml_name, cls):
     ported; now each builds its Trainer with the YAML's backbone and head
     (the RepOpt finetune with its masks, from a LinearAdd checkpoint
     written here). The SSOD trainer on an anchor-free head still raises
-    (ROADMAP Q1.10)."""
+    (ROADMAP Q1.12)."""
     cfg = get_cfg()
     cfg.merge_from_file(str(PUBLIC / yaml_name))
     cfg.merge_from_list(["project", str(tmp_path), "Dataset.img_size", 64,
@@ -481,7 +544,7 @@ def test_unported_families_raise_naming_the_roadmap(tmp_path, yaml_name, cls):
         cfg.merge_from_list(["Model.RepScale_weight", str(ppath)])
     trainer = type("T", (cls,), {"build_dataloader": PortSup.build_dataloader})
     if cls is SSODTrainer:
-        with pytest.raises(NotImplementedError, match="ROADMAP Q1.10"):
+        with pytest.raises(NotImplementedError, match="ROADMAP Q1.12"):
             trainer(cfg, compute_dtype=torch.float32, device="cpu")
         return
     t = trainer(cfg, compute_dtype=torch.float32, device="cpu")

@@ -119,6 +119,7 @@ def test_run_without_detections_or_labels(relu_models):
 
 def test_run_rejects_what_is_not_ported(relu_models):
     _, _, port = relu_models
-    for kw in ({"num_points": 5}, {"plots_dir": "plots"}):
-        with pytest.raises(NotImplementedError):
-            validator.run(port, [], nc=1, **kw)
+    # keypoint validation is ported (tests/test_torch_keypoints.py); the
+    # plots wait for ROADMAP Q1.8
+    with pytest.raises(NotImplementedError):
+        validator.run(port, [], nc=1, plots_dir="plots")

@@ -277,7 +277,10 @@ def test_seeded_init_biases_are_jax_init(family):
     within 30%, in both packages), and the transposed convs' biases are
     0."""
     name, cfg, _, variables, _ = family
-    own = build_model(spec_from_cfg(cfg), device="cpu").state_dict()
+    # a generator of its own: the tokens' draw does not depend on what
+    # earlier tests left in the global one
+    own = build_model(spec_from_cfg(cfg), device="cpu",
+                      generator=torch.Generator().manual_seed(0)).state_dict()
     bridged = state_dict_from_jax(variables["params"],
                                   variables["batch_stats"])
     heads = [k for k in own if k.startswith("head.") and k.endswith("bias")
