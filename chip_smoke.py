@@ -29,7 +29,7 @@ read just after:
     four JPEG, quality 90 4:2:0, written by the core's own writer, the
     rest PNG; numeric file stems, COCO's image ids) in smoke_data/
     (removed at the end); `[data]` times decode + letterbox for the
-    thread and process engines at 1, 4 and 8 workers on the mixed split,
+    thread and process engines at 1 and 8 workers on the mixed split,
     on its JPEGs and on its PNGs, each batch held against a
     single-threaded pass;
     `[aug]` times device_augment_batch and device_ssod_views at 32@640
@@ -48,7 +48,7 @@ read just after:
     as every shipped YAML is written): the loader core's pixel operations
     against cv2 5.0.0's digests (tests/pixel_op_cases.py), the labelled
     and unlabelled host loaders' img/s on the JPEGs at 32@640 for threads
-    at 1, 4 and 8 workers and 8 processes (each epoch held against the
+    at 1 and 8 workers and 8 processes (each epoch held against the
     single-threaded one) and with `cache ram`, then `SSODTrainer` on the
     main YAML without the override (1 burn-in + 1 mean-teacher epoch of 8
     steps, 32 + 32): its step in the loop, the loaders' wait per step and
@@ -904,7 +904,7 @@ def train_phase(torch, dev, card):
 DATA_DIR = Path(__file__).resolve().parent / "smoke_data"
 SPLITS = {"labelled": 256, "unlabelled": 256, "val": 64}
 NATIVE_WH = [(640, 480), (480, 640), (640, 427), (500, 375), (640, 640)]
-DATA_WORKERS = (1, 4, 8)
+DATA_WORKERS = (1, 8)    # the two ends; the script has a time limit
 
 
 def write_split(root: Path, name: str, n: int, seed: int, first_id: int):
@@ -1084,7 +1084,7 @@ def loader_rates(torch, ds, engines):
 
 def data_phase(torch, lists, card):
     """Host decode + letterbox throughput at 32@640 for the thread and
-    process engines at 1, 4 and 8 workers (and threads at 16): on the
+    process engines at 1 and 8 workers (and threads at 16): on the
     labelled split (3/4 JPEG), on its JPEGs alone and on its PNGs alone,
     each epoch's batches held against one single-threaded pass. The
     trainer's loop needs about 276 img/s (32 + 32 per step)."""
@@ -1435,7 +1435,7 @@ def smoke_trainer(torch):
 
 
 def mid_val_teacher(torch, module, calib, target=3300.0, iters=12,
-                    shift=None):
+                    shift=None, conf=CONF):
     """Give `module` (the validated teacher) the serving phase's mid
     density at the eval gate: BatchNorm calibrated on `calib`, then its
     head's score biases (objectness; the YOLOv8 head's classes:
@@ -1444,7 +1444,8 @@ def mid_val_teacher(torch, module, calib, target=3300.0, iters=12,
     burn-in moves the weights away from the init that MID_OBJ_SHIFT was
     chosen for (its objectness loss on noise images silences the head),
     so the shift is searched here. `shift(head, delta)` moves the biases
-    (default `shift_score_bias`). Returns (shift, candidates/img)."""
+    (default `shift_score_bias`); `conf` is the gate the candidates pass.
+    Returns (shift, candidates/img)."""
     import math
 
     from efficientteacher_torch.utils.eval_regimes import (calibrate_bn,
@@ -1453,7 +1454,7 @@ def mid_val_teacher(torch, module, calib, target=3300.0, iters=12,
 
     shift = shift or shift_score_bias
     calibrate_bn(module, calib)
-    density = make_density_fn(module, NC, CONF)
+    density = make_density_fn(module, NC, conf)
     lo, hi, at, best = -12.0, 12.0, 0.0, None
     for _ in range(iters):
         mid = (lo + hi) / 2
@@ -1815,7 +1816,7 @@ def route_numbers(log, ssod_ms, peak):
 # single-threaded one (a batch draws from random.Random(f"{seed}/{epoch}/
 # {batch}") whatever builds it); the trainer run is 1 burn-in + 1
 # mean-teacher epoch of T_STEPS steps at T_BATCH + T_BATCH.
-HOST_ENGINES = [("thread", 1), ("thread", 4), ("thread", 8), ("process", 8)]
+HOST_ENGINES = [("thread", 1), ("thread", 8), ("process", 8)]
 
 
 def pixel_op_digests(torch):
@@ -3974,6 +3975,383 @@ def slice11_phase(torch, dev, card, lists):
     return entries
 
 
+SERVE_IMAGES = 32       # cli.detect's folder: COCO-sized, three in four JPEG
+SERVE_CONF = 0.25       # detect's and AutoShape's gate (JAX detect.py's)
+SERVE_TARGET = 300.0    # (anchor, class) pairs per image passing it
+BACKEND_BATCH = 8       # DetectBackend's batch of letterboxed images
+YOLOV5L_PARAMS = 46_563_709   # count_params of the JAX init, main YAML
+YOLOV5L_GFLOPS = 109.1        # ultralytics YOLOv5 README, v6.0 table
+# of the largest output: the fused model in bf16 against the unfused bf16
+# forward, the traced float32 graph (its fusions round differently)
+# against the unfused float32 one; the seeded net amplifies rounding
+DEPLOY_TOL = {"deploy": 2e-2, "torchscript": 5e-3}
+
+
+class _Recorded:
+    """Replaces `InferFn` in each of `modules` by a subclass whose calls
+    keep (decoded, NMS output, the InferFn), so each NMS can be held
+    against the plain NMS on its decoded tensor afterwards."""
+
+    def __init__(self, modules):
+        from efficientteacher_torch.eval.validator import InferFn
+
+        self.modules, self.real, self.records = modules, InferFn, []
+        records = self.records
+
+        class Recording(InferFn):
+            def __call__(self, images_u8):
+                decoded = self.forward(images_u8)
+                out = self.nms(decoded)
+                records.append((decoded, out, self))
+                return out
+
+        self.cls = Recording
+
+    def __enter__(self):
+        for m in self.modules:
+            m.InferFn = self.cls
+        return self
+
+    def __exit__(self, *exc):
+        for m in self.modules:
+            m.InferFn = self.real
+
+
+def _same_nms(torch, decoded, out, fn):
+    ref = fn.nms(decoded, use_kernels=False)
+    return (torch.equal(ref.detections, out.detections)
+            and torch.equal(ref.valid, out.valid))
+
+
+def serve_leg(torch, dev, card, lists, tmp):
+    """[serve]: YOLOv5l (main YAML, nc 80, 640 px, bf16) with seeded
+    weights calibrated so that ~SERVE_TARGET (anchor, class) pairs per
+    image pass conf 0.25, written as a port checkpoint and a reference
+    fp16 `.pt`; cli.detect over SERVE_IMAGES images (--save-txt
+    --save-crop --save-xml), each image's NMS held against the plain NMS
+    on its decoded tensor, K1 once per image; AutoShape on the same paths
+    in one call, against detect's detections; cli.export --include params
+    deploy torch torchscript onnx; DetectBackend on the .ckpt (bit-equal
+    to the in-memory model), the .pt, the .deploy.ckpt and the
+    .torchscript on the card; cli.val --plots over the 64 val images at
+    the val mid density (without matplotlib: the ImportError it raises,
+    then cli.val alone); model_info on the card. Returns kernels-line
+    entries."""
+    import importlib.util
+
+    import numpy as np
+
+    from efficientteacher_torch.cli import detect as cli_detect
+    from efficientteacher_torch.cli import export as cli_export
+    from efficientteacher_torch.data.datasets import create_dataloader
+    from efficientteacher_torch.data.loaders import LoadImages
+    from efficientteacher_torch.eval import validator
+    from efficientteacher_torch.eval.multi_backend import DetectBackend
+    from efficientteacher_torch.models import (autoshape, build_model,
+                                               spec_from_cfg)
+    from efficientteacher_torch.ops import nms as nms_module
+    from efficientteacher_torch.ops.nms_cuda import greedy_nms_keep_cuda
+    from efficientteacher_torch.ops.select_cuda import (count_ge_cuda,
+                                                        threshold_compact_cuda)
+    from efficientteacher_torch.utils.checkpoint import (module_variables,
+                                                         save_checkpoint)
+    from efficientteacher_torch.utils.profile import count_params, model_info
+    from efficientteacher_torch.utils.torch_import import save_reference_pt
+
+    tmp = Path(tmp)
+    wrappers = {"greedy_nms_keep": greedy_nms_keep_cuda,
+                "threshold_compact": threshold_compact_cuda,
+                "count_ge": count_ge_cuda}
+
+    def counts():
+        return {k: w.launches for k, w in wrappers.items()}
+
+    def zero():
+        for w in wrappers.values():
+            w.launches = 0
+
+    cfg = ssod_cfg(*data_overrides(lists))
+    spec = dataclasses.replace(spec_from_cfg(cfg), train_domain=False)
+    model = build_model(spec, device=dev,
+                        generator=torch.Generator().manual_seed(SEED + 5))
+    loader = create_dataloader(cfg, "val", augment=False, batch_size=T_BATCH,
+                               pin_memory=True)
+    calib = next(iter(loader))["images"][:8].to(dev)
+    del loader
+    base = {k: v.clone() for k, v in model.state_dict().items()}
+
+    def serve_shift(head, delta):
+        # at conf 0.25 a class probability must pass the gate as well
+        with torch.no_grad():
+            for conv in head.m:
+                conv.bias.view(head.na, head.no)[:, 4:] += delta
+
+    def save(path):
+        """fp16 port checkpoint; the model keeps the fp16-rounded weights,
+        so what is in memory is what the file holds."""
+        with torch.no_grad():
+            for t in model.state_dict().values():
+                if t.is_floating_point():
+                    t.copy_(t.half().float())
+        v = module_variables(model)
+        save_checkpoint(path, params=v["params"],
+                        batch_stats=v["batch_stats"])
+
+    val_shift = mid_val_teacher(torch, model.eval(), calib)
+    save(tmp / "val_mid.ckpt")
+    model.load_state_dict(base)
+    shift = mid_val_teacher(torch, model, calib, target=SERVE_TARGET,
+                            shift=serve_shift, conf=SERVE_CONF)
+    ckpt, pt = tmp / "serve.ckpt", tmp / "serve.pt"
+    save(ckpt)
+    save_reference_pt(pt, model, model, epoch=-1)
+    source = DATA_DIR / "serve" / "images"
+    write_split(DATA_DIR / "serve", "serve", SERVE_IMAGES, SEED + 7, 900000)
+    n_jpeg = len(list(source.glob("*.jpg")))
+    print(f"[serve] YOLOv5l (nc {NC}, {IMG} px) at {SERVE_TARGET:.0f} "
+          f"pairs/img over conf {SERVE_CONF} (objectness and classes "
+          f"{shift[0]:+.3f}: {shift[1]:.0f}/img on the calibration batch), "
+          f"fp16 checkpoint and reference .pt; the val copy at "
+          f"{val_shift[1]:.0f}/img over conf {CONF}; {SERVE_IMAGES} images "
+          f"({n_jpeg} JPEG, {SERVE_IMAGES - n_jpeg} PNG)")
+
+    # -- cli.detect, one image at a time --------------------------------
+    infer = validator.InferFn(model, 255.0, torch.bfloat16, dict(
+        nc=NC, conf_thres=SERVE_CONF, iou_thres=0.45, max_det=MAX_DET,
+        max_nms=2048))
+    first = next(iter(LoadImages(str(source), IMG)))
+    x1 = torch.from_numpy(first[1]).to(dev)[None]
+    infer.forward(x1)   # cuDNN's handles for batch 1
+    zero()
+    t0 = time.perf_counter()
+    with _Recorded([validator]) as rec, \
+            K1Recorder(torch, nms_module, _Every()) as k1rec:
+        out_dir, dets, speed = cli_detect.main([
+            "--cfg", str(MAIN_YAML), "--weights", str(ckpt), "--source",
+            str(source), "--save-dir", str(tmp / "detect"), "--save-txt",
+            "--save-crop", "--save-xml", "--img-size", str(IMG)])
+    t_detect = time.perf_counter() - t0
+    launches = counts()
+    require(len(rec.records) == len(dets) == SERVE_IMAGES,
+            f"cli.detect served {len(dets)} images in {len(rec.records)} "
+            f"forwards")
+    require(launches == {"greedy_nms_keep": SERVE_IMAGES,
+                         "threshold_compact": 0, "count_ge": 0},
+            f"cli.detect launches {launches}")
+    for i, r in enumerate(rec.records):
+        require(_same_nms(torch, *r), f"cli.detect image {i}: NMS != the "
+                f"plain NMS")
+    detect_decoded = [r[0] for r in rec.records]
+    n_det = [len(d) for d in dets.values()]
+    for call in k1rec.calls:
+        k1_entry(torch, call, "serve: cli.detect", 0, timed=False)
+    dense = max(k1rec.calls, key=lambda c: int(c[1].sum()))
+    e_detect = k1_entry(torch, dense, "serve: cli.detect, per image",
+                        launches["greedy_nms_keep"])
+    e_detect["valid_per_img_mean"] = float(np.mean(
+        [int(c[1].sum()) for c in k1rec.calls]))
+    files = {s: len(list(out_dir.glob(f"*{s}")))
+             for s in (".txt", ".xml", ".jpg", ".png")}
+    n_crops = len(list((out_dir / "crops").glob("*.jpg")))
+    require(files[".txt"] == files[".xml"] == SERVE_IMAGES
+            and files[".jpg"] + files[".png"] == SERVE_IMAGES
+            and n_crops > 0, f"cli.detect wrote {files}, {n_crops} crops")
+    e2e = sum(speed.values())
+    t_fwd = time_ms(torch, lambda: infer.forward(x1), reps=10, warmup=2)
+    print(f"[serve] cli.detect: {SERVE_IMAGES} images, detections/img "
+          f"{np.mean(n_det):.1f} (min {min(n_det)}, max {max(n_det)}), K1 "
+          f"valid rows/img {e_detect['valid_per_img_mean']:.1f}; each image's "
+          f"NMS == the plain NMS; launches {launches} (K1 once per image); "
+          f"wrote {files}, {n_crops} crops; {t_detect:.1f} s with the "
+          f"model's load")
+    print(f"[time] serve: cli.detect {e2e:.2f} ms/img end to end (read + "
+          f"letterbox {speed['read']:.2f}, forward + NMS + copy "
+          f"{speed['infer']:.2f}, draw + write {speed['write']:.2f}: host "
+          f"share {(speed['read'] + speed['write']) / e2e:.1%}); forward "
+          f"bf16 b1@{IMG} {t_fwd:.3f} ms; K1 (1, 2048), "
+          f"{int(dense[1].sum())} valid rows: {e_detect['ms']:.4f} ms, "
+          f"plain {e_detect['plain_ms']:.4f} ms, bound "
+          f"{e_detect['bound_ms']:.6f} ms ({e_detect['bound_by']}, "
+          f"{e_detect['bound_ms'] / e_detect['ms']:.2%} of it) | {card}")
+
+    # -- AutoShape on the same paths, one batch ---------------------------
+    paths = list(dets)
+    shaper = autoshape.AutoShape(model, list(cfg.Dataset.names), IMG)
+    shaper(paths[:2])   # warm-up, not counted
+    zero()
+    t0 = time.perf_counter()
+    with _Recorded([autoshape]) as rec, \
+            K1Recorder(torch, nms_module, _Every()) as k1rec:
+        res = shaper(paths)
+    t_auto = (time.perf_counter() - t0) * 1e3
+    a_launches = counts()
+    require(a_launches == {"greedy_nms_keep": 1, "threshold_compact": 0,
+                           "count_ge": 0}, f"AutoShape launches {a_launches}")
+    decoded, out, fn = rec.records[0]
+    require(_same_nms(torch, decoded, out, fn), "AutoShape: NMS != the "
+            "plain NMS")
+    # its input and forward: LoadImages' letterboxes (detect's inputs)
+    # through the model at batch 32, bit for bit
+    letterboxed = np.stack([rgb for _, rgb, _, _ in
+                            LoadImages(str(source), IMG)])
+    require(torch.equal(decoded, fn.forward(torch.from_numpy(letterboxed)
+                                            .to(dev))),
+            "AutoShape's batch differs from LoadImages' letterboxes")
+    same = fwd_same = 0
+    worst = 0.0
+    for i, p in enumerate(paths):
+        fwd_same += torch.equal(decoded[i], detect_decoded[i][0])
+        worst = max(worst, float((decoded[i] - detect_decoded[i][0])
+                                 .abs().max()))
+        d = out.detections[i][out.valid[i]].cpu().numpy()
+        if len(d):
+            d[:, :4] = validator._scale_to_native(d[:, :4], (IMG, IMG),
+                                                  res.imgs[i].shape[:2])
+        require(np.array_equal(res.xyxy[i], d), f"AutoShape image {i}: "
+                f"Detections != its NMS output scaled to the image")
+        same += (res.xyxy[i].shape == dets[p].shape
+                 and np.array_equal(res.xyxy[i], dets[p]))
+    e_auto = k1_entry(torch, k1rec.calls[0], "serve: AutoShape, one batch",
+                      a_launches["greedy_nms_keep"])
+    print(f"[serve] AutoShape({SERVE_IMAGES} paths): its batch == LoadImages'"
+          f" letterboxes, its forward == the model's at batch "
+          f"{SERVE_IMAGES}, its NMS == the plain NMS (K1 1 launch at (32, "
+          f"2048)), Detections == that output scaled to each image; equal "
+          f"to cli.detect's on {same}/{SERVE_IMAGES} images: the batch-"
+          f"{SERVE_IMAGES} and batch-1 bf16 forwards are bit-equal on "
+          f"{fwd_same}/{SERVE_IMAGES} (largest difference {worst:.4g}: "
+          f"cuDNN's algorithm per batch size, amplified by the seeded net)")
+    print(f"[time] serve: AutoShape {t_auto:.1f} ms for {SERVE_IMAGES} "
+          f"paths ({t_auto / SERVE_IMAGES:.2f} ms/img: read, letterbox, one "
+          f"bf16 forward, NMS, scale); K1 (32, 2048) {e_auto['ms']:.4f} ms, "
+          f"bound {e_auto['bound_ms']:.6f} ms | {card}")
+    del rec, k1rec, decoded, detect_decoded
+
+    # -- cli.export ---------------------------------------------------------
+    done = cli_export.main([
+        "--cfg", str(MAIN_YAML), "--weights", str(ckpt), "--include",
+        "params", "deploy", "torch", "torchscript", "onnx", "--img-size",
+        str(IMG)])
+    nodes = done["onnx"]["nodes"]
+    require("BatchNormalization" not in nodes and nodes["Conv"] >= 100,
+            f"ONNX census {nodes}")
+    print("[serve] cli.export: " + "; ".join(
+        f"{k} {Path(v['path']).name} {Path(v['path']).stat().st_size / 1e6:.1f}"
+        f" MB in {v['seconds']:.1f} s" for k, v in done.items())
+        + f"; ONNX opset 13, {sum(nodes.values())} nodes {nodes}, no "
+        f"BatchNormalization | {card}")
+
+    # -- DetectBackend on the card --------------------------------------
+    batch = np.stack([rgb for _, rgb, _, _ in
+                      LoadImages(str(source), IMG)][:BACKEND_BATCH])
+    xb = torch.from_numpy(batch).to(dev)
+    # the in-memory model's unfused forwards: bf16 (the checkpoints' and
+    # the deploy model's dtype on the card) and float32 (the traced graph's)
+    refs = {torch.bfloat16: infer.forward(xb).float(),
+            torch.float32: validator.InferFn(model, 255.0, torch.float32,
+                                             {}).forward(xb)}
+    bf_vs_f32 = float((refs[torch.bfloat16] - refs[torch.float32]).abs()
+                      .max())
+    backend_lines, bad = [], []
+    for kind, path, dt in (
+            ("ckpt", ckpt, torch.bfloat16), ("pt", pt, torch.bfloat16),
+            ("deploy", done["deploy"]["path"], torch.bfloat16),
+            ("torchscript", done["torchscript"]["path"], torch.float32)):
+        backend = DetectBackend(str(path), cfg)
+        require(backend.kind == kind and backend.device.type == "cuda",
+                f"DetectBackend {path}: {backend.kind} on {backend.device}")
+        ref, tol = refs[dt], DEPLOY_TOL.get(kind, 0.0)
+        scale = float(ref.abs().max())
+        got = torch.from_numpy(backend(batch)).to(dev)
+        t = time_ms(torch, lambda: backend(batch), reps=5)
+        err = float((got - ref).abs().max())
+        if err > tol * scale:
+            bad.append(kind)
+        backend_lines.append(
+            f"{kind} {err:.4g} from the unfused {str(dt)[6:]} forward "
+            f"({err / scale:.2e} of its largest output {scale:.1f}; "
+            f"allowed {tol:g}), {t:.2f} ms")
+        del backend
+    print(f"[serve] DetectBackend on the card, uint8 ({BACKEND_BATCH}, {IMG},"
+          f" {IMG}, 3) -> decoded, and ms per call (numpy in and out): "
+          + "; ".join(backend_lines) + f"; the unfused bf16 and float32 "
+          f"forwards themselves differ by {bf_vs_f32:.4g} | {card}")
+    require(not bad, f"DetectBackend {bad} outside the tolerance")
+
+    # -- cli.val --plots -----------------------------------------------
+    argv = ["--cfg", str(MAIN_YAML), "--weights", str(tmp / "val_mid.ckpt"),
+            "--batch-size", str(T_BATCH), "Dataset.val", str(lists["val"])]
+    plots = tmp / "plots"
+    if importlib.util.find_spec("matplotlib") is not None:
+        argv[4:4] = ["--plots", str(plots)]
+        path = "serve: cli.val --plots"
+    else:
+        try:
+            recorded_cli_val(torch, argv[:4] + ["--plots", str(plots)]
+                             + argv[4:])
+            raise SmokeFailure("cli.val --plots ran without matplotlib")
+        except ImportError as e:
+            refused = str(e)
+        require("matplotlib" in refused, f"cli.val --plots raised {refused}")
+        print(f"[serve] matplotlib is not installed on this machine: cli.val"
+              f" --plots raised ImportError ({refused}), as it must; cli.val "
+              f"runs without --plots for the kernels (not a device "
+              f"fallback)")
+        path = "serve: cli.val (--plots refused, no matplotlib)"
+    t0 = time.perf_counter()
+    got, v_launches, decoded = recorded_cli_val(torch, argv)
+    t_val = time.perf_counter() - t0
+    require(all(v_launches.values()), f"{path} launched {v_launches}")
+    written = sorted(p.name for p in plots.glob("*.png"))
+    if "--plots" in argv and any(got):
+        # as JAX's: the curves of a run with true positives
+        require(written == ["F1_curve.png", "PR_curve.png", "P_curve.png",
+                            "R_curve.png"], f"cli.val --plots wrote {written}")
+    print(f"[serve] {path}: {SPLITS['val']} images, P/R/mAP50/mAP "
+          f"{'/'.join(f'{x:.4f}' for x in got)}, each batch's NMS == the "
+          f"plain NMS, launches {v_launches}, plots {written}; {t_val:.1f} "
+          f"s | {card}")
+    entries = [e_detect, e_auto] + val_entries(torch, decoded, path,
+                                               v_launches, card)
+
+    # -- model_info -----------------------------------------------------
+    model.load_state_dict(base)
+    t0 = time.perf_counter()
+    info = model_info(model, IMG)
+    t_info = time.perf_counter() - t0
+    require(info["params"] == YOLOV5L_PARAMS,
+            f"{info['params']} params, the JAX init has {YOLOV5L_PARAMS}")
+    outputs = []
+    hooks = [m.register_forward_hook(lambda m, i, o: outputs.append(
+        o.numel())) for m in model.modules()
+        if isinstance(m, torch.nn.Conv2d)]
+    with torch.inference_mode():
+        model(torch.zeros(1, 3, IMG, IMG, device=dev))
+    for h in hooks:
+        h.remove()
+    bias = 2 * sum(outputs) / 1e9
+    require(round(info["gflops"] + bias, 1) == YOLOV5L_GFLOPS,
+            f"{info['gflops']} GFLOPs + {bias} for the biases != "
+            f"{YOLOV5L_GFLOPS}")
+    print(f"[serve] model_info on the card: {info['params']:,} params (== "
+          f"the JAX init's), {info['gflops']:.3f} GFLOPs at {IMG} (2 per "
+          f"conv multiply-add, FlopCounterMode); + {bias:.3f} for one bias "
+          f"add per conv output = {info['gflops'] + bias:.3f}, the published"
+          f" {YOLOV5L_GFLOPS} (thop counts the bias); {t_info:.1f} s")
+    return entries
+
+
+def serve_phase(torch, dev, card, lists):
+    """The [serve] leg; its kernels-line entries."""
+    import tempfile
+
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        entries = serve_leg(torch, dev, card, lists, tmp)
+        print(f"[time] serve {time.perf_counter() - t0:.1f} s | {card}")
+    return entries
+
+
 def main() -> int:
     import torch
 
@@ -4182,23 +4560,36 @@ def main() -> int:
             "regime": regime})
 
     # 7. the training step's path
-    entry, bare = train_phase(torch, dev, card)
+    phase_s = {"slice": time.perf_counter() - t_start}
+
+    def timed(name, fn, *args):
+        t = time.perf_counter()
+        out = fn(*args)
+        phase_s[name] = time.perf_counter() - t
+        return out
+
+    entry, bare = timed("train", train_phase, torch, dev, card)
     kernels.append(entry)
     # 8. the data path: a dataset on disk, the loaders' engines, the
     # device augmentation, the trainer from disk, the CLIs
     try:
-        lists = write_dataset(torch)
-        data_phase(torch, lists, card)
-        aug_phase(torch, dev, lists, card)
-        entries, dev_aug = trainer_phase(torch, dev, card, bare, lists)
+        lists = timed("write", write_dataset, torch)
+        timed("data", data_phase, torch, lists, card)
+        timed("aug", aug_phase, torch, dev, lists, card)
+        entries, dev_aug = timed("trainer", trainer_phase, torch, dev, card,
+                                 bare, lists)
         kernels += entries
-        hostaug_phase(torch, dev, card, lists, dev_aug)
-        cli_leg(torch, dev, card, lists)
-        kernels += zoo_phase(torch, dev, card, lists)
-        kernels += ssod_opts_phase(torch, dev, card, lists)
-        kernels += slice11_phase(torch, dev, card, lists)
+        timed("hostaug", hostaug_phase, torch, dev, card, lists, dev_aug)
+        timed("cli", cli_leg, torch, dev, card, lists)
+        kernels += timed("zoo", zoo_phase, torch, dev, card, lists)
+        kernels += timed("ssod-opts", ssod_opts_phase, torch, dev, card,
+                         lists)
+        kernels += timed("slice11", slice11_phase, torch, dev, card, lists)
+        kernels += timed("serve", serve_phase, torch, dev, card, lists)
     finally:
         shutil.rmtree(DATA_DIR, ignore_errors=True)
+    print("[time] phases (s): " + ", ".join(
+        f"{k} {v:.1f}" for k, v in phase_s.items()) + f" | {card}")
     print(f"[time] chip_smoke.py total {time.perf_counter() - t_start:.1f} "
           f"s (the kernels' build included) | {card}")
     print(json.dumps({"kernels": kernels}))

@@ -1,7 +1,7 @@
 """Command-line entry points of the port: `python -m
-efficientteacher_torch.cli.train` and `python -m
-efficientteacher_torch.cli.val` (the counterparts of the root `train.py`
-and `val.py`)."""
+efficientteacher_torch.cli.train`, `.cli.val`, `.cli.detect` and
+`.cli.export` (the counterparts of the root `train.py`, `val.py`,
+`detect.py` and `export.py`)."""
 
 from __future__ import annotations
 

@@ -12,9 +12,9 @@ unless the override `device cpu` is given. It takes the JAX CLI's flags:
 --save-json writes the COCO-format predictions (80->91 category ids when
 the model has 80 classes and the val path names coco) and --coco-gt runs
 COCOeval on them (`eval/coco.py`); --val-kp scores the keypoints of a
-`Dataset.np` model by OKS (`eval/keypoint_metrics.py`). --plots raises
-NotImplementedError (ROADMAP Q1.8). --selection approx runs the exact
-selection. Prints and returns (P, R, mAP50, mAP50-95).
+`Dataset.np` model by OKS (`eval/keypoint_metrics.py`). --plots DIR writes
+the PR / F1 / P / R curves there (matplotlib; without it ImportError).
+--selection approx runs the exact selection. Prints and returns (P, R, mAP50, mAP50-95).
 """
 
 from __future__ import annotations

@@ -459,8 +459,9 @@ int et_filter3x3(const uint8_t* img, int h, int w, int stride, const int* k,
   return kOk;
 }
 
-// Test-data support, never called by the loaders: write the RGB image
-// (h, w, 3) as a baseline JFIF JPEG, 4:2:0, at `quality` (jpeg_encode.h).
+// The port's JPEG writer (data/image_io.imwrite: detect's annotated images
+// and crops; the tests' and chip_smoke's data): write the RGB image (h, w,
+// 3) as a baseline JFIF JPEG, 4:2:0, at `quality` (jpeg_encode.h).
 int et_jpeg_write(const char* path, const uint8_t* rgb, int w, int h,
                   int quality) {
   if (w <= 0 || h <= 0 || w > 65535 || h > 65535) return kErrArgs;

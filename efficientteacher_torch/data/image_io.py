@@ -120,8 +120,8 @@ def imread(path: str) -> np.ndarray:
 
 
 def write_png(path: str, rgb: np.ndarray, level: int = 6) -> None:
-    """Test-data support: write `rgb` (h, w, 3) uint8 as an RGB PNG with
-    the None filter on every row."""
+    """Write `rgb` (h, w, 3) uint8 as an RGB PNG with the None filter on
+    every row."""
     rgb = np.ascontiguousarray(rgb, np.uint8)
     h, w = rgb.shape[:2]
     rows = np.concatenate([np.zeros((h, 1), np.uint8),
@@ -137,3 +137,23 @@ def write_png(path: str, rgb: np.ndarray, level: int = 6) -> None:
         + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0))
         + chunk(b"IDAT", zlib.compress(rows.tobytes(), level))
         + chunk(b"IEND", b""))
+
+
+JPEG_QUALITY = 95   # cv2.imwrite's default IMWRITE_JPEG_QUALITY
+
+
+def imwrite(path: str, bgr: np.ndarray) -> None:
+    """cv2.imwrite's counterpart for the images detect and AutoShape save:
+    `bgr` (h, w, 3) uint8 in cv2's channel order, written as `.png`
+    (lossless, `write_png`) or `.jpg` / `.jpeg` (the loader core's baseline
+    4:2:0 writer at quality 95, cv2's default). Other suffixes raise
+    NotImplementedError."""
+    rgb = np.ascontiguousarray(np.asarray(bgr, np.uint8)[..., ::-1])
+    ext = suffix(str(path))
+    if ext == "png":
+        write_png(path, rgb)
+    elif ext in JPEG_SUFFIXES:
+        nl.jpeg_write(str(path), rgb, JPEG_QUALITY)
+    else:
+        raise NotImplementedError(
+            f"{path}: .{ext} images are not written (.png, .jpg, .jpeg)")

@@ -11,9 +11,8 @@ reference utils/metrics.py:
   - compute_ap precision envelope + interp (metrics.py:100-126)
   - process_batch greedy IoU@[.5:.95] TP matrix with per-label/per-detection
     dedup by IoU order (val.py:123-145)
-
-The PR/F1 curve plots (`ap_per_class(plot_dir=...)`) are not ported yet:
-they wait for the loggers and plots (ROADMAP Q1.8).
+  - with `plot_dir`, the PR / F1 / P / R curve family (utils/plots.py,
+    matplotlib; reference plot_pr_curve / plot_mc_curve, metrics.py:312-360)
 """
 
 from __future__ import annotations
@@ -87,13 +86,9 @@ def ap_per_class(
     """Per-class AP. Returns (p, r, ap, f1, unique_classes, cls_thr) with
     p/r/f1 at the global best-F1 confidence and ap (nc, n_iou).
 
-    plot_dir: the JAX version writes the PR/F1/P/R curve family there
-    (reference ap_per_class(plot=True, save_dir), utils/metrics.py:25-80);
-    not ported yet, so it raises NotImplementedError."""
-    if plot_dir is not None:
-        raise NotImplementedError(
-            "PR/F1 curve plots are not ported yet (ROADMAP Q1.8: loggers "
-            "and plots)")
+    plot_dir: write the PR/F1/P/R curve family there (reference
+    ap_per_class(plot=True, save_dir), utils/metrics.py:25-80), named by
+    `names`; ImportError without matplotlib."""
     order = np.argsort(-conf)
     tp, conf, pred_cls = tp[order], conf[order], pred_cls[order]
     unique_classes = np.unique(target_cls)
@@ -103,11 +98,13 @@ def ap_per_class(
     ap = np.zeros((nc, tp.shape[1]))
     p = np.zeros((nc, 1000))
     r = np.zeros((nc, 1000))
+    py = []  # per-class precision over the recall grid (PR curve)
     for ci, c in enumerate(unique_classes):
         sel = pred_cls == c
         n_l = (target_cls == c).sum()
         n_p = sel.sum()
         if n_p == 0 or n_l == 0:
+            py.append(np.zeros_like(px))
             continue
         fpc = (1 - tp[sel]).cumsum(0)
         tpc = tp[sel].cumsum(0)
@@ -116,11 +113,28 @@ def ap_per_class(
         precision = tpc / (tpc + fpc)
         p[ci] = np.interp(-px, -conf[sel], precision[:, 0], left=1)
         for j in range(tp.shape[1]):
-            ap[ci, j], _, _ = compute_ap(recall[:, j], precision[:, j])
+            ap[ci, j], mpre, mrec = compute_ap(recall[:, j], precision[:, j])
+            if j == 0:
+                py.append(np.interp(px, mrec, mpre))
 
     f1 = 2 * p * r / (p + r + 1e-16)
     i = f1.mean(0).argmax()
     cls_thr = [float(px[f1[ci].argmax()]) for ci in range(nc)]
+    if plot_dir is not None:
+        from pathlib import Path
+
+        from ..utils.plots import plot_mc_curve, plot_pr_curve
+
+        d = Path(plot_dir)
+        cls_names = [
+            (names[int(c)] if int(c) < len(names) else str(int(c)))
+            for c in unique_classes
+        ]
+        plot_pr_curve(px, py, ap, d / "PR_curve.png", cls_names)
+        plot_mc_curve(px, f1, d / "F1_curve.png", cls_names, ylabel="F1")
+        plot_mc_curve(px, p, d / "P_curve.png", cls_names,
+                      ylabel="Precision")
+        plot_mc_curve(px, r, d / "R_curve.png", cls_names, ylabel="Recall")
     return (
         p[:, i], r[:, i], ap, f1[:, i],
         unique_classes.astype(np.int32), cls_thr,

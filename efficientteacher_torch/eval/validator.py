@@ -17,8 +17,8 @@ DDP, where rank 0 alone validates the whole set, as the reference does
 `coco_gt_json`, `is_coco`) are as in JAX (`eval/coco.py`). Keypoint models
 (`num_points`): the landmark NMS, the keypoints scaled to native pixels
 per coordinate (`_scale_landmarks_to_native`) and, with `val_kp`, OKS true
-positives (`eval/keypoint_metrics.py`). The PR-curve plots (`plots_dir`)
-raise NotImplementedError (ROADMAP Q1.8).
+positives (`eval/keypoint_metrics.py`). With `plots_dir` the PR / F1 / P /
+R curves are written there (`eval/metrics.ap_per_class`, matplotlib).
 """
 
 from __future__ import annotations
@@ -224,7 +224,10 @@ def run(
     over [.5:.95] (reference process_batch_oks, val.py:80-96) instead of
     box IoU; the labels then carry the keypoint columns after [cls, xywh].
 
-    `names` (the class names) would label the plots, which are not ported.
+    plots_dir: the PR / F1 / P / R curves of the run, labelled by `names`
+    (the class names), as JAX writes them; ImportError without
+    matplotlib, raised before the first batch.
+
     `selection` names the JAX NMS's candidate-selection engine: the port
     has one, exact, so "pallas" and "exact" are it and "approx" (JAX's
     approximate top-k) is served exactly too (ROADMAP Q1.12)."""
@@ -233,9 +236,9 @@ def run(
     if selection == "approx":
         LOGGER.info("selection 'approx' runs the exact selection")
     if plots_dir is not None:
-        raise NotImplementedError(
-            "validation plots are not ported yet (ROADMAP Q1.8: loggers and "
-            "plots)")
+        from ..utils.plots import pyplot
+
+        pyplot()  # no matplotlib: fail before the run, not after it
     device = next(model.parameters()).device
     infer = make_infer_fn(model, nc, conf_thres, iou_thres, max_det, max_nms,
                           norm_scale, compute_dtype, num_points=num_points)
@@ -353,7 +356,8 @@ def run(
 
     stats = [np.concatenate(x, 0) for x in zip(*stats)]
     if len(stats) and stats[0].any():
-        p, r, ap, f1, ap_class, cls_thr = ap_per_class(*stats)
+        p, r, ap, f1, ap_class, cls_thr = ap_per_class(
+            *stats, plot_dir=plots_dir, names=names)
         ap50, ap_all = ap[:, 0], ap.mean(1)
         mp, mr, map50, map_ = p.mean(), r.mean(), ap50.mean(), ap_all.mean()
         maps = np.zeros(nc)

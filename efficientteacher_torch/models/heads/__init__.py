@@ -1,5 +1,5 @@
 """Head factory (reference models/head/__init__.py:12-27). Holds every
-head of the JAX package's registry.
+head of the JAX package's registry; `register_head` adds one.
 
 `head_model_type` is the detector's model_type dispatch (reference
 yolo.py:66-82; JAX heads/__init__.py `_MODEL_TYPE`): anchor heads ->
@@ -24,12 +24,19 @@ _MODEL_TYPE = {
 }
 
 
+def register_head(name, cls, model_type: str):
+    """Add a head class under `name`, with the loss family it trains with
+    ('yolov5', 'yolox' or 'tal')."""
+    _REGISTRY[name] = cls
+    _MODEL_TYPE[name] = model_type
+
+
 def build_head_cls(name: str):
     try:
         return _REGISTRY[name]
     except KeyError:
         raise NotImplementedError(
-            f"head {name!r} is not ported yet (ROADMAP Q1.10); ported: "
+            f"head {name!r} is in no registry; registered: "
             f"{sorted(_REGISTRY)}") from None
 
 

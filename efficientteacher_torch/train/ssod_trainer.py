@@ -50,8 +50,11 @@ Differences from the JAX trainer:
     its count as `student_ema`, beside the teacher (semi-EMA) as `ema`,
     and under LabelMatch its thresholds, class totals and uncollected
     scores (in the `optimizer` entry, float32 and float64 as they are).
+Under `SSOD.debug` (with ground truth on the target set) the first two
+SSOD batches of each epoch are plotted with their pseudo labels against
+the labels (`plot_pseudo_vs_gt`, `pseudo_gt_e{epoch}_b{i}.png`, rank 0).
 Not ported (NotImplementedError): the SSOD losses of the anchor-free
-heads (ROADMAP Q1.12); the pseudo-label debug plots are skipped (Q1.8).
+heads (ROADMAP Q1.12).
 """
 
 from __future__ import annotations
@@ -354,6 +357,14 @@ class SSODTrainer(Trainer):
                 self.label_match.collect(
                     np.where(nms[..., 2] > 0, nms[..., 0], 0.0),
                     nms[..., 1])
+            if self.cfg.SSOD.debug and i < 2 and self.target_with_gt:
+                # pseudo-vs-GT mosaics on the strong view (reference
+                # utils/self_supervised_utils.py:239-243)
+                self._plot("plot_pseudo_vs_gt", lambda: (
+                    to_host(t_strong), to_host(out.pseudo_labels),
+                    to_host(out.pseudo_mask), to_host(t_labels),
+                    to_host(t_mask),
+                    self.save_dir / f"pseudo_gt_e{self.epoch}_b{i}.png"))
             if i % 50 == 0:
                 metrics = self._logged(out.metrics)
                 pl_np = to_host(out.pseudo_labels)

@@ -54,9 +54,13 @@ the EMA and the statistics stay the same on every rank; rank 0 alone
 makes the run directory, writes `results.csv` and the checkpoints, and
 validates the whole val set while the others wait for its results.
 
-Not ported yet, skipped as the JAX trainer skips them when their
-dependencies are missing: the loggers and plots (ROADMAP Q1.8), and the
-JAX trainer's `profile_steps` (`torch.profiler` serves, Q1.12).
+Loggers and plots, on rank 0 as in JAX: TensorBoard scalars at each
+epoch end (`utils/loggers.py`, registered on the callbacks bus; skipped
+without tensorboard), `labels.png` once the loaders are built, the first
+three batches' mosaics `train_batch{0,1,2}.png` of the first epoch and
+`results.png` at the end (`utils/plots.py`; skipped with a debug log
+without matplotlib). The JAX trainer's `profile_steps` is not ported
+(`torch.profiler` serves, ROADMAP Q1.12).
 """
 
 from __future__ import annotations
@@ -92,6 +96,8 @@ from ..utils.callbacks import Callbacks
 from ..utils.checkpoint import (AsyncCheckpointer, load_checkpoint,
                                 load_module_variables, module_variables)
 from ..utils.general import check_img_size, increment_path
+from ..utils.loggers import Loggers
+from ..utils.profile import count_params
 from ..utils.shutdown import GracefulStop
 from ..utils.torch_import import load_weights_into
 from .optim import OptimizerConfig
@@ -127,9 +133,16 @@ class Trainer:
         self.start_epoch = 0
         self.best_fitness = 0.0
         self.set_env(cfg)
+        # TensorBoard on the callbacks bus (reference trainer.py:281)
+        self.loggers = None
+        if self.is_main:
+            self.loggers = Loggers(self.save_dir, cfg, include=("tb",))
+            self.loggers.register(self.callbacks)
         self.build_model(cfg)
         self.build_optimizer(cfg)
         self.build_dataloader(cfg)
+        self._plot("plot_labels", lambda: (self.dataset.labels, self.spec.nc,
+                                           self.save_dir))
         self.autoanchor(cfg)
         self.build_loss(cfg)
         self.build_step()
@@ -162,6 +175,18 @@ class Trainer:
         self.aug_hyp = {k: cfg.hyp[k] for k in cfg.hyp}
         self.aug_gen = torch.Generator(device=self.device)
 
+    def _plot(self, fn: str, args) -> None:
+        """utils/plots.`fn`(*args()) on rank 0; without matplotlib, or on a
+        plot that fails, a debug log (plots are never fatal, as in JAX)."""
+        if not self.is_main:
+            return
+        from ..utils import plots
+
+        try:
+            getattr(plots, fn)(*args())
+        except Exception as e:  # noqa: BLE001 - never fatal
+            LOGGER.debug("%s skipped: %s", fn, e)
+
     def build_model(self, cfg):
         self.spec = dataclasses.replace(spec_from_cfg(cfg),
                                         train_domain=self.ssod_model)
@@ -170,10 +195,9 @@ class Trainer:
         if self.device.type == "cuda":
             # NHWC images arrive as channels-last views (train/supervised.py)
             model = model.to(memory_format=torch.channels_last)
-        n = sum(p.numel() for p in model.parameters())
         LOGGER.info("Model summary: %s/%s/%s head, %.2fM parameters",
                     self.spec.backbone, self.spec.neck, self.spec.head,
-                    n / 1e6)
+                    count_params(model) / 1e6)
         if cfg.weights:
             self._warm_start(cfg.weights, model)
         # RepOptimizer (reference trainer/trainer.py:219-236; JAX
@@ -458,6 +482,13 @@ class Trainer:
     def train_in_epoch(self):
         for i, batch in enumerate(self.train_loader):
             ni = i + self.nb * self.epoch
+            if self.epoch == self.start_epoch and i < 3:
+                # the first batches' mosaics (reference loggers plot_images
+                # on the first 3 train batches, utils/loggers/__init__.py:88)
+                self._plot("plot_images", lambda: (
+                    np.asarray(batch["images"]), np.asarray(batch["labels"]),
+                    np.asarray(batch["mask"]),
+                    self.save_dir / f"train_batch{i}.png"))
             sched = self._schedule(ni)
             images, labels, mask = self.augment(*self._to_device(
                 batch["images"], batch["labels"], batch["mask"]), 0, ni)
@@ -610,5 +641,7 @@ class Trainer:
             self.epochs - self.start_epoch, (time.time() - t0) / 3600,
             self.best_fitness,
         )
+        if self.results_csv.exists():   # training curves (plot_results)
+            self._plot("plot_results", lambda: (self.results_csv,))
         self.callbacks.run("on_train_end")
         return self.best_fitness

@@ -231,8 +231,9 @@ def png_unfilter(data: bytes, h: int, row_bytes: int, bpp: int) -> np.ndarray:
 
 
 def jpeg_write(path: str, rgb: np.ndarray, quality: int = 90) -> None:
-    """Test-data support: write `rgb` (h, w, 3) uint8 as a baseline JFIF
-    JPEG, 4:2:0, libjpeg's quantisation tables at `quality`."""
+    """Write `rgb` (h, w, 3) uint8 as a baseline JFIF JPEG, 4:2:0,
+    libjpeg's quantisation tables at `quality` (`data/image_io.imwrite`
+    writes at cv2.imwrite's 95)."""
     rgb = np.ascontiguousarray(rgb, np.uint8)
     _check(_lib().et_jpeg_write(os.fsencode(path), rgb.ctypes.data,
                                 rgb.shape[1], rgb.shape[0], int(quality)),

@@ -10,7 +10,8 @@ the centre tap) and the identity BN (a centre-tap identity kernel) folded
 and summed. `deploy_model` loads that into the `spec.deploy=True` model,
 which serves two convolutions fewer per block. The blocks' BN eps is
 1e-3. Tensors keep their device; the arithmetic is float32, in JAX's
-order. The export CLI is ROADMAP Q1.11b.
+order. `cli.export --include deploy torchscript onnx` serves the fused
+model.
 """
 
 from __future__ import annotations

@@ -5,8 +5,8 @@ handful of images), writing results.csv, last.ckpt and best.ckpt; then
 `cli.val` on best.ckpt, last.ckpt, or a copy whose teacher detects (its
 objectness and class biases raised), gives exactly what `validator.run`
 gives on the same weights and loader, and `cli.val --save-json --coco-gt`
-writes the JSON `validator.run` writes. --plots, whose feature is not
-ported, raises."""
+writes the JSON `validator.run` writes; `cli.val --plots DIR` writes the
+PR / F1 / P / R curves and prints the same results."""
 
 import json
 from pathlib import Path
@@ -89,6 +89,17 @@ def test_cli_train_runs_an_ssod_epoch_from_disk(run):
             assert torch.isfinite(t.float()).all()
 
 
+def test_cli_train_writes_the_plots_and_tensorboard(run):
+    """The trainer's loggers and plots, on rank 0 as in JAX: labels.png
+    when the loaders are built, results.png at the end, TensorBoard event
+    files under tb/."""
+    root, _, _ = run
+    out = root / "runs" / "ssod"
+    assert (out / "labels.png").stat().st_size > 0
+    assert (out / "results.png").stat().st_size > 0
+    assert list((out / "tb").glob("events.out.tfevents.*"))
+
+
 @pytest.mark.parametrize("ckpt", ["best.ckpt", "last.ckpt", "shifted.ckpt"])
 def test_cli_val_equals_validator_run(run, capsys, ckpt):
     root, overrides, _ = run
@@ -139,11 +150,17 @@ def test_cli_val_save_json_equals_validator_run(run, tmp_path, capsys):
 
 
 # --val-kp and a reference .pt are ported (tests/test_torch_keypoints.py,
-# tests/test_torch_pt_bridge.py); the plots wait for ROADMAP Q1.8
+# tests/test_torch_pt_bridge.py), and so is --plots: nothing is refused
 @pytest.mark.parametrize("flag", [["--plots", "plots"]])
-def test_cli_val_refuses_what_is_not_ported(run, flag):
+def test_cli_val_refuses_what_is_not_ported(run, flag, tmp_path, capsys):
+    """--plots DIR writes the PR / F1 / P / R curves of the detecting copy's
+    run and prints the results the run without it prints."""
     root, overrides, _ = run
-    weights = root / "runs" / "ssod" / "weights" / "best.ckpt"
-    with pytest.raises(NotImplementedError):
-        cli_val.main(["--cfg", str(MAIN_YAML), "--weights", str(weights),
-                      *flag, *overrides])
+    shifted = root / "runs" / "ssod" / "weights" / "shifted.ckpt"
+    argv = ["--cfg", str(MAIN_YAML), "--weights", str(shifted), *overrides]
+    want = cli_val.main(argv)
+    plots = tmp_path / flag[1]
+    got = cli_val.main(argv[:4] + [flag[0], str(plots)] + argv[4:])
+    assert got == want and got[2] > 0
+    assert sorted(p.name for p in plots.iterdir()) == [
+        "F1_curve.png", "PR_curve.png", "P_curve.png", "R_curve.png"]

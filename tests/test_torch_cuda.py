@@ -799,3 +799,118 @@ def test_ssod_step_in_a_world_one_nccl_group(card):
     assert in_group == without
     for a, b in zip(state.params, alone.params):
         assert torch.equal(a, b)
+
+
+SUP_YAML = "configs/sup/public/yolov5l_coco.yaml"
+SERVE_OVERRIDES = ["Model.width_multiple", "0.25", "Model.depth_multiple",
+                   "0.33", "Dataset.img_size", "256"]
+
+
+def _serve_setup(tmp_path, n=4):
+    """A width-0.25 YOLOv5 (the supervised YAML, nc 80, 256 px) whose
+    objectness and first classes detect, as a port checkpoint, and `n`
+    images (JPEG and PNG) in a folder."""
+    from efficientteacher_torch.configs import get_cfg
+    from efficientteacher_torch.data import image_io
+    from efficientteacher_torch.models import build_model, spec_from_cfg
+    from efficientteacher_torch.utils import native_loader as nl
+    from efficientteacher_torch.utils.checkpoint import (module_variables,
+                                                         save_checkpoint)
+
+    cfg = get_cfg()
+    cfg.merge_from_file(SUP_YAML)
+    cfg.merge_from_list(SERVE_OVERRIDES)
+    model = build_model(spec_from_cfg(cfg), device="cpu",
+                        generator=torch.Generator().manual_seed(5))
+    with torch.no_grad():
+        for conv in model.head.m:
+            conv.bias.view(3, 85)[:, 4] += 8.0
+            conv.bias.view(3, 85)[:, 5:9] += 6.0
+    v = module_variables(model)
+    save_checkpoint(tmp_path / "w.ckpt", params=v["params"],
+                    batch_stats=v["batch_stats"])
+    rng = np.random.default_rng(6)
+    (tmp_path / "imgs").mkdir()
+    for i in range(n):
+        img = rng.integers(0, 256, (200 + 20 * i, 300, 3), dtype=np.uint8)
+        if i % 2:
+            image_io.write_png(str(tmp_path / "imgs" / f"{i}.png"), img)
+        else:
+            nl.jpeg_write(str(tmp_path / "imgs" / f"{i}.jpg"), img, 90)
+    return cfg, tmp_path / "w.ckpt", tmp_path / "imgs"
+
+
+def test_detect_on_the_card_equals_the_plain_path(card, tmp_path):
+    """cli.detect on the card: one K1 launch per image, and each image's
+    detections equal the same model's bf16 forward followed by the plain
+    NMS, scaled to the image, exactly."""
+    from efficientteacher_torch.cli import detect
+    from efficientteacher_torch.data.loaders import LoadImages
+    from efficientteacher_torch.eval.validator import InferFn, _scale_to_native
+    from efficientteacher_torch.models.autoshape import attempt_load
+
+    cfg, ckpt, imgs = _serve_setup(tmp_path)
+    before = greedy_nms_keep_cuda.launches
+    _, dets, _ = detect.main(["--cfg", SUP_YAML, "--weights", str(ckpt),
+                              "--source", str(imgs), "--save-dir",
+                              str(tmp_path / "out"), "--img-size", "256",
+                              "--save-txt", *SERVE_OVERRIDES])
+    assert greedy_nms_keep_cuda.launches == before + len(dets) == before + 4
+    model = attempt_load(str(ckpt), cfg, device=card)
+    infer = InferFn(model, 255.0, torch.bfloat16, dict(
+        nc=80, conf_thres=0.25, iou_thres=0.45, max_det=300, max_nms=2048))
+    n = 0
+    for path, rgb, img0, _ in LoadImages(str(imgs), 256):
+        decoded = infer.forward(torch.from_numpy(rgb).to(card)[None])
+        out = infer.nms(decoded, use_kernels=False)
+        want = out.detections[0][out.valid[0]].cpu().numpy()
+        want[:, :4] = _scale_to_native(want[:, :4], (256, 256),
+                                       img0.shape[:2])
+        np.testing.assert_array_equal(dets[path], want)
+        n += len(want)
+    assert n > 0
+
+
+def test_detect_backend_deploy_and_torchscript_on_the_card(card, tmp_path):
+    """cli.export on the card, then DetectBackend's `.deploy.ckpt` and
+    `.torchscript` run there: the fused model in bf16 within 2e-2 of the
+    largest output of the unfused bf16 forward, the traced float32 graph
+    within 1e-3 of the unfused float32 forward's (a seeded network's bf16
+    and float32 forwards part far more than either fusion moves them)."""
+    from efficientteacher_torch.cli import export
+    from efficientteacher_torch.eval.multi_backend import DetectBackend
+    from efficientteacher_torch.eval.validator import InferFn
+    from efficientteacher_torch.models.autoshape import attempt_load
+
+    cfg, ckpt, _ = _serve_setup(tmp_path)
+    done = export.main(["--cfg", SUP_YAML, "--weights", str(ckpt),
+                        "--include", "deploy", "torchscript", "--img-size",
+                        "256", "--batch", "2", *SERVE_OVERRIDES])
+    cfg.freeze()
+    images = np.random.default_rng(7).integers(0, 256, (2, 256, 256, 3),
+                                               dtype=np.uint8)
+    x = torch.from_numpy(images).to(card)
+    model = attempt_load(str(ckpt), cfg, device=card)
+    refs = {"deploy": (InferFn(model, 255.0, torch.bfloat16, {}), 2e-2),
+            "torchscript": (InferFn(model, 255.0, torch.float32, {}), 1e-3)}
+    for kind, (infer, tol) in refs.items():
+        ref = infer.forward(x).float()
+        backend = DetectBackend(str(done[kind]["path"]), cfg)
+        assert backend.kind == kind and backend.device.type == "cuda"
+        got = torch.from_numpy(backend(images)).to(card)
+        assert float((got - ref).abs().max()) <= tol * float(ref.abs().max())
+
+
+def test_detect_without_a_card_raises_unless_device_cpu(card, tmp_path,
+                                                        monkeypatch):
+    from efficientteacher_torch.cli import detect
+
+    _, ckpt, imgs = _serve_setup(tmp_path, n=1)
+    argv = ["--cfg", SUP_YAML, "--weights", str(ckpt), "--source",
+            str(imgs), "--save-dir", str(tmp_path / "out"), "--img-size",
+            "256", *SERVE_OVERRIDES]
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        detect.main(argv)
+    _, dets, _ = detect.main(argv + ["device", "cpu"])
+    assert len(dets) == 1

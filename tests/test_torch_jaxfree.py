@@ -1,5 +1,6 @@
-"""The PyTorch port imports neither jax, flax, yaml, cv2, PIL nor sklearn
-(the GPU machine it runs on need not have them), nor the JAX package.
+"""The PyTorch port imports neither jax, flax, yaml, cv2, PIL, sklearn nor
+matplotlib (the GPU machine it runs on need not have them), nor the JAX
+package.
 Checked in a fresh interpreter, since this test process has them
 loaded."""
 
@@ -88,6 +89,19 @@ MODULES = [
     "efficientteacher_torch.data.autoanchor",
     "efficientteacher_torch.utils.torch_import",
     "efficientteacher_torch.eval.keypoint_metrics",
+    "efficientteacher_torch.data.loaders",
+    "efficientteacher_torch.utils.draw",
+    "efficientteacher_torch.models.autoshape",
+    "efficientteacher_torch.cli.detect",
+    "efficientteacher_torch.cli.export",
+    "efficientteacher_torch.export",
+    "efficientteacher_torch.export.onnx_proto",
+    "efficientteacher_torch.export.onnx_graph",
+    "efficientteacher_torch.eval.multi_backend",
+    "efficientteacher_torch.utils.profile",
+    "efficientteacher_torch.utils.loggers",
+    "efficientteacher_torch.utils.wandb_artifacts",
+    "efficientteacher_torch.utils.plots",
     "chip_smoke",
     "ab_kernels",
 ]
@@ -100,6 +114,7 @@ def test_port_and_chip_smoke_import_without_jax():
         "    importlib.import_module(m)\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'yaml', 'cv2', 'PIL', 'sklearn',\n"
+        "                              'matplotlib', 'tensorflow', 'wandb',\n"
         "                              'efficientteacher_tpu'))\n"
         "assert not bad, bad\n"
     )

@@ -105,7 +105,25 @@ def test_meters_and_pseudo_label_quality_equal():
         jax_quality.check_pseudo_label_with_gt(pl, pmask, gt, gmask)
 
 
-def test_ap_per_class_plots_are_not_ported():
-    with pytest.raises(NotImplementedError):
-        metrics.ap_per_class(np.zeros((1, 10), bool), np.ones(1), np.zeros(1),
-                             np.zeros(1), plot_dir="plots")
+def test_ap_per_class_plots_are_not_ported(tmp_path):
+    """The curve plots are ported: `plot_dir` writes the PR / F1 / P / R
+    family, as JAX's does (tests/test_observability.py), and the results
+    stay bit-equal to JAX's with and without it."""
+    rng = np.random.default_rng(0)
+    tp = rng.random((200, 10)) > 0.4
+    conf = rng.random(200)
+    pred_cls = rng.integers(0, 3, 200)
+    target_cls = rng.integers(0, 3, 50)
+    names = ["a", "b", "c"]
+    got = metrics.ap_per_class(tp, conf, pred_cls, target_cls,
+                               plot_dir=tmp_path / "port", names=names)
+    want = jax_metrics.ap_per_class(tp, conf, pred_cls, target_cls,
+                                    plot_dir=tmp_path / "jax", names=names)
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(np.asarray(g), np.asarray(w))
+    for g, w in zip(metrics.ap_per_class(tp, conf, pred_cls, target_cls),
+                    got):
+        np.testing.assert_array_equal(np.asarray(g), np.asarray(w))
+    curves = ("PR_curve.png", "F1_curve.png", "P_curve.png", "R_curve.png")
+    assert sorted(p.name for p in (tmp_path / "port").iterdir()) == \
+        sorted(p.name for p in (tmp_path / "jax").iterdir()) == sorted(curves)

@@ -60,7 +60,7 @@ from test_torch_datasets import write_dataset
 from test_torch_trainer_resume import Replay, _sup_batches, _target_batches
 from test_torch_zoo import YAMLS, zoo_cfg
 from torch_port_helpers import (jax_and_port_models, one_torch_thread,  # noqa
-                                yolov5_cfg)
+                                no_leaked_pt_stubs, yolov5_cfg)
 
 REPO = Path(__file__).resolve().parents[1]
 VOC_YAML = REPO / "configs/ssod/voc/yolov5l_voc_burn.yaml"

@@ -117,9 +117,16 @@ def test_run_without_detections_or_labels(relu_models):
     assert cls_thr == [0.001] and not maps.any()
 
 
-def test_run_rejects_what_is_not_ported(relu_models):
-    _, _, port = relu_models
-    # keypoint validation is ported (tests/test_torch_keypoints.py); the
-    # plots wait for ROADMAP Q1.8
-    with pytest.raises(NotImplementedError):
-        validator.run(port, [], nc=1, plots_dir="plots")
+def test_run_rejects_what_is_not_ported(relu_models, tmp_path):
+    """Nothing of run() is refused any more: keypoint validation
+    (tests/test_torch_keypoints.py) and, here, `plots_dir`, which writes
+    JAX's PR / F1 / P / R curves and leaves the results as they are."""
+    jm, variables, port = relu_models
+    batches = _batches(jm, variables)
+    want = validator.run(port, batches, nc=1, compute_dtype=torch.float32)
+    got = validator.run(port, batches, nc=1, compute_dtype=torch.float32,
+                        plots_dir=tmp_path, names=["thing"])
+    assert got[0] == want[0] and got[2] == want[2]
+    np.testing.assert_array_equal(got[1], want[1])
+    assert sorted(p.name for p in tmp_path.iterdir()) == [
+        "F1_curve.png", "PR_curve.png", "P_curve.png", "R_curve.png"]

@@ -2,6 +2,8 @@
 and weights for the JAX package and the port, with the weights carried
 across by the port's bridge (numpy trees in between)."""
 
+import sys
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -25,6 +27,21 @@ def one_torch_thread():
     torch.set_num_threads(1)
     yield
     torch.set_num_threads(n)
+
+
+@pytest.fixture(autouse=True)
+def no_leaked_pt_stubs():
+    """Removes, after each test, the stub packages ("models", "utils",
+    ...) that the JAX package's `.pt` loader leaves in `sys.modules`: a
+    stub answers every attribute, `__file__` too, and a later first import
+    of `torch._dynamo` (which walks `sys.modules` through `inspect`) fails
+    on it in the same worker. A test module takes it with `from
+    torch_port_helpers import no_leaked_pt_stubs`."""
+    before = set(sys.modules)
+    yield
+    for name in set(sys.modules) - before:
+        if type(sys.modules[name]).__name__ == "_StubModule":
+            del sys.modules[name]
 
 
 def yolov5_cfg(width=0.25, depth=0.33, nc=8, img=64):
