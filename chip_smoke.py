@@ -111,7 +111,20 @@ read just after:
     batch 32) on a keypoint copy of the smoke images (5 seeded points in
     each box): 3 warm + 2 timed steps, then `cli.val --val-kp` at the mid
     density, its landmark NMS held against the plain NMS and its K1
-    launches timed.
+    launches timed;
+  - formats: the lossless image formats and the JPEG kinds (no cv2 or
+    Pillow on that machine): every fixture of tests/test_torch_jpeg.py and
+    tests/test_torch_image_formats.py decoded to cv2's digests; the val
+    split written twice, in PNG and cycling through BMP and TIFF (the
+    port's writers), 16-bit and Adam7 PNG and JPEG 4:1:1 / 4:4:0 / RGB /
+    CMYK / YCCK (the tests' own encoder), the PNG copy holding each
+    file's decoded pixels; `cli.val` (YOLOv5l, main YAML, bf16, the mid
+    density) on both gives the same results, K1, K2 and the count
+    launched and held against their plain versions; `cli.detect
+    --save-txt` over .bmp / .tif / .png sources writes each canvas under
+    its suffix (read back equal) and the PNG copies' label files; and
+    decode img/s through `load_image` at 1 and 8 threads per kind at
+    640x480.
 
 It times the forward, the NMS, the selection engine against `torch.topk`,
 the training steps and their phases (CUDA events), and each kernel
@@ -4351,6 +4364,287 @@ def serve_phase(torch, dev, card, lists):
         print(f"[time] serve {time.perf_counter() - t0:.1f} s | {card}")
     return entries
 
+# -- [formats] ----------------------------------------------------------------
+
+FORMAT_KINDS = ("bmp", "tif", "png16", "adam7", "jpg411", "jpg440",
+                "jpgrgb", "jpgcmyk", "jpgycck")
+RATE_KINDS = ("bmp24", "bmprle8", "tiflzw", "tifdeflate", "png16", "adam7",
+              "jpg411", "jpg440", "jpgrgb", "jpgcmyk", "png8", "jpg420")
+RATE_COPIES = 16        # files per kind in the rate lists (one image each)
+FORMAT_DETECT = 6       # cli.detect's sources: 2 each of .bmp, .tif, .png
+
+
+def format_file(path: Path, kind: str, rgb) -> Path:
+    """Write the RGB image `rgb` as `kind` at `path` (its suffix set by
+    the kind) with the port's writers or the tests' own PNG, BMP, TIFF and
+    JPEG encoders (numpy only; this machine has neither cv2 nor Pillow).
+    The JPEG kinds store YCbCr (4:1:1, 4:4:0), RGB (Adobe transform 0),
+    CMYK (transform 0, K 255) or YCCK (transform 2, the YCbCr of the
+    inverted image): each decodes to about `rgb`."""
+    import numpy as np
+
+    from efficientteacher_torch.data import image_io
+    from efficientteacher_torch.utils import native_loader as nl
+    from test_torch_image_formats import bmp_bytes, png_bytes, rle_stream, \
+        tiff_bytes
+    from test_torch_jpeg import encode_baseline
+
+    def ycc(img):
+        x = img.astype(np.float64)
+        y = 0.299 * x[..., 0] + 0.587 * x[..., 1] + 0.114 * x[..., 2]
+        cb = 128 + (x[..., 2] - y) * 0.564
+        cr = 128 + (x[..., 0] - y) * 0.713
+        return [np.rint(c).clip(0, 255).astype(np.uint8) for c in (y, cb,
+                                                                    cr)]
+
+    h, w = rgb.shape[:2]
+    ext = {"bmp": "bmp", "bmp24": "bmp", "bmprle8": "bmp", "tif": "tif",
+           "tiflzw": "tif", "tifdeflate": "tiff"}.get(
+        kind, "png" if kind.startswith(("png", "adam7")) else "jpg")
+    path = path.with_suffix("." + ext)
+    if kind in ("bmp", "bmp24", "tif", "tiflzw"):
+        image_io.imwrite(str(path), rgb[..., ::-1])
+    elif kind == "bmprle8":
+        idx = (rgb.astype(int).sum(2) // 12).clip(0, 63)
+        pal = np.zeros((256, 3), np.uint8)
+        pal[:64] = np.linspace(0, 255, 64)[:, None].astype(np.uint8)
+        path.write_bytes(bmp_bytes(rle_stream(idx[::-1], 8, ""), w, h, 8, 40,
+                                   1, pal))
+    elif kind == "tifdeflate":
+        path.write_bytes(tiff_bytes(rgb, compression=8))
+    elif kind == "png16":
+        deep = rgb.astype(np.uint16) * 257
+        path.write_bytes(png_bytes(deep, 16, 2))
+    elif kind == "adam7":
+        path.write_bytes(png_bytes(rgb, 8, 2, interlace=True))
+    elif kind == "png8":
+        image_io.write_png(str(path), rgb, level=1)
+    elif kind == "jpg420":
+        nl.jpeg_write(str(path), rgb, 90)
+    elif kind in ("jpg411", "jpg440"):
+        factors = ((4, 1) if kind == "jpg411" else (1, 2), (1, 1), (1, 1))
+        path.write_bytes(encode_baseline(ycc(rgb), factors, q=8))
+    elif kind == "jpgrgb":
+        path.write_bytes(encode_baseline([rgb[..., c] for c in range(3)],
+                                         ((1, 1),) * 3, ids=[82, 71, 66],
+                                         adobe=0, q=8))
+    elif kind == "jpgcmyk":
+        planes = [rgb[..., c] for c in range(3)] + [np.full((h, w), 255,
+                                                            np.uint8)]
+        path.write_bytes(encode_baseline(planes, ((2, 2), (1, 1), (1, 1),
+                                                  (2, 2)), adobe=0, q=8))
+    else:   # jpgycck
+        planes = ycc(255 - rgb) + [np.full((h, w), 255, np.uint8)]
+        path.write_bytes(encode_baseline(planes, ((2, 1), (1, 1), (1, 1),
+                                                  (2, 1)), adobe=2, q=8))
+    return path
+
+
+def formats_leg(torch, dev, card, lists, tmp):
+    """[formats]: the fixtures, cli.val on the val split in PNG and in the
+    formats, cli.detect on .bmp / .tif / .png sources, decode rates.
+    Returns kernels-line entries."""
+    import numpy as np
+
+    from efficientteacher_torch.cli import detect as cli_detect
+    from efficientteacher_torch.data import image_io
+    from efficientteacher_torch.data.datasets import (LoadImagesAndLabels,
+                                                      create_dataloader)
+    from efficientteacher_torch.models import build_model, spec_from_cfg
+    from efficientteacher_torch.utils.checkpoint import (module_variables,
+                                                         save_checkpoint)
+
+    sys.path.insert(0, str(Path(__file__).resolve().parent / "tests"))
+    import test_torch_image_formats as tif_fx
+    import test_torch_jpeg as jpg_fx
+
+    tmp = Path(tmp)
+    # -- fixtures against cv2's digests ---------------------------------
+    t0 = time.perf_counter()
+    bad = jpg_fx.check_fixtures(tmp / "jpeg_fixtures") + \
+        tif_fx.check_fixtures(tmp / "format_fixtures")
+    counts = {}
+    for name in tif_fx.FIXTURES:
+        fmt = tif_fx.fixture_format(name)
+        counts[fmt] = counts.get(fmt, 0) + 1
+    counts["jpeg"] = sum(len(d) for _, d in jpg_fx.FIXTURES.values())
+    require(not bad, f"decodes differ from cv2's digests: {bad}")
+    print(f"[formats] fixtures == cv2.imread's digests, 0 mismatches: "
+          + ", ".join(f"{k} {v}" for k, v in counts.items())
+          + f" decodes (JPEG: {len(jpg_fx.FIXTURES)} files x 4 scales) in "
+          f"{(time.perf_counter() - t0) * 1e3:.1f} ms")
+
+    # -- the val split twice: PNG and the formats -----------------------
+    t0 = time.perf_counter()
+    val = Path(lists["val"]).read_text().split()
+    splits = {}
+    for name in ("png", "formats"):
+        for d in ("images", "labels"):
+            (tmp / name / d).mkdir(parents=True, exist_ok=True)
+    files = {"png": [], "formats": []}
+    kinds_used = {}
+
+    def write(i):
+        src = val[i]
+        rgb = image_io.imread(src)
+        kind = FORMAT_KINDS[i % len(FORMAT_KINDS)]
+        stem = Path(src).stem
+        path = format_file(tmp / "formats" / "images" / stem, kind, rgb)
+        copy = tmp / "png" / "images" / f"{stem}.png"
+        image_io.write_png(str(copy), image_io.imread(str(path)), level=1)
+        label = Path(src).parent.parent / "labels" / f"{stem}.txt"
+        for name in ("png", "formats"):
+            shutil.copy(label, tmp / name / "labels" / f"{stem}.txt")
+        return kind, str(path), str(copy)
+
+    with ThreadPoolExecutor(8) as ex:
+        for kind, path, copy in ex.map(write, range(len(val))):
+            files["formats"].append(path)
+            files["png"].append(copy)
+            kinds_used[kind] = kinds_used.get(kind, 0) + 1
+    for name in ("png", "formats"):
+        splits[name] = tmp / name / f"{name}.txt"
+        splits[name].write_text("".join(f"{p}\n" for p in files[name]))
+    t_write = time.perf_counter() - t0
+    lossless = [(a, b) for a, b in zip(files["formats"], files["png"])
+                if image_io.suffix(a) not in image_io.JPEG_SUFFIXES]
+    same = sum(np.array_equal(image_io.imread(a), image_io.imread(b))
+               for a, b in lossless)
+    require(same == len(lossless), f"{len(lossless) - same} lossless files "
+            f"decode unlike their PNG copies")
+    print(f"[formats] val split ({len(val)} images at {NATIVE_WH}) written "
+          f"as PNG and as {kinds_used} in {t_write:.1f} s; the "
+          f"{len(lossless)} lossless files decode as their PNG copies")
+
+    # -- YOLOv5l at the mid density, cli.val on both --------------------
+    cfg = ssod_cfg(*data_overrides(lists))
+    spec = dataclasses.replace(spec_from_cfg(cfg), train_domain=False)
+    model = build_model(spec, device=dev,
+                        generator=torch.Generator().manual_seed(SEED + 14))
+    loader = create_dataloader(cfg, "val", augment=False, batch_size=T_BATCH,
+                               pin_memory=True)
+    calib = next(iter(loader))["images"][:8].to(dev)
+    del loader
+    shift = mid_val_teacher(torch, model.eval(), calib)
+    with torch.no_grad():
+        for t in model.state_dict().values():
+            if t.is_floating_point():
+                t.copy_(t.half().float())
+    v = module_variables(model)
+    ckpt = tmp / "formats_mid.ckpt"
+    save_checkpoint(ckpt, params=v["params"], batch_stats=v["batch_stats"])
+    results, entries = {}, []
+    for name in ("png", "formats"):
+        argv = ["--cfg", str(MAIN_YAML), "--weights", str(ckpt),
+                "--batch-size", str(T_BATCH), "Dataset.val",
+                str(splits[name])]
+        t0 = time.perf_counter()
+        got, launches, decoded = recorded_cli_val(torch, argv)
+        t_val = time.perf_counter() - t0
+        require(all(launches.values()), f"cli.val on the {name} split "
+                f"launched {launches}")
+        results[name] = got
+        print(f"[formats] cli.val on the {name} split: P/R/mAP50/mAP "
+              f"{'/'.join(f'{x:.6f}' for x in got)}, each batch's NMS == the "
+              f"plain NMS, launches {launches}; {t_val:.1f} s | {card}")
+        if name == "formats":
+            entries = val_entries(torch, decoded, "formats: cli.val",
+                                  launches, card)
+    require(results["png"] == results["formats"], f"cli.val differs "
+            f"between the splits: {results}")
+    print(f"[formats] cli.val: the formats split's results == the PNG "
+          f"split's ({shift[1]:.0f} candidates/img on the calibration "
+          f"batch)")
+
+    # -- cli.detect over .bmp / .tif / .png sources ---------------------
+    src_dir = {k: tmp / f"detect_{k}" for k in ("mixed", "png")}
+    for d in src_dir.values():
+        d.mkdir()
+    for i in range(FORMAT_DETECT):
+        rgb = image_io.imread(val[i])
+        kind = ("bmp", "tif", "png8")[i % 3]
+        path = format_file(src_dir["mixed"] / f"{i}", kind, rgb)
+        image_io.write_png(str(src_dir["png"] / f"{i}.png"),
+                           image_io.imread(str(path)))
+    canvases, real = [], image_io.imwrite
+
+    def record(path, img):
+        canvases.append((Path(path), np.array(img)))
+        real(path, img)
+
+    outs = {}
+    image_io.imwrite = record
+    try:
+        for k, d in src_dir.items():
+            outs[k] = cli_detect.main([
+                "--cfg", str(MAIN_YAML), "--weights", str(ckpt), "--source",
+                str(d), "--save-dir", str(tmp / f"out_{k}"), "--save-txt",
+                "--conf-thres", "0.001", "--img-size", str(IMG)])
+    finally:
+        image_io.imwrite = real
+    out_dir = outs["mixed"][0]
+    written = [(p, c) for p, c in canvases if p.parent == out_dir]
+    suffixes = sorted(p.suffix for p, _ in written)
+    require(suffixes == sorted(Path(p).suffix for p in outs["mixed"][1]),
+            f"cli.detect wrote {suffixes}")
+    for p, c in written:
+        require(np.array_equal(image_io.imread(str(p)), c[..., ::-1]),
+                f"{p.name} reads back unlike its canvas")
+    txt = [sorted(outs[k][0].glob("*.txt")) for k in ("mixed", "png")]
+    require(len(txt[0]) == FORMAT_DETECT and [t.read_text() for t in txt[0]]
+            == [t.read_text() for t in txt[1]],
+            "cli.detect's label files differ from the PNG copies'")
+    n_det = sum(len(d) for d in outs["mixed"][1].values())
+    print(f"[formats] cli.detect --save-txt over {FORMAT_DETECT} sources "
+          f"({', '.join(sorted(set(suffixes)))}): {n_det} detections; each "
+          f"canvas written under its source's suffix and read back equal; "
+          f"label files == the PNG copies'")
+
+    # -- decode rates per kind at 640x480 -------------------------------
+    base = image_io.imread(next(p for p in val if image_io.image_size(p)
+                                == (640, 480)))
+    rates = {}
+    for kind in RATE_KINDS:
+        d = tmp / f"rate_{kind}"
+        d.mkdir()
+        first = format_file(d / "0", kind, base)
+        data = first.read_bytes()
+        paths = [first] + [first.with_name(f"{i}{first.suffix}")
+                           for i in range(1, RATE_COPIES)]
+        for p in paths[1:]:
+            p.write_bytes(data)
+        lst = d / "list.txt"
+        lst.write_text("".join(f"{p}\n" for p in paths))
+        ds = LoadImagesAndLabels(str(lst), img_size=IMG, nc=NC)
+        ref = ds.load_image(0)[0]
+        rates[kind] = {"bytes": len(data)}
+        for threads in DATA_WORKERS:
+            with ThreadPoolExecutor(threads) as ex:
+                list(ex.map(ds.load_image, range(min(threads, len(ds)))))
+                t0 = time.perf_counter()
+                imgs = list(ex.map(lambda i: ds.load_image(i)[0],
+                                   range(len(ds))))
+                rates[kind][threads] = len(ds) / (time.perf_counter() - t0)
+            require(all(np.array_equal(im, ref) for im in imgs),
+                    f"{kind}: decodes differ")
+    print(f"[formats] decode img/s through LoadImagesAndLabels.load_image "
+          f"at 640x480 ({RATE_COPIES} files each), 1 / 8 threads: "
+          + "; ".join(f"{k} {r[1]:.1f} / {r[8]:.1f} ({r['bytes'] / 1e3:.0f}"
+                      f" kB)" for k, r in rates.items())
+          + f"; host cores {os.cpu_count()} | {card}")
+    return entries
+
+
+def formats_phase(torch, dev, card, lists):
+    """The [formats] leg; its kernels-line entries."""
+    import tempfile
+
+    with tempfile.TemporaryDirectory(dir=DATA_DIR) as tmp:
+        t0 = time.perf_counter()
+        entries = formats_leg(torch, dev, card, lists, tmp)
+        print(f"[time] formats {time.perf_counter() - t0:.1f} s | {card}")
+    return entries
+
 
 def main() -> int:
     import torch
@@ -4438,8 +4732,8 @@ def main() -> int:
           f"{', '.join(f'{n} {c}' for n, c in launches.items())}")
     print(f"[slice] selection tiers per regime ({N_BATCHES} batches each): "
           f"{'; '.join(f'{n} {t}' for n, t in tiers.items())}; "
-          f"fallbacks to torch.topk after bisection: "
-          f"{sum(t.get('elems:fallback_topk', 0) for t in tiers.values())}")
+          f"tie-class compactions after bisection: "
+          f"{sum(t.get('elems:ties', 0) for t in tiers.values())}")
     require(all(c > 0 for c in launches.values()),
             f"a kernel of the path was not launched: {launches}")
 
@@ -4586,6 +4880,7 @@ def main() -> int:
                          lists)
         kernels += timed("slice11", slice11_phase, torch, dev, card, lists)
         kernels += timed("serve", serve_phase, torch, dev, card, lists)
+        kernels += timed("formats", formats_phase, torch, dev, card, lists)
     finally:
         shutil.rmtree(DATA_DIR, ignore_errors=True)
     print("[time] phases (s): " + ", ".join(

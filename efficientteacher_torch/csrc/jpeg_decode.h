@@ -3,10 +3,12 @@
 // library. Included by loader_core.cpp only.
 //
 // Decodes baseline (SOF0), extended 8-bit Huffman (SOF1) and progressive
-// Huffman (SOF2) files of 1 component (grey) or 3 (YCbCr) sampled 4:4:4,
-// 4:2:2 (h2v1) or 4:2:0 (h2v2), with restart intervals, at scale 1, 1/2,
-// 1/4 or 1/8. Everything else is refused with a Kind, from the headers,
-// before any entropy-coded data is read.
+// Huffman (SOF2) files of 1 component (grey), 3 (YCbCr, or RGB where the
+// markers say so) or 4 (CMYK, YCCK), with any sampling factors libjpeg
+// accepts (1-4 each, integral ratios, at most 10 blocks in an interleaved
+// MCU), with restart intervals, at scale 1, 1/2, 1/4 or 1/8. Everything
+// else is refused with a Kind, from the headers, before any entropy-coded
+// data is read.
 //
 // Reproduced libjpeg-turbo routines (names are its files and functions):
 //   jdhuff.c / jdphuff.c    Huffman decode; sequential, DC/AC first and
@@ -18,12 +20,19 @@
 //   jdmaster.c  jpeg_calc_output_dimensions   (each component's DCT size:
 //                           chroma is scaled up by its IDCT, not upsampled,
 //                           where the scale allows)
-//   jdsample.c  h2v1_fancy_upsample / h2v2_fancy_upsample (triangle filter,
+//   jdapimin.c  default_decompress_parms   (the colour space from JFIF /
+//                           Adobe markers and component ids)
+//   jdsample.c  jinit_upsampler's choice per component: fullsize,
+//                           h2v1 / h2v2 / h1v2 fancy (triangle filter,
 //                           +1/+2 and +8/+7 biases, edge columns and
-//                           context rows repeated), h2v1 / h2v2 box
-//                           upsampling where libjpeg turns fancy off
-//                           (min DCT size 1, or a component <= 2 wide)
-//   jdcolor.c   ycc_rgb_convert   (16-bit fixed-point tables, ONE_HALF)
+//                           context rows repeated), h2v1 / h2v2 box where
+//                           libjpeg turns fancy off (min DCT size 1, or a
+//                           component <= 2 wide), int_upsample (box) for
+//                           every other integral ratio (4:1:1, ...)
+//   jdcolor.c   ycc_rgb_convert   (16-bit fixed-point tables, ONE_HALF),
+//               rgb_rgb_convert, ycck_cmyk_convert
+// and OpenCV's icvCvt_CMYK2BGR_8u_C4C3R, with which cv2.imread turns the
+// CMYK libjpeg gives it into BGR.
 // A progressive file whose scans leave a coefficient unrefined would be
 // block-smoothed by libjpeg (jdcoefct.c smoothing_ok); that smoothing is
 // not reproduced: such a file is refused (kUnrefined).
@@ -47,11 +56,13 @@ enum Kind {
   kPrecision = 2,     // sample precision other than 8 bits
   kLossless = 3,      // lossless (SOF3)
   kHierarchical = 4,  // hierarchical / differential (SOF5-7, DHP, EXP)
-  kComponents = 5,    // neither 1 nor 3 components (CMYK, YCCK, ...)
-  kSampling = 6,      // sampling other than 4:4:4, 4:2:2, 4:2:0
+  kComponents = 5,    // neither 1, 3 nor 4 components
+  kSampling = 6,      // sampling factors libjpeg does not decode
   kUnrefined = 7,     // progressive scans leave coefficients unrefined
-  kColourSpace = 8,   // 3 components stored as RGB, not YCbCr
 };
+
+// The colour space of the file (jdapimin.c default_decompress_parms).
+enum Colour { kGrey, kYCbCr, kRGB, kCMYK, kYCCK };
 
 enum Status { kOk = 0, kCorrupt = -2, kRefused = -4 };
 
@@ -505,6 +516,7 @@ class Decoder {
   int width = 0, height = 0;
   int orientation = 1;  // EXIF tag 0x0112 of the first APP1, else 1
   int kind = kSupported;
+  int colour = kGrey;
   bool progressive = false;
 
   // Parse `data`; with `decode` also decode every scan. Without it, stops
@@ -603,7 +615,7 @@ class Decoder {
   void output(int denom, Sink&& sink) const {
     const int smin = 8 / denom;
     const int ow = out_width(denom), oh = out_height(denom);
-    Plane pl[3];
+    Plane pl[4];
     for (int c = 0; c < ncomp_; ++c) {
       const Component& cp = comp_[c];
       int s = smin;  // jpeg_calc_output_dimensions' DCT size rule
@@ -618,7 +630,10 @@ class Decoder {
       P.px.resize(static_cast<size_t>(P.stride) * cp.bh * s);
       P.hr = hmax_ / (cp.h * s / smin);
       P.vr = vmax_ / (cp.v * s / smin);
-      P.fancy = smin > 1 && P.dw > 2;
+      // jinit_upsampler: do_fancy is off at the 1/8 scale (min DCT size
+      // 1); h2v1 and h2v2 also need a component wider than 2
+      P.fancy = smin > 1 && (P.hr == 1 || P.dw > 2) &&
+                ((P.hr == 2 && P.vr <= 2) || (P.hr == 1 && P.vr == 2));
       const int nbx = std::min(cp.bw, ceil_div(P.dw, s));
       const int nby = std::min(cp.bh, ceil_div(P.dh, s));
       auto idct = s == 8 ? idct_islow
@@ -632,28 +647,49 @@ class Decoder {
       }
     }
     std::vector<uint8_t> row(static_cast<size_t>(ow) * 3);
-    if (ncomp_ == 1) {
-      for (int y = 0; y < oh; ++y) {
-        const uint8_t* g = &pl[0].px[static_cast<size_t>(y) * pl[0].stride];
-        for (int x = 0; x < ow; ++x) {
-          row[x * 3] = row[x * 3 + 1] = row[x * 3 + 2] = g[x];
-        }
-        sink(y, row.data());
-      }
-      return;
-    }
-    std::vector<uint8_t> cb(ow), cr(ow);
-    std::vector<int> colsum(std::max(pl[1].dw, pl[2].dw));
+    std::vector<uint8_t> up(static_cast<size_t>(ow) * ncomp_);
+    int dwmax = 0;
+    for (int c = 0; c < ncomp_; ++c) dwmax = std::max(dwmax, pl[c].dw);
+    std::vector<int> colsum(dwmax);
     const YccTables& t = ycc_tables();
     for (int y = 0; y < oh; ++y) {
-      upsample_row(pl[1], y, ow, cb.data(), colsum.data());
-      upsample_row(pl[2], y, ow, cr.data(), colsum.data());
-      const uint8_t* yy = &pl[0].px[static_cast<size_t>(y) * pl[0].stride];
+      const uint8_t* in[4];
+      for (int c = 0; c < ncomp_; ++c) {
+        in[c] = upsample_row(pl[c], y, ow, &up[static_cast<size_t>(c) * ow],
+                             colsum.data());
+      }
       for (int x = 0; x < ow; ++x) {
-        const int Y = yy[x], b = cb[x], r = cr[x];
-        row[x * 3] = clamp255(Y + t.cr_r[r]);
-        row[x * 3 + 1] = clamp255(Y + ((t.cb_g[b] + t.cr_g[r]) >> 16));
-        row[x * 3 + 2] = clamp255(Y + t.cb_b[b]);
+        uint8_t* o = &row[x * 3];
+        switch (colour) {
+          case kGrey:
+            o[0] = o[1] = o[2] = in[0][x];
+            break;
+          case kRGB:
+            o[0] = in[0][x], o[1] = in[1][x], o[2] = in[2][x];
+            break;
+          case kYCbCr: {
+            const int Y = in[0][x], b = in[1][x], r = in[2][x];
+            o[0] = clamp255(Y + t.cr_r[r]);
+            o[1] = clamp255(Y + ((t.cb_g[b] + t.cr_g[r]) >> 16));
+            o[2] = clamp255(Y + t.cb_b[b]);
+            break;
+          }
+          default: {  // CMYK, YCCK (ycck_cmyk_convert first)
+            int c0 = in[0][x], c1 = in[1][x], c2 = in[2][x];
+            const int k = in[3][x];
+            if (colour == kYCCK) {
+              const int Y = c0, b = c1, r = c2;
+              c0 = clamp255(255 - (Y + t.cr_r[r]));
+              c1 = clamp255(255 - (Y + ((t.cb_g[b] + t.cr_g[r]) >> 16)));
+              c2 = clamp255(255 - (Y + t.cb_b[b]));
+            }
+            // icvCvt_CMYK2BGR_8u_C4C3R: red from C, green M, blue Y
+            o[0] = static_cast<uint8_t>(k - (((255 - c0) * k) >> 8));
+            o[1] = static_cast<uint8_t>(k - (((255 - c1) * k) >> 8));
+            o[2] = static_cast<uint8_t>(k - (((255 - c2) * k) >> 8));
+            break;
+          }
+        }
       }
       sink(y, row.data());
     }
@@ -733,7 +769,7 @@ class Decoder {
     height = (s[1] << 8) | s[2];
     width = (s[3] << 8) | s[4];
     ncomp_ = s[5];
-    if (ncomp_ != 1 && ncomp_ != 3) return refuse(kComponents);
+    if (ncomp_ != 1 && ncomp_ != 3 && ncomp_ != 4) return refuse(kComponents);
     if (n < 6 + 3 * ncomp_ || width == 0 || height == 0) return kCorrupt;
     for (int c = 0; c < ncomp_; ++c) {
       Component& cp = comp_[c];
@@ -748,22 +784,25 @@ class Decoder {
       vmax_ = std::max(vmax_, cp.v);
       std::memset(cp.coef_bits, -1, sizeof(cp.coef_bits));
     }
-    if (ncomp_ == 3) {
-      const Component* c = comp_;
-      const bool chroma_1x1 = c[1].h == 1 && c[1].v == 1 && c[2].h == 1 &&
-                              c[2].v == 1;
-      const bool luma_ok = (c[0].h == 1 && c[0].v == 1) ||
-                           (c[0].h == 2 && c[0].v == 1) ||
-                           (c[0].h == 2 && c[0].v == 2);
-      if (!chroma_1x1 || !luma_ok) return refuse(kSampling);
+    // jdsample.c: every ratio to the largest factor is integral
+    // (JERR_FRACT_SAMPLE_NOTIMPL); jdinput.c: an interleaved MCU holds at
+    // most D_MAX_BLOCKS_IN_MCU = 10 blocks (JERR_BAD_MCU_SIZE)
+    int blocks = 0;
+    for (int c = 0; c < ncomp_; ++c) {
+      const Component& cp = comp_[c];
+      if (hmax_ % cp.h || vmax_ % cp.v) return refuse(kSampling);
+      blocks += cp.h * cp.v;
     }
+    if (ncomp_ > 1 && blocks > 10) return refuse(kSampling);
     return kOk;
   }
 
   // jdapimin.c default_decompress_parms' colour space guess; the buffers
   // are allocated here, once the frame is known.
   int check_frame() {
-    if (ncomp_ == 3) {
+    if (ncomp_ == 1) {
+      colour = kGrey;
+    } else if (ncomp_ == 3) {
       bool rgb = false;
       if (saw_jfif_) {
         rgb = false;
@@ -772,7 +811,9 @@ class Decoder {
       } else {
         rgb = comp_[0].id == 'R' && comp_[1].id == 'G' && comp_[2].id == 'B';
       }
-      if (rgb) return refuse(kColourSpace);
+      colour = rgb ? kRGB : kYCbCr;
+    } else {  // 4: an Adobe transform other than 0 is taken as YCCK
+      colour = saw_adobe_ && adobe_transform_ != 0 ? kYCCK : kCMYK;
     }
     mcux_ = ceil_div(width, 8 * hmax_);
     mcuy_ = ceil_div(height, 8 * vmax_);
@@ -1063,20 +1104,20 @@ class Decoder {
     }
   }
 
-  // One output row of a chroma plane, upsampled to the output width
-  // (jdsample.c). `colsum` holds plane.dw ints.
-  static void upsample_row(const Plane& P, int y, int ow, uint8_t* out,
-                           int* colsum) {
+  // One output row of a component's plane, upsampled to the output width
+  // (jdsample.c): the plane's own row where it is full size, else `out`.
+  // `colsum` holds plane.dw ints.
+  static const uint8_t* upsample_row(const Plane& P, int y, int ow,
+                                     uint8_t* out, int* colsum) {
     const int dw = P.dw;
-    if (P.vr == 1 && P.hr == 1) {
-      std::memcpy(out, &P.px[static_cast<size_t>(y) * P.stride], ow);
-      return;
+    if (P.vr == 1 && P.hr == 1) {  // fullsize_upsample
+      return &P.px[static_cast<size_t>(y) * P.stride];
     }
-    const int iy = P.vr == 2 ? y / 2 : y;
+    const int iy = y / P.vr;
     const uint8_t* in = &P.px[static_cast<size_t>(iy) * P.stride];
-    if (!P.fancy) {  // box: h2v1_upsample / h2v2_upsample
+    if (!P.fancy) {  // h2v1_upsample / h2v2_upsample / int_upsample
       for (int x = 0; x < ow; ++x) out[x] = in[x / P.hr];
-      return;
+      return out;
     }
     if (P.vr == 1) {  // h2v1_fancy_upsample
       for (int x = 0; x < ow; ++x) {
@@ -1087,13 +1128,21 @@ class Decoder {
                      : static_cast<uint8_t>(
                            (in[i] * 3 + in[std::max(i - 1, 0)] + 1) >> 2);
       }
-      return;
+      return out;
     }
-    // h2v2_fancy_upsample: the nearer input row weighs 3, the row above
-    // (even output rows) or below (odd) 1; rows past the image repeat
-    // the edge row (jdmainct.c context rows)
+    // h2v2 / h1v2: the nearer input row weighs 3, the row above (even
+    // output rows) or below (odd) 1; rows past the image repeat the edge
+    // row (jdmainct.c context rows)
     const int ny = std::min(std::max((y & 1) ? iy + 1 : iy - 1, 0), P.dh - 1);
     const uint8_t* in1 = &P.px[static_cast<size_t>(ny) * P.stride];
+    if (P.hr == 1) {  // h1v2_fancy_upsample
+      const int bias = (y & 1) ? 2 : 1;
+      for (int x = 0; x < ow; ++x) {
+        out[x] = static_cast<uint8_t>((in[x] * 3 + in1[x] + bias) >> 2);
+      }
+      return out;
+    }
+    // h2v2_fancy_upsample
     for (int i = 0; i < dw; ++i) colsum[i] = in[i] * 3 + in1[i];
     for (int x = 0; x < ow; ++x) {
       const int i = x >> 1;
@@ -1105,6 +1154,7 @@ class Decoder {
                          (colsum[i] * 3 + colsum[std::max(i - 1, 0)] + 8) >>
                          4);
     }
+    return out;
   }
 };
 

@@ -1,7 +1,9 @@
 // Host data-loader core of the PyTorch port: JPEG decode and the bilinear
-// letterbox, PNG row unfiltering, the host augmentation's pixel operations
-// (pixel_ops.h: cv2's warpAffine / warpPerspective, HSV, grey and 3x3
-// filter), and a JPEG writer for test data. Plain C
+// letterbox, the per-pixel stages of PNG, BMP and TIFF (raster_decode.h:
+// row filters, Adam7, bit unpacking, palettes, RLE, LZW, PackBits, the
+// TIFF predictor) and TIFF's LZW writer, the host augmentation's pixel
+// operations (pixel_ops.h: cv2's warpAffine / warpPerspective, HSV, grey
+// and 3x3 filter), and a JPEG writer for test data. Plain C
 // ABI, built with the host compiler (no CUDA, no libjpeg) by
 // ops/_build.host_library and bound with ctypes by utils/native_loader.py.
 //
@@ -36,6 +38,7 @@
 #include "jpeg_decode.h"
 #include "jpeg_encode.h"
 #include "pixel_ops.h"
+#include "raster_decode.h"
 
 namespace {
 
@@ -45,7 +48,6 @@ constexpr int kErrDecode = -2;     // corrupt or truncated data
 constexpr int kErrSize = -3;       // dims differ from what the caller expects
 constexpr int kErrUnsupported = -4;  // a JPEG kind the decoder refuses
 constexpr int kErrArgs = -5;       // bad sizes
-constexpr int kErrFilter = -6;     // unknown PNG filter type
 
 constexpr int kCoefBits = 11;
 constexpr int kCoefScale = 1 << kCoefBits;
@@ -282,13 +284,6 @@ int decode_resize(const char* path, int expect_w, int expect_h, int new_w,
   });
 }
 
-int paeth(int a, int b, int c) {
-  const int p = a + b - c;
-  const int pa = std::abs(p - a), pb = std::abs(p - b), pc = std::abs(p - c);
-  if (pa <= pb && pa <= pc) return a;
-  return pb <= pc ? b : c;
-}
-
 }  // namespace
 
 extern "C" {
@@ -364,35 +359,87 @@ int et_resize_letterbox(const uint8_t* src, int sw, int sh, int sstride,
   return kOk;
 }
 
-// Undo PNG's per-row filters in place: `data` holds h rows of 1 filter
-// byte + `row_bytes` bytes; `out` gets the (h, row_bytes) raw bytes. `bpp`
-// is the bytes per pixel (PNG spec section 9: None, Sub, Up, Average,
-// Paeth).
-int et_png_unfilter(const uint8_t* data, int h, int row_bytes, int bpp,
-                    uint8_t* out) {
-  if (h <= 0 || row_bytes <= 0 || bpp <= 0) return kErrArgs;
-  for (int y = 0; y < h; ++y) {
-    const uint8_t* in = data + static_cast<size_t>(y) * (row_bytes + 1);
-    const int type = in[0];
-    ++in;
-    uint8_t* o = out + static_cast<size_t>(y) * row_bytes;
-    const uint8_t* up = y ? o - row_bytes : nullptr;
-    for (int i = 0; i < row_bytes; ++i) {
-      const int a = i >= bpp ? o[i - bpp] : 0;
-      const int b = up ? up[i] : 0;
-      const int c = (up && i >= bpp) ? up[i - bpp] : 0;
-      int v;
-      switch (type) {
-        case 0: v = in[i]; break;
-        case 1: v = in[i] + a; break;
-        case 2: v = in[i] + b; break;
-        case 3: v = in[i] + ((a + b) >> 1); break;
-        case 4: v = in[i] + paeth(a, b, c); break;
-        default: return kErrFilter;
-      }
-      o[i] = static_cast<uint8_t>(v & 0xff);
-    }
+// The inflated IDAT stream `data` (n bytes) of a (w, h) PNG with `spp`
+// samples of `bits` bits, Adam7 when `interlaced` -> out (h, w, spp): one
+// byte per sample, 16-bit samples as their high byte.
+int et_png_decode(const uint8_t* data, int64_t n, int w, int h, int bits,
+                  int spp, int interlaced, uint8_t* out) {
+  if (w <= 0 || h <= 0 || spp < 1 || spp > 4 || n < 0 ||
+      (bits != 1 && bits != 2 && bits != 4 && bits != 8 && bits != 16)) {
+    return kErrArgs;
   }
+  return guarded([&] {
+    return etraster::png_decode(data, static_cast<size_t>(n), w, h, bits,
+                                spp, interlaced != 0, out) == etraster::kOk
+               ? kOk
+               : kErrDecode;
+  });
+}
+
+// n pixels of spp bytes -> RGB (etraster::to_rgb): through `lut` (256 x 3,
+// indexed by the first sample) when it is not null, else samples 0-2;
+// premultiplied by the sample at `alpha` when alpha >= 0.
+int et_to_rgb(const uint8_t* src, int64_t n, int spp, const uint8_t* lut,
+              int alpha, uint8_t* out) {
+  if (n < 0 || spp < 1 || (!lut && spp < 3) || alpha >= spp) return kErrArgs;
+  etraster::to_rgb(src, static_cast<size_t>(n), spp, lut, alpha, out);
+  return kOk;
+}
+
+// The BMP file `data` (n bytes), pixels from `offset`, as OpenCV's
+// BmpDecoder reads it (etraster::BmpReader) -> out (h, w, 3) RGB.
+int et_bmp_decode(const uint8_t* data, int64_t n, int64_t offset, int w,
+                  int h, int bottom_up, int bpp, int rle,
+                  const uint8_t* palette, uint8_t* out) {
+  if (w <= 0 || h <= 0 || n < 0 || offset < 0 ||
+      (rle != 0 && rle != 4 && rle != 8)) {
+    return kErrArgs;
+  }
+  return guarded([&] {
+    etraster::BmpReader r(data, static_cast<size_t>(n),
+                          static_cast<size_t>(offset), w, h, bottom_up != 0,
+                          palette, out);
+    return r.read(bpp, rle) == etraster::kOk ? kOk : kErrDecode;
+  });
+}
+
+// The strips or tiles of a TIFF (etraster::tiff_decode) -> out (h, w, spp):
+// layout = {w, h, cw, ch, tiled, planes, per_chunk, spp, bits, flags}.
+int et_tiff_decode(const uint8_t* data, int64_t n, const int64_t* offsets,
+                   const int64_t* counts, int nchunks, int compression,
+                   const int* layout, uint8_t* out) {
+  const etraster::TiffLayout L{layout[0], layout[1], layout[2], layout[3],
+                               layout[4], layout[5], layout[6], layout[7],
+                               layout[8], layout[9]};
+  if (n < 0 || nchunks <= 0 || L.w <= 0 || L.h <= 0 || L.cw <= 0 ||
+      L.ch <= 0 || L.planes <= 0 || L.per_chunk <= 0 ||
+      L.spp != L.per_chunk * L.planes) {
+    return kErrArgs;
+  }
+  return guarded([&] {
+    const int st = etraster::tiff_decode(data, static_cast<size_t>(n),
+                                         offsets, counts, nchunks,
+                                         compression, L, out);
+    return st == etraster::kOk ? kOk
+           : st == etraster::kArgs ? kErrArgs : kErrDecode;
+  });
+}
+
+// n bytes -> a TIFF LZW stream into dst (cap bytes); *written its length,
+// kErrArgs when it does not fit.
+int et_lzw_encode(const uint8_t* src, int64_t n, uint8_t* dst, int64_t cap,
+                  int64_t* written) {
+  if (n < 0 || cap < 0) return kErrArgs;
+  std::vector<uint8_t> out;
+  if (guarded([&] {
+        etraster::lzw_encode(src, static_cast<size_t>(n), &out);
+        return kOk;
+      }) != kOk ||
+      static_cast<int64_t>(out.size()) > cap) {
+    return kErrArgs;
+  }
+  std::memcpy(dst, out.data(), out.size());
+  *written = static_cast<int64_t>(out.size());
   return kOk;
 }
 

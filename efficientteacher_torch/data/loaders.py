@@ -2,8 +2,10 @@
 `efficientteacher_tpu/data/loaders.py`; reference utils/datasets.py:400-494).
 
 `LoadImages` takes files, directories, globs and `.txt` lists, as the
-datasets' `parse_data_path` expands them, reads each image with the
-port's `image_io.imread` (bit-equal to cv2.imread) and letterboxes it with
+datasets' `parse_data_path` expands them (every suffix of `IMG_FORMATS`),
+reads each image with the port's `image_io.imread` (bit-equal to
+cv2.imread on JPEG, PNG, BMP and TIFF; `.webp` and the kinds of ROADMAP
+Q1.9c raise) and letterboxes it with
 `augment.letterbox` (cv2's INTER_LINEAR, in the loader core). Each item is
 what JAX's yields: (path, letterboxed RGB uint8, the image as read in
 cv2's BGR order, (ratio, pad)).

@@ -19,7 +19,9 @@ turns a non-zero code into an exception.
 `host_library` builds the loader core the same way (hashed over
 `loader_core.cpp` and the headers it includes, atomic rename) with `c++`.
 It links nothing but the C++ runtime: the JPEG decoder and writer are the
-core's own (`csrc/jpeg_decode.h`, `csrc/jpeg_encode.h`). `-ffp-contract=off`
+core's own (`csrc/jpeg_decode.h`, `csrc/jpeg_encode.h`), as are the
+per-pixel stages of PNG, BMP and TIFF (`csrc/raster_decode.h`; zlib is
+Python's). `-ffp-contract=off`
 keeps the compiler from fusing a multiply and an add on its own: the
 augmentation's pixel operations (`csrc/pixel_ops.h`) are bit-equal to
 cv2 only with a fused multiply-add exactly where they call `std::fma`.
@@ -112,7 +114,7 @@ def library() -> Built:
 
 HOST_FLAGS = ("-O3", "-std=c++17", "-shared", "-fPIC", "-ffp-contract=off")
 HOST_SOURCES = ("loader_core.cpp", "jpeg_decode.h", "jpeg_encode.h",
-                "pixel_ops.h")
+                "pixel_ops.h", "raster_decode.h")
 
 
 def _compile(cmd, so: Path, what: str) -> tuple:

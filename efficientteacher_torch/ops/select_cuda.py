@@ -10,7 +10,10 @@ eval NMS (reference utils/general.py:1024,1061: the max_nms=30000 cap):
     them, and run a small top-k; crowded batches fall through to
   - `exact_topk_elems`: count candidates per image, bisect a per-image
     value threshold tau so that count(s >= tau) lies in [k, cap], compact
-    the elements s >= tau, and run a small top-k.
+    the elements s >= tau, and run a small top-k. Where more than cap - k
+    scores tie with the k-th, no tau exists: the bisection narrows to that
+    score, and the engine compacts the scores above it and its tie class
+    apart.
 
 Both hand `threshold_compact_cuda` their compaction. The element engine's
 counts (the candidate total and each bisection pass's T <= 8 thresholds)
@@ -45,7 +48,7 @@ from ..assigners.topk import topk_lower_index_first
 from ._build import check, library
 
 _T_BISECT = 8   # thresholds counted per bisection pass
-_P_BISECT = 5   # max bisection passes before conceding to plain top-k
+_P_BISECT = 5   # value-grid passes before bisecting the float bit patterns
 _SLACK = 32768  # capacity beyond k: a wide count window => few passes
 # the smallest positive float (a subnormal; neither the kernels nor the
 # plain versions flush subnormals to zero)
@@ -57,7 +60,7 @@ _TINY = float.fromhex("0x1p-149")
 #   rows:to_elems           too many live rows: the element engine
 #   elems:tau0              all candidates fit the buffer: no bisection
 #   elems:bisect            the bisection found tau
-#   elems:fallback_topk     it did not (> cap equal scores): a plain top-k
+#   elems:ties              a tie class straddles [k, cap]: two compactions
 tier_counts: collections.Counter = collections.Counter()
 
 
@@ -231,10 +234,50 @@ def _elems_impl(scores: torch.Tensor, k: int, use_kernel: bool = True):
     if bool(found.all()):
         tier_counts["elems:bisect"] += 1
         return compact_tier(tau)
-    # degenerate spectra (> cap candidates within one ulp): plain top-k,
-    # still exact
-    tier_counts["elems:fallback_topk"] += 1
-    return topk_lower_index_first(scores, k)
+
+    # the grid missed the window, or a tie class straddles [kmin, cap]:
+    # bisect the bit patterns of the positive floats (monotone in value)
+    # until a count lands in the window or lo, hi are adjacent floats.
+    # count(s >= lo) > cap and count(s >= hi) < kmin hold throughout.
+    lo_b = lo.view(torch.int32).long()
+    hi_b = hi.view(torch.int32).long() + 1   # above a max that ties > cap
+    fi = torch.arange(1, _T_BISECT + 1, device=scores.device)
+    while True:
+        open_ = ~found & (hi_b - lo_b > 1)
+        if not bool(open_.any()):
+            break
+        pts = lo_b[:, None] + (hi_b - lo_b)[:, None] * fi // (_T_BISECT + 1)
+        taus = pts.int().view(torch.float32)
+        counts = count(scores, taus)
+        ok = (counts >= kmin[:, None]) & (counts <= cap) & open_[:, None]
+        any_ok = ok.any(1)
+        tau = torch.where(any_ok, taus.gather(
+            1, ok.int().argmax(1)[:, None])[:, 0], tau)
+        n_ge = (counts >= kmin[:, None]).sum(1)     # a prefix of the grid
+        upd = open_ & ~any_ok
+        lo_b = torch.where(upd & (n_ge > 0), pts.gather(
+            1, (n_ge - 1).clamp(min=0)[:, None])[:, 0], lo_b)
+        hi_b = torch.where(upd & (n_ge < _T_BISECT), pts.gather(
+            1, n_ge.clamp(max=_T_BISECT - 1)[:, None])[:, 0], hi_b)
+        found |= any_ok
+    if bool(found.all()):
+        tier_counts["elems:bisect"] += 1
+        return compact_tier(tau)
+
+    # ties: lo is the kmin-th largest score and more than cap - kmin others
+    # equal it. Compact the fewer than kmin scores above it, then the tie
+    # class alone (lowest indices first); the top-k of the two buffers side
+    # by side takes every score above lo, then the lowest-indexed ties.
+    tier_counts["elems:ties"] += 1
+    tie = ~found
+    above = torch.where(tie, hi_b.int().view(torch.float32), tau)
+    buf_s, buf_i = compact(scores, above.contiguous(), inf, cap)
+    v = lo_b.int().view(torch.float32)
+    tie_s, tie_i = compact(scores, torch.where(tie, v, inf).contiguous(),
+                           torch.where(tie, v, -inf).contiguous(), cap)
+    ts, pos = topk_lower_index_first(torch.cat([buf_s, tie_s], 1), k)
+    idx = torch.cat([buf_i, tie_i], 1).gather(1, pos).long()
+    return ts, torch.where(ts > 0.0, idx, 0)
 
 
 def exact_topk_elems(scores: torch.Tensor, k: int, use_kernel: bool = True):

@@ -3,10 +3,13 @@ built at first use by `ops/_build.host_library`).
 
 Counterpart of `efficientteacher_tpu/utils/native_loader.py`. The core
 decodes JPEG itself (`csrc/jpeg_decode.h`, no libjpeg), bit-equal to
-cv2.imread on the kinds it reads; a kind it refuses raises
-`JpegUnsupported` from `jpeg_info`, which the datasets call for every file
-when they are built (`data/image_io.py`). Unlike the JAX binding it never
-falls back. Images are RGB uint8, (h, w, 3), C-contiguous. Each call
+cv2.imread on every colour space and sampling set libjpeg decodes; the
+kinds it refuses (arithmetic coding, 12-bit, lossless, hierarchical,
+unrefined progressive scans: ROADMAP Q1.9c) raise `JpegUnsupported` from
+`jpeg_info`, which the datasets call for every file when they are built
+(`data/image_io.py`). Unlike the JAX binding it never falls back. It also
+runs the per-pixel stages of PNG, BMP and TIFF (`csrc/raster_decode.h`:
+`png_decode`, `to_rgb`, `bmp_decode`, `tiff_decode`, `lzw_encode`). Images are RGB uint8, (h, w, 3), C-contiguous. Each call
 releases the interpreter lock while it runs (ctypes does), so loader
 threads decode in parallel.
 """
@@ -21,7 +24,8 @@ import numpy as np
 
 from ..ops._build import host_library
 
-_P, _I, _C = ctypes.c_void_p, ctypes.c_int, ctypes.c_char_p
+_P, _I, _C, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_char_p, \
+    ctypes.c_int64
 _SIGNATURES = {
     "et_jpeg_info": (_C, _P),
     # path, denom, orient, out, ow, oh
@@ -31,7 +35,16 @@ _SIGNATURES = {
     "et_jpeg_letterbox": (_C, _I, _I, _P, _I, _I, _I, _I, _I, _I, _I, _I),
     # src, sw, sh, sstride, canvas, ch, cw, top, left, new_w, new_h, pad
     "et_resize_letterbox": (_P, _I, _I, _I, _P, _I, _I, _I, _I, _I, _I, _I),
-    "et_png_unfilter": (_P, _I, _I, _I, _P),
+    # data, n, w, h, bits, spp, interlaced, out
+    "et_png_decode": (_P, _L, _I, _I, _I, _I, _I, _P),
+    # src, n, spp, lut (or null), alpha, out
+    "et_to_rgb": (_P, _L, _I, _P, _I, _P),
+    # data, n, offset, w, h, bottom_up, bpp, rle, palette, out
+    "et_bmp_decode": (_P, _L, _L, _I, _I, _I, _I, _I, _P, _P),
+    # src, n, dst, cap, written
+    "et_lzw_encode": (_P, _L, _P, _L, _P),
+    # data, n, offsets, counts, nchunks, compression, layout (10 ints), out
+    "et_tiff_decode": (_P, _L, _P, _P, _I, _I, _P, _P),
     "et_jpeg_write": (_C, _P, _I, _I, _I),
     # src, sw, sh, sstride, dst, dw, dh, matrix (doubles), border, flags
     "et_warp": (_P, _I, _I, _I, _P, _I, _I, _P, _I, _I),
@@ -42,18 +55,21 @@ _SIGNATURES = {
     "et_filter3x3": (_P, _I, _I, _I, _P, _I, _P),
 }
 _ERRORS = {-1: "cannot open the file",
-           -2: "corrupt or truncated JPEG data",
+           -2: "corrupt or truncated image data",
            -3: "its size differs from the labels cache's",
            -4: "a JPEG kind the loader core refuses",
-           -5: "bad sizes", -6: "unknown PNG filter type"}
+           -5: "bad sizes"}
 # csrc/jpeg_decode.h etjpeg::Kind
-_REFUSED = {1: "arithmetic coding", 2: "a sample precision other than 8 bits",
-            3: "lossless coding", 4: "hierarchical coding",
-            5: "neither 1 nor 3 components (CMYK, YCCK)",
-            6: "sampling other than 4:4:4, 4:2:2 and 4:2:0",
+_REFUSED = {1: "arithmetic coding (ROADMAP Q1.9c)",
+            2: "a sample precision other than 8 bits (ROADMAP Q1.9c)",
+            3: "lossless coding (ROADMAP Q1.9c)",
+            4: "hierarchical coding (ROADMAP Q1.9c)",
+            5: "neither 1, 3 nor 4 components (libjpeg decodes no such "
+               "colour space for cv2 either)",
+            6: "sampling factors libjpeg does not decode (a ratio that is "
+               "not integral, or more than 10 blocks in an MCU)",
             7: "progressive scans that leave coefficients unrefined (libjpeg "
-               "would block-smooth them)",
-            8: "RGB colour (not YCbCr)"}
+               "would block-smooth them; ROADMAP Q1.9c)"}
 PRESCALE, ORIENT = 1, 2
 
 
@@ -219,17 +235,6 @@ def filter3x3(img: np.ndarray, kernel, divisor: int) -> np.ndarray:
     return out
 
 
-def png_unfilter(data: bytes, h: int, row_bytes: int, bpp: int) -> np.ndarray:
-    """PNG scanlines (each a filter byte + row_bytes) -> (h, row_bytes)."""
-    if len(data) < h * (row_bytes + 1):
-        raise OSError("PNG image data is truncated")
-    buf = np.frombuffer(data, np.uint8)
-    out = np.empty((h, row_bytes), np.uint8)
-    _check(_lib().et_png_unfilter(buf.ctypes.data, h, row_bytes, bpp,
-                                  out.ctypes.data), "PNG")
-    return out
-
-
 def jpeg_write(path: str, rgb: np.ndarray, quality: int = 90) -> None:
     """Write `rgb` (h, w, 3) uint8 as a baseline JFIF JPEG, 4:2:0,
     libjpeg's quantisation tables at `quality` (`data/image_io.imwrite`
@@ -238,3 +243,88 @@ def jpeg_write(path: str, rgb: np.ndarray, quality: int = 90) -> None:
     _check(_lib().et_jpeg_write(os.fsencode(path), rgb.ctypes.data,
                                 rgb.shape[1], rgb.shape[0], int(quality)),
            path)
+
+
+def _bytes(data) -> np.ndarray:
+    return np.frombuffer(data, np.uint8) if not isinstance(
+        data, np.ndarray) else np.ascontiguousarray(data, np.uint8)
+
+
+def png_decode(data: bytes, w: int, h: int, bits: int, spp: int,
+               interlaced: bool) -> np.ndarray:
+    """The inflated IDAT stream of a (w, h) PNG -> (h, w, spp) uint8:
+    each sample as its value (1-8 bits) or its high byte (16 bits),
+    filters undone, Adam7 passes put in place."""
+    buf = _bytes(data)
+    out = np.empty((h, w, spp), np.uint8)
+    _check(_lib().et_png_decode(buf.ctypes.data, buf.size, w, h, bits, spp,
+                                int(interlaced), out.ctypes.data), "PNG")
+    return out
+
+
+def to_rgb(samples: np.ndarray, lut=None, alpha: int = -1) -> np.ndarray:
+    """(h, w, spp) uint8 samples -> (h, w, 3) RGB: the first sample
+    through `lut` (256 x 3 uint8) when given, else samples 0-2; each
+    channel premultiplied by sample `alpha` when it is >= 0."""
+    s = np.ascontiguousarray(samples, np.uint8)
+    h, w, spp = s.shape
+    out = np.empty((h, w, 3), np.uint8)
+    table = None if lut is None else np.ascontiguousarray(lut, np.uint8)
+    if table is not None and table.shape != (256, 3):
+        raise ValueError("lut must be (256, 3) uint8")
+    _check(_lib().et_to_rgb(s.ctypes.data, h * w, spp,
+                            None if table is None else table.ctypes.data,
+                            int(alpha), out.ctypes.data), "to_rgb")
+    return out
+
+
+def bmp_decode(data: bytes, offset: int, w: int, h: int, bottom_up: bool,
+               bpp: int, rle: int, palette: np.ndarray) -> np.ndarray:
+    """A BMP's pixels as OpenCV's BmpDecoder reads them: `bpp` 1/4/8/15
+    (5-5-5)/16 (5-6-5)/24/32, `rle` 0/8/4, `palette` (256, 3) RGB ->
+    (h, w, 3) RGB, top row first."""
+    buf = _bytes(data)
+    pal = np.ascontiguousarray(palette, np.uint8)
+    if pal.shape != (256, 3):
+        raise ValueError("palette must be (256, 3) uint8")
+    out = np.empty((h, w, 3), np.uint8)
+    _check(_lib().et_bmp_decode(buf.ctypes.data, buf.size, offset, w, h,
+                                int(bottom_up), bpp, rle, pal.ctypes.data,
+                                out.ctypes.data), "BMP")
+    return out
+
+
+# tiff_decode's flags: 16-bit samples big-endian; the horizontal predictor
+# (Predictor 2); 16-bit samples reduced as (v + 128) / 257 (else the high
+# byte)
+TIFF_BIG_ENDIAN, TIFF_PREDICTOR, TIFF_DIV257 = 1, 2, 4
+
+
+def tiff_decode(data, chunks, compression: int, w: int, h: int, cw: int,
+                ch: int, tiled: bool, planes: int, per_chunk: int, bits: int,
+                flags: int = 0) -> np.ndarray:
+    """The strips or tiles of a TIFF image -> (h, w, per_chunk * planes)
+    uint8 samples: `chunks` (offset, byte count) into `data`, compressed
+    by `compression` (1 none, 5 LZW, 32773 PackBits), in the file's order
+    (plane, then chunk rows, then across); `flags` of `TIFF_*`."""
+    buf = _bytes(data)
+    table = np.ascontiguousarray(np.asarray(chunks, np.int64).reshape(-1, 2).T)
+    layout = np.array([w, h, cw, ch, int(tiled), planes, per_chunk,
+                       per_chunk * planes, bits, flags], np.int32)
+    out = np.empty((h, w, per_chunk * planes), np.uint8)
+    _check(_lib().et_tiff_decode(buf.ctypes.data, buf.size,
+                                 table[0].ctypes.data, table[1].ctypes.data,
+                                 table.shape[1], compression,
+                                 layout.ctypes.data, out.ctypes.data), "TIFF")
+    return out
+
+
+def lzw_encode(data) -> bytes:
+    """`data` as one TIFF LZW stream."""
+    buf = _bytes(data)
+    cap = buf.size * 2 + 64
+    out = np.empty(cap, np.uint8)
+    n = ctypes.c_int64(0)
+    _check(_lib().et_lzw_encode(buf.ctypes.data, buf.size, out.ctypes.data,
+                                cap, ctypes.byref(n)), "LZW")
+    return out[:n.value].tobytes()

@@ -86,8 +86,8 @@ def _tiers(engine, scores, k):
 
 def test_engine_tiers_through_the_count_path():
     """Which tier each call takes, with the exact top-k contract on each:
-    bisection through the counts, tau 0, the row tiers, and the fallback to
-    torch.topk on a spectrum the bisection cannot split."""
+    bisection through the counts, tau 0, the row tiers, and the tie tier on
+    a spectrum no threshold can split."""
     rng = np.random.default_rng(11)
     dense = _lattice(rng, 2, 262144, 150000)
     assert _tiers(exact_topk_elems, dense, 500) == {"elems:bisect": 1}
@@ -100,6 +100,47 @@ def test_engine_tiers_through_the_count_path():
     assert _tiers(exact_topk_rows, few_rows, 1000) == {"rows:r1": 1}
     flat = np.full((1, 262144), -1.0, np.float32)
     flat[0, ::2] = 0.25                  # more equal scores than a buffer
-    assert _tiers(exact_topk_elems, flat, 500) == {"elems:fallback_topk": 1}
+    assert _tiers(exact_topk_elems, flat, 500) == {"elems:ties": 1}
     small = _lattice(rng, 1, 4096, 100)
     assert _tiers(exact_topk_elems, small, 512) == {"elems:topk": 1}
+
+
+def _spectrum(name):
+    """(1 or 2, 262144) lattices that the value grid cannot split."""
+    rng = np.random.default_rng(13)
+    sc = np.full((2, 262144), -1.0, np.float32)
+    if name == "ties_below_some":   # 200 above a tie class of 100000
+        sc[0, rng.choice(262144, 200, replace=False)] = rng.uniform(
+            0.5, 1.0, 200)
+        sc[0, 1::2][:100000][sc[0, 1::2][:100000] < 0] = 0.25
+    elif name == "ties_at_max":     # the top score ties > cap times
+        sc[0, 3::2] = 0.75
+    elif name == "ties_beside_bisect":  # image 1 takes a plain tau
+        sc[0, ::2] = 0.25
+        sc[1] = _lattice(rng, 1, 262144, 150000)[0]
+    elif name == "narrow_window":   # distinct scores 1 ulp apart, one huge
+        run = np.arange(100000, dtype=np.int32) + np.float32(0.5).view(
+            np.int32)
+        sc[0, rng.permutation(262144)[:100000]] = run.view(np.float32)
+        sc[0, 7] = 1e30
+    return sc[:1] if name in ("ties_below_some", "ties_at_max",
+                              "narrow_window") else sc
+
+
+@pytest.mark.parametrize("name,tier", [
+    ("ties_below_some", "elems:ties"), ("ties_at_max", "elems:ties"),
+    ("ties_beside_bisect", "elems:ties"), ("narrow_window", "elems:bisect")])
+def test_bit_bisection_and_tie_tier_equal_full_topk(name, tier):
+    """Where the value grid finds no tau, the engine bisects the float bit
+    patterns: it finds a window, or narrows to the k-th score and compacts
+    the scores above it and its tie class apart. Either way the answer is
+    the lowest-index-first top-k of the whole lattice, index for index."""
+    from efficientteacher_torch.assigners.topk import topk_lower_index_first
+    scores = _spectrum(name)
+    k = 500
+    assert _tiers(exact_topk_elems, scores, k) == {tier: 1}
+    s = torch.from_numpy(scores)
+    ts, ti = exact_topk_elems(s, k)
+    rs, ri = topk_lower_index_first(s, k)
+    assert torch.equal(ts, rs)
+    assert torch.equal(ti, torch.where(rs > 0.0, ri.long(), 0))

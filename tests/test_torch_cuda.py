@@ -139,6 +139,29 @@ def test_compact_kernel_matches_plain(card, n):
         check_exact_topk(scores, 30000, ts, ti)
 
 
+def test_tie_tier_on_the_card_equals_plain(card):
+    """The eval lattice (B, 2,016,000) where a tie class straddles [k, cap]
+    in two images and a third takes a plain tau: the element engine's tie
+    tier through the kernels equals its plain version index for index."""
+    from efficientteacher_torch.ops import select_cuda
+    rng = np.random.default_rng(5)
+    n, k = 2016000, 30000
+    sc = np.full((3, n), -1.0, np.float32)
+    sc[0, ::3] = np.float32(0.0123)                 # 672000 equal scores
+    sc[0, rng.choice(n, 9000, replace=False)] = rng.uniform(0.5, 1.0, 9000)
+    sc[1, 1::4] = np.float32(0.75)                  # the top score ties
+    sc[2, ::5] = rng.uniform(1e-4, 1.0, sc[2, ::5].size)
+    scores = torch.from_numpy(sc).to(card)
+    select_cuda.tier_counts.clear()
+    before = threshold_compact_cuda.launches
+    ts, ti = exact_topk_elems(scores, k)
+    assert dict(select_cuda.tier_counts) == {"elems:ties": 1}
+    assert threshold_compact_cuda.launches == before + 2
+    ps, pi = exact_topk_elems(scores, k, use_kernel=False)
+    assert torch.equal(ts, ps) and torch.equal(ti, pi)
+    check_exact_topk(scores, k, ts, ti)
+
+
 @pytest.mark.parametrize("n", [300001, 300000])
 def test_count_ge_kernel_matches_plain(card, n):
     """T = 1..8, thresholds on tie classes and on the -1 padding."""
@@ -398,12 +421,16 @@ def test_loader_core_builds_and_reads_on_the_card_machine(card, tmp_path):
     """The host loader core builds with the machine's compiler and links
     no libjpeg; PNG reads back exactly; the core's JPEG decoder gives
     cv2's digests on the fixtures of test_torch_jpeg.py (the machine has
-    no libjpeg to compare against), and the core's writer round-trips."""
+    no libjpeg to compare against), the PNG / BMP / TIFF readers give them
+    on the fixtures of test_torch_image_formats.py, and the core's writer
+    round-trips."""
     import subprocess
 
     from efficientteacher_torch.data import image_io
     from efficientteacher_torch.ops._build import host_library
     from efficientteacher_torch.utils import native_loader as nl
+    from test_torch_image_formats import \
+        check_fixtures as check_format_fixtures
     from test_torch_jpeg import check_fixtures
 
     built = host_library()
@@ -421,6 +448,7 @@ def test_loader_core_builds_and_reads_on_the_card_machine(card, tmp_path):
     assert np.array_equal(canvas[13:50, 5:58], img)
     assert (canvas[:13] == 114).all() and (canvas[50:] == 114).all()
     assert check_fixtures(tmp_path / "fixtures") == []
+    assert check_format_fixtures(tmp_path / "format_fixtures") == []
     smooth = np.repeat(np.repeat(img[::8, ::8], 8, 0), 8, 1)[:37, :53]
     jpg = str(tmp_path / "a.jpg")
     nl.jpeg_write(jpg, np.ascontiguousarray(smooth), 95)

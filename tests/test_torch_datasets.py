@@ -257,18 +257,21 @@ def test_dataset_statistics_and_items_match_jax(data):
 
 
 def test_unread_formats_raise_when_the_dataset_is_built(data, tmp_path):
+    """WebP (ROADMAP Q1.9b) and a TIFF kind the port does not read (float
+    samples, Q1.9c) raise; BMP and 16-bit PNG, refused here before,
+    are read (tests/test_torch_image_formats.py holds them to cv2)."""
     src = Path(data).read_text().split()[0]
-    bmp = tmp_path / "images" / "x.bmp"
-    bmp.parent.mkdir()
-    cv2.imwrite(str(bmp), cv2.imread(src))
+    webp = tmp_path / "images" / "x.webp"
+    webp.parent.mkdir()
+    cv2.imwrite(str(webp), cv2.imread(src))
     lst = tmp_path / "l.txt"
-    lst.write_text(f"{src}\n{bmp}\n")
-    with pytest.raises(NotImplementedError, match="bmp"):
+    lst.write_text(f"{src}\n{webp}\n")
+    with pytest.raises(NotImplementedError, match="webp"):
         port_ds.LoadImagesAndLabels(str(lst), img_size=IMG, nc=8)
-    deep = tmp_path / "images" / "d.png"
-    cv2.imwrite(str(deep), np.zeros((20, 20, 3), np.uint16))
-    lst.write_text(f"{src}\n{deep}\n")
-    with pytest.raises(NotImplementedError, match="bit depth 16"):
+    tif = tmp_path / "images" / "f.tif"
+    assert cv2.imwrite(str(tif), cv2.imread(src).astype(np.float32))
+    lst.write_text(f"{src}\n{tif}\n")
+    with pytest.raises(NotImplementedError, match="float"):
         port_ds.LoadImagesAndLabels(str(lst), img_size=IMG, nc=8)
 
 

@@ -5,6 +5,9 @@ Tolerance: exact everywhere. The decoder equals cv2.imread (libjpeg-turbo
 with its defaults: ISLOW IDCT, fancy upsampling) bit for bit on every kind
 it reads x quality {50, 75, 90, 95} x odd sizes, seeded noise blurred and
 not; its 1/2, 1/4, 1/8 prescale equals cv2's IMREAD_REDUCED_COLOR_* reads;
+every sampling set libjpeg decodes (`SAMPLING_SETS`, written by this
+module's own baseline encoder `encode_baseline`, since cv2 writes five)
+equals cv2 at every scale, and the sets libjpeg refuses raise;
 the EXIF orientation is applied as cv2.imread applies it; the writer's
 files decode identically in cv2 and in the core; each kind the decoder
 refuses raises when a dataset is built, naming the file.
@@ -12,12 +15,14 @@ refuses raises when a dataset is built, naming the file.
 `FIXTURES` are a few small files written once with cv2.imwrite (quality
 75, the sampling / progressive / restart options their names give, seeded
 blurred noise; orientation6 has an Exif APP1 spliced in by
-`with_exif_orientation`), each with the SHA-256 of cv2.imread's RGB output
+`with_exif_orientation`; rgb and cmyk by Pillow 12.1.0, ycck the cmyk file
+with its Adobe transform set to 2), each with the SHA-256 of cv2.imread's
+RGB output
 at scale 1, 1/2, 1/4, 1/8 (the reduced reads ignore the orientation, as
 the prescale route does). The card's machine has no libjpeg: there the
 digests are the oracle (`check_fixtures`, called by chip_smoke.py and
 tests/test_torch_cuda.py). This module imports no JAX and imports cv2
-only inside the tests that compare against it.
+and Pillow only inside the tests that compare against them.
 """
 
 import base64
@@ -311,6 +316,131 @@ FIXTURES = {
             8: ((1, 1, 3), "3ae47a701a51892ed1d82549f87473b0"
                 "4e9925ead330dd9c65d28dceb491afdc"),
         }),
+    "baseline_411": (
+        "/9j/4AAQSkZJRgABAQAAAQABAAD/2wBDAAgGBgcGBQgHBwcJCQgKDBQNDAsLDBkSEw"
+        "8UHRofHh0aHBwgJC4nICIsIxwcKDcpLDAxNDQ0Hyc5PTgyPC4zNDL/2wBDAQkJCQwL"
+        "DBgNDRgyIRwhMjIyMjIyMjIyMjIyMjIyMjIyMjIyMjIyMjIyMjIyMjIyMjIyMjIyMj"
+        "IyMjIyMjIyMjL/wAARCAATABcDAUEAAhEBAxEB/8QAHwAAAQUBAQEBAQEAAAAAAAAA"
+        "AAECAwQFBgcICQoL/8QAtRAAAgEDAwIEAwUFBAQAAAF9AQIDAAQRBRIhMUEGE1FhBy"
+        "JxFDKBkaEII0KxwRVS0fAkM2JyggkKFhcYGRolJicoKSo0NTY3ODk6Q0RFRkdISUpT"
+        "VFVWV1hZWmNkZWZnaGlqc3R1dnd4eXqDhIWGh4iJipKTlJWWl5iZmqKjpKWmp6ipqr"
+        "KztLW2t7i5usLDxMXGx8jJytLT1NXW19jZ2uHi4+Tl5ufo6erx8vP09fb3+Pn6/8QA"
+        "HwEAAwEBAQEBAQEBAQAAAAAAAAECAwQFBgcICQoL/8QAtREAAgECBAQDBAcFBAQAAQ"
+        "J3AAECAxEEBSExBhJBUQdhcRMiMoEIFEKRobHBCSMzUvAVYnLRChYkNOEl8RcYGRom"
+        "JygpKjU2Nzg5OkNERUZHSElKU1RVVldYWVpjZGVmZ2hpanN0dXZ3eHl6goOEhYaHiI"
+        "mKkpOUlZaXmJmaoqOkpaanqKmqsrO0tba3uLm6wsPExcbHyMnK0tPU1dbX2Nna4uPk"
+        "5ebn6Onq8vP09fb3+Pn6/9oADAMBAAIRAxEAPwB1nM0bNEeeKjuQZISCc4PIp1rGg6"
+        "qCO/FFJzWoOkoP3hkLqshDna5ojjMkzBXyO5zQ0jW7FYyT64opxSe4VZcyuzNvmYOh"
+        "yc5HNasHFnuHXHWrNnGjwZZQTnqaK58RJx28jLE6R+Z//9k=",
+        {
+            1: ((19, 23, 3), "2c18be150bf078b4e151779e258dd6ef"
+                "b4150fdb3f0526d5ecf0cf77e7e7ef89"),
+            2: ((10, 12, 3), "b0f10aa2dad3922c3de727b1cf7872e5"
+                "4ec14c9d6977e87700e3bd30be4e8c32"),
+            4: ((5, 6, 3), "ebe944812eb36bec096cebb72d073575"
+                "9349dd19f50533c8b8b73a67aedcd804"),
+            8: ((3, 3, 3), "538674b0ff35fac8309bdaeb4074d9ca"
+                "b44eb8b44ede73c1f62b6cbcbece06b6"),
+        }),
+    "baseline_440": (
+        "/9j/4AAQSkZJRgABAQAAAQABAAD/2wBDAAgGBgcGBQgHBwcJCQgKDBQNDAsLDBkSEw"
+        "8UHRofHh0aHBwgJC4nICIsIxwcKDcpLDAxNDQ0Hyc5PTgyPC4zNDL/2wBDAQkJCQwL"
+        "DBgNDRgyIRwhMjIyMjIyMjIyMjIyMjIyMjIyMjIyMjIyMjIyMjIyMjIyMjIyMjIyMj"
+        "IyMjIyMjIyMjL/wAARCAATABcDARIAAhEBAxEB/8QAHwAAAQUBAQEBAQEAAAAAAAAA"
+        "AAECAwQFBgcICQoL/8QAtRAAAgEDAwIEAwUFBAQAAAF9AQIDAAQRBRIhMUEGE1FhBy"
+        "JxFDKBkaEII0KxwRVS0fAkM2JyggkKFhcYGRolJicoKSo0NTY3ODk6Q0RFRkdISUpT"
+        "VFVWV1hZWmNkZWZnaGlqc3R1dnd4eXqDhIWGh4iJipKTlJWWl5iZmqKjpKWmp6ipqr"
+        "KztLW2t7i5usLDxMXGx8jJytLT1NXW19jZ2uHi4+Tl5ufo6erx8vP09fb3+Pn6/8QA"
+        "HwEAAwEBAQEBAQEBAQAAAAAAAAECAwQFBgcICQoL/8QAtREAAgECBAQDBAcFBAQAAQ"
+        "J3AAECAxEEBSExBhJBUQdhcRMiMoEIFEKRobHBCSMzUvAVYnLRChYkNOEl8RcYGRom"
+        "JygpKjU2Nzg5OkNERUZHSElKU1RVVldYWVpjZGVmZ2hpanN0dXZ3eHl6goOEhYaHiI"
+        "mKkpOUlZaXmJmaoqOkpaanqKmqsrO0tba3uLm6wsPExcbHyMnK0tPU1dbX2Nna4uPk"
+        "5ebn6Onq8vP09fb3+Pn6/9oADAMBAAIRAxEAPwB1nM0bNEeeKihdVkIc7XNTUm9C6k"
+        "aLVnqLcgyQkE5weRSRxmSZgr5Hc5oSlD3rjUI8vYfaxoOqgjvxTGka3YrGSfXFXrJG"
+        "D5Yu6Wpm3zMHQ5OcjmitKPwM3r/GasHFnuHXHWiuKpuKO5Zs40eDLKCc9TRWeIk01Z"
+        "nFidz/2Q==",
+        {
+            1: ((19, 23, 3), "ef5a5a4b018d1712ef373d9446c0258d"
+                "8500817376a17314d8d086a72ecefb2a"),
+            2: ((10, 12, 3), "b928241eb8b62f68487b4b9b263fd072"
+                "bce938bcf9c131b2879bb2441af4707f"),
+            4: ((5, 6, 3), "9c49d23751abf8a01887d04644c0dcb2"
+                "3949481f90940935146fcbe9070c9dee"),
+            8: ((3, 3, 3), "d64bbeac65157d17f53fa95b31682e46"
+                "455418d1b7345454a71fb3ae8d700a31"),
+        }),
+    "rgb": (
+        "/9j/7gAOQWRvYmUAZAAAAAAA/9sAQwAIBgYHBgUIBwcHCQkICgwUDQwLCwwZEhMPFB"
+        "0aHx4dGhwcICQuJyAiLCMcHCg3KSwwMTQ0NB8nOT04MjwuMzQy/8AAEQgAEwAXA1IR"
+        "AEcRAEIRAP/EAB8AAAEFAQEBAQEBAAAAAAAAAAABAgMEBQYHCAkKC//EALUQAAIBAw"
+        "MCBAMFBQQEAAABfQECAwAEEQUSITFBBhNRYQcicRQygZGhCCNCscEVUtHwJDNicoIJ"
+        "ChYXGBkaJSYnKCkqNDU2Nzg5OkNERUZHSElKU1RVVldYWVpjZGVmZ2hpanN0dXZ3eH"
+        "l6g4SFhoeIiYqSk5SVlpeYmZqio6Slpqeoqaqys7S1tre4ubrCw8TFxsfIycrS09TV"
+        "1tfY2drh4uPk5ebn6Onq8fLz9PX29/j5+v/aAAwDUgBHAEIAAD8AkTT2e2aJuBjgE0"
+        "um37287wsNxxUgvvIAETELn+9UU9pL9iVCc7G6A028PnxEZ54yKpR3Q82RmIAYck1H"
+        "ZWNvHOZ5FyGGOBUlqfkCBAccHjNWo2gVMx7WUnmrB1JjLj7rtxxUFnFGjMJX2SYzk1"
+        "Rnd0uER0JWpIFI3I8pLMM81HFC092/lPlB945q1NHA8W0DGfSs+5meCQopJqfzHtmI"
+        "iJPPJWnI0cEarGvPQ5H/ANaoNcJW8j28c9qxrl2+Rtxzkc5qoP8Aj3Ld89a1bbm3Ln"
+        "72Otbdv8tiSvBKnJFRykm3Dd/X8TVWdFZFYjLEnmtTRoIpLUl0DHPepJ5XSOPa2OT2"
+        "r//Z",
+        {
+            1: ((19, 23, 3), "0ac899714f32f12dde2308adfba306f6"
+                "59f7901576d7a8289b3bc3aa7cd3ddf4"),
+            2: ((10, 12, 3), "62921fc95a4fe1f8a8e3b9d9354561fe"
+                "ebfe146fc9f0a3b8b7e84be30c8b08c4"),
+            4: ((5, 6, 3), "44a0add0799758f6df19766b48fce3f2"
+                "67de028ebbff546d866b2c21b4372723"),
+            8: ((3, 3, 3), "36071626da4d750feeaa9cfd846ea998"
+                "eda0d5722a129d6b2c28d0d03064d9a2"),
+        }),
+    "cmyk": (
+        "/9j/7gAOQWRvYmUAZAAAAAAA/9sAQwAIBgYHBgUIBwcHCQkICgwUDQwLCwwZEhMPFB"
+        "0aHx4dGhwcICQuJyAiLCMcHCg3KSwwMTQ0NB8nOT04MjwuMzQy/8AAFAgAEwAXBEMR"
+        "AE0RAFkRAEsRAP/EAB8AAAEFAQEBAQEBAAAAAAAAAAABAgMEBQYHCAkKC//EALUQAA"
+        "IBAwMCBAMFBQQEAAABfQECAwAEEQUSITFBBhNRYQcicRQygZGhCCNCscEVUtHwJDNi"
+        "coIJChYXGBkaJSYnKCkqNDU2Nzg5OkNERUZHSElKU1RVVldYWVpjZGVmZ2hpanN0dX"
+        "Z3eHl6g4SFhoeIiYqSk5SVlpeYmZqio6Slpqeoqaqys7S1tre4ubrCw8TFxsfIycrS"
+        "09TV1tfY2drh4uPk5ebn6Onq8fLz9PX29/j5+v/aAA4EQwBNAFkASwAAPwCRNPZ7Zo"
+        "m4GOATS6bfvbzvCw3HFSC+8gARMQuf71e/1FPaS/YlQnOxugNNvD58RGeeMiqUd0PN"
+        "kZiAGHJNFR2VjbxzmeRchhjgVJan5AgQHHB4zVqNoFTMe1lJ5oqwdSYy4+67ccVBZx"
+        "RozCV9kmM5NUZ3dLhEdCVoqSBSNyPKSzDPNRxQtPdv5T5QfeOatTRwPFtAxn0orPuZ"
+        "ngkKKSan8x7ZiIiTzyVpyNHBGqxrz0OR/wDWoqDXCVvI9vHPasa5dvkbcc5HOaqD/j"
+        "3Ld89aK1bbm3Ln72Otbdv8tiSvBKnJFRykm3Dd/X8TRVWdFZFYjLEnmtTRoIpLUl0D"
+        "HPepJ5XSOPa2OT2or//Z",
+        {
+            1: ((19, 23, 3), "ff72473136f6a0d3644d9c3b123ffeab"
+                "8285b975d26257c839b039c47c96ff65"),
+            2: ((10, 12, 3), "2f36006f710ba25e34d3ded6dc6ba9ba"
+                "4783bd6074421926d793ba8911f562dd"),
+            4: ((5, 6, 3), "240e8fcdd6f06b671144bb0095bbc00e"
+                "95f143e04c146f7ef712cc3f7a38d9d3"),
+            8: ((3, 3, 3), "2660b67a2cf25e13ebbaf73902974e12"
+                "d34dd4dd866c093f4e1075eef07150e9"),
+        }),
+    "ycck": (
+        "/9j/7gAOQWRvYmUAZAAAAAAC/9sAQwAIBgYHBgUIBwcHCQkICgwUDQwLCwwZEhMPFB"
+        "0aHx4dGhwcICQuJyAiLCMcHCg3KSwwMTQ0NB8nOT04MjwuMzQy/8AAFAgAEwAXBEMR"
+        "AE0RAFkRAEsRAP/EAB8AAAEFAQEBAQEBAAAAAAAAAAABAgMEBQYHCAkKC//EALUQAA"
+        "IBAwMCBAMFBQQEAAABfQECAwAEEQUSITFBBhNRYQcicRQygZGhCCNCscEVUtHwJDNi"
+        "coIJChYXGBkaJSYnKCkqNDU2Nzg5OkNERUZHSElKU1RVVldYWVpjZGVmZ2hpanN0dX"
+        "Z3eHl6g4SFhoeIiYqSk5SVlpeYmZqio6Slpqeoqaqys7S1tre4ubrCw8TFxsfIycrS"
+        "09TV1tfY2drh4uPk5ebn6Onq8fLz9PX29/j5+v/aAA4EQwBNAFkASwAAPwCRNPZ7Zo"
+        "m4GOATS6bfvbzvCw3HFSC+8gARMQuf71e/1FPaS/YlQnOxugNNvD58RGeeMiqUd0PN"
+        "kZiAGHJNFR2VjbxzmeRchhjgVJan5AgQHHB4zVqNoFTMe1lJ5oqwdSYy4+67ccVBZx"
+        "RozCV9kmM5NUZ3dLhEdCVoqSBSNyPKSzDPNRxQtPdv5T5QfeOatTRwPFtAxn0orPuZ"
+        "ngkKKSan8x7ZiIiTzyVpyNHBGqxrz0OR/wDWoqDXCVvI9vHPasa5dvkbcc5HOaqD/j"
+        "3Ld89aK1bbm3Ln72Otbdv8tiSvBKnJFRykm3Dd/X8TRVWdFZFYjLEnmtTRoIpLUl0D"
+        "HPepJ5XSOPa2OT2or//Z",
+        {
+            1: ((19, 23, 3), "c044dcbd384bfecb2aa0f27b7dbfe59e"
+                "f3d2e056a6e4b3149ea9602f8475505c"),
+            2: ((10, 12, 3), "1efe05073943621312cc0edbe044aab4"
+                "b7b7afdad86cfb7c0fdf7b5b1f45c6f2"),
+            4: ((5, 6, 3), "a8480207cb08d1644e1ab46fb0a0cac6"
+                "3b4b91d41c33913669b016d0f46b9822"),
+            8: ((3, 3, 3), "79d792b882e1e0c80500950a398ed661"
+                "abe54dcc07456298385466e4e2d9ebf1"),
+        }),
 }
 
 
@@ -361,6 +491,10 @@ def _cv2():
     return cv2
 
 
+def _pil():
+    return pytest.importorskip("PIL.Image")
+
+
 def _image(rng, h, w, blur, grey=False):
     cv2 = _cv2()
     img = rng.integers(0, 256, (h, w, 3), np.uint8)
@@ -376,7 +510,13 @@ def _kinds():
     f420 = cv2.IMWRITE_JPEG_SAMPLING_FACTOR_420
     f422 = cv2.IMWRITE_JPEG_SAMPLING_FACTOR_422
     f444 = cv2.IMWRITE_JPEG_SAMPLING_FACTOR_444
-    return {  # name: (imwrite params, grey)
+    f411 = cv2.IMWRITE_JPEG_SAMPLING_FACTOR_411
+    f440 = cv2.IMWRITE_JPEG_SAMPLING_FACTOR_440
+    return {  # name: (imwrite params, grey); PIL_KINDS are Pillow's
+        "baseline_411": ([s, f411], False),
+        "baseline_440": ([s, f440], False),
+        "progressive_411": ([prog, 1, s, f411], False),
+        "progressive_440": ([prog, 1, s, f440], False),
         "baseline_420": ([s, f420], False),
         "baseline_422": ([s, f422], False),
         "baseline_444": ([s, f444], False),
@@ -389,9 +529,13 @@ def _kinds():
     }
 
 
+# Pillow's writers: RGB colour (an Adobe APP14 of transform 0, no JFIF)
+# and CMYK (Adobe transform 0); ycck is the cmyk file with transform 2
+PIL_KINDS = ("rgb", "cmyk", "ycck")
 KINDS = ["baseline_420", "baseline_422", "baseline_444", "grey",
          "progressive_420", "progressive_444", "progressive_grey",
-         "restart_420", "progressive_restart_422"]
+         "restart_420", "progressive_restart_422", "baseline_411",
+         "baseline_440", "progressive_411", "progressive_440", *PIL_KINDS]
 # (h, w): partial MCUs at both edges, a COCO-like size, chroma <= 2 wide
 SIZES = [(29, 37), (427, 641), (5, 3), (9, 33), (16, 17)]
 
@@ -401,6 +545,29 @@ def _write(path, img, quality, params):
     assert cv2.imwrite(str(path), img, [cv2.IMWRITE_JPEG_QUALITY, quality]
                        + params)
     return str(path)
+
+
+def _write_pil(path, img, quality, kind):
+    """A PIL_KINDS file of the RGB image `img`."""
+    Image = _pil()
+    im = Image.fromarray(np.ascontiguousarray(img))
+    if kind == "rgb":
+        im.save(str(path), quality=quality, keep_rgb=True)
+        return str(path)
+    im.convert("CMYK").save(str(path), quality=quality)
+    if kind == "ycck":
+        data = bytearray(Path(path).read_bytes())
+        app14 = _segment(data, 0xEE)
+        assert data[app14 + 4:app14 + 9] == b"Adobe" and data[app14 + 15] == 0
+        data[app14 + 15] = 2
+        Path(path).write_bytes(bytes(data))
+    return str(path)
+
+
+def _write_kind(path, kind, img, quality):
+    if kind in PIL_KINDS:
+        return _write_pil(path, img, quality, kind)
+    return _write(path, img, quality, _kinds()[kind][0])
 
 
 def _cv2_read(path, denom=1):
@@ -431,12 +598,12 @@ def test_fixture_digests_are_cv2_imread(name, tmp_path):
 @pytest.mark.parametrize("quality", [50, 75, 90, 95])
 @pytest.mark.parametrize("kind", KINDS)
 def test_decoder_is_cv2_imread(kind, quality, tmp_path):
-    params, grey = _kinds()[kind]
+    grey = kind not in PIL_KINDS and _kinds()[kind][1]
     rng = np.random.default_rng(quality)
     for h, w in SIZES:
         for blur in (False, True):
-            path = _write(tmp_path / f"{h}x{w}{blur}.jpg",
-                          _image(rng, h, w, blur, grey), quality, params)
+            path = _write_kind(tmp_path / f"{h}x{w}{blur}.jpg", kind,
+                               _image(rng, h, w, blur, grey), quality)
             want = _cv2_read(path)
             np.testing.assert_array_equal(image_io.imread(path), want,
                                           err_msg=f"{h}x{w} blur {blur}")
@@ -447,10 +614,10 @@ def test_decoder_is_cv2_imread(kind, quality, tmp_path):
 def test_prescale_is_cv2s_reduced_read(denom, tmp_path):
     rng = np.random.default_rng(denom)
     for kind in KINDS:
-        params, grey = _kinds()[kind]
+        grey = kind not in PIL_KINDS and _kinds()[kind][1]
         for h, w in SIZES:
-            path = _write(tmp_path / f"{kind}{h}x{w}.jpg",
-                          _image(rng, h, w, True, grey), 90, params)
+            path = _write_kind(tmp_path / f"{kind}{h}x{w}.jpg", kind,
+                               _image(rng, h, w, True, grey), 90)
             np.testing.assert_array_equal(
                 nl.jpeg_decode(path, denom, orient=False),
                 _cv2_read(path, denom), err_msg=f"{kind} {h}x{w}")
@@ -470,6 +637,35 @@ def test_letterbox_prescale_picks_the_jax_cores_scale(tmp_path):
         want = cv2.resize(np.ascontiguousarray(_cv2_read(path, denom)),
                           (new_w, new_h), interpolation=cv2.INTER_LINEAR)
         np.testing.assert_array_equal(got, want, err_msg=str(denom))
+
+
+@pytest.mark.parametrize("kind", ["baseline_411", "progressive_440",
+                                  *PIL_KINDS])
+def test_new_kinds_through_the_letterbox_and_exif(kind, tmp_path):
+    """The 4:1:1, 4:4:0, RGB, CMYK and YCCK kinds go through the fused
+    decode + letterbox (both routes: the prescale's 1/d decode, and full
+    size with the EXIF orientation) as cv2.imread + cv2.resize do."""
+    cv2 = _cv2()
+    rng = np.random.default_rng(len(kind))
+    path = _write_kind(tmp_path / "a.jpg", kind, _image(rng, 213, 321, True),
+                       90)
+    for new_w, new_h, denom in [(150, 99, 2), (80, 53, 4), (40, 26, 8)]:
+        got = np.empty((new_h, new_w, 3), np.uint8)
+        nl.jpeg_letterbox(path, got, 0, 0, new_w, new_h, pad_value=-1,
+                          expect_wh=(321, 213), prescale=True)
+        want = cv2.resize(np.ascontiguousarray(_cv2_read(path, denom)),
+                          (new_w, new_h), interpolation=cv2.INTER_LINEAR)
+        np.testing.assert_array_equal(got, want, err_msg=str(denom))
+    turned = tmp_path / "o.jpg"
+    turned.write_bytes(with_exif_orientation(Path(path).read_bytes(), 6))
+    want = _cv2_read(turned)
+    np.testing.assert_array_equal(image_io.imread(str(turned)), want)
+    canvas = np.empty((160, 107, 3), np.uint8)
+    nl.jpeg_letterbox(str(turned), canvas, 0, 0, 107, 160, pad_value=-1,
+                      expect_wh=(213, 321))
+    np.testing.assert_array_equal(
+        canvas, cv2.resize(np.ascontiguousarray(want), (107, 160),
+                           interpolation=cv2.INTER_LINEAR))
 
 
 @pytest.mark.parametrize("little_endian", [True, False])
@@ -575,6 +771,12 @@ def _unsupported(kind: str, tmp_path) -> bytes:
         factor = (cv2.IMWRITE_JPEG_SAMPLING_FACTOR_411 if kind.endswith("411")
                   else cv2.IMWRITE_JPEG_SAMPLING_FACTOR_440)
         return cv2.imencode(".jpg", img, [s, factor])[1].tobytes()
+    if kind in ("cmyk", "rgb"):
+        path = tmp_path / f"{kind}.jpg"
+        return Path(_write_pil(path, img, 75, kind)).read_bytes()
+    if kind in ("sampling_fractional", "sampling_11_blocks"):
+        factors = SAMPLING_SETS[kind]
+        return encode_baseline([img[..., c] for c in range(3)], factors)
     if kind == "unrefined_progressive":
         data = cv2.imencode(".jpg", img, [cv2.IMWRITE_JPEG_PROGRESSIVE,
                                           1])[1].tobytes()
@@ -588,29 +790,28 @@ def _unsupported(kind: str, tmp_path) -> bytes:
                          "hierarchical": 0xC5}[kind]
     elif kind == "precision_12":
         data[sof + 1], data[sof + 4] = 0xC1, 12
-    elif kind == "cmyk":
+    elif kind == "components_2":
         n = struct.unpack(">H", data[sof + 2:sof + 4])[0]
-        body = bytes(data[sof + 4:sof + 9]) + b"\x04" + b"".join(
-            bytes([c, 0x11, 0]) for c in (1, 2, 3, 4))
+        body = bytes(data[sof + 4:sof + 9]) + b"\x02" + b"".join(
+            bytes([c, 0x11, 0]) for c in (1, 2))
         data[sof:sof + 2 + n] = b"\xff\xc0" + struct.pack(
             ">H", len(body) + 2) + body
-    elif kind == "rgb":  # an Adobe APP14 with transform 0 for JFIF's APP0
-        app0 = _segment(data, 0xE0)
-        n = struct.unpack(">H", data[app0 + 2:app0 + 4])[0]
-        data[app0:app0 + 2 + n] = b"\xff\xee\x00\x0eAdobe\x00\x64" \
-            b"\x00\x00\x00\x00\x00"
     return bytes(data)
 
 
 UNSUPPORTED = {"arithmetic": "arithmetic coding",
                "precision_12": "precision other than 8",
                "lossless": "lossless", "hierarchical": "hierarchical",
-               "cmyk": "CMYK", "sampling_411": "sampling",
-               "sampling_440": "sampling",
-               "unrefined_progressive": "unrefined", "rgb": "RGB colour"}
+               "components_2": "neither 1, 3 nor 4 components",
+               "sampling_fractional": "sampling factors",
+               "sampling_11_blocks": "sampling factors",
+               "unrefined_progressive": "unrefined"}
+# kinds the decoder refused before it read them: their cases hold that the
+# dataset now builds and reads them as cv2.imread does
+READ_NOW = ("cmyk", "rgb", "sampling_411", "sampling_440")
 
 
-@pytest.mark.parametrize("kind", sorted(UNSUPPORTED))
+@pytest.mark.parametrize("kind", sorted(UNSUPPORTED) + sorted(READ_NOW))
 def test_unsupported_kinds_raise_at_dataset_build(kind, tmp_path):
     good = tmp_path / "images" / "good.jpg"
     good.parent.mkdir()
@@ -619,11 +820,212 @@ def test_unsupported_kinds_raise_at_dataset_build(kind, tmp_path):
     bad.write_bytes(_unsupported(kind, tmp_path))
     lst = tmp_path / "list.txt"
     lst.write_text(f"{good}\n{bad}\n")
+    if kind in READ_NOW:
+        ds = port_ds.LoadImagesAndLabels(str(lst), img_size=32, nc=8)
+        assert list(map(tuple, ds.shapes)) == [(40, 24), (40, 24)]
+        np.testing.assert_array_equal(image_io.imread(str(bad)),
+                                      _cv2_read(bad))
+        return
     with pytest.raises(nl.JpegUnsupported, match=UNSUPPORTED[kind]) as err:
         port_ds.LoadImagesAndLabels(str(lst), img_size=32, nc=8)
     assert str(bad) in str(err.value)
     with pytest.raises(NotImplementedError):  # what the datasets let through
         image_io.image_size(str(bad))
+
+
+# -- every sampling set ---------------------------------------------------
+
+def _huffman_codes(bits, vals):
+    """{symbol: (code, length)} of a DHT table (ITU T.81 C.2)."""
+    codes, code, k = {}, 0, 0
+    for length in range(1, 17):
+        for _ in range(bits[length - 1]):
+            codes[vals[k]] = (code, length)
+            code += 1
+            k += 1
+        code <<= 1
+    return codes
+
+
+_STD = {  # (DC bits, DC values, AC bits, AC values) per table
+    0: ([0, 1, 5, 1, 1, 1, 1, 1, 1, 0, 0, 0, 0, 0, 0, 0], list(range(12)),
+        [0, 2, 1, 3, 3, 2, 4, 3, 5, 5, 4, 4, 0, 0, 1, 0x7D]),
+    1: ([0, 3, 1, 1, 1, 1, 1, 1, 1, 1, 1, 0, 0, 0, 0, 0], list(range(12)),
+        [0, 2, 1, 2, 4, 4, 3, 4, 7, 5, 4, 4, 0, 1, 2, 0x77])}
+_ZIGZAG = np.array([0, 1, 8, 16, 9, 2, 3, 10, 17, 24, 32, 25, 18, 11, 4, 5,
+                    12, 19, 26, 33, 40, 48, 41, 34, 27, 20, 13, 6, 7, 14, 21,
+                    28, 35, 42, 49, 56, 57, 50, 43, 36, 29, 22, 15, 23, 30,
+                    37, 44, 51, 58, 59, 52, 45, 38, 31, 39, 46, 53, 60, 61,
+                    54, 47, 55, 62, 63])
+
+
+def _std_ac_values(table):
+    """The standard AC symbols in jstdhuff.c's order (K.3.3.2)."""
+    order = [0x01, 0x02, 0x03, 0x00, 0x04, 0x11, 0x05, 0x12, 0x21, 0x31,
+             0x41, 0x06, 0x13, 0x51, 0x61, 0x07, 0x22, 0x71, 0x14, 0x32,
+             0x81, 0x91, 0xA1, 0x08, 0x23, 0x42, 0xB1, 0xC1, 0x15, 0x52,
+             0xD1, 0xF0, 0x24, 0x33, 0x62, 0x72, 0x82, 0x09, 0x0A, 0x16,
+             0x17, 0x18, 0x19, 0x1A, 0x25, 0x26, 0x27, 0x28, 0x29, 0x2A]
+    if table == 1:
+        order = [0x00, 0x01, 0x02, 0x03, 0x11, 0x04, 0x05, 0x21, 0x31, 0x06,
+                 0x12, 0x41, 0x51, 0x07, 0x61, 0x71, 0x13, 0x22, 0x32, 0x81,
+                 0x08, 0x14, 0x42, 0x91, 0xA1, 0xB1, 0xC1, 0x09, 0x23, 0x33,
+                 0x52, 0xF0, 0x15, 0x62, 0x72, 0xD1, 0x0A, 0x16, 0x24, 0x34,
+                 0xE1, 0x25, 0xF1, 0x17, 0x18, 0x19, 0x1A, 0x26, 0x27, 0x28,
+                 0x29, 0x2A]
+    seen = set(order)
+    # the rest: runs 0-15 x sizes 3-10 (table 0) in (run, size) order,
+    # then what the fixed prefix left out
+    rest = []
+    for r in range(16):
+        for sz in range(1, 11):
+            v = (r << 4) | sz
+            if v not in seen:
+                rest.append(v)
+    return order + rest
+
+
+def encode_baseline(planes, factors, ids=None, adobe=None, q=4):
+    """A baseline JPEG of the components `planes` (each (h, w) uint8, full
+    size; stored as they are: YCbCr, RGB, CMYK or YCCK by the markers)
+    sampled with `factors` ((h, v) each): point downsampling,
+    a float DCT, a flat quantisation table of `q`, libjpeg's standard
+    Huffman tables, one interleaved scan. `ids` are the component ids
+    (1, 2, ...); `adobe` writes an APP14 with that transform."""
+    h, w = planes[0].shape
+    hmax = max(f[0] for f in factors)
+    vmax = max(f[1] for f in factors)
+    mcux, mcuy = -(-w // (8 * hmax)), -(-h // (8 * vmax))
+    k = np.arange(8)
+    dct = np.sqrt(2 / 8) * np.cos((2 * k[None] + 1) * k[:, None] * np.pi / 16)
+    dct[0] /= np.sqrt(2)
+    comps = []
+    for plane, (ch, cv) in zip(planes, factors):
+        big = np.pad(plane.astype(np.float64),
+                     ((0, mcuy * 8 * vmax - h), (0, mcux * 8 * hmax - w)),
+                     mode="edge")
+        rows = np.arange(mcuy * 8 * cv) * vmax // cv
+        cols = np.arange(mcux * 8 * ch) * hmax // ch
+        small = big[rows][:, cols]
+        blocks = small.reshape(mcuy * cv, 8, mcux * ch, 8).transpose(0, 2, 1,
+                                                                      3)
+        coef = np.rint(dct @ (blocks - 128) @ dct.T / q).astype(int)
+        comps.append(coef.reshape(*coef.shape[:2], 64)[..., _ZIGZAG].tolist())
+    tables = {}
+    for t, (dcb, dcv, acb) in _STD.items():
+        tables[t] = (_huffman_codes(dcb, dcv),
+                     _huffman_codes(acb, _std_ac_values(t)[:sum(acb)]),
+                     dcb, dcv, acb, _std_ac_values(t)[:sum(acb)])
+    out, acc, nacc = bytearray(), 0, 0
+
+    def put(code, length):
+        nonlocal acc, nacc
+        acc, nacc = (acc << length) | code, nacc + length
+        while nacc >= 8:
+            byte = (acc >> (nacc - 8)) & 0xFF
+            out.append(byte)
+            if byte == 0xFF:
+                out.append(0)
+            nacc -= 8
+        acc &= (1 << nacc) - 1
+
+    def magnitude(v):
+        size = int(abs(v)).bit_length()
+        return size, (v if v >= 0 else v + (1 << size) - 1)
+
+    preds = [0] * len(planes)
+    for my in range(mcuy):
+        for mx in range(mcux):
+            for c, (ch, cv) in enumerate(factors):
+                dc_codes, ac_codes = tables[min(c, 1)][:2]
+                for by in range(cv):
+                    for bx in range(ch):
+                        blk = comps[c][my * cv + by][mx * ch + bx]
+                        size, bits = magnitude(blk[0] - preds[c])
+                        preds[c] = blk[0]
+                        put(*dc_codes[size])
+                        put(bits, size)
+                        run = 0
+                        for v in blk[1:]:
+                            if not v:
+                                run += 1
+                                continue
+                            while run > 15:
+                                put(*ac_codes[0xF0])
+                                run -= 16
+                            size, bits = magnitude(v)
+                            put(*ac_codes[(run << 4) | size])
+                            put(bits, size)
+                            run = 0
+                        if run:
+                            put(*ac_codes[0x00])
+    if nacc:
+        put((1 << (8 - nacc)) - 1, 8 - nacc)
+
+    def seg(marker, body):
+        return bytes([0xFF, marker]) + struct.pack(">H", len(body) + 2) + body
+    n = len(planes)
+    ids = ids or list(range(1, n + 1))
+    head = b"\xff\xd8"
+    if adobe is not None:
+        head += seg(0xEE, b"Adobe\x00\x64\x00\x00\x00\x00" + bytes([adobe]))
+    head += seg(0xDB, b"".join(bytes([t]) + bytes([q] * 64) for t in (0, 1)))
+    head += seg(0xC0, struct.pack(">BHHB", 8, h, w, n) + b"".join(
+        bytes([ids[c], (f[0] << 4) | f[1], min(c, 1)])
+        for c, f in enumerate(factors)))
+    for t, (_, _, dcb, dcv, acb, acv) in tables.items():
+        head += seg(0xC4, bytes([t]) + bytes(dcb) + bytes(dcv))
+        head += seg(0xC4, bytes([0x10 | t]) + bytes(acb) + bytes(acv))
+    head += seg(0xDA, bytes([n]) + b"".join(
+        bytes([ids[c], min(c, 1) * 0x11]) for c in range(n)) + b"\x00\x3f\x00")
+    return bytes(head + out + b"\xff\xd9")
+
+
+# name: (h, v) of each component; the last four are refused by libjpeg
+SAMPLING_SETS = {
+    "h1v4": ((1, 4), (1, 1), (1, 1)), "h4v2": ((4, 2), (1, 1), (1, 1)),
+    "h2v4": ((2, 4), (1, 1), (1, 1)), "h3v1": ((3, 1), (1, 1), (1, 1)),
+    "h1v3": ((1, 3), (1, 1), (1, 1)), "h3v2": ((3, 2), (1, 1), (1, 1)),
+    "chroma_h1v2": ((2, 2), (2, 1), (2, 1)),
+    "chroma_h2v1": ((2, 2), (1, 2), (1, 2)),
+    "chroma_h2v1_of_h4": ((4, 1), (2, 1), (2, 1)),
+    "luma_upsampled": ((1, 1), (2, 2), (2, 2)),
+    "mixed_chroma": ((2, 2), (2, 2), (1, 1)),
+    "cmyk_h2v2": ((2, 2), (1, 1), (1, 1), (2, 2)),
+    "ycck_h2v1": ((2, 1), (1, 1), (1, 1), (2, 1)),
+    "sampling_fractional": ((3, 1), (2, 1), (2, 1)),
+    "sampling_11_blocks": ((3, 3), (1, 1), (1, 1)),
+    "sampling_18_blocks": ((4, 4), (1, 1), (1, 1)),
+    "cmyk_12_blocks": ((2, 2), (2, 2), (1, 1), (2, 2)),
+}
+_REFUSED_SETS = ("sampling_fractional", "sampling_11_blocks",
+                 "sampling_18_blocks", "cmyk_12_blocks")
+
+
+@pytest.mark.parametrize("name", sorted(SAMPLING_SETS))
+def test_every_sampling_set_is_cv2_imread(name, tmp_path):
+    """The test's own encoder writes each sampling set (Adobe transform 0
+    for the CMYK set, 2 for the YCCK one); the decoder equals cv2 at
+    scales 1, 1/2, 1/4, 1/8, and the sets libjpeg refuses raise."""
+    cv2 = _cv2()
+    factors = SAMPLING_SETS[name]
+    adobe = {"cmyk": 0, "ycck": 2}.get(name[:4])
+    rng = np.random.default_rng(len(name))
+    for h, w in [(29, 37), (5, 3), (16, 17), (9, 33), (40, 64)]:
+        img = _image(rng, h, w, True)
+        planes = [img[..., c % 3] for c in range(len(factors))]
+        path = tmp_path / f"{name}{h}x{w}.jpg"
+        path.write_bytes(encode_baseline(planes, factors, adobe=adobe))
+        if name in _REFUSED_SETS:
+            assert cv2.imread(str(path)) is None   # libjpeg refuses it too
+            with pytest.raises(nl.JpegUnsupported, match="sampling"):
+                image_io.image_size(str(path))
+            continue
+        assert image_io.image_size(str(path)) == (w, h)
+        for denom in (1, 2, 4, 8):
+            np.testing.assert_array_equal(
+                nl.jpeg_decode(str(path), denom, orient=False),
+                _cv2_read(path, denom), err_msg=f"{h}x{w} 1/{denom}")
 
 
 def test_damaged_files_raise_and_never_crash(tmp_path):

@@ -238,8 +238,8 @@ def test_imwrite_png_is_lossless_and_refuses_other_suffixes(tmp_path):
     img = np.random.default_rng(0).integers(0, 255, (17, 23, 3), np.uint8)
     image_io.imwrite(str(tmp_path / "a.png"), img)
     np.testing.assert_array_equal(cv2.imread(str(tmp_path / "a.png")), img)
-    with pytest.raises(NotImplementedError):
-        image_io.imwrite(str(tmp_path / "a.bmp"), img)
+    with pytest.raises(NotImplementedError):   # .bmp and .tif are written
+        image_io.imwrite(str(tmp_path / "a.webp"), img)
 
 
 def test_detect_without_a_card_raises(detect_run, tmp_path):
