@@ -124,7 +124,14 @@ read just after:
     --save-txt` over .bmp / .tif / .png sources writes each canvas under
     its suffix (read back equal) and the PNG copies' label files; and
     decode img/s through `load_image` at 1 and 8 threads per kind at
-    640x480.
+    640x480. Since PR 15 also WebP: the fixtures of tests/test_torch_webp.py
+    to cv2's digests; the val split written a third time, cycling
+    through lossless VP8L, VP8 at the port's qualities 75 and 90, VP8X +
+    a VP8L-coded ALPH + VP8, and VP8X + an EXIF Orientation 6 over a
+    turned VP8L (the port's writers), with its own PNG copy: cli.val on
+    both equal, K1, K2 and the count held as on the other splits;
+    cli.detect over .webp sources too (canvases written as .webp, read
+    back equal); the WebP kinds' decode img/s and file sizes.
 
 It times the forward, the NMS, the selection engine against `torch.topk`,
 the training steps and their phases (CUDA events), and each kernel
@@ -4368,10 +4375,60 @@ def serve_phase(torch, dev, card, lists):
 
 FORMAT_KINDS = ("bmp", "tif", "png16", "adam7", "jpg411", "jpg440",
                 "jpgrgb", "jpgcmyk", "jpgycck")
+WEBP_KINDS = ("webp", "webp75", "webp90", "webpalpha", "webpexif")
 RATE_KINDS = ("bmp24", "bmprle8", "tiflzw", "tifdeflate", "png16", "adam7",
-              "jpg411", "jpg440", "jpgrgb", "jpgcmyk", "png8", "jpg420")
+              "jpg411", "jpg440", "jpgrgb", "jpgcmyk", "png8",
+              "jpg420") + WEBP_KINDS
 RATE_COPIES = 16        # files per kind in the rate lists (one image each)
-FORMAT_DETECT = 6       # cli.detect's sources: 2 each of .bmp, .tif, .png
+FORMAT_DETECT = 8       # cli.detect's sources: 2 of each DETECT_KINDS
+DETECT_KINDS = ("bmp", "tif", "png8", "webp90")
+
+
+def webp_file(path: Path, kind: str, rgb) -> Path:
+    """Write `rgb` as the WebP `kind` at `path` (suffix .webp) with the
+    port's writers: lossless VP8L ("webp"), VP8 at the writer's quality 75
+    or 90, VP8X + a VP8L-coded ALPH (a ramp; the VP8L writer's stream
+    without its 5-byte header) + VP8 at 85, or VP8X + VP8L of the image
+    turned a quarter left + an EXIF Orientation 6, which turns it back."""
+    import struct
+
+    import numpy as np
+
+    from efficientteacher_torch.data import webp_io
+    from efficientteacher_torch.utils import native_loader as nl
+
+    def chunk(tag, body):
+        return tag + struct.pack("<I", len(body)) + body + b"\0" * (
+            len(body) & 1)
+
+    def vp8x(w, h, flags):
+        return chunk(b"VP8X", struct.pack("<I", flags)
+                     + (w - 1).to_bytes(3, "little")
+                     + (h - 1).to_bytes(3, "little"))
+
+    path = path.with_suffix(".webp")
+    h, w = rgb.shape[:2]
+    if kind == "webp":
+        webp_io.write_webp(str(path), rgb)
+        return path
+    if kind in ("webp75", "webp90"):
+        webp_io.write_webp(str(path), rgb, int(kind[-2:]))
+        return path
+    if kind == "webpalpha":
+        ramp = np.zeros((h, w, 3), np.uint8)
+        ramp[..., 1] = np.linspace(0, 255, w).astype(np.uint8)
+        body = vp8x(w, h, 0x10) + chunk(b"ALPH", b"\x01"
+                                        + nl.webp_encode(ramp)[5:]) \
+            + chunk(b"VP8 ", nl.webp_encode(rgb, 85))
+    else:   # webpexif
+        tiff = b"II" + struct.pack("<HIH", 42, 8, 1) + struct.pack(
+            "<HHIHH", 0x112, 3, 1, 6, 0) + b"\0" * 4
+        turned = np.ascontiguousarray(np.rot90(rgb, 1))
+        body = vp8x(h, w, 0x08) + chunk(b"VP8L", nl.webp_encode(turned)) \
+            + chunk(b"EXIF", tiff)
+    path.write_bytes(b"RIFF" + struct.pack("<I", 4 + len(body)) + b"WEBP"
+                     + body)
+    return path
 
 
 def format_file(path: Path, kind: str, rgb) -> Path:
@@ -4397,6 +4454,8 @@ def format_file(path: Path, kind: str, rgb) -> Path:
         return [np.rint(c).clip(0, 255).astype(np.uint8) for c in (y, cb,
                                                                     cr)]
 
+    if kind.startswith("webp"):
+        return webp_file(path, kind, rgb)
     h, w = rgb.shape[:2]
     ext = {"bmp": "bmp", "bmp24": "bmp", "bmprle8": "bmp", "tif": "tif",
            "tiflzw": "tif", "tifdeflate": "tiff"}.get(
@@ -4442,8 +4501,9 @@ def format_file(path: Path, kind: str, rgb) -> Path:
 
 def formats_leg(torch, dev, card, lists, tmp):
     """[formats]: the fixtures, cli.val on the val split in PNG and in the
-    formats, cli.detect on .bmp / .tif / .png sources, decode rates.
-    Returns kernels-line entries."""
+    formats, and in WebP beside its own PNG copy, cli.detect on .bmp /
+    .tif / .png / .webp sources, decode rates. Returns kernels-line
+    entries."""
     import numpy as np
 
     from efficientteacher_torch.cli import detect as cli_detect
@@ -4457,16 +4517,19 @@ def formats_leg(torch, dev, card, lists, tmp):
     sys.path.insert(0, str(Path(__file__).resolve().parent / "tests"))
     import test_torch_image_formats as tif_fx
     import test_torch_jpeg as jpg_fx
+    import test_torch_webp as webp_fx
 
     tmp = Path(tmp)
     # -- fixtures against cv2's digests ---------------------------------
     t0 = time.perf_counter()
     bad = jpg_fx.check_fixtures(tmp / "jpeg_fixtures") + \
-        tif_fx.check_fixtures(tmp / "format_fixtures")
+        tif_fx.check_fixtures(tmp / "format_fixtures") + \
+        webp_fx.check_fixtures(tmp / "webp_fixtures")
     counts = {}
     for name in tif_fx.FIXTURES:
         fmt = tif_fx.fixture_format(name)
         counts[fmt] = counts.get(fmt, 0) + 1
+    counts["webp"] = len(webp_fx.FIXTURES)
     counts["jpeg"] = sum(len(d) for _, d in jpg_fx.FIXTURES.values())
     require(not bad, f"decodes differ from cv2's digests: {bad}")
     print(f"[formats] fixtures == cv2.imread's digests, 0 mismatches: "
@@ -4474,47 +4537,64 @@ def formats_leg(torch, dev, card, lists, tmp):
           + f" decodes (JPEG: {len(jpg_fx.FIXTURES)} files x 4 scales) in "
           f"{(time.perf_counter() - t0) * 1e3:.1f} ms")
 
-    # -- the val split twice: PNG and the formats -----------------------
+    # -- the val split in the formats and in WebP, each with a PNG copy --
     t0 = time.perf_counter()
     val = Path(lists["val"]).read_text().split()
+    pairs = (("png", "formats"), ("webp_png", "webp"))
     splits = {}
-    for name in ("png", "formats"):
+    for name in [n for pair in pairs for n in pair]:
         for d in ("images", "labels"):
             (tmp / name / d).mkdir(parents=True, exist_ok=True)
-    files = {"png": [], "formats": []}
-    kinds_used = {}
+    files = {n: [] for pair in pairs for n in pair}
+    kinds_used, kind_of = {}, {}
 
     def write(i):
         src = val[i]
         rgb = image_io.imread(src)
-        kind = FORMAT_KINDS[i % len(FORMAT_KINDS)]
         stem = Path(src).stem
-        path = format_file(tmp / "formats" / "images" / stem, kind, rgb)
-        copy = tmp / "png" / "images" / f"{stem}.png"
-        image_io.write_png(str(copy), image_io.imread(str(path)), level=1)
         label = Path(src).parent.parent / "labels" / f"{stem}.txt"
-        for name in ("png", "formats"):
-            shutil.copy(label, tmp / name / "labels" / f"{stem}.txt")
-        return kind, str(path), str(copy)
+        out = []
+        for (copy_name, name), kinds in zip(pairs, (FORMAT_KINDS,
+                                                    WEBP_KINDS)):
+            kind = kinds[i % len(kinds)]
+            path = format_file(tmp / name / "images" / stem, kind, rgb)
+            copy = tmp / copy_name / "images" / f"{stem}.png"
+            image_io.write_png(str(copy), image_io.imread(str(path)),
+                               level=1)
+            for n in (copy_name, name):
+                shutil.copy(label, tmp / n / "labels" / f"{stem}.txt")
+            out.append((kind, name, str(path), copy_name, str(copy)))
+        return out
 
     with ThreadPoolExecutor(8) as ex:
-        for kind, path, copy in ex.map(write, range(len(val))):
-            files["formats"].append(path)
-            files["png"].append(copy)
-            kinds_used[kind] = kinds_used.get(kind, 0) + 1
-    for name in ("png", "formats"):
+        for written in ex.map(write, range(len(val))):
+            for kind, name, path, copy_name, copy in written:
+                files[name].append(path)
+                files[copy_name].append(copy)
+                kinds_used[kind] = kinds_used.get(kind, 0) + 1
+                kind_of[path] = kind
+    for name in files:
         splits[name] = tmp / name / f"{name}.txt"
         splits[name].write_text("".join(f"{p}\n" for p in files[name]))
     t_write = time.perf_counter() - t0
     lossless = [(a, b) for a, b in zip(files["formats"], files["png"])
-                if image_io.suffix(a) not in image_io.JPEG_SUFFIXES]
+                if image_io.suffix(a) not in image_io.JPEG_SUFFIXES] + [
+        (a, b) for a, b in zip(files["webp"], files["webp_png"])]
     same = sum(np.array_equal(image_io.imread(a), image_io.imread(b))
                for a, b in lossless)
-    require(same == len(lossless), f"{len(lossless) - same} lossless files "
-            f"decode unlike their PNG copies")
+    require(same == len(lossless), f"{len(lossless) - same} files decode "
+            f"unlike their PNG copies")
+    src_same = sum(np.array_equal(image_io.imread(a), image_io.imread(v))
+                   for a, v in zip(files["webp"], val)
+                   if kind_of[a] in ("webp", "webpexif"))
+    require(src_same == sum(kinds_used.get(k, 0) for k in ("webp",
+                                                           "webpexif")),
+            "a lossless WebP decodes unlike its source image")
     print(f"[formats] val split ({len(val)} images at {NATIVE_WH}) written "
           f"as PNG and as {kinds_used} in {t_write:.1f} s; the "
-          f"{len(lossless)} lossless files decode as their PNG copies")
+          f"{len(lossless)} lossless and WebP files decode as their PNG "
+          f"copies, the {src_same} VP8L ones (EXIF-turned too) as their "
+          f"sources")
 
     # -- YOLOv5l at the mid density, cli.val on both --------------------
     cfg = ssod_cfg(*data_overrides(lists))
@@ -4534,7 +4614,7 @@ def formats_leg(torch, dev, card, lists, tmp):
     ckpt = tmp / "formats_mid.ckpt"
     save_checkpoint(ckpt, params=v["params"], batch_stats=v["batch_stats"])
     results, entries = {}, []
-    for name in ("png", "formats"):
+    for name in ("png", "formats", "webp_png", "webp"):
         argv = ["--cfg", str(MAIN_YAML), "--weights", str(ckpt),
                 "--batch-size", str(T_BATCH), "Dataset.val",
                 str(splits[name])]
@@ -4547,22 +4627,23 @@ def formats_leg(torch, dev, card, lists, tmp):
         print(f"[formats] cli.val on the {name} split: P/R/mAP50/mAP "
               f"{'/'.join(f'{x:.6f}' for x in got)}, each batch's NMS == the "
               f"plain NMS, launches {launches}; {t_val:.1f} s | {card}")
-        if name == "formats":
-            entries = val_entries(torch, decoded, "formats: cli.val",
-                                  launches, card)
-    require(results["png"] == results["formats"], f"cli.val differs "
-            f"between the splits: {results}")
+        if name in ("formats", "webp"):
+            entries += val_entries(torch, decoded, f"{name}: cli.val",
+                                   launches, card)
+    require(results["png"] == results["formats"]
+            and results["webp_png"] == results["webp"],
+            f"cli.val differs between a split and its PNG copy: {results}")
     print(f"[formats] cli.val: the formats split's results == the PNG "
-          f"split's ({shift[1]:.0f} candidates/img on the calibration "
-          f"batch)")
+          f"split's, the WebP split's == its PNG copy's ({shift[1]:.0f} "
+          f"candidates/img on the calibration batch)")
 
-    # -- cli.detect over .bmp / .tif / .png sources ---------------------
+    # -- cli.detect over .bmp / .tif / .png / .webp sources ------------
     src_dir = {k: tmp / f"detect_{k}" for k in ("mixed", "png")}
     for d in src_dir.values():
         d.mkdir()
     for i in range(FORMAT_DETECT):
         rgb = image_io.imread(val[i])
-        kind = ("bmp", "tif", "png8")[i % 3]
+        kind = DETECT_KINDS[i % len(DETECT_KINDS)]
         path = format_file(src_dir["mixed"] / f"{i}", kind, rgb)
         image_io.write_png(str(src_dir["png"] / f"{i}.png"),
                            image_io.imread(str(path)))

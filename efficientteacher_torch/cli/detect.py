@@ -12,8 +12,8 @@ card) one image at a time, scales the detections back to the image's
 pixels, and writes into `<save-dir>/exp[N]`: the annotated image under
 its source's name and suffix (`utils/draw.py`, written by
 `image_io.imwrite`: `.jpg` / `.jpeg`, `.png`, `.bmp` byte-equal to
-cv2.imwrite's, `.tif` / `.tiff` as cv2 writes them; a `.webp` source
-raises, ROADMAP Q1.9b), and with --save-txt the
+cv2.imwrite's, `.tif` / `.tiff` as cv2 writes them, `.webp` lossless as
+cv2.imwrite's default, its pixels read back equal), and with --save-txt the
 YOLO-format labels, --save-crop the detections' crops, --save-xml
 PASCAL-VOC annotations, as JAX's detect.py writes them. Keypoint models
 (`Dataset.np`) carry their points through the NMS with the obj-only gate

@@ -1,7 +1,9 @@
 // Host data-loader core of the PyTorch port: JPEG decode and the bilinear
 // letterbox, the per-pixel stages of PNG, BMP and TIFF (raster_decode.h:
 // row filters, Adam7, bit unpacking, palettes, RLE, LZW, PackBits, the
-// TIFF predictor) and TIFF's LZW writer, the host augmentation's pixel
+// TIFF predictor) and TIFF's LZW writer, the VP8L and VP8 bitstreams of
+// WebP (webp_decode.h) and WebP writers (webp_encode.h), the
+// host augmentation's pixel
 // operations (pixel_ops.h: cv2's warpAffine / warpPerspective, HSV, grey
 // and 3x3 filter), and a JPEG writer for test data. Plain C
 // ABI, built with the host compiler (no CUDA, no libjpeg) by
@@ -39,6 +41,8 @@
 #include "jpeg_encode.h"
 #include "pixel_ops.h"
 #include "raster_decode.h"
+#include "webp_decode.h"
+#include "webp_encode.h"
 
 namespace {
 
@@ -524,6 +528,68 @@ int et_jpeg_write(const char* path, const uint8_t* rgb, int w, int h,
   const bool ok = std::fwrite(bytes.data(), 1, bytes.size(), f) ==
                   bytes.size();
   return (std::fclose(f) == 0 && ok) ? kOk : kErrOpen;
+}
+
+// A WebP bitstream (etwebp::decode_vp8l / decode_vp8): `data`, n bytes
+// from the VP8L or VP8 chunk's payload on (libwebp reads to the end of
+// what it was given), of size (w, h) -> out, RGB, (h, w, 3) turned as
+// the EXIF orientation `orient` (1-8) asks, as cv2.imread turns it. A
+// VP8 frame with an ALPH chunk (`has_alpha`; `alpha`, alpha_n bytes of
+// its payload) fails when the alpha fails, as cv2.imread does.
+int et_webp_decode(const uint8_t* data, int64_t n, int lossless, int w,
+                   int h, const uint8_t* alpha, int64_t alpha_n,
+                   int has_alpha, int orient, uint8_t* out) {
+  if (n < 0 || alpha_n < 0 || w <= 0 || h <= 0 || orient < 1 ||
+      orient > 8) {
+    return kErrArgs;
+  }
+  return guarded([&] {
+    std::vector<uint8_t> img;
+    uint8_t* dst = out;
+    if (orient != 1) {
+      img.resize(static_cast<size_t>(w) * h * 3);
+      dst = img.data();
+    }
+    const int st =
+        lossless ? etwebp::decode_vp8l(data, static_cast<size_t>(n), w, h,
+                                       dst)
+                 : etwebp::decode_vp8(data, static_cast<size_t>(n), w, h,
+                                      alpha, static_cast<size_t>(alpha_n),
+                                      has_alpha != 0, dst);
+    if (st != etwebp::kOk) return kErrDecode;
+    if (orient != 1) {
+      int ow, oh;
+      oriented(orient, w, h, &ow, &oh);
+      orient_copy(img.data(), w, h, orient, out, static_cast<size_t>(ow) * 3);
+    }
+    return kOk;
+  });
+}
+
+// The RGB image (h, w, 3) as a WebP bitstream (webp_encode.h) into dst
+// (cap bytes): VP8L when quality < 0, else VP8 at that quality (0-100);
+// *written its length, kErrArgs when it does not fit.
+int et_webp_encode(const uint8_t* rgb, int w, int h, int quality,
+                   uint8_t* dst, int64_t cap, int64_t* written) {
+  if (w <= 0 || h <= 0 || w > 16383 || h > 16383 || cap < 0 ||
+      quality > 100) {
+    return kErrArgs;
+  }
+  std::vector<uint8_t> out;
+  if (guarded([&] {
+        if (quality < 0) {
+          etwebp::encode_vp8l(rgb, w, h, &out);
+        } else {
+          etwebp::encode_vp8(rgb, w, h, quality, &out);
+        }
+        return kOk;
+      }) != kOk ||
+      static_cast<int64_t>(out.size()) > cap) {
+    return kErrArgs;
+  }
+  std::memcpy(dst, out.data(), out.size());
+  *written = static_cast<int64_t>(out.size());
+  return kOk;
 }
 
 }  // extern "C"

@@ -29,16 +29,17 @@ draw from the dataset's own `random.Random(seed)`, as in JAX.
 
 Images decode through `data/image_io.py`, bit-equal to cv2.imread: JPEG
 through the loader core's own decoder, EXIF orientation applied as
-cv2.imread applies it; PNG, BMP and TIFF parsed there, their pixels
-through the core (`csrc/raster_decode.h`). They resize through the core,
-bit-equal to cv2's INTER_LINEAR. On the plain path one core call decodes, resizes and
+cv2.imread applies it; PNG, BMP, TIFF and WebP parsed there, their
+pixels through the core (`csrc/raster_decode.h`, `csrc/webp_decode.h`).
+They resize through the core, bit-equal to cv2's INTER_LINEAR. On the plain path one core call decodes, resizes and
 letterboxes a JPEG straight into its batch slot; image arrays in batches
 are uint8 CPU tensors, in pinned memory when the loader's `pin_memory` is
 set (`data/parallel_loader.py`). The native sizes come from the image
 headers (JAX decodes each image to take its size); a file that cannot be
-read is dropped, as in JAX, and a kind the port does not read (WebP,
-ROADMAP Q1.9b; the JPEG and TIFF kinds of Q1.9c) raises when the dataset
-is built, naming the file.
+read is dropped, as in JAX, and a kind the port does not read (the JPEG
+and TIFF kinds of ROADMAP Q1.9c) raises when the dataset is built, naming
+the file. A `.webp` takes the plain route on the prescale path too, as
+JAX's `load_image` sends only JPEGs to its native core.
 
 Albumentations is off: the JAX dataset applies it only when the package
 imports, and the card's machine has none (ROADMAP Q1.12). Keypoint and id
@@ -137,9 +138,9 @@ def verify_image_label(img_file: str, label_file: Optional[str], nc: int,
     """Validate one image/label pair (reference verify_image_label).
     Returns (labels (N, 5+2*np) float32, (w, h)) or None for a file that
     is missing, corrupt or under 10 px. Raises NotImplementedError for an
-    image kind the port does not read (`.webp`; `JpegUnsupported`,
-    `TiffUnsupported` for the JPEG and TIFF kinds of ROADMAP Q1.9c): the
-    dataset fails when it is built."""
+    image kind the port does not read (`JpegUnsupported`, `TiffUnsupported`
+    for the JPEG and TIFF kinds of ROADMAP Q1.9c): the dataset fails when
+    it is built."""
     ncol = 5 + 2 * num_keypoints
     try:
         w, h = image_io.image_size(img_file)

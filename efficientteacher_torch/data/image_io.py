@@ -22,30 +22,34 @@ What is read, each bit-equal to `cv2.imread(path)[..., ::-1]` (cv2 5.0.0):
   BI_BITFIELDS (alpha dropped); BI_RLE8 / BI_RLE4; bottom-up and top-down.
 * TIFF (`data/tiff_io.py`): the first IFD as libtiff's RGBA interface gives
   it to cv2; other kinds raise `tiff_io.TiffUnsupported` (ROADMAP Q1.9c).
+* WebP (`data/webp_io.py`): VP8L and VP8 bitstreams, simple or VP8X with
+  ALPH, EXIF or an animation (its first frame on the canvas), through
+  the loader core's decoders (`csrc/webp_decode.h`); no kind is refused.
 
 Headers, chunks and IFDs are parsed here and zlib is Python's; the
 per-pixel stages (filters, Adam7, bit unpacking, palettes, RLE, LZW,
 PackBits, the TIFF predictor) run in the loader core (`csrc/
-raster_decode.h`), so no decode loops over pixels in Python. `.webp` raises
-NotImplementedError (ROADMAP Q1.9b).
+raster_decode.h`), so no decode loops over pixels in Python.
 
 `image_size` reads a file's header and raises for a kind that is not read;
 the datasets call it for every file when they are built, so such a file
 fails there and not in an epoch. A file cv2 cannot read either (corrupt,
 truncated) raises OSError, and the datasets drop it, as JAX's do.
 
-Images are RGB uint8 (h, w, 3). The EXIF orientation of a JPEG or PNG and
-a TIFF's Orientation tag are applied as cv2.imread applies them, so
-`image_size` gives the oriented size and `imread` the oriented pixels.
-cv2 5.0.0 itself fails on a non-square TIFF of Orientation 5-8 (ROADMAP
-F9); the port reads it turned as cv2 turns a square one. Only the
-prescale route (`Dataset.native_loader`, `data/datasets.py`) ignores a
-JPEG's orientation, as the JAX native core does.
+Images are RGB uint8 (h, w, 3). The EXIF orientation of a JPEG, PNG or
+WebP and a TIFF's Orientation tag are applied as cv2.imread applies them,
+so `image_size` gives the oriented size and `imread` the oriented pixels.
+cv2 5.0.0 fails on a non-square TIFF of Orientation 5-8, and so does the
+port (OSError), so the datasets drop it as JAX's do. Only the prescale
+route (`Dataset.native_loader`, `data/datasets.py`) ignores a JPEG's
+orientation, as the JAX native core does.
 
 `imwrite` writes what detect and AutoShape save under a source's suffix:
-`.png`, `.jpg` / `.jpeg`, `.bmp` (byte-equal to cv2.imwrite's) and
-`.tif` / `.tiff` (LZW with the horizontal predictor in one strip, as
-cv2.imwrite writes it).
+`.png`, `.jpg` / `.jpeg`, `.bmp` (byte-equal to cv2.imwrite's), `.tif` /
+`.tiff` (LZW with the horizontal predictor in one strip, as cv2.imwrite
+writes it) and `.webp` (lossless VP8L, cv2.imwrite's default kind; the
+loader core's own encoder, so the bytes differ from libwebp's, the
+pixels read back do not).
 """
 
 from __future__ import annotations
@@ -57,13 +61,12 @@ from pathlib import Path
 import numpy as np
 
 from ..utils import native_loader as nl
-from . import tiff_io
+from . import tiff_io, webp_io
 from .tiff_io import exif_orientation, orient
 
 IMG_FORMATS = {"bmp", "jpg", "jpeg", "png", "tif", "tiff", "webp"}
 JPEG_SUFFIXES = {"jpg", "jpeg"}
 TIFF_SUFFIXES = {"tif", "tiff"}
-_WEBP_TODO = "ROADMAP Q1.9b: WebP"
 _PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
 _PNG_CHANNELS = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}   # colour type -> samples
 _PNG_DEPTHS = {0: (1, 2, 4, 8, 16), 2: (8, 16), 3: (1, 2, 4, 8),
@@ -229,9 +232,6 @@ def read_bmp(path: str) -> np.ndarray:
 # ---------------------------------------------------------------- dispatch
 
 def _refuse(path: str, ext: str):
-    if ext == "webp":
-        raise NotImplementedError(f"{path}: .webp images are not read "
-                                  f"({_WEBP_TODO})")
     raise NotImplementedError(f"{path}: .{ext} is not an image format "
                               f"({', '.join(sorted(IMG_FORMATS))})")
 
@@ -253,6 +253,8 @@ def image_size(path: str):
         return _bmp_header(path, data)[:2]
     if ext in TIFF_SUFFIXES:
         return tiff_io.tiff_size(path)
+    if ext == "webp":
+        return webp_io.webp_size(path)
     _refuse(path, ext)
 
 
@@ -268,6 +270,8 @@ def imread(path: str) -> np.ndarray:
         return read_bmp(path)
     if ext in TIFF_SUFFIXES:
         return tiff_io.read_tiff(path)
+    if ext == "webp":
+        return webp_io.read_webp(path)
     _refuse(path, ext)
 
 
@@ -316,9 +320,9 @@ def imwrite(path: str, bgr: np.ndarray) -> None:
     """cv2.imwrite's counterpart for the images detect and AutoShape save:
     `bgr` (h, w, 3) uint8 in cv2's channel order, written as `.png`
     (lossless, `write_png`), `.jpg` / `.jpeg` (the loader core's baseline
-    4:2:0 writer at quality 95, cv2's default), `.bmp` (`write_bmp`) or
-    `.tif` / `.tiff` (`tiff_io.write_tiff`). `.webp` and other suffixes
-    raise NotImplementedError."""
+    4:2:0 writer at quality 95, cv2's default), `.bmp` (`write_bmp`),
+    `.tif` / `.tiff` (`tiff_io.write_tiff`) or `.webp` (lossless,
+    `webp_io.write_webp`). Other suffixes raise NotImplementedError."""
     rgb = np.ascontiguousarray(np.asarray(bgr, np.uint8)[..., ::-1])
     ext = suffix(str(path))
     if ext == "png":
@@ -329,7 +333,9 @@ def imwrite(path: str, bgr: np.ndarray) -> None:
         write_bmp(path, rgb)
     elif ext in TIFF_SUFFIXES:
         tiff_io.write_tiff(path, rgb)
+    elif ext == "webp":
+        webp_io.write_webp(path, rgb)
     else:
         raise NotImplementedError(
             f"{path}: .{ext} images are not written (.png, .jpg, .jpeg, "
-            f".bmp, .tif, .tiff{'; ' + _WEBP_TODO if ext == 'webp' else ''})")
+            f".bmp, .tif, .tiff, .webp)")

@@ -4,11 +4,12 @@
 `LoadImages` takes files, directories, globs and `.txt` lists, as the
 datasets' `parse_data_path` expands them (every suffix of `IMG_FORMATS`),
 reads each image with the port's `image_io.imread` (bit-equal to
-cv2.imread on JPEG, PNG, BMP and TIFF; `.webp` and the kinds of ROADMAP
-Q1.9c raise) and letterboxes it with
-`augment.letterbox` (cv2's INTER_LINEAR, in the loader core). Each item is
-what JAX's yields: (path, letterboxed RGB uint8, the image as read in
-cv2's BGR order, (ratio, pad)).
+cv2.imread on JPEG, PNG, BMP, TIFF and WebP; the kinds of ROADMAP Q1.9c
+raise) and letterboxes it with `augment.letterbox` (cv2's INTER_LINEAR,
+in the loader core). A file cv2.imread reads nothing of (OSError here) is
+skipped, as JAX's skips it. Each item is what JAX's yields: (path,
+letterboxed RGB uint8, the image as read in cv2's BGR order, (ratio,
+pad)).
 
 Video files need `cv2.VideoCapture` and raise NotImplementedError, and the
 streaming `LoadStreams` is not ported (ROADMAP Q1.12).
@@ -45,7 +46,10 @@ class LoadImages:
 
     def __iter__(self) -> Iterator[Tuple[str, np.ndarray, np.ndarray, tuple]]:
         for f in self.files:
-            rgb = imread(f)
+            try:
+                rgb = imread(f)
+            except OSError:   # cv2.imread's None: JAX skips the file
+                continue
             img, ratio, pad = letterbox(rgb, self.img_size, auto=self.auto,
                                         stride=self.stride)
             # img0 in cv2's BGR order, as JAX yields it

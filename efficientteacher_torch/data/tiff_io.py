@@ -20,8 +20,8 @@ alpha. What that interface does, and so what this module does:
   strips and tiles; either byte order; BigTIFF.
 * The Orientation tag applied as cv2 applies it (the EXIF turn of the
   stored image). cv2 5.0.0 fails on a non-square image of Orientation 5-8
-  (its imread asserts); this module turns such an image as cv2 turns a
-  square one (ROADMAP F9).
+  (its imread asserts), and so does this module (OSError), so that the
+  datasets drop the file as JAX's do.
 
 Every other kind raises `TiffUnsupported` from `tiff_size`, naming it.
 cv2 reads these, the port does not yet (ROADMAP Q1.9c): JPEG-in-TIFF,
@@ -253,6 +253,9 @@ def _layout(path: str, data: bytes) -> _Layout:
     if lay.refusal:
         raise TiffUnsupported(f"{path}: TIFF with {lay.refusal} is not read "
                               f"({_TODO})")
+    if 5 <= lay.orientation <= 8 and lay.w != lay.h:
+        raise OSError(f"{path}: a non-square TIFF of Orientation "
+                      f"{lay.orientation} (cv2.imread reads none)")
     return lay
 
 
@@ -283,8 +286,8 @@ def _inflated(lay: _Layout, data: bytes, row_bytes: int):
 
 def read_tiff(path: str) -> np.ndarray:
     """The first image of the TIFF at `path` as RGB uint8 (h, w, 3), as
-    cv2.imread(path)[..., ::-1] reads it (ROADMAP F9 for the one
-    difference). One loader-core call decodes every strip or tile."""
+    cv2.imread(path)[..., ::-1] reads it. One loader-core call decodes
+    every strip or tile."""
     data = Path(path).read_bytes()
     lay = _layout(path, data)
     planes = 1 if lay.contig else lay.spp

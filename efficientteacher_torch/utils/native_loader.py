@@ -9,9 +9,13 @@ unrefined progressive scans: ROADMAP Q1.9c) raise `JpegUnsupported` from
 `jpeg_info`, which the datasets call for every file when they are built
 (`data/image_io.py`). Unlike the JAX binding it never falls back. It also
 runs the per-pixel stages of PNG, BMP and TIFF (`csrc/raster_decode.h`:
-`png_decode`, `to_rgb`, `bmp_decode`, `tiff_decode`, `lzw_encode`). Images are RGB uint8, (h, w, 3), C-contiguous. Each call
-releases the interpreter lock while it runs (ctypes does), so loader
-threads decode in parallel.
+`png_decode`, `to_rgb`, `bmp_decode`, `tiff_decode`, `lzw_encode`),
+decodes WebP's two bitstreams, VP8L and VP8 with its ALPH chunk
+(`csrc/webp_decode.h`: `webp_decode`; `data/webp_io.py` parses the
+container), and writes either (`csrc/webp_encode.h`: `webp_encode`).
+Images are RGB uint8, (h, w, 3), C-contiguous. Each call releases the
+interpreter lock while it runs (ctypes does), so loader threads decode in
+parallel.
 """
 
 from __future__ import annotations
@@ -46,6 +50,10 @@ _SIGNATURES = {
     # data, n, offsets, counts, nchunks, compression, layout (10 ints), out
     "et_tiff_decode": (_P, _L, _P, _P, _I, _I, _P, _P),
     "et_jpeg_write": (_C, _P, _I, _I, _I),
+    # data, n, lossless, w, h, alpha, alpha_n, has_alpha, orient, out
+    "et_webp_decode": (_P, _L, _I, _I, _I, _P, _L, _I, _I, _P),
+    # rgb, w, h, quality (< 0: lossless), dst, cap, written
+    "et_webp_encode": (_P, _I, _I, _I, _P, _L, _P),
     # src, sw, sh, sstride, dst, dw, dh, matrix (doubles), border, flags
     "et_warp": (_P, _I, _I, _I, _P, _I, _I, _P, _I, _I),
     # img, h, w, stride, lut_h, lut_s, lut_v, blue
@@ -327,4 +335,43 @@ def lzw_encode(data) -> bytes:
     n = ctypes.c_int64(0)
     _check(_lib().et_lzw_encode(buf.ctypes.data, buf.size, out.ctypes.data,
                                 cap, ctypes.byref(n)), "LZW")
+    return out[:n.value].tobytes()
+
+
+def webp_decode(data, offset: int, lossless: bool, w: int, h: int,
+                alpha=None, orientation: int = 1) -> np.ndarray:
+    """A WebP bitstream -> RGB uint8: `data` from byte `offset` on (the
+    VP8L or VP8 chunk's payload, then whatever followed it in what libwebp
+    was given), of size (w, h), turned as EXIF `orientation` asks ((h, w,
+    3) for 1-4, (w, h, 3) for 5-8). `alpha` (offset, length) of a VP8
+    frame's ALPH payload in `data`, or None; the alpha must decode, and is
+    dropped."""
+    buf = _bytes(data)
+    if not 0 <= offset <= buf.size:
+        raise ValueError("offset outside the data")
+    base = buf.ctypes.data
+    a_ptr, a_len = (None, 0) if alpha is None else (base + alpha[0],
+                                                     alpha[1])
+    ow, oh = oriented_size(w, h, orientation)
+    out = np.empty((oh, ow, 3), np.uint8)
+    _check(_lib().et_webp_decode(base + offset, buf.size - offset,
+                                 int(lossless), w, h, a_ptr, a_len,
+                                 int(alpha is not None), int(orientation),
+                                 out.ctypes.data), "WebP")
+    return out
+
+
+def webp_encode(rgb: np.ndarray, quality=None) -> bytes:
+    """`rgb` (h, w, 3) uint8 as the payload of a VP8L chunk (lossless, when
+    `quality` is None) or of a VP8 chunk at `quality` 0-100 (the writer's
+    own scale, `csrc/webp_encode.h`)."""
+    rgb = np.ascontiguousarray(rgb, np.uint8)
+    h, w = rgb.shape[:2]
+    cap = h * w * 5 + 4096
+    out = np.empty(cap, np.uint8)
+    n = ctypes.c_int64(0)
+    _check(_lib().et_webp_encode(rgb.ctypes.data, w, h,
+                                 -1 if quality is None else int(quality),
+                                 out.ctypes.data, cap, ctypes.byref(n)),
+           "WebP writer")
     return out[:n.value].tobytes()

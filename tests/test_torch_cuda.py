@@ -422,8 +422,9 @@ def test_loader_core_builds_and_reads_on_the_card_machine(card, tmp_path):
     no libjpeg; PNG reads back exactly; the core's JPEG decoder gives
     cv2's digests on the fixtures of test_torch_jpeg.py (the machine has
     no libjpeg to compare against), the PNG / BMP / TIFF readers give them
-    on the fixtures of test_torch_image_formats.py, and the core's writer
-    round-trips."""
+    on the fixtures of test_torch_image_formats.py, the WebP decoders on
+    those of test_torch_webp.py, and the core's writers round-trip (the
+    lossless WebP one exactly)."""
     import subprocess
 
     from efficientteacher_torch.data import image_io
@@ -432,6 +433,7 @@ def test_loader_core_builds_and_reads_on_the_card_machine(card, tmp_path):
     from test_torch_image_formats import \
         check_fixtures as check_format_fixtures
     from test_torch_jpeg import check_fixtures
+    from test_torch_webp import check_fixtures as check_webp_fixtures
 
     built = host_library()
     assert built.path.exists()
@@ -449,6 +451,10 @@ def test_loader_core_builds_and_reads_on_the_card_machine(card, tmp_path):
     assert (canvas[:13] == 114).all() and (canvas[50:] == 114).all()
     assert check_fixtures(tmp_path / "fixtures") == []
     assert check_format_fixtures(tmp_path / "format_fixtures") == []
+    assert check_webp_fixtures(tmp_path / "webp_fixtures") == []
+    image_io.imwrite(str(tmp_path / "a.webp"), img)
+    assert np.array_equal(image_io.imread(str(tmp_path / "a.webp")),
+                          img[..., ::-1])
     smooth = np.repeat(np.repeat(img[::8, ::8], 8, 0), 8, 1)[:37, :53]
     jpg = str(tmp_path / "a.jpg")
     nl.jpeg_write(jpg, np.ascontiguousarray(smooth), 95)

@@ -257,17 +257,25 @@ def test_dataset_statistics_and_items_match_jax(data):
 
 
 def test_unread_formats_raise_when_the_dataset_is_built(data, tmp_path):
-    """WebP (ROADMAP Q1.9b) and a TIFF kind the port does not read (float
-    samples, Q1.9c) raise; BMP and 16-bit PNG, refused here before,
-    are read (tests/test_torch_image_formats.py holds them to cv2)."""
+    """A TIFF kind the port does not read (float samples, ROADMAP Q1.9c)
+    raises when the dataset is built; WebP (Q1.9b), refused here before,
+    and BMP and 16-bit PNG are read (tests/test_torch_webp.py and
+    tests/test_torch_image_formats.py hold them to cv2): a split with a
+    .webp builds, its shapes and items equal to JAX's."""
     src = Path(data).read_text().split()[0]
     webp = tmp_path / "images" / "x.webp"
     webp.parent.mkdir()
     cv2.imwrite(str(webp), cv2.imread(src))
     lst = tmp_path / "l.txt"
     lst.write_text(f"{src}\n{webp}\n")
-    with pytest.raises(NotImplementedError, match="webp"):
-        port_ds.LoadImagesAndLabels(str(lst), img_size=IMG, nc=8)
+    port = port_ds.LoadImagesAndLabels(str(lst), img_size=IMG, nc=8)
+    ref = jax_ds.LoadImagesAndLabels(str(lst), img_size=IMG, nc=8)
+    assert len(port) == len(ref) == 2
+    np.testing.assert_array_equal(port.shapes, ref.shapes)
+    for i in range(2):
+        np.testing.assert_array_equal(port[i][0], ref[i][0])
+    np.testing.assert_array_equal(image_io.imread(str(webp)),
+                                  cv2.imread(str(webp))[..., ::-1])
     tif = tmp_path / "images" / "f.tif"
     assert cv2.imwrite(str(tif), cv2.imread(src).astype(np.float32))
     lst.write_text(f"{src}\n{tif}\n")

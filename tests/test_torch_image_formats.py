@@ -11,13 +11,13 @@ TIFF of every compression, predictor, layout, photometric, depth and byte
 order; Pillow and cv2 write some more), read by the port and by
 `cv2.imread(p)[..., ::-1]`, and the two are equal, as are `image_size` and
 cv2's shape. A file cv2 cannot read either raises OSError in the port,
-which the datasets drop as JAX's do. The one stated exception is F9
-(ROADMAP Queue 3): a non-square TIFF of Orientation 5-8, which cv2 5.0.0
-fails to read and the port reads turned, pinned by its own test.
+which the datasets drop as JAX's do: a non-square TIFF of Orientation 5-8
+among them (ROADMAP F9, closed), pinned by its own test.
 
 `FIXTURES` are small files of these kinds (base64) with the SHA-256 of
-cv2.imread's RGB output: the oracle on the card's machine, which has
-neither cv2 nor Pillow (`check_fixtures`, called by chip_smoke.py and
+cv2.imread's RGB output: the oracle on the card's machine, where the port
+uses neither cv2 nor Pillow, though both import there (PERF.md, PR 14's
+`[data]` line; `check_fixtures`, called by chip_smoke.py and
 tests/test_torch_cuda.py). Regenerate them with `python
 tests/test_torch_image_formats.py` (it prints the dict). This module
 imports no JAX, cv2 or Pillow at import time: the tests that compare
@@ -744,29 +744,28 @@ def test_16_bit_samples_reduce_as_cv2_reduces_them(tmp_path):
 @pytest.mark.parametrize("orientation", [5, 6, 7, 8])
 def test_f9_non_square_tiff_orientation(orientation, tmp_path):
     """cv2 5.0.0 fails on a non-square TIFF of Orientation 5-8 (imread
-    asserts), so the JAX package drops it from a dataset; the port reads
-    it turned as cv2 turns a square one (its size transposed). Both sides
-    of ROADMAP F9 are pinned here."""
+    asserts), so the JAX package drops it from a dataset; so does the port
+    now (OSError from imread and image_size, None from verify_image_label;
+    ROADMAP F9, closed). A square one is turned as cv2 turns it."""
     jax_ds = pytest.importorskip("efficientteacher_tpu.data.datasets")
     rng = np.random.default_rng(orientation)
     stored = rng.integers(0, 256, (23, 37, 3), np.uint8)
     path = tmp_path / "images" / "f9.tif"
     path.parent.mkdir()
     path.write_bytes(tiff_bytes(stored, orientation=orientation))
-    plain = tmp_path / "plain.tif"
-    plain.write_bytes(tiff_bytes(stored))
     assert _cv2_read(path) is None
     assert jax_ds.verify_image_label(str(path), None, 8) is None
-    got = image_io.imread(str(path))
-    assert image_io.image_size(str(path)) == (23, 37)
-    np.testing.assert_array_equal(got,
-                                  tiff_io.orient(_cv2_read(plain), orientation))
-    # the square turn it follows is cv2's own
+    assert port_ds.verify_image_label(str(path), None, 8) is None
+    with pytest.raises(OSError, match="non-square"):
+        image_io.imread(str(path))
+    with pytest.raises(OSError, match="non-square"):
+        image_io.image_size(str(path))
     square = tmp_path / "square.tif"
     square.write_bytes(tiff_bytes(stored[:23, :23], orientation=orientation))
     np.testing.assert_array_equal(
         _cv2_read(square), tiff_io.orient(stored[:23, :23], orientation))
-    assert port_ds.verify_image_label(str(path), None, 8)[1] == (23, 37)
+    np.testing.assert_array_equal(image_io.imread(str(square)),
+                                  _cv2_read(square))
 
 
 # -- refusals -------------------------------------------------------------
@@ -836,19 +835,25 @@ CV2_REFUSES_TOO = ("float", "bits_12", "float_predictor", "grey_alpha_4_bit",
 
 @pytest.mark.parametrize("kind", sorted(REFUSED_TIFF) + ["webp"])
 def test_refused_kinds_raise_at_dataset_build(kind, tmp_path):
+    """Each TIFF kind the port does not read raises when the dataset is
+    built, naming the file. The "webp" case, refused before ROADMAP Q1.9b,
+    now builds: the file is read as cv2 reads it."""
     good = tmp_path / "images" / "good.png"
     good.parent.mkdir()
     image_io.write_png(str(good), np.full((24, 40, 3), 90, np.uint8))
-    if kind == "webp":
-        bad = tmp_path / "images" / "x.webp"
-        bad.write_bytes(b"RIFF\x1a\0\0\0WEBPVP8L\x0d\0\0\0/\0\0\0\x10\x07"
-                        b"\x10\x11\x11\x88\x88\xfe\x07\0")
-        error, match = NotImplementedError, "Q1.9b"
-    else:
-        bad = tmp_path / "images" / f"{kind}.tif"
-        bad.write_bytes(_refused_tiff(kind))
-        error, match = tiff_io.TiffUnsupported, REFUSED_TIFF[kind]
     lst = tmp_path / "list.txt"
+    if kind == "webp":
+        ok = tmp_path / "images" / "x.webp"
+        image_io.imwrite(str(ok), np.full((24, 40, 3), 60, np.uint8))
+        lst.write_text(f"{good}\n{ok}\n")
+        ds = port_ds.LoadImagesAndLabels(str(lst), img_size=32, nc=8)
+        assert len(ds) == 2 and tuple(ds.shapes[1]) == (40, 24)
+        np.testing.assert_array_equal(image_io.imread(str(ok)),
+                                      _cv2_read(ok))
+        return
+    bad = tmp_path / "images" / f"{kind}.tif"
+    bad.write_bytes(_refused_tiff(kind))
+    error, match = tiff_io.TiffUnsupported, REFUSED_TIFF[kind]
     lst.write_text(f"{good}\n{bad}\n")
     with pytest.raises(error, match=match) as err:
         port_ds.LoadImagesAndLabels(str(lst), img_size=32, nc=8)
@@ -898,8 +903,9 @@ def test_tiff_writer_reads_back_exactly(h, w, tmp_path):
             mine.compression, mine.predictor, mine.bits, mine.spp,
             mine.planar, mine.ch, len(mine.chunks))
         assert (mine.compression, mine.predictor, mine.planar) == (5, 2, 1)
-    with pytest.raises(NotImplementedError, match="Q1.9b"):
-        image_io.imwrite(str(tmp_path / "a.webp"), img)
+    webp = tmp_path / "a.webp"   # written since ROADMAP Q1.9b
+    image_io.imwrite(str(webp), img)
+    np.testing.assert_array_equal(cv2.imread(str(webp)), img)
 
 
 # -- a mixed-format split through the entry points ------------------------

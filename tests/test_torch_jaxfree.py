@@ -74,6 +74,7 @@ MODULES = [
     "efficientteacher_torch.data.datasets_ssod",
     "efficientteacher_torch.data.image_io",
     "efficientteacher_torch.data.tiff_io",
+    "efficientteacher_torch.data.webp_io",
     "efficientteacher_torch.data.parallel_loader",
     "efficientteacher_torch.ops.augment_device",
     "efficientteacher_torch.utils.native_loader",

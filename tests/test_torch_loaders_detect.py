@@ -9,11 +9,13 @@ are raised so that tens of boxes per image pass conf 0.25, from one fp16
 checkpoint of the same weights (a JAX and a port file). JAX's detect
 computes in bf16: the test runs it in float32 (`jnp.bfloat16` patched),
 as the port computes on the CPU, so the label files compare as text.
-Tolerances: the .txt and .xml files are equal; the crops handed to the
-writers are bit-equal; the annotated canvases are bit-equal outside the
-label text boxes (cv2.getTextSize's box, widened by 2 px: the port draws
-its labels in its own font, ROADMAP F8); the port's quality-95 JPEG of a
-canvas decodes to a PSNR against it within 0.5 dB of cv2.imwrite's."""
+The sources are JPEG, PNG and WebP (lossless and lossy). Tolerances: the
+.txt and .xml files are equal; the crops handed to the writers are
+bit-equal; the .webp canvases read back equal to what was written; the
+annotated canvases are bit-equal outside the label text boxes
+(cv2.getTextSize's box, widened by 2 px: the port draws its labels in its
+own font, ROADMAP F8); the port's quality-95 JPEG of a canvas decodes to
+a PSNR against it within 0.5 dB of cv2.imwrite's."""
 
 import importlib.util
 import sys
@@ -42,8 +44,10 @@ from torch_port_helpers import one_torch_thread  # noqa: F401
 REPO = Path(__file__).resolve().parents[1]
 SUP_YAML = REPO / "configs/sup/public/yolov5l_coco.yaml"
 IMG = 128
+# .webp: cv2.imwrite's lossless default, and VP8 at quality 75 ("webp75")
 SIZES = [(96, 128, "jpg"), (128, 80, "png"), (150, 200, "jpg"),
-         (64, 64, "png"), (101, 77, "jpg")]
+         (64, 64, "png"), (101, 77, "jpg"), (90, 120, "webp"),
+         (77, 101, "webp75")]
 OVERRIDES = ["Model.width_multiple", "0.125", "Model.depth_multiple",
              "0.33", "Dataset.img_size", str(IMG)]
 
@@ -59,8 +63,9 @@ def _write_images(root: Path, seed=0):
                         for c in range(3)], -1).astype(np.float64)
         img += rng.normal(0, 12, img.shape)
         img = img.clip(0, 255).astype(np.uint8)
-        p = root / f"{i:04d}.{ext}"
-        cv2.imwrite(str(p), img)
+        p = root / f"{i:04d}.{ext[:4]}"
+        cv2.imwrite(str(p), img, [cv2.IMWRITE_WEBP_QUALITY, 75]
+                    if ext == "webp75" else [])
         paths.append(str(p))
     return paths
 
@@ -213,6 +218,23 @@ def test_detect_crops_and_canvases_equal_jax(detect_run):
     assert masked / len(dets) < 0.5
 
 
+def test_detect_webp_canvases_read_back(detect_run):
+    """The .webp canvases each detect wrote (the port's own lossless
+    writer, cv2.imwrite's default) read back equal to the canvas handed to
+    the writer, in cv2 and in the port."""
+    _, _, _, writes, _ = detect_run
+    n = 0
+    for side in ("port", "jax"):
+        for path, canvas in writes[side]:
+            if path.suffix != ".webp" or path.parent.name == "crops":
+                continue
+            np.testing.assert_array_equal(cv2.imread(str(path)), canvas)
+            np.testing.assert_array_equal(image_io.imread(str(path)),
+                                          canvas[..., ::-1])
+            n += 1
+    assert n == 4
+
+
 def test_port_jpeg_within_psnr_of_cv2(detect_run, tmp_path):
     """The port's writer at quality 95 against cv2.imwrite's on the same
     annotated canvas, each decoded by cv2."""
@@ -235,11 +257,15 @@ def test_port_jpeg_within_psnr_of_cv2(detect_run, tmp_path):
 
 
 def test_imwrite_png_is_lossless_and_refuses_other_suffixes(tmp_path):
+    """.png and .webp (lossless, since ROADMAP Q1.9b) read back equal; a
+    suffix that is no image format raises."""
     img = np.random.default_rng(0).integers(0, 255, (17, 23, 3), np.uint8)
-    image_io.imwrite(str(tmp_path / "a.png"), img)
-    np.testing.assert_array_equal(cv2.imread(str(tmp_path / "a.png")), img)
-    with pytest.raises(NotImplementedError):   # .bmp and .tif are written
-        image_io.imwrite(str(tmp_path / "a.webp"), img)
+    for ext in ("png", "webp"):
+        image_io.imwrite(str(tmp_path / f"a.{ext}"), img)
+        np.testing.assert_array_equal(cv2.imread(str(tmp_path / f"a.{ext}")),
+                                      img)
+    with pytest.raises(NotImplementedError):
+        image_io.imwrite(str(tmp_path / "a.gif"), img)
 
 
 def test_detect_without_a_card_raises(detect_run, tmp_path):
