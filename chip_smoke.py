@@ -131,7 +131,17 @@ read just after:
     turned VP8L (the port's writers), with its own PNG copy: cli.val on
     both equal, K1, K2 and the count held as on the other splits;
     cli.detect over .webp sources too (canvases written as .webp, read
-    back equal); the WebP kinds' decode img/s and file sizes.
+    back equal); the WebP kinds' decode img/s and file sizes. The TIFF
+    kinds of ROADMAP Q1.9c too: the fixtures of
+    tests/test_torch_tiff_kinds.py (JPEG-in-TIFF, CCITT and damaged CCITT,
+    CMYK, CIELab, YCbCr, signed samples, FillOrder 2, zero-sample
+    compressions) to cv2's digests; the val split written a fourth time,
+    cycling through that module's writers (JPEG-in-TIFF through the port's
+    JPEG writer in strips and tiles, YCbCr 2 x 2 and 4 x 2, CMYK, CIELab
+    of 8 and 16 bits, FillOrder 2, Group 3 fax, signed samples) with its
+    own PNG copy: cli.val on both equal, K1, K2 and the count held as on
+    the other splits (`tiff: cli.val` on the kernels line); the new
+    kinds' decode img/s.
 
 It times the forward, the NMS, the selection engine against `torch.topk`,
 the training steps and their phases (CUDA events), and each kernel
@@ -4382,6 +4392,10 @@ RATE_KINDS = ("bmp24", "bmprle8", "tiflzw", "tifdeflate", "png16", "adam7",
 RATE_COPIES = 16        # files per kind in the rate lists (one image each)
 FORMAT_DETECT = 8       # cli.detect's sources: 2 of each DETECT_KINDS
 DETECT_KINDS = ("bmp", "tif", "png8", "webp90")
+# the TIFF kinds of ROADMAP Q1.9c (tests/test_torch_tiff_kinds.py
+# SPLIT_KINDS) are the fourth split's; these of them are timed
+TIFF_RATE_KINDS = ("tifjpeg", "tifycc22", "tifcmyk", "tiflab",
+                   "tiffill2_lzw", "tifg3")
 
 
 def webp_file(path: Path, kind: str, rgb) -> Path:
@@ -4456,6 +4470,11 @@ def format_file(path: Path, kind: str, rgb) -> Path:
 
     if kind.startswith("webp"):
         return webp_file(path, kind, rgb)
+    import test_torch_tiff_kinds as tiffk
+    if kind in tiffk.KINDS:
+        path = path.with_suffix(".tif")
+        path.write_bytes(tiffk.write_kind(kind, rgb))
+        return path
     h, w = rgb.shape[:2]
     ext = {"bmp": "bmp", "bmp24": "bmp", "bmprle8": "bmp", "tif": "tif",
            "tiflzw": "tif", "tifdeflate": "tiff"}.get(
@@ -4517,6 +4536,7 @@ def formats_leg(torch, dev, card, lists, tmp):
     sys.path.insert(0, str(Path(__file__).resolve().parent / "tests"))
     import test_torch_image_formats as tif_fx
     import test_torch_jpeg as jpg_fx
+    import test_torch_tiff_kinds as tiffk_fx
     import test_torch_webp as webp_fx
 
     tmp = Path(tmp)
@@ -4524,12 +4544,14 @@ def formats_leg(torch, dev, card, lists, tmp):
     t0 = time.perf_counter()
     bad = jpg_fx.check_fixtures(tmp / "jpeg_fixtures") + \
         tif_fx.check_fixtures(tmp / "format_fixtures") + \
-        webp_fx.check_fixtures(tmp / "webp_fixtures")
+        webp_fx.check_fixtures(tmp / "webp_fixtures") + \
+        tiffk_fx.check_fixtures(tmp / "tiff_kind_fixtures")
     counts = {}
     for name in tif_fx.FIXTURES:
         fmt = tif_fx.fixture_format(name)
         counts[fmt] = counts.get(fmt, 0) + 1
     counts["webp"] = len(webp_fx.FIXTURES)
+    counts["tiff kinds"] = len(tiffk_fx.FIXTURES)
     counts["jpeg"] = sum(len(d) for _, d in jpg_fx.FIXTURES.values())
     require(not bad, f"decodes differ from cv2's digests: {bad}")
     print(f"[formats] fixtures == cv2.imread's digests, 0 mismatches: "
@@ -4540,7 +4562,8 @@ def formats_leg(torch, dev, card, lists, tmp):
     # -- the val split in the formats and in WebP, each with a PNG copy --
     t0 = time.perf_counter()
     val = Path(lists["val"]).read_text().split()
-    pairs = (("png", "formats"), ("webp_png", "webp"))
+    pairs = (("png", "formats"), ("webp_png", "webp"),
+             ("tiffkinds_png", "tiffkinds"))
     splits = {}
     for name in [n for pair in pairs for n in pair]:
         for d in ("images", "labels"):
@@ -4554,8 +4577,8 @@ def formats_leg(torch, dev, card, lists, tmp):
         stem = Path(src).stem
         label = Path(src).parent.parent / "labels" / f"{stem}.txt"
         out = []
-        for (copy_name, name), kinds in zip(pairs, (FORMAT_KINDS,
-                                                    WEBP_KINDS)):
+        for (copy_name, name), kinds in zip(pairs, (
+                FORMAT_KINDS, WEBP_KINDS, tiffk_fx.SPLIT_KINDS)):
             kind = kinds[i % len(kinds)]
             path = format_file(tmp / name / "images" / stem, kind, rgb)
             copy = tmp / copy_name / "images" / f"{stem}.png"
@@ -4579,7 +4602,8 @@ def formats_leg(torch, dev, card, lists, tmp):
     t_write = time.perf_counter() - t0
     lossless = [(a, b) for a, b in zip(files["formats"], files["png"])
                 if image_io.suffix(a) not in image_io.JPEG_SUFFIXES] + [
-        (a, b) for a, b in zip(files["webp"], files["webp_png"])]
+        (a, b) for a, b in zip(files["webp"], files["webp_png"])] + [
+        (a, b) for a, b in zip(files["tiffkinds"], files["tiffkinds_png"])]
     same = sum(np.array_equal(image_io.imread(a), image_io.imread(b))
                for a, b in lossless)
     require(same == len(lossless), f"{len(lossless) - same} files decode "
@@ -4590,10 +4614,17 @@ def formats_leg(torch, dev, card, lists, tmp):
     require(src_same == sum(kinds_used.get(k, 0) for k in ("webp",
                                                            "webpexif")),
             "a lossless WebP decodes unlike its source image")
+    tiff_same = sum(np.array_equal(image_io.imread(a), image_io.imread(v))
+                    for a, v in zip(files["tiffkinds"], val)
+                    if kind_of[a] in ("tiffill2_lzw", "tifsigned"))
+    require(tiff_same == sum(kinds_used.get(k, 0) for k in (
+        "tiffill2_lzw", "tifsigned")),
+        "a lossless TIFF kind decodes unlike its source image")
     print(f"[formats] val split ({len(val)} images at {NATIVE_WH}) written "
           f"as PNG and as {kinds_used} in {t_write:.1f} s; the "
-          f"{len(lossless)} lossless and WebP files decode as their PNG "
-          f"copies, the {src_same} VP8L ones (EXIF-turned too) as their "
+          f"{len(lossless)} lossless, WebP and new TIFF files decode as "
+          f"their PNG copies, the {src_same} VP8L ones (EXIF-turned too) "
+          f"and the {tiff_same} FillOrder 2 / signed TIFFs as their "
           f"sources")
 
     # -- YOLOv5l at the mid density, cli.val on both --------------------
@@ -4614,7 +4645,9 @@ def formats_leg(torch, dev, card, lists, tmp):
     ckpt = tmp / "formats_mid.ckpt"
     save_checkpoint(ckpt, params=v["params"], batch_stats=v["batch_stats"])
     results, entries = {}, []
-    for name in ("png", "formats", "webp_png", "webp"):
+    label = {"formats": "formats", "webp": "webp", "tiffkinds": "tiff"}
+    for name in ("png", "formats", "webp_png", "webp", "tiffkinds_png",
+                 "tiffkinds"):
         argv = ["--cfg", str(MAIN_YAML), "--weights", str(ckpt),
                 "--batch-size", str(T_BATCH), "Dataset.val",
                 str(splits[name])]
@@ -4627,15 +4660,17 @@ def formats_leg(torch, dev, card, lists, tmp):
         print(f"[formats] cli.val on the {name} split: P/R/mAP50/mAP "
               f"{'/'.join(f'{x:.6f}' for x in got)}, each batch's NMS == the "
               f"plain NMS, launches {launches}; {t_val:.1f} s | {card}")
-        if name in ("formats", "webp"):
-            entries += val_entries(torch, decoded, f"{name}: cli.val",
+        if name in label:
+            entries += val_entries(torch, decoded, f"{label[name]}: cli.val",
                                    launches, card)
     require(results["png"] == results["formats"]
-            and results["webp_png"] == results["webp"],
+            and results["webp_png"] == results["webp"]
+            and results["tiffkinds_png"] == results["tiffkinds"],
             f"cli.val differs between a split and its PNG copy: {results}")
     print(f"[formats] cli.val: the formats split's results == the PNG "
-          f"split's, the WebP split's == its PNG copy's ({shift[1]:.0f} "
-          f"candidates/img on the calibration batch)")
+          f"split's, the WebP split's and the TIFF kinds' == their PNG "
+          f"copies' ({shift[1]:.0f} candidates/img on the calibration "
+          f"batch)")
 
     # -- cli.detect over .bmp / .tif / .png / .webp sources ------------
     src_dir = {k: tmp / f"detect_{k}" for k in ("mixed", "png")}
@@ -4685,7 +4720,7 @@ def formats_leg(torch, dev, card, lists, tmp):
     base = image_io.imread(next(p for p in val if image_io.image_size(p)
                                 == (640, 480)))
     rates = {}
-    for kind in RATE_KINDS:
+    for kind in RATE_KINDS + TIFF_RATE_KINDS:
         d = tmp / f"rate_{kind}"
         d.mkdir()
         first = format_file(d / "0", kind, base)

@@ -37,6 +37,11 @@
 // block-smoothed by libjpeg (jdcoefct.c smoothing_ok); that smoothing is
 // not reproduced: such a file is refused (kUnrefined).
 //
+// For JPEG-in-TIFF it also reads a tables-only stream (read_tables) whose
+// tables the strips' abbreviated streams start from (preload), and decodes
+// as the colour space libtiff sets (forced_colour: YCbCr to RGB, or the
+// raw components).
+//
 // Every decode is a value of its own (no globals but const tables), so
 // threads may decode at once.
 
@@ -62,7 +67,9 @@ enum Kind {
 };
 
 // The colour space of the file (jdapimin.c default_decompress_parms).
-enum Colour { kGrey, kYCbCr, kRGB, kCMYK, kYCCK };
+// kRaw: the components as decoded, no conversion (libjpeg's JCS_UNKNOWN
+// output, which libtiff asks for in a TIFF that is not YCbCr).
+enum Colour { kGrey, kYCbCr, kRGB, kCMYK, kYCCK, kRaw };
 
 enum Status { kOk = 0, kCorrupt = -2, kRefused = -4 };
 
@@ -518,6 +525,51 @@ class Decoder {
   int kind = kSupported;
   int colour = kGrey;
   bool progressive = false;
+  // Set before read(): the colour space to decode as, whatever the
+  // markers say (-1: jdapimin.c's guess).
+  int forced_colour = -1;
+
+  // A tables-only stream (a TIFF's JPEGTables): its DQT and DHT segments
+  // are kept for the abbreviated streams read() parses after it, as
+  // jpeg_read_header(require_image = FALSE) keeps them.
+  int read_tables(const uint8_t* data, size_t n) {
+    const uint8_t* p = data;
+    const uint8_t* end = data + n;
+    if (n < 4 || p[0] != 0xFF || p[1] != 0xD8) return kCorrupt;
+    p += 2;
+    while (true) {
+      while (p < end && *p != 0xFF) ++p;
+      while (p < end && *p == 0xFF) ++p;
+      if (p >= end) return kOk;
+      const int m = *p++;
+      if (m == 0xD9) return kOk;
+      if ((m >= 0xD0 && m <= 0xD7) || m == 0x01) continue;
+      if (end - p < 2) return kOk;
+      const int len = (p[0] << 8) | p[1];
+      if (len < 2 || end - p < len) return kCorrupt;
+      if (m == 0xC4 && !read_dht(p + 2, len - 2)) return kCorrupt;
+      if (m == 0xDB && !read_dqt(p + 2, len - 2)) return kCorrupt;
+      if ((m >= 0xC0 && m <= 0xCF && m != 0xC4 && m != 0xC8 && m != 0xCC) ||
+          m == 0xDA) {
+        return kCorrupt;  // a frame or scan in what holds tables only
+      }
+      p += len;
+    }
+  }
+
+  // The tables another decoder read (read_tables), as this one's start.
+  void preload(const Decoder& t) {
+    for (int i = 0; i < 4; ++i) {
+      dc_[i] = t.dc_[i];
+      ac_[i] = t.ac_[i];
+      std::memcpy(qt_[i], t.qt_[i], sizeof(qt_[i]));
+      qt_defined_[i] = t.qt_defined_[i];
+    }
+  }
+
+  int components() const { return ncomp_; }
+  int h_sampling(int c) const { return comp_[c].h; }
+  int v_sampling(int c) const { return comp_[c].v; }
 
   // Parse `data`; with `decode` also decode every scan. Without it, stops
   // at the first scan of a sequential file and walks the scan headers of a
@@ -610,7 +662,8 @@ class Decoder {
   int out_height(int denom) const { return ceil_div(height, denom); }
 
   // After read(decode = true): the RGB image at scale 1/denom, one row at a
-  // time, as `sink(y, row)` with row (out_width, 3).
+  // time, as `sink(y, row)` with row (out_width, 3); (out_width,
+  // components) of raw samples for kRaw.
   template <class Sink>
   void output(int denom, Sink&& sink) const {
     const int smin = 8 / denom;
@@ -646,7 +699,7 @@ class Decoder {
         }
       }
     }
-    std::vector<uint8_t> row(static_cast<size_t>(ow) * 3);
+    std::vector<uint8_t> row(static_cast<size_t>(ow) * std::max(3, ncomp_));
     std::vector<uint8_t> up(static_cast<size_t>(ow) * ncomp_);
     int dwmax = 0;
     for (int c = 0; c < ncomp_; ++c) dwmax = std::max(dwmax, pl[c].dw);
@@ -657,6 +710,13 @@ class Decoder {
       for (int c = 0; c < ncomp_; ++c) {
         in[c] = upsample_row(pl[c], y, ow, &up[static_cast<size_t>(c) * ow],
                              colsum.data());
+      }
+      if (colour == kRaw) {  // the samples, interleaved
+        for (int x = 0; x < ow; ++x) {
+          for (int c = 0; c < ncomp_; ++c) row[x * ncomp_ + c] = in[c][x];
+        }
+        sink(y, row.data());
+        continue;
       }
       for (int x = 0; x < ow; ++x) {
         uint8_t* o = &row[x * 3];
@@ -815,6 +875,7 @@ class Decoder {
     } else {  // 4: an Adobe transform other than 0 is taken as YCCK
       colour = saw_adobe_ && adobe_transform_ != 0 ? kYCCK : kCMYK;
     }
+    if (forced_colour >= 0) colour = forced_colour;
     mcux_ = ceil_div(width, 8 * hmax_);
     mcuy_ = ceil_div(height, 8 * vmax_);
     for (int c = 0; c < ncomp_; ++c) {

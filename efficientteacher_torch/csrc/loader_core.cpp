@@ -1,7 +1,8 @@
 // Host data-loader core of the PyTorch port: JPEG decode and the bilinear
 // letterbox, the per-pixel stages of PNG, BMP and TIFF (raster_decode.h:
 // row filters, Adam7, bit unpacking, palettes, RLE, LZW, PackBits, the
-// TIFF predictor) and TIFF's LZW writer, the VP8L and VP8 bitstreams of
+// TIFF predictor, CCITT fax, YCbCr, CMYK and CIELab) and TIFF's LZW
+// writer, the VP8L and VP8 bitstreams of
 // WebP (webp_decode.h) and WebP writers (webp_encode.h), the
 // host augmentation's pixel
 // operations (pixel_ops.h: cv2's warpAffine / warpPerspective, HSV, grey
@@ -408,25 +409,44 @@ int et_bmp_decode(const uint8_t* data, int64_t n, int64_t offset, int w,
 }
 
 // The strips or tiles of a TIFF (etraster::tiff_decode) -> out (h, w, spp):
-// layout = {w, h, cw, ch, tiled, planes, per_chunk, spp, bits, flags}.
+// layout = {w, h, cw, ch, tiled, planes, per_chunk, spp, bits, flags,
+// g3_2d, sub_h, sub_v, jpeg_colour, jpeg_h, jpeg_v}; `tables`
+// (ntables bytes, may be null) a JPEG file's JPEGTables.
 int et_tiff_decode(const uint8_t* data, int64_t n, const int64_t* offsets,
                    const int64_t* counts, int nchunks, int compression,
-                   const int* layout, uint8_t* out) {
-  const etraster::TiffLayout L{layout[0], layout[1], layout[2], layout[3],
-                               layout[4], layout[5], layout[6], layout[7],
-                               layout[8], layout[9]};
+                   const int* layout, const uint8_t* tables, int64_t ntables,
+                   uint8_t* out) {
+  const etraster::TiffLayout L{
+      layout[0],  layout[1],  layout[2],  layout[3],  layout[4],  layout[5],
+      layout[6],  layout[7],  layout[8],  layout[9],  layout[10], layout[11],
+      layout[12], layout[13], layout[14], layout[15]};
   if (n < 0 || nchunks <= 0 || L.w <= 0 || L.h <= 0 || L.cw <= 0 ||
-      L.ch <= 0 || L.planes <= 0 || L.per_chunk <= 0 ||
-      L.spp != L.per_chunk * L.planes) {
+      L.ch <= 0 || L.planes <= 0 || L.per_chunk <= 0 || ntables < 0 ||
+      L.spp != L.per_chunk * L.planes || L.sub_h < 0 || L.sub_v < 0 ||
+      (L.sub_h > 0) != (L.sub_v > 0) ||
+      (L.sub_h > 0 && (L.per_chunk != 3 || L.bits != 8))) {
     return kErrArgs;
   }
   return guarded([&] {
-    const int st = etraster::tiff_decode(data, static_cast<size_t>(n),
-                                         offsets, counts, nchunks,
-                                         compression, L, out);
-    return st == etraster::kOk ? kOk
-           : st == etraster::kArgs ? kErrArgs : kErrDecode;
+    const int st = etraster::tiff_decode(
+        data, static_cast<size_t>(n), offsets, counts, nchunks, compression,
+        L, tables, static_cast<size_t>(ntables), out);
+    return st == etraster::kOk             ? kOk
+           : st == etraster::kArgs         ? kErrArgs
+           : st == etraster::kJpegRefused  ? kErrUnsupported
+                                           : kErrDecode;
   });
+}
+
+// n pixels of a TIFF's CMYK, YCbCr or CIELab samples (spp bytes each; two
+// per sample for kind 4) -> RGB (etraster::tiff_colour).
+int et_tiff_colour(const uint8_t* src, int64_t n, int spp, int kind,
+                   const float* params, uint8_t* out) {
+  if (n < 0 || spp < 3 || (kind == 1 && spp < 4)) return kErrArgs;
+  return etraster::tiff_colour(src, static_cast<size_t>(n), spp, kind,
+                               params, out) == etraster::kOk
+             ? kOk
+             : kErrArgs;
 }
 
 // n bytes -> a TIFF LZW stream into dst (cap bytes); *written its length,

@@ -26,23 +26,33 @@
 //                   code width grows one code early)
 //   lzw_encode      the same code stream as tif_lzw.c LZWEncode writes
 //   packbits_decode tif_packbits.c PackBitsDecode
-//   tiff_decode     every strip or tile of an image into its place
+//   fax::Decoder    tif_fax3.c: CCITT modified Huffman, Group 3 (1-D and
+//                   2-D) and Group 4, with libtiff's recovery from damage
+//   thunder_decode  tif_thunder.c ThunderDecodeRow
+//   tiff_decode     every strip or tile of an image into its place (the
+//                   JPEG-in-TIFF streams through jpeg_decode.h, YCbCr
+//                   blocks spread to their pixels)
+//   tiff_colour     tif_getimage.c / tif_color.c: CMYK, YCbCr and CIELab
+//                   to RGB
 // Every routine writes into buffers the caller owns and keeps no state.
 
 #pragma once
 
 #include <algorithm>
+#include <cmath>
 #include <cstddef>
 #include <cstdint>
 #include <cstring>
 #include <vector>
+
+#include "jpeg_decode.h"
 
 namespace etraster {
 
 enum Status { kOk = 0, kCorrupt = -2, kArgs = -5 };
 
 // 16-bit reductions to 8 bits
-enum Round16 { kHighByte = 0, kDiv257 = 1 };
+enum Round16 { kHighByte = 0, kDiv257Round = 1, kRaw16Bytes = 2 };
 
 // `rows` rows, `row_bytes` apart, each holding `width` pixels of `spp`
 // samples of `bits` bits (MSB first; 16-bit samples big-endian when
@@ -86,8 +96,14 @@ inline int unpack_rows(const uint8_t* src, int rows, size_t row_bytes,
           }
           acc[i] = v;
         }
-        o[i] = round16 == kDiv257 ? static_cast<uint8_t>((v + 128) / 257)
-                                  : static_cast<uint8_t>(v >> 8);
+        if (round16 == kRaw16Bytes) {
+          o[2 * i] = static_cast<uint8_t>(v);
+          o[2 * i + 1] = static_cast<uint8_t>(v >> 8);
+        } else {
+          o[i] = round16 == kDiv257Round
+                     ? static_cast<uint8_t>((v + 128) / 257)
+                     : static_cast<uint8_t>(v >> 8);
+        }
       }
       continue;
     }
@@ -488,74 +504,995 @@ inline int64_t packbits_decode(const uint8_t* src, size_t n, uint8_t* dst,
   return static_cast<int64_t>(out);
 }
 
-// ---------------------------------------------------------------- TIFF
+// ---------------------------------------------------------------- CCITT
 
-// The strips or tiles of a TIFF's first image. Chunk k is `counts[k]`
-// bytes at `offsets[k]` of `data`, compressed by `compression` (1 none,
-// 5 LZW, 32773 PackBits); chunks run plane by plane, then row by row of
-// chunks, then across. Each holds `ch` rows (a strip at the image's foot
-// fewer; a tile is whole) of `cw` pixels of `per_chunk` samples, `bits`
-// each, rows padded to bytes. `flags` as unpack_rows': 1 big-endian, 2
-// predictor, 4 16-bit samples by (v + 128) / 257. out: (h, w, spp).
-struct TiffLayout {
-  int w, h, cw, ch, tiled, planes, per_chunk, spp, bits, flags;
+// TIFF's CCITT codecs as libtiff's tif_fax3.c decodes them: modified
+// Huffman (Compression 2, rows byte-aligned; 32771, rows aligned to 16-bit
+// words), T.4 Group 3 one- and two-dimensional (3) and T.6 Group 4 (4).
+// The decoder keeps libtiff's recovery from damaged data: a bad code word
+// ends the row (its pixels to the end white), a row that runs long is cut,
+// a short one filled white, and at the end of the data the partial row is
+// kept and the rows after it are left as they were (white). Code tables
+// are T.4's (tables 1-4), indexed by the next 7, 12 or 13 bits taken
+// least significant bit first, as libtiff's mkg3states builds them.
+namespace fax {
+
+enum State : uint8_t {
+  kNull, kPass, kHoriz, kV0, kVR, kVL, kExt, kTermW, kTermB, kMakeUpW,
+  kMakeUpB, kMakeUp, kEol
 };
 
+struct Ent {
+  uint8_t state = kNull, width = 0;
+  uint16_t param = 0;
+};
+
+struct Code {
+  const char* bits;  // MSB first, as the standard prints it
+  int param;
+};
+
+// T.4 table 1: terminating codes, white then black (run 0-63)
+constexpr const char* kTermWhite[64] = {
+    "00110101", "000111", "0111", "1000", "1011", "1100", "1110", "1111",
+    "10011", "10100", "00111", "01000", "001000", "000011", "110100",
+    "110101", "101010", "101011", "0100111", "0001100", "0001000",
+    "0010111", "0000011", "0000100", "0101000", "0101011", "0010011",
+    "0100100", "0011000", "00000010", "00000011", "00011010", "00011011",
+    "00010010", "00010011", "00010100", "00010101", "00010110", "00010111",
+    "00101000", "00101001", "00101010", "00101011", "00101100", "00101101",
+    "00000100", "00000101", "00001010", "00001011", "01010010", "01010011",
+    "01010100", "01010101", "00100100", "00100101", "01011000", "01011001",
+    "01011010", "01011011", "01001010", "01001011", "00110010", "00110011",
+    "00110100"};
+constexpr const char* kTermBlack[64] = {
+    "0000110111", "010", "11", "10", "011", "0011", "0010", "00011",
+    "000101", "000100", "0000100", "0000101", "0000111", "00000100",
+    "00000111", "000011000", "0000010111", "0000011000", "0000001000",
+    "00001100111", "00001101000", "00001101100", "00000110111",
+    "00000101000", "00000010111", "00000011000", "000011001010",
+    "000011001011", "000011001100", "000011001101", "000001101000",
+    "000001101001", "000001101010", "000001101011", "000011010010",
+    "000011010011", "000011010100", "000011010101", "000011010110",
+    "000011010111", "000001101100", "000001101101", "000011011010",
+    "000011011011", "000001010100", "000001010101", "000001010110",
+    "000001010111", "000001100100", "000001100101", "000001010010",
+    "000001010011", "000000100100", "000000110111", "000000111000",
+    "000000100111", "000000101000", "000001011000", "000001011001",
+    "000000101011", "000000101100", "000001011010", "000001100110",
+    "000001100111"};
+// T.4 table 2: make-up codes of 64-1728, white then black
+constexpr const char* kMakeWhite[27] = {
+    "11011", "10010", "010111", "0110111", "00110110", "00110111",
+    "01100100", "01100101", "01101000", "01100111", "011001100",
+    "011001101", "011010010", "011010011", "011010100", "011010101",
+    "011010110", "011010111", "011011000", "011011001", "011011010",
+    "011011011", "010011000", "010011001", "010011010", "011000",
+    "010011011"};
+constexpr const char* kMakeBlack[27] = {
+    "0000001111", "000011001000", "000011001001", "000001011011",
+    "000000110011", "000000110100", "000000110101", "0000001101100",
+    "0000001101101", "0000001001010", "0000001001011", "0000001001100",
+    "0000001001101", "0000001110010", "0000001110011", "0000001110100",
+    "0000001110101", "0000001110110", "0000001110111", "0000001010010",
+    "0000001010011", "0000001010100", "0000001010101", "0000001011010",
+    "0000001011011", "0000001100100", "0000001100101"};
+// T.4 table 3: make-up codes of 1792-2560, either colour
+constexpr const char* kMakeBoth[13] = {
+    "00000001000", "00000001100", "00000001101", "000000010010",
+    "000000010011", "000000010100", "000000010101", "000000010110",
+    "000000010111", "000000011100", "000000011101", "000000011110",
+    "000000011111"};
+
+struct Tables {
+  Ent main[1 << 7], white[1 << 12], black[1 << 13];
+
+  // mkg3states.c FillTable: every index whose low `len` bits are the code
+  // (least significant bit first) decodes to it
+  static void fill(Ent* t, int size, const char* bits, int state,
+                   int param) {
+    const int len = static_cast<int>(std::strlen(bits));
+    int code = 0;
+    for (int i = 0; i < len; ++i) code |= (bits[i] == '1') << i;
+    for (int c = code; c < (1 << size); c += 1 << len) {
+      t[c].state = static_cast<uint8_t>(state);
+      t[c].width = static_cast<uint8_t>(len);
+      t[c].param = static_cast<uint16_t>(param);
+    }
+  }
+
+  Tables() {
+    // T.4 table 4 (two-dimensional modes); 7 zero bits begin an EOL
+    fill(main, 7, "0001", kPass, 0);
+    fill(main, 7, "001", kHoriz, 0);
+    fill(main, 7, "1", kV0, 0);
+    fill(main, 7, "011", kVR, 1);
+    fill(main, 7, "000011", kVR, 2);
+    fill(main, 7, "0000011", kVR, 3);
+    fill(main, 7, "010", kVL, 1);
+    fill(main, 7, "000010", kVL, 2);
+    fill(main, 7, "0000010", kVL, 3);
+    fill(main, 7, "0000001", kExt, 0);
+    fill(main, 7, "0000000", kEol, 0);
+    for (int i = 0; i < 27; ++i) {
+      fill(white, 12, kMakeWhite[i], kMakeUpW, 64 * (i + 1));
+      fill(black, 13, kMakeBlack[i], kMakeUpB, 64 * (i + 1));
+    }
+    for (int i = 0; i < 13; ++i) {
+      fill(white, 12, kMakeBoth[i], kMakeUp, 1792 + 64 * i);
+      fill(black, 13, kMakeBoth[i], kMakeUp, 1792 + 64 * i);
+    }
+    for (int i = 0; i < 64; ++i) {
+      fill(white, 12, kTermWhite[i], kTermW, i);
+      fill(black, 13, kTermBlack[i], kTermB, i);
+    }
+    // 11 zero bits: an EOL, of which only the zeros are taken
+    fill(white, 12, "00000000000", kEol, 0);
+    fill(black, 13, "00000000000", kEol, 0);
+  }
+};
+
+inline const Tables& tables() {
+  static const Tables t;
+  return t;
+}
+
+enum Scheme { kRle = 2, kG3 = 3, kG4 = 4, kRleW = 32771 };
+
+// One strip or tile: `rows` rows of `width` pixels, `row_bytes` apart,
+// into out (MSB first, 1 = black as stored: the photometric maps it).
+// `msb_first`: FillOrder 1. `g3_2d`: Group3Options bit 0. `word_base`:
+// the file offset of the data (RLEW aligns to words of the file).
+// The image's state that outlives a chunk, as libtiff's codec state does:
+// `no_eol`, Group 3 data without EOLs (the first chunk found to lack them
+// sets it for every chunk after it), and the run arrays, whose entries
+// past a row's runs a later row's reference line may reach.
+struct ImageState {
+  bool no_eol = false;
+  std::vector<uint32_t> runs;
+};
+
+class Decoder {
+ public:
+  Decoder(const uint8_t* data, size_t n, int scheme, bool msb_first,
+          bool g3_2d, uint64_t word_base, int width, ImageState* state)
+      : cp_(data), ep_(data + n), base_(data), word_base_(word_base),
+        scheme_(scheme), msb_(msb_first), two_d_(scheme == kG4 || g3_2d),
+        lastx_(width), no_eol_(&state->no_eol) {
+    // tif_fax3.c Fax3SetupState: nruns = roundup(width + 1, 32), twice
+    // that with a reference line; two arrays of nruns, zeroed, once per
+    // image
+    nruns_ = ((width + 1 + 31) / 32) * 32 * (two_d_ ? 2 : 1);
+    if (state->runs.empty()) {
+      state->runs.assign(static_cast<size_t>(nruns_) * 2 + 2, 0);
+    }
+    cur_ = state->runs.data();
+    if (two_d_) {  // Fax3PreDecode: the reference line starts white
+      ref_ = cur_ + nruns_;
+      ref_[0] = static_cast<uint32_t>(width);
+      ref_[1] = 0;
+    }
+  }
+
+  void decode(uint8_t* out, int rows, size_t row_bytes) {
+    for (int y = 0; y < rows; ++y) {
+      uint8_t* row = out + static_cast<size_t>(y) * row_bytes;
+      a0_ = 0;
+      run_ = 0;
+      pa_ = this_ = cur_;
+      int st;
+      if (scheme_ == kG4) {
+        pb_ = ref_;
+        b1_ = static_cast<int>(*pb_++);
+        st = expand2d();
+        if (st == kFatal) return;
+        if (st == kEof || eolcnt_) {  // EOFB, or the data ended
+          fill_row(row);
+          return;
+        }
+        fill_row(row);
+        if (setvalue(0) == kFatal) return;
+        std::swap(cur_, ref_);
+        continue;
+      }
+      if (scheme_ == kRle || scheme_ == kRleW) {
+        st = expand1d();
+        if (st == kFatal) return;
+        fill_row(row);
+        if (st == kEof) return;
+        if (scheme_ == kRle) {
+          clear(avail_ % 8);
+        } else {
+          clear(avail_ % 16);
+          if (avail_ == 0 && ((word_base_ + (cp_ - base_)) & 1)) ++cp_;
+        }
+        continue;
+      }
+      // Group 3: an EOL before every row, then (2-D) the row's tag bit.
+      // Data that ends while zeros are skipped past an EOL has none:
+      // libtiff then reads the chunk again from its start without EOLs,
+      // and so every chunk after it
+      bool synced = true;
+      if (!*no_eol_) {
+        const int r = sync_eol();
+        if (r == kNoEol) {
+          *no_eol_ = true;
+          cp_ = base_;
+          acc_ = 0;
+          avail_ = 0;
+          eolcnt_ = 0;
+        } else {
+          synced = r == kDone;
+        }
+      }
+      if (!synced || (two_d_ && !need8(1))) {
+        if (cleanup() == kFatal) return;
+        fill_row(row);
+        return;
+      }
+      bool one_d = true;
+      if (two_d_) {
+        one_d = bits(1);
+        clear(1);
+        pb_ = ref_;
+        b1_ = static_cast<int>(*pb_++);
+      }
+      st = one_d ? expand1d() : expand2d();
+      if (st == kFatal) return;
+      fill_row(row);
+      if (st == kEof) return;
+      if (two_d_) {
+        if (pa_ < this_ + nruns_ && setvalue(0) == kFatal) return;
+        std::swap(cur_, ref_);
+      }
+    }
+  }
+
+ private:
+  enum Result { kDone, kEof, kFatal };
+
+  const uint8_t* cp_;
+  const uint8_t* ep_;
+  const uint8_t* base_;
+  uint64_t word_base_;
+  int scheme_;
+  bool msb_, two_d_;
+  int lastx_, nruns_ = 0;
+  uint32_t acc_ = 0;
+  int avail_ = 0, eolcnt_ = 0;
+  bool* no_eol_;
+  int a0_ = 0, run_ = 0, b1_ = 0;
+  uint32_t* cur_ = nullptr;
+  uint32_t* ref_ = nullptr;
+  uint32_t* this_ = nullptr;
+  uint32_t* pa_ = nullptr;
+  uint32_t* pb_ = nullptr;
+
+  uint32_t next_byte() {
+    const uint8_t b = *cp_++;
+    if (!msb_) return b;
+    uint32_t r = 0;
+    for (int i = 0; i < 8; ++i) r |= ((b >> i) & 1u) << (7 - i);
+    return r;
+  }
+
+  // NeedBits8 / NeedBits16: false when no valid bit is left; at the end
+  // of the data what is left is padded with zeros
+  bool need8(int n) {
+    if (avail_ < n) {
+      if (cp_ >= ep_) {
+        if (avail_ == 0) return false;
+        avail_ = n;
+      } else {
+        acc_ |= next_byte() << avail_;
+        avail_ += 8;
+      }
+    }
+    return true;
+  }
+  bool need16(int n) {
+    if (avail_ < n) {
+      if (cp_ >= ep_) {
+        if (avail_ == 0) return false;
+        avail_ = n;
+      } else {
+        acc_ |= next_byte() << avail_;
+        if ((avail_ += 8) < n) {
+          if (cp_ >= ep_) {
+            avail_ = n;
+          } else {
+            acc_ |= next_byte() << avail_;
+            avail_ += 8;
+          }
+        }
+      }
+    }
+    return true;
+  }
+  uint32_t bits(int n) const { return acc_ & ((1u << n) - 1); }
+  void clear(int n) {
+    avail_ -= n;
+    acc_ >>= n;
+  }
+  bool lookup(int width, const Ent* table, const Ent** e, bool sixteen) {
+    if (!(sixteen ? need16(width) : need8(width))) return false;
+    *e = table + bits(width);
+    clear((*e)->width);
+    return true;
+  }
+
+  int setvalue(int x) {
+    if (pa_ >= this_ + nruns_) return kFatal;  // "Buffer overflow"
+    *pa_++ = static_cast<uint32_t>(run_ + x);
+    a0_ += x;
+    run_ = 0;
+    return kDone;
+  }
+
+  // CLEANUP_RUNS: the row's runs made to cover exactly its width
+  int cleanup() {
+    if (run_ && setvalue(0) == kFatal) return kFatal;
+    if (a0_ != lastx_) {
+      while (a0_ > lastx_ && pa_ > this_) a0_ -= static_cast<int>(*--pa_);
+      if (a0_ < lastx_) {
+        if (a0_ < 0) a0_ = 0;
+        if (((pa_ - this_) & 1) && setvalue(0) == kFatal) return kFatal;
+        if (setvalue(lastx_ - a0_) == kFatal) return kFatal;
+      } else if (a0_ > lastx_) {
+        if (setvalue(lastx_) == kFatal || setvalue(0) == kFatal) {
+          return kFatal;
+        }
+      }
+    }
+    return kDone;
+  }
+
+  int finish(int result) {
+    if (cleanup() == kFatal) return kFatal;
+    return result;
+  }
+
+  // SYNC_EOL: skip to just past the next EOL. kEof where the data ends
+  // in the search for its zeros, kNoEol where it ends in the zeros after
+  enum { kNoEol = 3 };
+  int sync_eol() {
+    if (eolcnt_ == 0) {
+      for (;;) {
+        if (!need16(11)) return kEof;
+        if (bits(11) == 0) break;
+        clear(1);
+      }
+    }
+    for (;;) {
+      if (!need8(8)) return kNoEol;
+      if (bits(8)) break;
+      clear(8);
+    }
+    while (bits(1) == 0) clear(1);
+    clear(1);
+    eolcnt_ = 0;
+    return kDone;
+  }
+
+  // one colour's run: make-up codes then a terminating code. kDone with
+  // `term` when it ended, else the row ends (EOL, bad code) or the data
+  enum Run { kRunTerm, kRunEol, kRunBad, kRunEof, kRunFatal };
+  int colour_run(bool white) {
+    const Tables& t = tables();
+    for (;;) {
+      const Ent* e;
+      if (!lookup(white ? 12 : 13, white ? t.white : t.black, &e, true)) {
+        return kRunEof;
+      }
+      if (e->state == kEol) return kRunEol;
+      if (e->state == (white ? kTermW : kTermB)) {
+        return setvalue(e->param) == kFatal ? kRunFatal : kRunTerm;
+      }
+      if (e->state == (white ? kMakeUpW : kMakeUpB) || e->state == kMakeUp) {
+        a0_ += e->param;
+        run_ += e->param;
+        continue;
+      }
+      return kRunBad;
+    }
+  }
+
+  // EXPAND1D
+  int expand1d() {
+    for (;;) {
+      for (int colour = 0; colour < 2; ++colour) {
+        const int r = colour_run(colour == 0);
+        if (r == kRunFatal) return kFatal;
+        if (r == kRunEof) return finish(kEof);
+        if (r == kRunEol) {
+          eolcnt_ = 1;
+          return finish(kDone);
+        }
+        if (r == kRunBad) return finish(kDone);
+        if (a0_ >= lastx_) return finish(kDone);
+      }
+      if (pa_[-1] == 0 && pa_[-2] == 0) pa_ -= 2;
+    }
+  }
+
+  // CHECK_b1: b1 to the first change on the reference line past a0
+  bool check_b1() {
+    if (pa_ != this_) {
+      while (b1_ <= a0_ && b1_ < lastx_) {
+        if (pb_ + 1 >= ref_ + nruns_) return false;
+        b1_ += static_cast<int>(pb_[0] + pb_[1]);
+        pb_ += 2;
+      }
+    }
+    return true;
+  }
+
+  // EXPAND2D
+  int expand2d() {
+    const Tables& t = tables();
+    while (a0_ < lastx_) {
+      if (pa_ >= this_ + nruns_) return kFatal;
+      const Ent* e;
+      if (!lookup(7, t.main, &e, false)) return finish(kEof);
+      switch (e->state) {
+        case kPass:
+          if (!check_b1() || pb_ + 1 >= ref_ + nruns_) return kFatal;
+          b1_ += static_cast<int>(*pb_++);
+          run_ += b1_ - a0_;
+          a0_ = b1_;
+          b1_ += static_cast<int>(*pb_++);
+          break;
+        case kHoriz: {
+          const bool black_first = (pa_ - this_) & 1;
+          for (int k = 0; k < 2; ++k) {
+            const int r = colour_run(black_first == (k == 1));
+            if (r == kRunFatal) return kFatal;
+            if (r == kRunEof) return finish(kEof);
+            if (r != kRunTerm) return finish(kDone);  // bad code (EOL too)
+          }
+          if (!check_b1()) return kFatal;
+          break;
+        }
+        case kV0:
+        case kVR:
+          if (!check_b1()) return kFatal;
+          if (setvalue(b1_ - a0_ + (e->state == kVR ? e->param : 0)) ==
+              kFatal) {
+            return kFatal;
+          }
+          if (pb_ >= ref_ + nruns_) return kFatal;
+          b1_ += static_cast<int>(*pb_++);
+          break;
+        case kVL:
+          if (!check_b1()) return kFatal;
+          if (b1_ < a0_ + e->param) return finish(kDone);
+          if (setvalue(b1_ - a0_ - e->param) == kFatal) return kFatal;
+          b1_ -= static_cast<int>(*--pb_);
+          break;
+        case kExt:
+          *pa_++ = static_cast<uint32_t>(lastx_ - a0_);
+          return finish(kDone);
+        case kEol:
+          *pa_++ = static_cast<uint32_t>(lastx_ - a0_);
+          if (!need8(4)) return finish(kEof);
+          clear(4);
+          eolcnt_ = 1;
+          return finish(kDone);
+        default:
+          return finish(kDone);
+      }
+    }
+    if (run_) {
+      if (run_ + a0_ < lastx_) {  // expect a final V0
+        if (!need8(1)) return finish(kEof);
+        if (!bits(1)) return finish(kDone);
+        clear(1);
+      }
+      if (setvalue(0) == kFatal) return kFatal;
+    }
+    return finish(kDone);
+  }
+
+  // _TIFFFax3fillruns: white runs clear bits, black runs set them; runs
+  // past the width are cut in place (the next row's reference sees that)
+  void fill_row(uint8_t* buf) {
+    uint32_t* runs = this_;
+    uint32_t* erun = pa_;
+    const uint32_t lastx = static_cast<uint32_t>(lastx_);
+    if ((erun - runs) & 1) *erun++ = 0;
+    uint32_t x = 0;
+    for (; runs < erun; runs += 2) {
+      for (int c = 0; c < 2; ++c) {
+        uint32_t run = runs[c];
+        if (x + run > lastx || run > lastx) run = runs[c] = lastx - x;
+        for (uint32_t i = 0; i < run; ++i, ++x) {
+          const uint8_t bit = static_cast<uint8_t>(0x80 >> (x & 7));
+          if (c) {
+            buf[x >> 3] |= bit;
+          } else {
+            buf[x >> 3] &= static_cast<uint8_t>(~bit);
+          }
+        }
+      }
+    }
+  }
+};
+
+}  // namespace fax
+
+// ---------------------------------------------------------- ThunderScan
+
+// tif_thunder.c ThunderDecodeRow: `rows` rows of `width` 4-bit pixels,
+// `row_bytes` apart, from one strip. Each byte is a run of the last pixel
+// (its low 6 bits the count), three 2-bit or two 3-bit deltas, or a raw
+// pixel (a run past the row's end writes nothing). A row whose data ends
+// early, or whose run overshoots it, ends the strip: from the byte being
+// filled on, the row is zeroed, and the rows after it are left as they
+// are (zero).
+inline void thunder_decode(const uint8_t* src, size_t n, uint8_t* out,
+                           int rows, size_t row_bytes, int width) {
+  static const int two[4] = {0, 1, 0, -1};
+  static const int three[8] = {0, 1, 2, 3, 0, -3, -2, -1};
+  const uint8_t* bp = src;
+  size_t cc = n;
+  for (int y = 0; y < rows; ++y) {
+    uint8_t* op = out + static_cast<size_t>(y) * row_bytes;
+    const int64_t maxpixels = width;
+    int64_t npixels = 0;
+    unsigned lastpixel = 0;
+    auto set = [&](unsigned v) {
+      lastpixel = v & 0xf;
+      if (npixels < maxpixels) {
+        if (npixels++ & 1) {
+          *op++ |= static_cast<uint8_t>(lastpixel);
+        } else {
+          op[0] = static_cast<uint8_t>(lastpixel << 4);
+        }
+      }
+    };
+    while (cc > 0 && npixels < maxpixels) {
+      int c = *bp++;
+      --cc;
+      switch (c & 0xc0) {
+        case 0x00: {  // a run of the last pixel
+          int k = c;
+          if (npixels & 1) {
+            op[0] |= static_cast<uint8_t>(lastpixel);
+            lastpixel = *op++;
+            ++npixels;
+            --k;
+          } else {
+            lastpixel |= lastpixel << 4;
+          }
+          npixels += k;
+          if (npixels <= maxpixels) {
+            for (; k > 0; k -= 2) *op++ = static_cast<uint8_t>(lastpixel);
+          }
+          if (k == -1) *--op &= 0xf0;
+          lastpixel &= 0xf;
+          break;
+        }
+        case 0x40:  // three 2-bit deltas, 2 skips
+          for (int sh = 4; sh >= 0; sh -= 2) {
+            const int d = (c >> sh) & 3;
+            if (d != 2) set(static_cast<unsigned>(lastpixel + two[d]));
+          }
+          break;
+        case 0x80:  // two 3-bit deltas, 4 skips
+          for (int sh = 3; sh >= 0; sh -= 3) {
+            const int d = (c >> sh) & 7;
+            if (d != 4) set(static_cast<unsigned>(lastpixel + three[d]));
+          }
+          break;
+        default:  // a raw pixel
+          set(static_cast<unsigned>(c));
+      }
+    }
+    if (npixels != maxpixels) {  // libtiff zeroes the rest of the row
+      uint8_t* end = out + static_cast<size_t>(y) * row_bytes +
+                     (maxpixels + 1) / 2;
+      if (op < end) std::memset(op, 0, static_cast<size_t>(end - op));
+      return;
+    }
+  }
+}
+
+// ---------------------------------------------------------------- TIFF
+
+// Sample stage flags of tiff_decode
+enum TiffFlags {
+  kBigEndian = 1,    // 16-bit samples big-endian
+  kPredictor = 2,    // Predictor 2 (horizontal differencing)
+  kDiv257 = 4,       // 16-bit samples to 8 bits as (v + 128) / 257
+  kRaw16 = 8,        // 16-bit samples kept whole: two bytes, low first
+  kFaxMsbFirst = 16  // CCITT data of FillOrder 1
+};
+
+// The layout of a TIFF's first image. Chunks (strips or tiles) run plane
+// by plane, then row by row of chunks, then across. Each holds `ch` rows
+// (a strip at the image's foot fewer; a tile is whole) of `cw` pixels of
+// `per_chunk` samples, `bits` each, rows padded to bytes. A YCbCr file
+// stored subsampled (sub_h, sub_v > 0) holds blocks of sub_h x sub_v Y
+// samples then Cb and Cr instead of rows of pixels.
+struct TiffLayout {
+  int w, h, cw, ch, tiled, planes, per_chunk, spp, bits, flags;
+  int g3_2d;        // Group3Options bit 0
+  int sub_h, sub_v;  // subsampled YCbCr blocks (0: pixels)
+  // JPEG (Compression 7): the colour space libjpeg is asked for
+  // (etjpeg::kYCbCr converts to RGB with libjpeg's default, fancy,
+  // upsampling; etjpeg::kRaw keeps the components), and component 0's
+  // sampling that libtiff expects (0: the first chunk's own, libtiff's
+  // JPEGFixupTagsSubsampling)
+  int jpeg_colour, jpeg_h, jpeg_v;
+};
+
+enum { kJpegRefused = -4 };
+
+// YCbCr blocks of one chunk -> (rows, cw, 3) pixels of (Y, Cb, Cr), each
+// pixel with its block's chroma (tif_getimage.c putcontig8bitYCbCr*tile:
+// partial blocks at the right and at the foot are cut).
+inline void ycbcr_unblock(const uint8_t* raw, const TiffLayout& L, int rows,
+                          uint8_t* px) {
+  const int bw = (L.cw + L.sub_h - 1) / L.sub_h;
+  const int block = L.sub_h * L.sub_v + 2;
+  for (int by = 0; by * L.sub_v < rows; ++by) {
+    for (int bx = 0; bx < bw; ++bx) {
+      const uint8_t* b =
+          raw + (static_cast<size_t>(by) * bw + bx) * block;
+      for (int j = 0; j < L.sub_v; ++j) {
+        const int y = by * L.sub_v + j;
+        if (y >= rows) break;
+        for (int i = 0; i < L.sub_h; ++i) {
+          const int x = bx * L.sub_h + i;
+          if (x >= L.cw) break;
+          uint8_t* o = px + (static_cast<size_t>(y) * L.cw + x) * 3;
+          o[0] = b[j * L.sub_h + i];
+          o[1] = b[block - 2];
+          o[2] = b[block - 1];
+        }
+      }
+    }
+  }
+}
+
+// tif_predict.c on subsampled YCbCr: the decoded bytes `n` are cut into
+// TIFFScanlineSize pieces (a block row's bytes over sub_v) and each is
+// accumulated at a stride of 3 bytes (horAcc8), as if they were rows of
+// pixels; where either does not divide, libtiff stops with the bytes as
+// they are.
+inline void ycbcr_predictor(uint8_t* raw, size_t n, const TiffLayout& L) {
+  const size_t row = static_cast<size_t>((L.cw + L.sub_h - 1) / L.sub_h) *
+                     (L.sub_h * L.sub_v + 2) / L.sub_v;
+  if (row == 0 || n % row || row % 3) return;
+  for (size_t o = 0; o < n; o += row) {
+    for (size_t i = 3; i < row; ++i) {
+      raw[o + i] = static_cast<uint8_t>(raw[o + i] + raw[o + i - 3]);
+    }
+  }
+}
+
+// One JPEG chunk (an abbreviated stream after `tables`, libtiff's
+// JPEGPreDecode and JPEGDecode) -> px (rows, cw, per_chunk), as libjpeg
+// gives it to libtiff; with px null only its headers are read and checked.
+// kCorrupt where libtiff's checks fail (cv2.imread then returns nothing),
+// kJpegRefused for a JPEG kind the decoder refuses.
+inline int jpeg_chunk(const etjpeg::Decoder* tables, const uint8_t* src,
+                      size_t n, const TiffLayout& L, int rows,
+                      bool last_strip, int* want_h, int* want_v,
+                      uint8_t* px) {
+  etjpeg::Decoder d;
+  if (tables) d.preload(*tables);
+  d.forced_colour = L.jpeg_colour;
+  const int st = d.read(src, n, px != nullptr);
+  if (st == etjpeg::kRefused) return kJpegRefused;
+  if (st != etjpeg::kOk || d.components() != L.per_chunk) return kCorrupt;
+  if (*want_h == 0) {  // the first chunk decides
+    *want_h = d.h_sampling(0);
+    *want_v = d.v_sampling(0);
+  }
+  const bool taller_last = d.width == L.cw && d.height > rows &&
+                           last_strip && !L.tiled;
+  if (d.width > L.cw || (d.height > rows && !taller_last)) return kCorrupt;
+  for (int c = 0; c < d.components(); ++c) {
+    const int hw = c ? 1 : *want_h, vw = c ? 1 : *want_v;
+    if (d.h_sampling(c) != hw || d.v_sampling(c) != vw) return kCorrupt;
+  }
+  const int out_c = L.jpeg_colour == etjpeg::kRaw ? d.components() : 3;
+  if (out_c != L.per_chunk) return kCorrupt;
+  if (!px) return kOk;
+  const size_t stride = static_cast<size_t>(L.cw) * out_c;
+  const size_t take = static_cast<size_t>(d.width) * out_c;
+  d.output(1, [&](int y, const uint8_t* row) {
+    if (y < rows) std::memcpy(px + y * stride, row, take);
+  });
+  return kOk;
+}
+
+// Every strip or tile of a TIFF's first image -> out (h, w, spp) bytes
+// (two per sample with kRaw16). Chunk k is `counts[k]` bytes at
+// `offsets[k]` of `data`, compressed by `compression`: 1 none, 5 LZW,
+// 32773 PackBits, 2 / 32771 CCITT modified Huffman, 3 Group 3, 4 Group 4,
+// 32809 ThunderScan, 7 JPEG (`tables`: the JPEGTables stream, or null),
+// or 0 for a scheme
+// libtiff has no decoder of (its samples stay zero, as libtiff's buffer
+// does). CCITT never fails: damaged data decodes as libtiff decodes it.
+// With `out` null, only what libtiff checks before it decodes a chunk is
+// checked: that every chunk lies in the data, and a JPEG chunk's headers.
 inline int tiff_decode(const uint8_t* data, size_t n, const int64_t* offsets,
                        const int64_t* counts, int nchunks, int compression,
-                       const TiffLayout& L, uint8_t* out) {
-  const size_t row_bytes =
-      (static_cast<size_t>(L.cw) * L.per_chunk * L.bits + 7) / 8;
+                       const TiffLayout& L, const uint8_t* tables,
+                       size_t ntables, uint8_t* out) {
+  const bool raw16 = L.flags & kRaw16;
+  const int ob = raw16 ? 2 : 1;  // output bytes per sample
+  const bool ycc = L.sub_h > 0;
   const int across = (L.w + L.cw - 1) / L.cw;
   const int down = (L.h + L.ch - 1) / L.ch;
   if (nchunks < across * down * L.planes) return kCorrupt;
-  std::vector<uint8_t> raw(row_bytes * L.ch);
-  std::vector<uint8_t> px(static_cast<size_t>(L.ch) * L.cw * L.per_chunk);
+  // bytes of one row (a block row of sub_v rows for subsampled YCbCr)
+  const size_t row_bytes =
+      ycc ? static_cast<size_t>((L.cw + L.sub_h - 1) / L.sub_h) *
+                (L.sub_h * L.sub_v + 2)
+          : (static_cast<size_t>(L.cw) * L.per_chunk * L.bits + 7) / 8;
+  const int rows_per_unit = ycc ? L.sub_v : 1;
+  std::vector<uint8_t> raw(row_bytes * ((L.ch + rows_per_unit - 1) /
+                                        rows_per_unit));
+  const size_t px_row = static_cast<size_t>(L.cw) * L.per_chunk * ob;
+  std::vector<uint8_t> px(static_cast<size_t>(L.ch) * px_row);
+  etjpeg::Decoder jt;
+  if (compression == 7 && tables &&
+      jt.read_tables(tables, ntables) != etjpeg::kOk) {
+    return kCorrupt;
+  }
+  int want_h = L.jpeg_h, want_v = L.jpeg_v;
+  fax::ImageState fax_state;
   int k = 0;
   for (int plane = 0; plane < L.planes; ++plane) {
     for (int cy = 0; cy < down; ++cy) {
       for (int cx = 0; cx < across; ++cx, ++k) {
         const int rows = L.tiled ? L.ch : std::min(L.ch, L.h - cy * L.ch);
-        const size_t need = row_bytes * rows;
-        if (offsets[k] < 0 || counts[k] < 0 ||
+        // TIFFFillStrip: a chunk of no bytes, or past the file, fails
+        if (offsets[k] < 0 || counts[k] <= 0 ||
             static_cast<uint64_t>(offsets[k]) + counts[k] > n) {
           return kCorrupt;
         }
         const uint8_t* src = data + offsets[k];
         const size_t count = static_cast<size_t>(counts[k]);
-        int64_t got = static_cast<int64_t>(count);
-        if (compression == 5) {
-          got = lzw_decode(src, count, raw.data(), need);
-          src = raw.data();
-        } else if (compression == 32773) {
-          got = packbits_decode(src, count, raw.data(), need);
-          src = raw.data();
-        } else if (compression != 1) {
-          return kArgs;
+        if (!out) {
+          if (compression != 7) continue;
+          const int st = jpeg_chunk(tables ? &jt : nullptr, src, count, L,
+                                    rows, cy == down - 1, &want_h, &want_v,
+                                    nullptr);
+          if (st != kOk) return st;
+          continue;
         }
-        if (got < static_cast<int64_t>(need)) return kCorrupt;
-        const int st = unpack_rows(src, rows, row_bytes, L.cw, L.per_chunk,
-                                   L.bits, L.flags & 1, L.flags & 2,
-                                   (L.flags & 4) ? kDiv257 : kHighByte,
-                                   px.data(),
-                                   static_cast<size_t>(L.cw) * L.per_chunk);
-        if (st != kOk) return st;
+        if (compression == 7) {
+          std::fill(px.begin(), px.end(), 0);
+          const int st = jpeg_chunk(tables ? &jt : nullptr, src, count, L,
+                                    rows, cy == down - 1, &want_h, &want_v,
+                                    px.data());
+          if (st != kOk) return st;
+        } else {
+          const int units = (rows + rows_per_unit - 1) / rows_per_unit;
+          const size_t need = row_bytes * units;
+          // a strip of subsampled YCbCr is read as rows rounded up to
+          // whole blocks times TIFFScanlineSize (a block row's bytes over
+          // sub_v, rounded down): the bytes past that stay zero
+          const size_t limit =
+              ycc && !L.tiled
+                  ? std::min(need, static_cast<size_t>(units) * L.sub_v *
+                                       (row_bytes / L.sub_v))
+                  : need;
+          std::fill(raw.begin(), raw.begin() + need, 0);
+          int64_t got = static_cast<int64_t>(std::min(count, limit));
+          if (compression == 1) {
+            std::memcpy(raw.data(), src, static_cast<size_t>(got));
+          } else if (compression == 5) {
+            got = lzw_decode(src, count, raw.data(), limit);
+          } else if (compression == 32773) {
+            got = packbits_decode(src, count, raw.data(), limit);
+          } else if (compression == 2 || compression == 3 ||
+                     compression == 4 || compression == 32771) {
+            fax::Decoder(src, count, compression, L.flags & kFaxMsbFirst,
+                         L.g3_2d != 0, static_cast<uint64_t>(offsets[k]),
+                         L.cw, &fax_state)
+                .decode(raw.data(), rows, row_bytes);
+            got = static_cast<int64_t>(limit);
+          } else if (compression == 32809) {
+            thunder_decode(src, count, raw.data(), rows, row_bytes, L.w);
+            got = static_cast<int64_t>(limit);
+          } else if (compression == 0) {
+            got = static_cast<int64_t>(limit);
+          } else {
+            return kArgs;
+          }
+          if (got < static_cast<int64_t>(limit)) return kCorrupt;
+          if (ycc) {
+            if (L.flags & kPredictor) ycbcr_predictor(raw.data(), limit, L);
+            ycbcr_unblock(raw.data(), L, rows, px.data());
+          } else {
+            const int st = unpack_rows(
+                raw.data(), rows, row_bytes, L.cw, L.per_chunk, L.bits,
+                L.flags & kBigEndian, L.flags & kPredictor,
+                raw16 ? kRaw16Bytes
+                      : (L.flags & kDiv257) ? kDiv257Round : kHighByte,
+                px.data(), px_row);
+            if (st != kOk) return st;
+          }
+        }
         const int y0 = cy * L.ch, x0 = cx * L.cw;
         const int y1 = std::min(y0 + rows, L.h), x1 = std::min(x0 + L.cw, L.w);
+        const size_t pix = static_cast<size_t>(L.spp) * ob;
         for (int y = y0; y < y1; ++y) {
-          const uint8_t* s =
-              px.data() + static_cast<size_t>(y - y0) * L.cw * L.per_chunk;
-          uint8_t* o = out + (static_cast<size_t>(y) * L.w + x0) * L.spp;
+          const uint8_t* s = px.data() + static_cast<size_t>(y - y0) * px_row;
+          uint8_t* o = out + (static_cast<size_t>(y) * L.w + x0) * pix;
           if (L.per_chunk == L.spp) {
-            std::memcpy(o, s, static_cast<size_t>(x1 - x0) * L.spp);
+            std::memcpy(o, s, static_cast<size_t>(x1 - x0) * pix);
           } else {
-            for (int x = 0; x < x1 - x0; ++x) o[x * L.spp + plane] = s[x];
+            for (int x = 0; x < x1 - x0; ++x) {
+              std::memcpy(o + x * pix + plane * ob, s + x * ob, ob);
+            }
           }
         }
       }
     }
   }
   return kOk;
+}
+
+// ----------------------------------------------------- TIFF colour spaces
+
+// tif_color.c TIFFYCbCrToRGBInit: the tables of the YCbCr -> RGB
+// conversion for YCbCrCoefficients `luma` and ReferenceBlackWhite `rbw`,
+// with libtiff's float and fixed-point roundings.
+struct YCbCrTables {
+  int32_t cr_r[256], cb_b[256], cr_g[256], cb_g[256], y[256];
+
+  static int32_t fix(float x) {  // FIX(x): (x) * (1L << 16) + 0.5
+    return static_cast<int32_t>(static_cast<double>(x * 65536.0f) + 0.5);
+  }
+  static float clamp2(float f) { return f < 0.0f ? 0.0f : f > 2.0f ? 2.0f : f; }
+  // Code2V(c, RB, RW, CR), then CLAMPw to +-4096 and truncated
+  static int32_t code2v(int c, float rb, float rw, int cr) {
+    const float range = (rw - rb) != 0 ? (rw - rb) : 1.0f;
+    const float v = static_cast<float>(c - static_cast<int32_t>(rb)) *
+                    static_cast<float>(cr) / range;
+    const float lo = -128.0f * 32, hi = 128.0f * 32;
+    return static_cast<int32_t>(v < lo ? lo : v > hi ? hi : v);
+  }
+
+  YCbCrTables(const float* luma, const float* rbw) {
+    const float f1 = 2 - 2 * luma[0];
+    const int32_t d1 = fix(clamp2(f1));
+    const float f2 = luma[0] * f1 / luma[1];
+    const int32_t d2 = -fix(clamp2(f2));
+    const float f3 = 2 - 2 * luma[2];
+    const int32_t d3 = fix(clamp2(f3));
+    const float f4 = luma[2] * f3 / luma[1];
+    const int32_t d4 = -fix(clamp2(f4));
+    for (int i = 0, x = -128; i < 256; ++i, ++x) {
+      const int32_t cr = code2v(x, rbw[4] - 128.0f, rbw[5] - 128.0f, 127);
+      const int32_t cb = code2v(x, rbw[2] - 128.0f, rbw[3] - 128.0f, 127);
+      cr_r[i] = (d1 * cr + (1 << 15)) >> 16;
+      cb_b[i] = (d3 * cb + (1 << 15)) >> 16;
+      cr_g[i] = d2 * cr;
+      cb_g[i] = d4 * cb + (1 << 15);
+      y[i] = code2v(x + 128, rbw[0], rbw[1], 255);
+    }
+  }
+
+  // TIFFYCbCrtoRGB
+  void rgb(int Y, int cb, int cr, uint8_t* o) const {
+    auto c255 = [](int32_t v) {
+      return static_cast<uint8_t>(v < 0 ? 0 : v > 255 ? 255 : v);
+    };
+    o[0] = c255(y[Y] + cr_r[cr]);
+    o[1] = c255(y[Y] + ((cb_g[cb] + cr_g[cr]) >> 16));
+    o[2] = c255(y[Y] + cb_b[cb]);
+  }
+};
+
+// tif_color.c TIFFCIELabToRGBInit / TIFFCIELab16ToXYZ / TIFFXYZToRGB with
+// tif_getimage.c's display_sRGB, in float as libtiff computes them.
+class CieLab {
+ public:
+  // `white`: the WhitePoint chromaticity (x, y)
+  explicit CieLab(const float* white) {
+    const float ref1 = 100.0f;
+    x0_ = white[0] / white[1] * ref1;
+    y0_ = ref1;
+    z0_ = (1.0f - white[0] - white[1]) / white[1] * ref1;
+    step_ = (kYC - kY0) / kRange;
+    const double gamma = 1.0 / static_cast<double>(2.4f);
+    for (int i = 0; i <= kRange; ++i) {
+      table_[i] = 255.0f * static_cast<float>(
+                               std::pow(static_cast<double>(i) / kRange,
+                                        gamma));
+    }
+  }
+
+  // L (0-65535 for 0-100), a and b in 1/256 units (TIFFCIELab16ToXYZ)
+  void rgb16(uint32_t l, int32_t a, int32_t b, uint8_t* o) const {
+    const float L = static_cast<float>(l) * 100.0f / 65535.0f;
+    float X, Y, Z, cby, tmp;
+    if (L < 8.856f) {
+      Y = (L * y0_) / 903.292f;
+      cby = 7.787f * (Y / y0_) + 16.0f / 116.0f;
+    } else {
+      cby = (L + 16.0f) / 116.0f;
+      Y = y0_ * cby * cby * cby;
+    }
+    tmp = static_cast<float>(a) / 256.0f / 500.0f + cby;
+    X = tmp < 0.2069f ? x0_ * (tmp - 0.13793f) / 7.787f
+                      : x0_ * tmp * tmp * tmp;
+    tmp = cby - static_cast<float>(b) / 256.0f / 200.0f;
+    Z = tmp < 0.2069f ? z0_ * (tmp - 0.13793f) / 7.787f
+                      : z0_ * tmp * tmp * tmp;
+    o[0] = gun(3.2410f * X + -1.5374f * Y + -0.4986f * Z);
+    o[1] = gun(-0.9692f * X + 1.8760f * Y + 0.0416f * Z);
+    o[2] = gun(0.0556f * X + -0.2040f * Y + 1.0570f * Z);
+  }
+
+ private:
+  static constexpr int kRange = 1500;  // CIELABTORGB_TABLE_RANGE
+  static constexpr float kY0 = 1.0f, kYC = 100.0f;
+  float x0_, y0_, z0_, step_;
+  float table_[kRange + 1];
+
+  // one gun of TIFFXYZToRGB: clip, the table, RINT, clip to 255
+  uint8_t gun(float v) const {
+    v = std::max(v, kY0);
+    v = std::min(v, kYC);
+    int i = static_cast<int>((v - kY0) / step_);
+    i = std::min(kRange, i);
+    const float t = table_[i];
+    uint32_t r = static_cast<uint32_t>(t > 0 ? t + 0.5 : t - 0.5);
+    return static_cast<uint8_t>(std::min<uint32_t>(r, 255));
+  }
+};
+
+// n pixels of a TIFF's colour samples -> RGB, as the RGBA interface
+// converts them. `kind` 1: CMYK (4 samples of 8 bits; putRGBcontig8bitCMYK
+// tile: (255 - k) * (255 - c) / 255); 2: YCbCr (params: luma[3], then
+// ReferenceBlackWhite[6]); 3: CIELab of 8 bits (params: the WhitePoint
+// x, y; a* and b* signed); 4: CIELab of 16 bits, each sample two bytes,
+// low first.
+inline int tiff_colour(const uint8_t* src, size_t n, int spp, int kind,
+                       const float* params, uint8_t* out) {
+  if (kind == 1) {
+    for (size_t i = 0; i < n; ++i) {
+      const uint8_t* s = src + i * spp;
+      const int k = 255 - s[3];
+      for (int c = 0; c < 3; ++c) {
+        out[i * 3 + c] = static_cast<uint8_t>(k * (255 - s[c]) / 255);
+      }
+    }
+    return kOk;
+  }
+  if (kind == 2) {
+    const YCbCrTables t(params, params + 3);
+    for (size_t i = 0; i < n; ++i) {
+      const uint8_t* s = src + i * spp;
+      t.rgb(s[0], s[1], s[2], out + i * 3);
+    }
+    return kOk;
+  }
+  if (kind == 3 || kind == 4) {
+    const CieLab lab(params);
+    for (size_t i = 0; i < n; ++i) {
+      if (kind == 3) {
+        const uint8_t* s = src + i * spp;
+        lab.rgb16(s[0] * 257u, static_cast<int8_t>(s[1]) * 256,
+                  static_cast<int8_t>(s[2]) * 256, out + i * 3);
+      } else {
+        const uint8_t* s = src + i * spp * 2;
+        lab.rgb16(s[0] | (s[1] << 8),
+                  static_cast<int16_t>(s[2] | (s[3] << 8)),
+                  static_cast<int16_t>(s[4] | (s[5] << 8)), out + i * 3);
+      }
+    }
+    return kOk;
+  }
+  return kArgs;
 }
 
 }  // namespace etraster

@@ -21,7 +21,9 @@ What is read, each bit-equal to `cv2.imread(path)[..., ::-1]` (cv2 5.0.0):
   16-bit 5-5-5 and BI_BITFIELDS 5-6-5; 24 bits; 32 bits with or without
   BI_BITFIELDS (alpha dropped); BI_RLE8 / BI_RLE4; bottom-up and top-down.
 * TIFF (`data/tiff_io.py`): the first IFD as libtiff's RGBA interface gives
-  it to cv2; other kinds raise `tiff_io.TiffUnsupported` (ROADMAP Q1.9c).
+  it to cv2: every photometric and codec it reads (JPEG-in-TIFF, CCITT,
+  CMYK, YCbCr, CIELab among them); the kinds cv2 reads and the port does
+  not raise `tiff_io.TiffUnsupported` (ROADMAP Q1.9d).
 * WebP (`data/webp_io.py`): VP8L and VP8 bitstreams, simple or VP8X with
   ALPH, EXIF or an animation (its first frame on the canvas), through
   the loader core's decoders (`csrc/webp_decode.h`); no kind is refused.
@@ -34,7 +36,8 @@ raster_decode.h`), so no decode loops over pixels in Python.
 `image_size` reads a file's header and raises for a kind that is not read;
 the datasets call it for every file when they are built, so such a file
 fails there and not in an epoch. A file cv2 cannot read either (corrupt,
-truncated) raises OSError, and the datasets drop it, as JAX's do.
+truncated, or of a kind cv2 refuses: ROADMAP F10) raises OSError, and the
+datasets drop it, as JAX's do.
 
 Images are RGB uint8 (h, w, 3). The EXIF orientation of a JPEG, PNG or
 WebP and a TIFF's Orientation tag are applied as cv2.imread applies them,
@@ -155,14 +158,15 @@ def read_png(path: str) -> np.ndarray:
 def _bmp_header(path: str, data: bytes):
     """OpenCV's BmpDecoder::readHeader: (w, h, bottom_up, bpp, rle,
     palette (256, 3) RGB, pixel offset). `bpp` 15 is 5-5-5, 16 5-6-5. A
-    kind its decoder does not take raises NotImplementedError; a corrupt
-    header OSError."""
+    kind its decoder does not take, and a corrupt header, raise OSError:
+    cv2.imread returns nothing for either, and the datasets drop the file
+    as JAX's do."""
     def fail(what):
         raise OSError(f"{path}: corrupt BMP: {what}")
 
     def refuse(what):
-        raise NotImplementedError(f"{path}: BMP {what} is not read (cv2."
-                                  f"imread reads none either)")
+        raise OSError(f"{path}: BMP {what} is not read (cv2.imread reads "
+                      f"none either)")
     if len(data) < 26 or data[:2] != b"BM":
         fail("signature or header missing")
     offset, size = struct.unpack("<iI", data[10:18])
@@ -238,9 +242,9 @@ def _refuse(path: str, ext: str):
 
 def image_size(path: str):
     """(w, h) of the image at `path` from its header, orientation applied.
-    Raises NotImplementedError for a kind this module does not read
-    (`native_loader.JpegUnsupported`, `TiffUnsupported`), OSError for a
-    missing or corrupt file."""
+    Raises NotImplementedError for a kind cv2 reads and this module does
+    not (`native_loader.JpegUnsupported`, `TiffUnsupported`), OSError for
+    a file that is missing, corrupt, or of a kind cv2 reads nothing of."""
     ext = suffix(path)
     if ext in JPEG_SUFFIXES:
         w, h, orientation = nl.jpeg_info(path)

@@ -15,26 +15,58 @@ alpha. What that interface does, and so what this module does:
   unassociated, which is premultiplied: (v * a + 127) / 255).
 * Palette of 1, 4 or 8 bits: the colormap's 16-bit entries taken as
   they are where all are below 256, else by their high byte (checkcmap).
-* Compression none, LZW, Deflate (8 and 32946) and PackBits; Predictor 1
-  and 2 (8 and 16 bits; libtiff applies it with LZW and Deflate only);
-  strips and tiles; either byte order; BigTIFF.
+* Separated (CMYK, InkSet 1) of 4 samples of 8 bits, contiguous or in
+  planes: (255 - K) * (255 - C) / 255 in integers
+  (putRGBcontig8bitCMYKtile).
+* YCbCr of 8 bits: libtiff's TIFFYCbCrToRGB tables (float and 16-bit
+  fixed point as tif_color.c builds them) from YCbCrCoefficients and
+  ReferenceBlackWhite or their defaults; blocks of 1 x 1, 1 x 2, 2 x 1,
+  2 x 2, 4 x 1, 4 x 2 or 4 x 4 Y samples with one Cb, Cr (2 x 2 where
+  YCbCrSubsampling is missing), partial blocks cut at the right and the
+  foot; in planes only 1 x 1.
+* CIELab of 8 or 16 bits: TIFFCIELab16ToXYZ and TIFFXYZToRGB in float
+  with tif_getimage.c's display_sRGB, the WhitePoint or D50.
+* Compression none, LZW, Deflate (8 and 32946), PackBits, ThunderScan (4
+  bits), CCITT modified Huffman (2, and 32771 word-aligned), Group 3
+  (one- and two-dimensional) and Group 4 with libtiff's recovery from
+  damaged data (csrc/raster_decode.h), and JPEG (7): each strip or tile a
+  stream after JPEGTables, decoded by the loader core's JPEG decoder as
+  libjpeg decodes it for libtiff (contiguous YCbCr converted to RGB with
+  libjpeg's fancy upsampling, every other photometric as its raw
+  components). Predictor 1 and 2 (libtiff applies it with LZW and Deflate
+  only); strips and tiles; either byte order; BigTIFF.
+* SampleFormat 2 (signed) read as unsigned, as libtiff's RGBA interface
+  reads it; FillOrder 2: every codec's bits reversed first, but JPEG's
+  (libjpeg reads bytes) and the fax codecs' (which read them so).
+* A compression libtiff knows no decoder of (JPEG 2000 in cv2's build,
+  and any unknown code) reads as zero samples through the photometric:
+  black RGB, white MinIsWhite, palette entry 0.
 * The Orientation tag applied as cv2 applies it (the EXIF turn of the
-  stored image). cv2 5.0.0 fails on a non-square image of Orientation 5-8
-  (its imread asserts), and so does this module (OSError), so that the
-  datasets drop the file as JAX's do.
+  stored image).
 
-Every other kind raises `TiffUnsupported` from `tiff_size`, naming it.
-cv2 reads these, the port does not yet (ROADMAP Q1.9c): JPEG-in-TIFF,
-CCITT and every other compression, YCbCr, Separated (CMYK), CIELab and
-other photometrics, signed samples, FillOrder 2. cv2 5.0.0 reads none of
-these either, and the JAX package drops them from a dataset where the port
-names them: 2-bit samples, 4-bit ones but a palette's, 10-64-bit and float
-samples, a 16-bit palette, the floating-point predictor, RGB of fewer than
-3 colours, samples below 8 bits with alpha or in planes.
+A file cv2.imread reads nothing of raises OSError (from `tiff_size` too),
+so that the datasets drop it as JAX's drop cv2's None: a codec cv2's
+libtiff is built without (old-style JPEG, PixarLog, JBIG, LERC, LZMA,
+Zstandard, WebP) or that refuses the layout (NeXT, ThunderScan but at 4
+bits, SGILog but of LogL / LogLuv, CCITT but at 1 bit, JPEG but at 8);
+photometrics 4, 9, 10, LogL and LogLuv uncompressed; float or void
+samples; 2-bit samples, 4-bit ones but a palette's, 10-64-bit samples, a
+16-bit palette, the floating-point predictor, RGB of fewer than 3
+colours, samples below 8 bits with alpha or in planes; CMYK, YCbCr and
+CIELab in layouts other than those above; a strip or tile of no
+bytes or past the file, and a JPEG stream libtiff refuses (its size,
+sampling or component count); and a non-square image of Orientation 5-8
+(cv2 5.0.0's imread asserts; ROADMAP F9).
+
+`TiffUnsupported` is left only for kinds cv2 reads and this module does
+not (ROADMAP Q1.9d): SGILog compression of LogL / LogLuv, ThunderScan in
+tiles, and a JPEG-in-TIFF stream of a kind the loader core's decoder
+refuses (arithmetic coding, 12-bit, lossless, unrefined progressive).
 
 Headers and IFDs are parsed here and Deflate is Python's zlib; LZW,
-PackBits, the predictor, bit unpacking and the maps run in the loader
-core (`csrc/raster_decode.h`).
+PackBits, ThunderScan, the fax codecs, the JPEG streams, the predictor,
+bit unpacking and the maps run in the loader core (`csrc/raster_decode.h`,
+`csrc/jpeg_decode.h`).
 """
 
 from __future__ import annotations
@@ -47,20 +79,34 @@ import numpy as np
 
 from ..utils import native_loader as nl
 
-_TODO = "ROADMAP Q1.9c"
-_READ_COMPRESSION = {1, 5, 8, 32946, 32773}   # none, LZW, Deflate, PackBits
-_REFUSED_COMPRESSION = {2: "CCITT RLE", 3: "CCITT Group 3 fax",
-                        4: "CCITT Group 4 fax", 6: "old-style JPEG",
-                        7: "JPEG", 32809: "ThunderScan", 34676: "SGI LogLuv",
-                        34925: "LZMA", 50000: "Zstandard", 50001: "WebP",
-                        34712: "JPEG 2000"}
+# Compressions libtiff decodes; those it is built without (cv2.imread
+# returns nothing); the rest it knows no decoder of, and reads as zeros.
+_NEXT, _THUNDERSCAN, _SGILOG, _SGILOG24 = 32766, 32809, 34676, 34677
+_READ_COMPRESSION = {1, 5, 8, 32946, 32773, 2, 3, 4, 32771, 7,
+                     _THUNDERSCAN}
+_FAX = {2, 3, 4, 32771}
+_NOT_CONFIGURED = {6: "old-style JPEG", 32909: "PixarLog", 34661: "JBIG",
+                   34887: "LERC", 34925: "LZMA", 50000: "Zstandard",
+                   50001: "WebP"}
+_LOGL, _LOGLUV = 32844, 32845
 _PHOTOMETRIC = {0: "MinIsWhite", 1: "MinIsBlack", 2: "RGB", 3: "Palette",
                 4: "transparency mask", 5: "Separated (CMYK)", 6: "YCbCr",
-                8: "CIELab", 9: "ICCLab", 10: "ITULab", 32844: "LogL",
-                32845: "LogLuv"}
+                8: "CIELab", 9: "ICCLab", 10: "ITULab", _LOGL: "LogL",
+                _LOGLUV: "LogLuv"}
+# tif_getimage.c: the YCbCr subsamplings with a put routine (contiguous)
+_YCBCR_SUBSAMPLING = {(1, 1), (1, 2), (2, 1), (2, 2), (4, 1), (4, 2), (4, 4)}
 _TYPES = {1: "B", 2: "B", 3: "H", 4: "I", 5: "II", 6: "b", 7: "B", 8: "h",
           9: "i", 10: "ii", 11: "f", 12: "d", 16: "Q", 17: "q", 18: "Q"}
 _UNASSOCIATED = 2
+# libtiff's defaults: YCbCrCoefficients, the ReferenceBlackWhite of YCbCr,
+# and the D50 WhitePoint (tif_aux.c, in float)
+_LUMA = np.array([0.299, 0.587, 0.114], np.float32)
+_YCBCR_BLACK_WHITE = np.array([0, 255, 128, 255, 128, 255], np.float32)
+_D50 = np.array([96.4250, 100.0, 82.4680], np.float32)
+_D50_WHITE = np.array([_D50[0] / (_D50[0] + _D50[1] + _D50[2]),
+                       _D50[1] / (_D50[0] + _D50[1] + _D50[2])], np.float32)
+_REVERSED = bytes(int(f"{b:08b}"[::-1], 2) for b in range(256))
+_TODO = "ROADMAP Q1.9d"
 
 
 class TiffUnsupported(NotImplementedError):
@@ -152,8 +198,21 @@ class _Ifd:
         return self.tags.get(tag, default)
 
 
+def _rationals(vals) -> np.ndarray:
+    """RATIONAL values as libtiff reads them into floats: (float)(n / d),
+    0 where the denominator is 0."""
+    pairs = np.asarray(vals, np.float64).reshape(-1, 2)
+    out = np.zeros(len(pairs), np.float64)
+    nz = pairs[:, 1] != 0
+    out[nz] = pairs[nz, 0] / pairs[nz, 1]
+    return out.astype(np.float32)
+
+
 class _Layout:
-    """What the decode of one TIFF needs, checked against what is read."""
+    """What the decode of one TIFF needs, checked against what is read.
+    `route`: "read", or "zeros" for a compression libtiff has no decoder of
+    (its strips read as zero samples); `refusal` names why the file is not
+    read, `cv2_reads` whether cv2.imread reads it all the same."""
 
     def __init__(self, path: str, data: bytes):
         t = _Ifd(path, data)
@@ -170,13 +229,17 @@ class _Layout:
         self.predictor = t.get(317, 1) if self.compression in (
             5, 8, 32946) else 1
         self.orientation = t.get(274, 1)
+        self.fill_order = t.get(266, 1)
+        self.g3_2d = bool(t.get(292, 0) & 1)
+        self.jpeg_tables = bytes(t.all(347)) if 347 in t.tags else None
         photometric = t.get(262)
         extras = t.all(338)
         if photometric is None:
             photometric = {1: 1, 3: 2}.get(self.spp - len(extras))
         # TIFFReadDirectory: samples past the photometric's colours are
         # extra samples of unspecified meaning
-        implied = {0: 1, 1: 1, 2: 3, 3: 1}.get(photometric, self.spp)
+        implied = {0: 1, 1: 1, 2: 3, 3: 1, 6: 3, 8: 3}.get(photometric,
+                                                           self.spp)
         if not extras and self.spp > implied:
             extras = (0,) * (self.spp - implied)
         colour = self.spp - len(extras)
@@ -189,9 +252,20 @@ class _Layout:
                 self.alpha = extras[0]
         self.photometric, self.colour = photometric, colour
         self.contig = not (self.planar == 2 and self.spp > 1)
+        sub = t.all(530)
+        self.subsampling = tuple(sub[:2]) if len(sub) >= 2 else None
+        self.luma = _rationals(t.all(529)) if len(t.all(529)) >= 6 \
+            else _LUMA
+        self.black_white = _rationals(t.all(532)) if len(t.all(532)) >= 12 \
+            else _YCBCR_BLACK_WHITE
+        self.white_point = _rationals(t.all(318)) if len(t.all(318)) >= 4 \
+            else _D50_WHITE
+        self.cv2_reads = True
         self.refusal = self._refusal(t)
         if self.refusal:
             return
+        self.route = "read" if self.compression in _READ_COMPRESSION \
+            else "zeros"
         self.tiled = 322 in t.tags
         if self.tiled:
             self.cw, self.ch = t.get(322), t.get(323, 0)
@@ -212,35 +286,70 @@ class _Layout:
             raise OSError(f"{path}: TIFF palette without its colormap")
 
     def _refusal(self, t) -> str:
-        """Why this module does not read the file ("" when it does). The
-        first four cv2 reads through libtiff; the rest cv2 5.0.0 reads
-        nothing of either (its readHeader takes 1, 4 (a palette), 8 and
-        16 bits; libtiff's RGBA interface refuses the other layouts)."""
-        p = self.photometric
-        if self.compression not in _READ_COMPRESSION:
-            return (f"{_REFUSED_COMPRESSION.get(self.compression, 'an unknown')}"
-                    f" compression ({self.compression})")
-        if p not in (0, 1, 2, 3):
+        """Why this module does not read the file ("" when it does), in
+        the order cv2.imread's readHeader and libtiff's RGBA interface
+        (TIFFRGBAImageOK, the codec's setup, the put routine's choice)
+        refuse a file. Every refusal but those of `cv2_reads` is one of
+        cv2's too."""
+        p, c, bits = self.photometric, self.compression, self.bits
+        sample_format = t.get(339, 1)
+        if sample_format not in (1, 2):   # signed samples read as unsigned
+            return f"sample format {sample_format} (float or void samples)"
+        if bits not in (1, 4, 8, 16) or (bits == 4 and p != 3):
+            return f"{bits or 'mixed'}-bit samples"
+        if c in (_SGILOG, _SGILOG24):
+            if (p, self.spp) in ((_LOGL, 1), (_LOGLUV, 3)) and not (
+                    c == _SGILOG24 and p == _LOGL):
+                self.cv2_reads = False
+                return f"SGI LogLuv compression ({c}) of {_PHOTOMETRIC[p]}"
+            return f"SGI LogLuv compression ({c}) of photometric {p}"
+        if p not in (0, 1, 2, 3, 5, 6, 8):
             return f"photometric {_PHOTOMETRIC.get(p, p)}"
-        if t.get(339, 1) != 1:
-            return f"sample format {t.get(339)} (signed or float samples)"
-        if t.get(266, 1) != 1:
-            return "FillOrder 2"
-        cv2_too = " (cv2.imread reads none either)"
-        if self.bits not in (1, 4, 8, 16) or (self.bits == 4 and p != 3):
-            return f"{self.bits or 'mixed'}-bit samples{cv2_too}"
+        if c in _NOT_CONFIGURED:
+            return f"{_NOT_CONFIGURED[c]} compression ({c}), which cv2's " \
+                   f"libtiff is built without"
+        if c == _NEXT:
+            return "NeXT compression at other than 2 bits"
+        if c == _THUNDERSCAN and bits != 4:
+            return f"ThunderScan compression at {bits} bits"
+        if c == _THUNDERSCAN and 322 in t.tags:
+            self.cv2_reads = False
+            return "ThunderScan compression in tiles"
+        if c in _FAX and bits != 1:
+            return f"CCITT compression ({c}) of {bits}-bit samples"
+        if c == 7 and bits != 8:
+            return f"JPEG compression of {bits}-bit samples"
         if self.predictor not in (1, 2) or (self.predictor == 2
-                                            and self.bits < 8):
-            return f"predictor {self.predictor} at {self.bits} bits{cv2_too}"
+                                            and bits < 8):
+            return f"predictor {self.predictor} at {bits} bits"
         if not 1 <= self.spp <= 4:
-            return f"{self.spp} samples per pixel{cv2_too}"
-        if p == 2 and (self.colour < 3 or self.bits < 8):
-            return f"RGB of {self.colour} colours at {self.bits} bits{cv2_too}"
-        if p == 3 and (self.bits > 8 or not self.contig):
-            return f"a {self.bits}-bit or planar palette{cv2_too}"
-        if self.bits < 8 and (self.spp != 1 or not self.contig):
-            return (f"{self.spp} contiguous samples of {self.bits} bits"
-                    f"{cv2_too}")
+            return f"{self.spp} samples per pixel"
+        if p == 2 and (self.colour < 3 or bits < 8):
+            return f"RGB of {self.colour} colours at {bits} bits"
+        if p == 3 and (bits > 8 or not self.contig):
+            return f"a {bits}-bit or planar palette"
+        if bits < 8 and (self.spp != 1 or not self.contig):
+            return f"{self.spp} contiguous samples of {bits} bits"
+        if p == 5 and (t.get(332, 1) != 1 or self.spp != 4 or bits != 8):
+            return (f"Separated (CMYK) of InkSet {t.get(332, 1)}, "
+                    f"{self.spp} samples of {bits} bits")
+        if p == 6:
+            if self.spp != 3 or bits != 8:
+                return f"YCbCr of {self.spp} samples of {bits} bits"
+            sub = self.subsampling or (2, 2)
+            if not self.contig and sub != (1, 1):
+                return f"YCbCr subsampled {sub[0]} x {sub[1]} in planes"
+            if c != 7 and sub not in _YCBCR_SUBSAMPLING:
+                return f"YCbCr subsampled {sub[0]} x {sub[1]}"
+            if c != 7 and not (self.luma[1] != 0
+                               and np.isfinite(self.luma).all()):
+                return "YCbCrCoefficients of 0 or NaN"
+        if p == 8 and (self.spp != 3 or self.colour != 3
+                       or bits not in (8, 16) or not self.contig):
+            return (f"CIELab of {self.spp} samples of {bits} bits"
+                    + ("" if self.contig else " in planes"))
+        if p == 8 and self.white_point[1] == 0:
+            return "a WhitePoint of y = 0"
         return ""
 
     def size(self):
@@ -250,6 +359,9 @@ class _Layout:
 
 def _layout(path: str, data: bytes) -> _Layout:
     lay = _Layout(path, data)
+    if lay.refusal and lay.cv2_reads:
+        raise OSError(f"{path}: TIFF with {lay.refusal} (cv2.imread reads "
+                      f"none either)")
     if lay.refusal:
         raise TiffUnsupported(f"{path}: TIFF with {lay.refusal} is not read "
                               f"({_TODO})")
@@ -261,21 +373,42 @@ def _layout(path: str, data: bytes) -> _Layout:
 
 def tiff_size(path: str):
     """(w, h) of the TIFF at `path`, its Orientation applied; raises
-    TiffUnsupported for a kind that is not read."""
-    return _layout(path, Path(path).read_bytes()).size()
+    OSError for a file cv2.imread reads nothing of, TiffUnsupported for a
+    kind cv2 reads and this module does not. What libtiff checks before it
+    decodes a chunk is checked here too (every chunk in the file, the
+    headers of JPEG-in-TIFF's streams), so that the datasets drop such a
+    file when they are built, as JAX's drop cv2's None."""
+    data = Path(path).read_bytes()
+    lay = _layout(path, data)
+    _decode(lay, data, check_only=True)
+    return lay.size()
 
 
-def _inflated(lay: _Layout, data: bytes, row_bytes: int):
+def _subsampled(lay: _Layout):
+    """The (h, v) YCbCr subsampling of a file stored in blocks, else None."""
+    if lay.photometric != 6 or lay.compression == 7 or not lay.contig:
+        return None
+    sub = lay.subsampling or (2, 2)
+    return None if sub == (1, 1) else sub
+
+
+def _inflated(lay: _Layout, data: bytes, per_chunk: int):
     """Deflate's chunks, inflated by zlib (which releases the interpreter
     lock), end to end: (bytes, [(offset, count)])."""
     parts, chunks, at = [], [], 0
     down, across = -(-lay.h // lay.ch), -(-lay.w // lay.cw)
+    sub = _subsampled(lay)
     for k, (offset, count) in enumerate(lay.chunks):
         cy = (k // across) % down
         rows = lay.ch if lay.tiled else min(lay.ch, lay.h - cy * lay.ch)
+        if sub:
+            size = -(-rows // sub[1]) * -(-lay.cw // sub[0]) * (
+                sub[0] * sub[1] + 2)
+        else:
+            size = rows * ((lay.cw * per_chunk * lay.bits + 7) // 8)
         try:
             part = zlib.decompressobj().decompress(
-                data[offset:offset + count], rows * row_bytes)
+                data[offset:offset + count], size)
         except zlib.error as e:
             raise OSError(f"{lay.path}: TIFF Deflate data: {e}") from None
         parts.append(part)
@@ -287,34 +420,69 @@ def _inflated(lay: _Layout, data: bytes, row_bytes: int):
 def read_tiff(path: str) -> np.ndarray:
     """The first image of the TIFF at `path` as RGB uint8 (h, w, 3), as
     cv2.imread(path)[..., ::-1] reads it. One loader-core call decodes
-    every strip or tile."""
+    every strip or tile; a second converts CMYK, YCbCr or CIELab."""
     data = Path(path).read_bytes()
     lay = _layout(path, data)
+    samples = _decode(lay, data)
+    return orient(_rgb(lay, samples, lay.compression == 7), lay.orientation)
+
+
+def _decode(lay: _Layout, data: bytes, check_only: bool = False):
+    """The samples of every strip or tile (native_loader.tiff_decode); with
+    `check_only`, None once libtiff's checks before decoding pass."""
     planes = 1 if lay.contig else lay.spp
     per_chunk = lay.spp if lay.contig else 1
-    # samples: 16-bit grey of a contiguous file by its high byte, every
-    # other 16-bit sample rounded (Bitdepth16To8)
-    grey_map = lay.photometric in (0, 1) and lay.contig
+    p = lay.photometric
+    # samples: 16-bit grey of a contiguous file by its high byte, 16-bit
+    # CIELab whole, every other 16-bit sample rounded (Bitdepth16To8)
+    grey_map = p in (0, 1) and lay.contig
     flags = ((0 if lay.le else nl.TIFF_BIG_ENDIAN)
              | (nl.TIFF_PREDICTOR if lay.predictor == 2 else 0)
              | (0 if grey_map else nl.TIFF_DIV257))
-    compression, chunks = lay.compression, lay.chunks
-    if compression in (8, 32946):
-        row_bytes = (lay.cw * per_chunk * lay.bits + 7) // 8
-        data, chunks = _inflated(lay, data, row_bytes)
+    if p == 8 and lay.bits == 16:
+        flags |= nl.TIFF_RAW16
+    compression = lay.compression if lay.route == "read" else 0
+    chunks = lay.chunks
+    if compression in _FAX:   # the fax decoder reverses bits itself
+        flags |= 0 if lay.fill_order == 2 else nl.TIFF_FAX_MSB
+    elif lay.fill_order == 2 and compression != 7 and not check_only:
+        data = data.translate(_REVERSED)   # TIFFReverseBits before decoding
+    if compression in (8, 32946) and not check_only:
+        data, chunks = _inflated(lay, data, per_chunk)
         compression = 1
+    jpeg = None
+    if compression == 7:
+        # TIFFRGBAImageBegin sets JPEGCOLORMODE_RGB for contiguous YCbCr:
+        # libjpeg converts it; every other photometric is decoded as is
+        to_rgb = p == 6 and lay.contig
+        sampling = (lay.subsampling or (0, 0)) if to_rgb else (1, 1)
+        jpeg = (lay.jpeg_tables, nl.JPEG_YCBCR if to_rgb else nl.JPEG_RAW,
+                sampling)
     try:
-        samples = nl.tiff_decode(data, chunks, compression, lay.w, lay.h,
-                                 lay.cw, lay.ch, lay.tiled, planes,
-                                 per_chunk, lay.bits, flags)
+        return nl.tiff_decode(data, chunks, compression, lay.w, lay.h,
+                              lay.cw, lay.ch, lay.tiled, planes, per_chunk,
+                              lay.bits, flags, lay.g3_2d,
+                              _subsampled(lay) or (0, 0), jpeg, check_only)
+    except nl.JpegUnsupported as e:
+        raise TiffUnsupported(f"{lay.path}: TIFF with {e} is not read "
+                              f"({_TODO})") from None
     except OSError:
-        raise OSError(f"{path}: corrupt or truncated TIFF data") from None
-    return orient(_rgb(lay, samples), lay.orientation)
+        raise OSError(f"{lay.path}: corrupt or truncated TIFF data") \
+            from None
 
 
-def _rgb(lay: _Layout, samples: np.ndarray) -> np.ndarray:
+def _rgb(lay: _Layout, samples: np.ndarray, jpeg: bool) -> np.ndarray:
     """The RGBA interface's colours of the unpacked samples."""
-    if lay.photometric == 3:
+    p = lay.photometric
+    if p == 5:
+        return nl.tiff_colour(samples, nl.TIFF_CMYK)
+    if p == 6 and not (jpeg and lay.contig):
+        return nl.tiff_colour(samples, nl.TIFF_YCBCR,
+                              np.concatenate([lay.luma, lay.black_white]))
+    if p == 8:
+        return nl.tiff_colour(samples, nl.TIFF_LAB16 if lay.bits == 16
+                              else nl.TIFF_LAB8, lay.white_point)
+    if p == 3:
         n = 1 << lay.bits
         cmap = np.asarray(lay.colormap[:3 * n], np.uint32).reshape(3, n).T
         if (cmap >= 256).any():
@@ -322,10 +490,10 @@ def _rgb(lay: _Layout, samples: np.ndarray) -> np.ndarray:
         lut = np.zeros((256, 3), np.uint8)
         lut[:n] = cmap
         return nl.to_rgb(samples, lut)
-    if lay.photometric in (0, 1) and lay.contig:
+    if p in (0, 1) and lay.contig:
         levels = (1 << min(lay.bits, 8)) - 1
         ramp = np.arange(256) * 255 // levels
-        if lay.photometric == 0:
+        if p == 0:
             ramp = (levels - np.arange(256)) * 255 // levels
         ramp = ramp.clip(0, 255).astype(np.uint8)
         return nl.to_rgb(samples, np.repeat(ramp[:, None], 3, 1))

@@ -7,9 +7,12 @@ cv2.imread on every colour space and sampling set libjpeg decodes; the
 kinds it refuses (arithmetic coding, 12-bit, lossless, hierarchical,
 unrefined progressive scans: ROADMAP Q1.9c) raise `JpegUnsupported` from
 `jpeg_info`, which the datasets call for every file when they are built
-(`data/image_io.py`). Unlike the JAX binding it never falls back. It also
-runs the per-pixel stages of PNG, BMP and TIFF (`csrc/raster_decode.h`:
-`png_decode`, `to_rgb`, `bmp_decode`, `tiff_decode`, `lzw_encode`),
+(`data/image_io.py`); the kinds libjpeg refuses too raise OSError, and the
+datasets drop them as JAX's drop cv2's None. Unlike the JAX binding it
+never falls back. It also runs the per-pixel stages of PNG, BMP and TIFF
+(`csrc/raster_decode.h`: `png_decode`, `to_rgb`, `bmp_decode`,
+`tiff_decode` with the CCITT, JPEG-in-TIFF and YCbCr blocks,
+`tiff_colour` for CMYK, YCbCr and CIELab, `lzw_encode`),
 decodes WebP's two bitstreams, VP8L and VP8 with its ALPH chunk
 (`csrc/webp_decode.h`: `webp_decode`; `data/webp_io.py` parses the
 container), and writes either (`csrc/webp_encode.h`: `webp_encode`).
@@ -47,8 +50,11 @@ _SIGNATURES = {
     "et_bmp_decode": (_P, _L, _L, _I, _I, _I, _I, _I, _P, _P),
     # src, n, dst, cap, written
     "et_lzw_encode": (_P, _L, _P, _L, _P),
-    # data, n, offsets, counts, nchunks, compression, layout (10 ints), out
-    "et_tiff_decode": (_P, _L, _P, _P, _I, _I, _P, _P),
+    # data, n, offsets, counts, nchunks, compression, layout (16 ints),
+    # tables, ntables, out
+    "et_tiff_decode": (_P, _L, _P, _P, _I, _I, _P, _P, _L, _P),
+    # src, n, spp, kind, params (floats), out
+    "et_tiff_colour": (_P, _L, _I, _I, _P, _P),
     "et_jpeg_write": (_C, _P, _I, _I, _I),
     # data, n, lossless, w, h, alpha, alpha_n, has_alpha, orient, out
     "et_webp_decode": (_P, _L, _I, _I, _I, _P, _L, _I, _I, _P),
@@ -78,6 +84,9 @@ _REFUSED = {1: "arithmetic coding (ROADMAP Q1.9c)",
                "not integral, or more than 10 blocks in an MCU)",
             7: "progressive scans that leave coefficients unrefined (libjpeg "
                "would block-smooth them; ROADMAP Q1.9c)"}
+# the kinds libjpeg refuses too: cv2.imread returns nothing, the file is
+# corrupt to the datasets (OSError), which drop it as JAX's do
+_CV2_REFUSES = (5, 6)
 PRESCALE, ORIENT = 1, 2
 
 
@@ -110,10 +119,13 @@ def _canvas(canvas: np.ndarray):
 def jpeg_info(path: str):
     """(w, h, orientation) from the JPEG's headers: the size as stored and
     the EXIF orientation (1-8; 1 without a well-formed Exif block). Raises
-    `JpegUnsupported` for a kind the decoder refuses, OSError for a file
-    that is missing or not a JPEG."""
+    `JpegUnsupported` for a kind the decoder refuses and libjpeg reads,
+    OSError for a file that is missing, not a JPEG, or of a kind libjpeg
+    refuses too (`_CV2_REFUSES`)."""
     info = np.zeros(4, np.int32)
     code = _lib().et_jpeg_info(os.fsencode(path), info.ctypes.data)
+    if code == -4 and int(info[3]) in _CV2_REFUSES:
+        raise OSError(f"{path}: JPEG with {_REFUSED[int(info[3])]}")
     if code == -4:
         raise JpegUnsupported(
             f"{path}: JPEG with {_REFUSED.get(int(info[3]), info[3])} is not "
@@ -304,26 +316,70 @@ def bmp_decode(data: bytes, offset: int, w: int, h: int, bottom_up: bool,
 
 # tiff_decode's flags: 16-bit samples big-endian; the horizontal predictor
 # (Predictor 2); 16-bit samples reduced as (v + 128) / 257 (else the high
-# byte)
-TIFF_BIG_ENDIAN, TIFF_PREDICTOR, TIFF_DIV257 = 1, 2, 4
+# byte); 16-bit samples kept whole (two bytes, low first); CCITT data of
+# FillOrder 1
+TIFF_BIG_ENDIAN, TIFF_PREDICTOR, TIFF_DIV257, TIFF_RAW16, TIFF_FAX_MSB = \
+    1, 2, 4, 8, 16
+# tiff_colour's kinds
+TIFF_CMYK, TIFF_YCBCR, TIFF_LAB8, TIFF_LAB16 = 1, 2, 3, 4
+# the colour spaces a JPEG chunk is decoded as (csrc/jpeg_decode.h Colour)
+JPEG_YCBCR, JPEG_RAW = 1, 5
 
 
 def tiff_decode(data, chunks, compression: int, w: int, h: int, cw: int,
                 ch: int, tiled: bool, planes: int, per_chunk: int, bits: int,
-                flags: int = 0) -> np.ndarray:
+                flags: int = 0, g3_2d: bool = False, subsampling=(0, 0),
+                jpeg=None, check_only: bool = False):
     """The strips or tiles of a TIFF image -> (h, w, per_chunk * planes)
-    uint8 samples: `chunks` (offset, byte count) into `data`, compressed
-    by `compression` (1 none, 5 LZW, 32773 PackBits), in the file's order
-    (plane, then chunk rows, then across); `flags` of `TIFF_*`."""
+    uint8 samples ((h, w, spp, 2) with TIFF_RAW16: each 16-bit sample's
+    low then high byte): `chunks` (offset, byte count) into `data`,
+    compressed by `compression` (1 none, 5 LZW, 32773 PackBits, 2 / 32771
+    CCITT modified Huffman, 3 Group 3 (`g3_2d`: two-dimensional), 4 Group
+    4, 7 JPEG, 0 none that decodes: zeros), in the file's order (plane,
+    then chunk rows, then across); `flags` of `TIFF_*`; `subsampling`
+    (h, v) of a subsampled YCbCr file (its samples come back as Y, Cb, Cr
+    per pixel); `jpeg` (tables bytes or None, colour JPEG_*,
+    (h, v) sampling libtiff expects of component 0, (0, 0): the first
+    chunk's). With `check_only` nothing is decoded and None is returned:
+    what libtiff checks before it decodes a chunk (that it lies in the
+    data, a JPEG chunk's headers) raises as the decode would."""
     buf = _bytes(data)
     table = np.ascontiguousarray(np.asarray(chunks, np.int64).reshape(-1, 2).T)
+    tables, colour, (jh, jv) = jpeg or (None, JPEG_RAW, (1, 1))
     layout = np.array([w, h, cw, ch, int(tiled), planes, per_chunk,
-                       per_chunk * planes, bits, flags], np.int32)
-    out = np.empty((h, w, per_chunk * planes), np.uint8)
-    _check(_lib().et_tiff_decode(buf.ctypes.data, buf.size,
+                       per_chunk * planes, bits, flags, int(g3_2d),
+                       subsampling[0], subsampling[1], colour, jh, jv],
+                      np.int32)
+    shape = (h, w, per_chunk * planes) + ((2,) if flags & TIFF_RAW16 else ())
+    out = None if check_only else np.empty(shape, np.uint8)
+    tab = None if tables is None else _bytes(tables)
+    code = _lib().et_tiff_decode(buf.ctypes.data, buf.size,
                                  table[0].ctypes.data, table[1].ctypes.data,
                                  table.shape[1], compression,
-                                 layout.ctypes.data, out.ctypes.data), "TIFF")
+                                 layout.ctypes.data,
+                                 None if tab is None else tab.ctypes.data,
+                                 0 if tab is None else tab.size,
+                                 None if out is None else out.ctypes.data)
+    if code == -4:
+        raise JpegUnsupported("a JPEG-in-TIFF stream of a kind the loader "
+                              "core refuses (csrc/jpeg_decode.h)")
+    _check(code, "TIFF")
+    return out
+
+
+def tiff_colour(samples: np.ndarray, kind: int, params=()) -> np.ndarray:
+    """(h, w, spp) samples ((h, w, spp, 2) for TIFF_LAB16) of a TIFF's
+    CMYK, YCbCr or CIELab image -> (h, w, 3) RGB as libtiff's RGBA
+    interface converts them; `params` the floats `kind` needs (csrc/
+    raster_decode.h tiff_colour)."""
+    s = np.ascontiguousarray(samples, np.uint8)
+    h, w, spp = s.shape[:3]
+    p = np.zeros(9, np.float32)
+    p[:len(params)] = params
+    out = np.empty((h, w, 3), np.uint8)
+    _check(_lib().et_tiff_colour(s.ctypes.data, h * w, spp, kind,
+                                 p.ctypes.data, out.ctypes.data),
+           "TIFF colour")
     return out
 
 

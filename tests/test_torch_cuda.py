@@ -423,7 +423,9 @@ def test_loader_core_builds_and_reads_on_the_card_machine(card, tmp_path):
     cv2's digests on the fixtures of test_torch_jpeg.py (the machine has
     no libjpeg to compare against), the PNG / BMP / TIFF readers give them
     on the fixtures of test_torch_image_formats.py, the WebP decoders on
-    those of test_torch_webp.py, and the core's writers round-trip (the
+    those of test_torch_webp.py, the TIFF kinds of ROADMAP Q1.9c (fax,
+    JPEG-in-TIFF, CMYK, CIELab, YCbCr) on those of
+    test_torch_tiff_kinds.py, and the core's writers round-trip (the
     lossless WebP one exactly)."""
     import subprocess
 
@@ -433,6 +435,7 @@ def test_loader_core_builds_and_reads_on_the_card_machine(card, tmp_path):
     from test_torch_image_formats import \
         check_fixtures as check_format_fixtures
     from test_torch_jpeg import check_fixtures
+    from test_torch_tiff_kinds import check_fixtures as check_tiff_fixtures
     from test_torch_webp import check_fixtures as check_webp_fixtures
 
     built = host_library()
@@ -452,6 +455,7 @@ def test_loader_core_builds_and_reads_on_the_card_machine(card, tmp_path):
     assert check_fixtures(tmp_path / "fixtures") == []
     assert check_format_fixtures(tmp_path / "format_fixtures") == []
     assert check_webp_fixtures(tmp_path / "webp_fixtures") == []
+    assert check_tiff_fixtures(tmp_path / "tiff_fixtures") == []
     image_io.imwrite(str(tmp_path / "a.webp"), img)
     assert np.array_equal(image_io.imread(str(tmp_path / "a.webp")),
                           img[..., ::-1])

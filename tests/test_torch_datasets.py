@@ -257,11 +257,12 @@ def test_dataset_statistics_and_items_match_jax(data):
 
 
 def test_unread_formats_raise_when_the_dataset_is_built(data, tmp_path):
-    """A TIFF kind the port does not read (float samples, ROADMAP Q1.9c)
-    raises when the dataset is built; WebP (Q1.9b), refused here before,
-    and BMP and 16-bit PNG are read (tests/test_torch_webp.py and
-    tests/test_torch_image_formats.py hold them to cv2): a split with a
-    .webp builds, its shapes and items equal to JAX's."""
+    """WebP (ROADMAP Q1.9b), refused here before, and BMP and 16-bit PNG
+    are read (tests/test_torch_webp.py and tests/test_torch_image_formats
+    .py hold them to cv2): a split with a .webp builds, its shapes and
+    items equal to JAX's. A float TIFF, which raised here until F10 was
+    closed, is one cv2.imread reads nothing of: it leaves the port's
+    dataset as it leaves JAX's."""
     src = Path(data).read_text().split()[0]
     webp = tmp_path / "images" / "x.webp"
     webp.parent.mkdir()
@@ -279,8 +280,14 @@ def test_unread_formats_raise_when_the_dataset_is_built(data, tmp_path):
     tif = tmp_path / "images" / "f.tif"
     assert cv2.imwrite(str(tif), cv2.imread(src).astype(np.float32))
     lst.write_text(f"{src}\n{tif}\n")
-    with pytest.raises(NotImplementedError, match="float"):
-        port_ds.LoadImagesAndLabels(str(lst), img_size=IMG, nc=8)
+    assert cv2.imread(str(tif)) is None
+    port = port_ds.LoadImagesAndLabels(str(lst), img_size=IMG, nc=8)
+    ref = jax_ds.LoadImagesAndLabels(str(lst), img_size=IMG, nc=8)
+    assert port.img_files == ref.img_files == [src]
+    np.testing.assert_array_equal(port.shapes, ref.shapes)
+    np.testing.assert_array_equal(port[0][0], ref[0][0])
+    with pytest.raises(OSError, match="float"):
+        image_io.image_size(str(tif))
 
 
 def test_host_augmentation_raises(data):

@@ -431,22 +431,37 @@ def tiff_bytes(samples: np.ndarray, bits: int = 8, photometric: int = 2,
                 elif compression == 32773:
                     raw = _packbits(raw)
                 chunks.append(raw)
+    extra_tags = []
+    if predictor != 1:
+        extra_tags.append((317, 3, [predictor]))
+    if extras is not None:
+        extra_tags.append((338, 3, list(extras)))
+    if colormap is not None:
+        extra_tags.append((320, 3, list(colormap)))
+    if orientation:
+        extra_tags.append((274, 3, [orientation]))
+    return tiff_file(samples.shape, chunks, bits, photometric, compression,
+                     planar, 0 if tile else ch, tile, big_endian, bigtiff,
+                     extra_tags + list(tags))
+
+
+def tiff_file(shape, chunks, bits: int = 8, photometric: int = 2,
+              compression: int = 1, planar: int = 1, rows_per_strip: int = 0,
+              tile=None, big_endian: bool = False, bigtiff: bool = False,
+              tags=()) -> bytes:
+    """A TIFF of `shape` (h, w, spp) whose strips (of `rows_per_strip`
+    rows, 0: one strip) or tiles (tw, th) are the byte strings `chunks`;
+    `tags` more (tag, type, values; a RATIONAL's values in pairs)."""
+    bo = ">" if big_endian else "<"
+    h, w, spp = shape
     entries = [(256, 4, [w]), (257, 4, [h]), (258, 3, [bits] * spp),
                (259, 3, [compression]), (262, 3, [photometric]),
                (277, 3, [spp]), (284, 3, [planar])]
-    if predictor != 1:
-        entries.append((317, 3, [predictor]))
-    if extras is not None:
-        entries.append((338, 3, list(extras)))
-    if colormap is not None:
-        entries.append((320, 3, list(colormap)))
-    if orientation:
-        entries.append((274, 3, [orientation]))
     if tile:
-        entries += [(322, 4, [cw]), (323, 4, [ch]), (324, 4, None),
+        entries += [(322, 4, [tile[0]]), (323, 4, [tile[1]]), (324, 4, None),
                     (325, 4, [len(c) for c in chunks])]
     else:
-        entries += [(278, 4, [ch]), (273, 4, None),
+        entries += [(278, 4, [rows_per_strip or h]), (273, 4, None),
                     (279, 4, [len(c) for c in chunks])]
     entries += list(tags)
     head = 16 if bigtiff else 8
@@ -461,11 +476,13 @@ def tiff_bytes(samples: np.ndarray, bits: int = 8, photometric: int = 2,
     esize, inline = (20, 8) if bigtiff else (12, 4)
     extra_at = ifd_at + (8 if bigtiff else 2) + esize * len(entries) + \
         (8 if bigtiff else 4)
-    fmt = {3: "H", 4: "I", 11: "f", 12: "d", 16: "Q"}
+    fmt = {1: "B", 3: "H", 4: "I", 5: "I", 7: "B", 11: "f", 12: "d",
+           16: "Q"}
     ifd, extra = b"", b""
     for tag, typ, vals in entries:
         body = struct.pack(f"{bo}{len(vals)}{fmt[typ]}", *vals)
-        cnt = struct.pack(bo + ("Q" if bigtiff else "I"), len(vals))
+        cnt = struct.pack(bo + ("Q" if bigtiff else "I"),
+                          len(vals) // 2 if typ == 5 else len(vals))
         if len(body) <= inline:
             ifd += struct.pack(bo + "HH", tag, typ) + cnt + body.ljust(
                 inline, b"\0")
@@ -598,34 +615,35 @@ def test_kind_reads_as_cv2_imread(name, tmp_path):
                                                   want.shape[0])
 
 
-# BMP files cv2's decoder refuses (it returns nothing): a kind its header
-# names raises NotImplementedError in the port, a corrupt file OSError
-# (which the datasets drop, as JAX's drop what cv2 cannot read)
+# BMP files cv2's decoder refuses (it returns nothing): each raises
+# OSError in the port, which the datasets drop, as JAX's drop what cv2
+# cannot read; "header" where the header names a kind cv2 does not take
+# (ROADMAP F10: these raised NotImplementedError before)
 _PAL = np.zeros((256, 3))
 CV2_FAILS = {
-    "bmp_40_555_badmasks": (NotImplementedError, lambda rng, h, w: bmp_bytes(
+    "bmp_40_555_badmasks": ("header", lambda rng, h, w: bmp_bytes(
         b"\0" * 4 * w * h, w, h, 16, 40, 3, masks=(0xF00, 0xF0, 0xF),
         masks_after=True)),
     # a v5 header keeps its masks inside it, but cv2 reads them after it
-    "bmp_124_565_masks_inside": (NotImplementedError, lambda rng, h, w:
+    "bmp_124_565_masks_inside": ("header", lambda rng, h, w:
                                  bmp_bytes(rng.integers(
                                      1, 256, 4 * w * h, np.uint8).tobytes(),
                                      w, h, 16, 124, 3,
                                      masks=(0xF800, 0x7E0, 0x1F))),
-    "bmp_40_16_rle8": (NotImplementedError, lambda rng, h, w: bmp_bytes(
+    "bmp_40_16_rle8": ("header", lambda rng, h, w: bmp_bytes(
         b"\0" * 64, w, h, 16, 40, 1)),
-    "bmp_12_16": (NotImplementedError, lambda rng, h, w: bmp_bytes(
+    "bmp_12_16": ("header", lambda rng, h, w: bmp_bytes(
         b"\0" * 4 * w * h, w, h, 16, 12)),
-    "bmp_40_24_truncated": (OSError, lambda rng, h, w: bmp_bytes(
+    "bmp_40_24_truncated": ("data", lambda rng, h, w: bmp_bytes(
         b"\7" * (3 * w * h // 2), w, h, 24)),
-    "bmp_40_rle8_run_past_row": (OSError, lambda rng, h, w: bmp_bytes(
+    "bmp_40_rle8_run_past_row": ("data", lambda rng, h, w: bmp_bytes(
         bytes([w + 1, 3, 0, 1]), w, h, 8, 40, 1, _PAL)),
-    "bmp_40_rle8_no_eob": (OSError, lambda rng, h, w: bmp_bytes(
+    "bmp_40_rle8_no_eob": ("data", lambda rng, h, w: bmp_bytes(
         bytes([2, 3, 0, 0]), w, h, 8, 40, 1, _PAL)),
     # RLE4's end of bitmap ends only its row (cv2 then reads past the data)
-    "bmp_40_rle4_eob": (OSError, lambda rng, h, w: _bmp_kind(
+    "bmp_40_rle4_eob": ("data", lambda rng, h, w: _bmp_kind(
         rng, h, w, "bmp_40_rle4_eob")),
-    "bmp_40_rle4_no_eol": (OSError, lambda rng, h, w: bmp_bytes(
+    "bmp_40_rle4_no_eol": ("data", lambda rng, h, w: bmp_bytes(
         bytes([w, 0x11, w, 0x22, 0, 1]), w, h, 4, 40, 2, _PAL[:16])),
 }
 
@@ -637,11 +655,12 @@ def test_files_cv2_cannot_read_raise(name, tmp_path):
     error, make = CV2_FAILS[name]
     path.write_bytes(make(rng, 23, 37))
     assert _cv2_read(path) is None
-    with pytest.raises(error):
+    with pytest.raises(OSError):
         image_io.imread(str(path))
-    if error is NotImplementedError:
-        with pytest.raises(error, match="BMP"):
+    if error == "header":
+        with pytest.raises(OSError, match="BMP .* is not read"):
             image_io.image_size(str(path))
+        assert port_ds.verify_image_label(str(path), None, 8) is None
 
 
 @pytest.mark.parametrize("kind", ["opencv", "pillow"])
@@ -818,26 +837,30 @@ def _refused_tiff(kind: str) -> bytes:
     raise KeyError(kind)
 
 
-REFUSED_TIFF = {"jpeg": "JPEG compression", "old_jpeg": "old-style JPEG",
-                "ccitt_g4": "CCITT Group 4", "ccitt_rle": "CCITT RLE",
-                "lzma": "LZMA", "ycbcr": "YCbCr", "cmyk": "Separated",
-                "cielab": "CIELab", "float": "float", "signed": "signed",
-                "bits_12": "12-bit", "float_predictor": "predictor 3",
-                "fill_order_2": "FillOrder 2",
-                "grey_alpha_4_bit": "4-bit",
-                "grey_2_bit": "2-bit", "palette_2_bit": "2-bit",
-                "grey_4_bit": "4-bit", "palette_16_bit": "16-bit"}
-# of these cv2 5.0.0 reads none either (the JAX package drops them)
-CV2_REFUSES_TOO = ("float", "bits_12", "float_predictor", "grey_alpha_4_bit",
-                   "grey_2_bit", "palette_2_bit", "grey_4_bit",
-                   "palette_16_bit")
+# what the port's error names, for each kind it refused before ROADMAP
+# Q1.9c's TIFF half
+REFUSED_TIFF = {"jpeg": "corrupt", "old_jpeg": "old-style JPEG",
+                "ccitt_g4": "", "ccitt_rle": "", "lzma": "LZMA",
+                "ycbcr": "", "cmyk": "", "cielab": "", "float": "float",
+                "signed": "", "bits_12": "12-bit",
+                "float_predictor": "predictor 3", "fill_order_2": "",
+                "grey_alpha_4_bit": "4-bit", "grey_2_bit": "2-bit",
+                "palette_2_bit": "2-bit", "grey_4_bit": "4-bit",
+                "palette_16_bit": "16-bit"}
+# of these cv2 5.0.0 reads all but these, which it returns None for (the
+# "jpeg" file's strip is no JPEG stream; the JAX package drops them all)
+CV2_REFUSES_TOO = ("jpeg", "old_jpeg", "lzma", "float", "bits_12",
+                   "float_predictor", "grey_alpha_4_bit", "grey_2_bit",
+                   "palette_2_bit", "grey_4_bit", "palette_16_bit")
 
 
 @pytest.mark.parametrize("kind", sorted(REFUSED_TIFF) + ["webp"])
 def test_refused_kinds_raise_at_dataset_build(kind, tmp_path):
-    """Each TIFF kind the port does not read raises when the dataset is
-    built, naming the file. The "webp" case, refused before ROADMAP Q1.9b,
-    now builds: the file is read as cv2 reads it."""
+    """Each kind the port refused before (TIFF kinds until ROADMAP
+    Q1.9c's TIFF half, WebP until Q1.9b) now takes the JAX package's
+    course: one cv2 reads builds and reads as cv2.imread reads it; one cv2
+    reads nothing of leaves the dataset, as it leaves JAX's (F10, closed),
+    through an OSError that names its kind."""
     good = tmp_path / "images" / "good.png"
     good.parent.mkdir()
     image_io.write_png(str(good), np.full((24, 40, 3), 90, np.uint8))
@@ -853,15 +876,23 @@ def test_refused_kinds_raise_at_dataset_build(kind, tmp_path):
         return
     bad = tmp_path / "images" / f"{kind}.tif"
     bad.write_bytes(_refused_tiff(kind))
-    error, match = tiff_io.TiffUnsupported, REFUSED_TIFF[kind]
     lst.write_text(f"{good}\n{bad}\n")
-    with pytest.raises(error, match=match) as err:
-        port_ds.LoadImagesAndLabels(str(lst), img_size=32, nc=8)
+    ds = port_ds.LoadImagesAndLabels(str(lst), img_size=32, nc=8)
+    want = _cv2_read(bad)
+    if kind not in CV2_REFUSES_TOO:
+        assert want is not None
+        assert len(ds) == 2 and tuple(ds.shapes[1]) == (37, 23)
+        np.testing.assert_array_equal(image_io.imread(str(bad)), want)
+        return
+    jax_ds = pytest.importorskip("efficientteacher_tpu.data.datasets")
+    assert want is None
+    assert jax_ds.verify_image_label(str(bad), None, 8) is None
+    assert ds.img_files == [str(good)]
+    with pytest.raises(OSError, match=REFUSED_TIFF[kind]) as err:
+        image_io.image_size(str(bad))
     assert str(bad) in str(err.value)
-    with pytest.raises(error):
+    with pytest.raises(OSError):
         image_io.imread(str(bad))
-    if kind in CV2_REFUSES_TOO:
-        assert _cv2_read(bad) is None
 
 
 # -- writers --------------------------------------------------------------

@@ -126,6 +126,28 @@ def test_port_and_chip_smoke_import_without_jax():
     assert proc.returncode == 0, proc.stderr
 
 
+# the tests' writers and fixture checks chip_smoke.py imports on the card's
+# machine
+CHIP_HELPERS = ["test_torch_image_formats", "test_torch_webp",
+                "test_torch_tiff_kinds"]
+
+
+def test_chip_smoke_helpers_import_without_jax():
+    code = (
+        "import importlib, sys\n"
+        f"sys.path.insert(0, {str(REPO / 'tests')!r})\n"
+        f"for m in {CHIP_HELPERS!r}:\n"
+        "    importlib.import_module(m)\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'flax', 'cv2', 'PIL', 'efficientteacher_tpu'))\n"
+        "assert not bad, bad\n"
+    )
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+
+
 def test_chip_smoke_refuses_to_run_without_a_card(tmp_path):
     """Without CUDA (as here) it exits non-zero and prints no result line;
     alone in a directory it cannot import the port and fails too."""

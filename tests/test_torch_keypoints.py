@@ -255,7 +255,7 @@ def test_keypoint_heads_match_jax(family):
     heads/yolov5.py, heads/yolov7.py:43-46: no = nc + 2 np + 5; the
     port's YoloV7Detect takes `no` from YoloV5Detect), decoded as JAX
     decodes them: eval outputs within 1e-5 of the largest entry."""
-    from test_torch_zoo import zoo_cfg
+    from torch_zoo_cases import zoo_cfg
     from torch_port_helpers import jax_and_port_models, yolov5_cfg
 
     cfg = yolov5_cfg() if family == "yolov5" else zoo_cfg(family)

@@ -58,7 +58,7 @@ from efficientteacher_torch.utils.jax_import import state_dict_from_jax
 
 from test_torch_datasets import write_dataset
 from test_torch_trainer_resume import Replay, _sup_batches, _target_batches
-from test_torch_zoo import YAMLS, zoo_cfg
+from torch_zoo_cases import YAMLS, zoo_cfg
 from torch_port_helpers import (jax_and_port_models, one_torch_thread,  # noqa
                                 no_leaked_pt_stubs, yolov5_cfg)
 

@@ -1,0 +1,13 @@
+"""The port's supervised Trainer against the JAX package's on the
+YOLOv7-L and YOLOv7-s-SimOTA YAMLs, and cli.train / cli.val on YOLOv7-L's (the cases and their tolerances:
+tests/torch_trainer_zoo_cases.py)."""
+
+from torch_port_helpers import one_torch_thread  # noqa: F401
+from torch_trainer_zoo_cases import (  # noqa: F401
+    cli_run_fixture, test_cli_train_and_val_on_the_yaml,
+    test_zoo_batches_schedule_and_counters_exact,
+    test_zoo_losses_and_results_within_tolerance,
+    test_zoo_state_after_each_step_within_tolerance, zoo_runs_fixture)
+
+zoo_runs = zoo_runs_fixture(["yolov7l", "yolov7s_simota"])
+cli_run = cli_run_fixture(["yolov7l"])
