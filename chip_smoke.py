@@ -141,7 +141,18 @@ read just after:
     of 8 and 16 bits, FillOrder 2, Group 3 fax, signed samples) with its
     own PNG copy: cli.val on both equal, K1, K2 and the count held as on
     the other splits (`tiff: cli.val` on the kernels line); the new
-    kinds' decode img/s.
+    kinds' decode img/s. The damaged and rare JPEGs too (ROADMAP F11, F12,
+    Q1.9c's JPEG half): the fixtures of tests/test_torch_jpeg_damaged.py
+    (cut-short and partial progressive files, arithmetic coding, lossless,
+    damaged TIFF strips) to cv2's digests at every scale; the val split
+    written a fifth time, cycling through tests/jpeg_writers.py's
+    SPLIT_KINDS (cut short, a progressive file cut in a scan, one ended
+    after four scans, SOF9, SOF10 with restarts, lossless RGB; written by
+    numpy in 8 processes) with its own PNG copy: cli.val on both equal,
+    K1, K2 and the count held as on the other splits (`jpeg kinds:
+    cli.val`), the lossless files equal to their sources and the
+    arithmetic ones to the same coefficients Huffman-coded; their decode
+    img/s.
 
 It times the forward, the NMS, the selection engine against `torch.topk`,
 the training steps and their phases (CUDA events), and each kernel
@@ -1000,11 +1011,10 @@ def jpeg_probe(torch):
     decoder (it links no libjpeg; `ldd` checks), held against cv2's
     digests of the fixtures of tests/test_torch_jpeg.py (baseline 4:2:0 /
     4:2:2 / 4:4:4 / grey, progressive, restart intervals, an EXIF
-    orientation, partial MCUs; scales 1, 1/2, 1/4, 1/8); a dataset holding
-    a JPEG kind the decoder refuses raises when it is built, naming the
-    file. Also records which of cv2, PIL and yaml import there (the port
+    orientation, partial MCUs; scales 1, 1/2, 1/4, 1/8); a dataset drops
+    a JPEG kind libjpeg refuses (12-bit) and reads an arithmetic-coded
+    one. Also records which of cv2, PIL and yaml import there (the port
     uses none) and nvJPEG's header and library."""
-    import base64
     import tempfile
 
     from efficientteacher_torch.data.datasets import LoadImagesAndLabels
@@ -1048,22 +1058,35 @@ def jpeg_probe(torch):
         print(f"[data] JPEG decoder == cv2.imread's digests on {n} decodes "
               f"of {len(FIXTURES)} fixtures ({', '.join(FIXTURES)}) x scales"
               f" 1, 1/2, 1/4, 1/8 in {dt * 1e3:.1f} ms")
-        # a refused kind: the baseline fixture's SOF0 made arithmetic (SOF9)
-        data = bytearray(base64.b64decode(FIXTURES["baseline_420"][0]))
-        data[data.index(b"\xff\xc0") + 1] = 0xC9
-        img = Path(tmp) / "images" / "arith.jpg"
-        img.parent.mkdir()
-        img.write_bytes(bytes(data))
+        # what libjpeg refuses (a 12-bit file) leaves the dataset, as cv2's
+        # None leaves JAX's; an arithmetic-coded one (SOF9) is read
+        import numpy as np
+
+        import jpeg_writers as jw
+
+        rgb = np.full((24, 40, 3), 90, np.uint8)
+        rgb[:, 20:] = 160
+        (Path(tmp) / "images").mkdir()
+        paths = [Path(tmp) / "images" / f"{k}.jpg"
+                 for k in ("arith", "precision_12")]
+        paths[0].write_bytes(jw.encode(jw.ycc(rgb), [(1, 1)] * 3,
+                                       arith=True))
+        paths[1].write_bytes(jw.encode(
+            [p.astype(np.int64) * 16 for p in jw.ycc(rgb)], [(1, 1)] * 3,
+            precision=12))
         lst = Path(tmp) / "l.txt"
-        lst.write_text(f"{img}\n")
+        lst.write_text("".join(f"{p}\n" for p in paths))
+        ds = LoadImagesAndLabels(str(lst), img_size=IMG, nc=NC)
+        require(ds.img_files == [str(paths[0])],
+                f"the dataset kept {ds.img_files}")
         try:
-            LoadImagesAndLabels(str(lst), img_size=IMG, nc=NC)
-        except nl.JpegUnsupported as e:
-            require(str(img) in str(e), f"the error names no file: {e}")
-            print(f"[data] a dataset holding a refused JPEG kind raises when "
-                  f"it is built: {e}")
+            nl.jpeg_info(str(paths[1]))
+        except OSError as e:
+            print(f"[data] a dataset drops a JPEG kind libjpeg refuses, as "
+                  f"JAX's drops cv2's None ({e}), and reads an arithmetic-"
+                  f"coded one")
         else:
-            raise SmokeFailure("a dataset with an arithmetic JPEG was built")
+            raise SmokeFailure("a 12-bit JPEG was read")
 
 
 def write_dataset(torch):
@@ -4396,6 +4419,9 @@ DETECT_KINDS = ("bmp", "tif", "png8", "webp90")
 # SPLIT_KINDS) are the fourth split's; these of them are timed
 TIFF_RATE_KINDS = ("tifjpeg", "tifycc22", "tifcmyk", "tiflab",
                    "tiffill2_lzw", "tifg3")
+# the JPEG kinds of ROADMAP Q1.9c's JPEG half and F12 (tests/jpeg_writers.py
+# SPLIT_KINDS: cut short, a partial progressive file, arithmetic, lossless)
+# are the fifth split's, and each is timed
 
 
 def webp_file(path: Path, kind: str, rgb) -> Path:
@@ -4534,8 +4560,10 @@ def formats_leg(torch, dev, card, lists, tmp):
                                                          save_checkpoint)
 
     sys.path.insert(0, str(Path(__file__).resolve().parent / "tests"))
+    import jpeg_writers as jw
     import test_torch_image_formats as tif_fx
     import test_torch_jpeg as jpg_fx
+    import test_torch_jpeg_damaged as jd_fx
     import test_torch_tiff_kinds as tiffk_fx
     import test_torch_webp as webp_fx
 
@@ -4545,7 +4573,8 @@ def formats_leg(torch, dev, card, lists, tmp):
     bad = jpg_fx.check_fixtures(tmp / "jpeg_fixtures") + \
         tif_fx.check_fixtures(tmp / "format_fixtures") + \
         webp_fx.check_fixtures(tmp / "webp_fixtures") + \
-        tiffk_fx.check_fixtures(tmp / "tiff_kind_fixtures")
+        tiffk_fx.check_fixtures(tmp / "tiff_kind_fixtures") + \
+        jd_fx.check_fixtures(tmp / "damaged_fixtures")
     counts = {}
     for name in tif_fx.FIXTURES:
         fmt = tif_fx.fixture_format(name)
@@ -4553,6 +4582,8 @@ def formats_leg(torch, dev, card, lists, tmp):
     counts["webp"] = len(webp_fx.FIXTURES)
     counts["tiff kinds"] = len(tiffk_fx.FIXTURES)
     counts["jpeg"] = sum(len(d) for _, d in jpg_fx.FIXTURES.values())
+    counts["damaged / rare jpeg and tiff"] = sum(
+        len(d) for _, d in jd_fx.FIXTURES.values())
     require(not bad, f"decodes differ from cv2's digests: {bad}")
     print(f"[formats] fixtures == cv2.imread's digests, 0 mismatches: "
           + ", ".join(f"{k} {v}" for k, v in counts.items())
@@ -4563,7 +4594,27 @@ def formats_leg(torch, dev, card, lists, tmp):
     t0 = time.perf_counter()
     val = Path(lists["val"]).read_text().split()
     pairs = (("png", "formats"), ("webp_png", "webp"),
-             ("tiffkinds_png", "tiffkinds"))
+             ("tiffkinds_png", "tiffkinds"), ("jpegkinds_png", "jpegkinds"))
+    # the JPEG kinds' files, by the tests' numpy writers in 8 processes:
+    # the split's, each arithmetic file's Huffman twin, one of each kind at
+    # 640x480 for the rates
+    import multiprocessing
+
+    from concurrent.futures import ProcessPoolExecutor
+
+    jk = jw.SPLIT_KINDS
+    srcs = [image_io.imread(v) for v in val]
+    base = next(im for im in srcs if im.shape[:2] == (480, 640))
+    tasks = [(jk[i % len(jk)], im) for i, im in enumerate(srcs)]
+    twins = [i for i, (k, _) in enumerate(tasks) if k.startswith("arith")]
+    tasks += [("baseline", srcs[i]) for i in twins]
+    tasks += [(k, base) for k in jk]
+    with ProcessPoolExecutor(
+            8, mp_context=multiprocessing.get_context("spawn")) as ex:
+        written = list(ex.map(jw.kind_file, *zip(*tasks)))
+    jpeg_split = written[:len(val)]
+    twin_of = dict(zip(twins, written[len(val):len(val) + len(twins)]))
+    jpeg_rates = dict(zip(jk, written[len(val) + len(twins):]))
     splits = {}
     for name in [n for pair in pairs for n in pair]:
         for d in ("images", "labels"):
@@ -4573,14 +4624,18 @@ def formats_leg(torch, dev, card, lists, tmp):
 
     def write(i):
         src = val[i]
-        rgb = image_io.imread(src)
+        rgb = srcs[i]
         stem = Path(src).stem
         label = Path(src).parent.parent / "labels" / f"{stem}.txt"
         out = []
         for (copy_name, name), kinds in zip(pairs, (
-                FORMAT_KINDS, WEBP_KINDS, tiffk_fx.SPLIT_KINDS)):
+                FORMAT_KINDS, WEBP_KINDS, tiffk_fx.SPLIT_KINDS, jk)):
             kind = kinds[i % len(kinds)]
-            path = format_file(tmp / name / "images" / stem, kind, rgb)
+            if name == "jpegkinds":
+                path = tmp / name / "images" / f"{stem}.jpg"
+                path.write_bytes(jpeg_split[i])
+            else:
+                path = format_file(tmp / name / "images" / stem, kind, rgb)
             copy = tmp / copy_name / "images" / f"{stem}.png"
             image_io.write_png(str(copy), image_io.imread(str(path)),
                                level=1)
@@ -4620,12 +4675,33 @@ def formats_leg(torch, dev, card, lists, tmp):
     require(tiff_same == sum(kinds_used.get(k, 0) for k in (
         "tiffill2_lzw", "tifsigned")),
         "a lossless TIFF kind decodes unlike its source image")
+    jpeg_pairs = list(zip(files["jpegkinds"], files["jpegkinds_png"]))
+    jpeg_same = sum(np.array_equal(image_io.imread(a), image_io.imread(b))
+                    for a, b in jpeg_pairs)
+    require(jpeg_same == len(jpeg_pairs),
+            f"{len(jpeg_pairs) - jpeg_same} JPEG-kind files decode unlike "
+            f"their PNG copies")
+    ll_same = sum(np.array_equal(image_io.imread(a), srcs[i])
+                  for i, a in enumerate(files["jpegkinds"])
+                  if kind_of[a] == "lossless")
+    require(ll_same == kinds_used.get("lossless", 0),
+            "a lossless JPEG decodes unlike its source image")
+    twin_same = 0
+    for i, data in twin_of.items():
+        twin = tmp / f"twin_{i}.jpg"
+        twin.write_bytes(data)
+        twin_same += np.array_equal(image_io.imread(str(twin)),
+                                    image_io.imread(files["jpegkinds"][i]))
+    require(twin_same == len(twin_of), "an arithmetic JPEG decodes unlike "
+            "the same coefficients Huffman-coded")
     print(f"[formats] val split ({len(val)} images at {NATIVE_WH}) written "
           f"as PNG and as {kinds_used} in {t_write:.1f} s; the "
           f"{len(lossless)} lossless, WebP and new TIFF files decode as "
           f"their PNG copies, the {src_same} VP8L ones (EXIF-turned too) "
           f"and the {tiff_same} FillOrder 2 / signed TIFFs as their "
-          f"sources")
+          f"sources; the {jpeg_same} JPEG-kind files as their PNG copies, "
+          f"the {ll_same} lossless ones as their sources, the {twin_same} "
+          f"arithmetic ones as their Huffman twins")
 
     # -- YOLOv5l at the mid density, cli.val on both --------------------
     cfg = ssod_cfg(*data_overrides(lists))
@@ -4645,9 +4721,10 @@ def formats_leg(torch, dev, card, lists, tmp):
     ckpt = tmp / "formats_mid.ckpt"
     save_checkpoint(ckpt, params=v["params"], batch_stats=v["batch_stats"])
     results, entries = {}, []
-    label = {"formats": "formats", "webp": "webp", "tiffkinds": "tiff"}
+    label = {"formats": "formats", "webp": "webp", "tiffkinds": "tiff",
+             "jpegkinds": "jpeg kinds"}
     for name in ("png", "formats", "webp_png", "webp", "tiffkinds_png",
-                 "tiffkinds"):
+                 "tiffkinds", "jpegkinds_png", "jpegkinds"):
         argv = ["--cfg", str(MAIN_YAML), "--weights", str(ckpt),
                 "--batch-size", str(T_BATCH), "Dataset.val",
                 str(splits[name])]
@@ -4665,12 +4742,13 @@ def formats_leg(torch, dev, card, lists, tmp):
                                    launches, card)
     require(results["png"] == results["formats"]
             and results["webp_png"] == results["webp"]
-            and results["tiffkinds_png"] == results["tiffkinds"],
+            and results["tiffkinds_png"] == results["tiffkinds"]
+            and results["jpegkinds_png"] == results["jpegkinds"],
             f"cli.val differs between a split and its PNG copy: {results}")
     print(f"[formats] cli.val: the formats split's results == the PNG "
-          f"split's, the WebP split's and the TIFF kinds' == their PNG "
-          f"copies' ({shift[1]:.0f} candidates/img on the calibration "
-          f"batch)")
+          f"split's, the WebP split's, the TIFF kinds' and the JPEG kinds' "
+          f"== their PNG copies' ({shift[1]:.0f} candidates/img on the "
+          f"calibration batch)")
 
     # -- cli.detect over .bmp / .tif / .png / .webp sources ------------
     src_dir = {k: tmp / f"detect_{k}" for k in ("mixed", "png")}
@@ -4717,13 +4795,15 @@ def formats_leg(torch, dev, card, lists, tmp):
           f"label files == the PNG copies'")
 
     # -- decode rates per kind at 640x480 -------------------------------
-    base = image_io.imread(next(p for p in val if image_io.image_size(p)
-                                == (640, 480)))
     rates = {}
-    for kind in RATE_KINDS + TIFF_RATE_KINDS:
+    for kind in RATE_KINDS + TIFF_RATE_KINDS + tuple(f"jpg_{k}" for k in jk):
         d = tmp / f"rate_{kind}"
         d.mkdir()
-        first = format_file(d / "0", kind, base)
+        if kind.startswith("jpg_") and kind[4:] in jpeg_rates:
+            first = d / "0.jpg"
+            first.write_bytes(jpeg_rates[kind[4:]])
+        else:
+            first = format_file(d / "0", kind, base)
         data = first.read_bytes()
         paths = [first] + [first.with_name(f"{i}{first.suffix}")
                            for i in range(1, RATE_COPIES)]

@@ -1,22 +1,49 @@
-// JPEG decoder of the host loader core: the decode libjpeg-turbo (8-bit,
-// its defaults, as cv2.imread calls it) gives, bit for bit, with no
+// JPEG decoder of the host loader core: the decode libjpeg-turbo 3.1 (8-bit
+// API, its defaults, as cv2.imread calls it) gives, bit for bit, with no
 // library. Included by loader_core.cpp only.
 //
-// Decodes baseline (SOF0), extended 8-bit Huffman (SOF1) and progressive
-// Huffman (SOF2) files of 1 component (grey), 3 (YCbCr, or RGB where the
-// markers say so) or 4 (CMYK, YCCK), with any sampling factors libjpeg
-// accepts (1-4 each, integral ratios, at most 10 blocks in an interleaved
-// MCU), with restart intervals, at scale 1, 1/2, 1/4 or 1/8. Everything
-// else is refused with a Kind, from the headers, before any entropy-coded
-// data is read.
+// Decodes baseline (SOF0), extended sequential (SOF1), progressive (SOF2)
+// and lossless (SOF3) Huffman files and sequential (SOF9) and progressive
+// (SOF10) arithmetic-coded ones, 8-bit (lossless: 2-8), of 1 component (grey), 3 (YCbCr,
+// or RGB where the markers say so) or 4 (CMYK, YCCK), with any sampling
+// factors libjpeg accepts (1-4 each, integral ratios, at most 10 blocks in
+// an interleaved MCU), with restart intervals, at scale 1, 1/2, 1/4 or 1/8
+// (a lossless file at full size whatever the scale, as libjpeg gives it).
+// Damaged and truncated data decode as libjpeg decodes them. What libjpeg
+// refuses as cv2.imread calls it (other precisions, hierarchical and
+// arithmetic lossless frames, a lossless colour conversion) is refused
+// with a Kind, from the headers, before any entropy-coded data is read.
 //
 // Reproduced libjpeg-turbo routines (names are its files and functions):
+//   jdatasrc.c  fill_input_buffer   (past the end of the data the source
+//                           gives a fake EOI: FF D9, again and again)
+//   jdmarker.c  read_markers, next_marker, get_sof, get_sos, get_dac,
+//               read_restart_marker, jpeg_resync_to_restart
 //   jdhuff.c / jdphuff.c    Huffman decode; sequential, DC/AC first and
 //                           refinement scans, EOB runs; a table the file
-//                           never defines is the standard one (jstdhuff.c)
-//   jidctint.c  jpeg_idct_islow   (13-bit constants, PASS1_BITS 2)
-//   jidctred.c  jpeg_idct_4x4 / _2x2 / _1x1   (the reduced-size IDCTs)
-//   jdmaster.c  prepare_range_limit_table   (the IDCT's wrap, RANGE_MASK)
+//                           never defines is the standard one (jstdhuff.c);
+//                           jpeg_fill_bit_buffer's insufficient_data: the
+//                           MCU in which the data runs out decodes on zero
+//                           bits, every later one of the segment is
+//                           skipped, a restart marker read clears it
+//   jdarith.c   arith_decode (the QM decoder, jaricom.c's Qe table),
+//               decode_mcu, decode_mcu_DC_first / _AC_first / _DC_refine /
+//               _AC_refine, the statistics areas, DAC conditioning (L, U,
+//               Kx), process_restart; zero data once the data ends
+//   jdlhuff.c   decode_mcus (difference categories 0-16)
+//   jdlossls.c  jpeg_undifference1-7, _first_row, simple_upscale (Pt)
+//   jddiffct.c  decompress_data (restart rows, undifferencing per row)
+//   jdcoefct.c  consume_data's last_good_iMCU_row, smoothing_ok and
+//               decompress_smooth_data (block smoothing of progressive
+//               files whose coefficients are not all refined: the
+//               coefficient-bit latch of the last scan and the one before,
+//               10 coefficients estimated from a 5x5 DC neighbourhood)
+//   simd/x86_64 jidctint-avx2.asm jsimd_idct_islow_avx2, jidctred-sse2.asm
+//               jsimd_idct_4x4_sse2 / _2x2_sse2   (the IDCTs cv2's build runs
+//                           at scales 1, 1/2, 1/4: 13-bit constants,
+//                           PASS1_BITS 2, 16-bit lanes, saturating packs)
+//   jidctred.c  jpeg_idct_1x1 with jdmaster.c prepare_range_limit_table
+//                           (the 1/8 scale: the C code's wrap, RANGE_MASK)
 //   jdmaster.c  jpeg_calc_output_dimensions   (each component's DCT size:
 //                           chroma is scaled up by its IDCT, not upsampled,
 //                           where the scale allows)
@@ -33,9 +60,6 @@
 //               rgb_rgb_convert, ycck_cmyk_convert
 // and OpenCV's icvCvt_CMYK2BGR_8u_C4C3R, with which cv2.imread turns the
 // CMYK libjpeg gives it into BGR.
-// A progressive file whose scans leave a coefficient unrefined would be
-// block-smoothed by libjpeg (jdcoefct.c smoothing_ok); that smoothing is
-// not reproduced: such a file is refused (kUnrefined).
 //
 // For JPEG-in-TIFF it also reads a tables-only stream (read_tables) whose
 // tables the strips' abbreviated streams start from (preload), and decodes
@@ -50,20 +74,23 @@
 #include <algorithm>
 #include <cstdint>
 #include <cstring>
+#include <memory>
 #include <vector>
 
 namespace etjpeg {
 
 // Why a file is refused (0: it is decoded).
+// Every kind is one libjpeg refuses too as cv2.imread calls it (cv2
+// returns nothing).
 enum Kind {
   kSupported = 0,
-  kArithmetic = 1,    // arithmetic entropy coding (SOF9-15, DAC)
-  kPrecision = 2,     // sample precision other than 8 bits
-  kLossless = 3,      // lossless (SOF3)
-  kHierarchical = 4,  // hierarchical / differential (SOF5-7, DHP, EXP)
-  kComponents = 5,    // neither 1, 3 nor 4 components
-  kSampling = 6,      // sampling factors libjpeg does not decode
-  kUnrefined = 7,     // progressive scans leave coefficients unrefined
+  kArithLossless = 1,  // arithmetic-coded lossless (SOF11)
+  kPrecision = 2,      // a precision the 8-bit API does not read
+  kLosslessColour = 3,  // lossless grey or YCbCr to be converted
+  kHierarchical = 4,   // hierarchical / differential (SOF5-7, SOF13-15,
+                       // DHP, EXP) or the reserved JPG marker
+  kComponents = 5,     // neither 1, 3 nor 4 components
+  kSampling = 6,       // sampling factors libjpeg does not decode
 };
 
 // The colour space of the file (jdapimin.c default_decompress_parms).
@@ -126,6 +153,7 @@ constexpr int kLookBits = 9;
 
 struct Huffman {
   bool defined = false;
+  int maxval = 0;  // the largest symbol (a DC table's largest category)
   uint8_t look_len[1 << kLookBits];  // 0: code longer than kLookBits
   uint8_t look_val[1 << kLookBits];
   int32_t maxcode[18];
@@ -144,6 +172,8 @@ struct Huffman {
     }
     huffsize[n] = 0;
     std::memcpy(vals, symbols, n);
+    maxval = 0;
+    for (int i = 0; i < n; ++i) maxval = std::max<int>(maxval, vals[i]);
     int code = 0, si = n ? huffsize[0] : 0, p = 0;
     while (huffsize[p]) {
       while (huffsize[p] == si) huffcode[p++] = code++;
@@ -178,29 +208,66 @@ struct Huffman {
   }
 };
 
-// Entropy-coded bits, MSB first. At a marker (or the end of the data) it
-// reads zeros from then on, as libjpeg does (jdhuff.c jpeg_fill_bit_buffer).
+// The marker at p (0xFF, fill 0xFFs, its code): its code, with *after past
+// it. Where the data ends first, the EOI libjpeg's source inserts there.
+inline int marker_code(const uint8_t* p, const uint8_t* end,
+                       const uint8_t** after) {
+  const uint8_t* q = p + 1;
+  while (q < end && *q == 0xFF) ++q;
+  if (q >= end) {
+    *after = end;
+    return 0xD9;
+  }
+  *after = q + 1;
+  return *q;
+}
+
+// jdmarker.c next_marker from p: the next 0xFF that starts a marker (not a
+// stuffed FF 00), or the end of the data (the fake EOI).
+inline const uint8_t* next_marker(const uint8_t* p, const uint8_t* end) {
+  while (p < end) {
+    if (*p != 0xFF) {
+      ++p;
+      continue;
+    }
+    const uint8_t* after;
+    const int m = marker_code(p, end, &after);
+    if (m != 0) return p;
+    p = after;
+  }
+  return end;
+}
+
+// Entropy-coded bits, MSB first (jdhuff.c jpeg_fill_bit_buffer). At a
+// marker, or where the data ends, it reads zeros from then on; taking a bit
+// past the data sets `insufficient` (libjpeg's insufficient_data).
 struct Bits {
   const uint8_t* p;
   const uint8_t* end;
   uint64_t buf = 0;
   int cnt = 0;
-  bool at_marker = false;
+  int real = 0;  // the leading bits of buf that are data, not zero fill
+  bool at_marker = false;  // p is at a marker (libjpeg's unread_marker)
+  bool insufficient = false;
 
   void fill() {
     while (cnt <= 56) {
       uint64_t b = 0;
-      if (!at_marker && p < end) {
-        b = *p;
-        if (b == 0xFF) {
-          if (p + 1 < end && p[1] == 0) {
-            p += 2;
+      if (!at_marker) {
+        if (p >= end) {
+          at_marker = true;
+        } else if (*p != 0xFF) {
+          b = *p++;
+          real += 8;
+        } else {
+          const uint8_t* after;
+          if (marker_code(p, end, &after) == 0) {  // FF (FF...) 00
+            b = 0xFF;
+            p = after;
+            real += 8;
           } else {
             at_marker = true;
-            b = 0;
           }
-        } else {
-          ++p;
         }
       }
       buf |= b << (56 - cnt);
@@ -214,6 +281,12 @@ struct Bits {
   void skip(int n) {
     buf <<= n;
     cnt -= n;
+    if (n > real) {
+      insufficient = true;
+      real = 0;
+    } else {
+      real -= n;
+    }
   }
   int get(int n) {
     if (n == 0) return 0;
@@ -222,21 +295,118 @@ struct Bits {
     return static_cast<int>(v);
   }
   int decode(const Huffman& t) {
-    const uint32_t look = peek(16);
-    const uint32_t top = look >> (16 - kLookBits);
+    const uint32_t look = peek(17);
+    const uint32_t top = look >> (17 - kLookBits);
     if (t.look_len[top]) {
       skip(t.look_len[top]);
       return t.look_val[top];
     }
     for (int l = kLookBits + 1; l <= 16; ++l) {
-      const int32_t code = static_cast<int32_t>(look >> (16 - l));
+      const int32_t code = static_cast<int32_t>(look >> (17 - l));
       if (code <= t.maxcode[l]) {
         skip(l);
         return t.vals[(code + t.valoffset[l]) & 0xff];
       }
     }
-    skip(16);  // corrupt data: libjpeg warns and yields 0
+    // jpeg_huff_decode: no code of 16 bits or fewer; 17 bits are taken,
+    // libjpeg warns and yields 0
+    skip(17);
     return 0;
+  }
+  // Drop what is buffered (a restart's byte alignment).
+  void discard() {
+    buf = 0;
+    cnt = 0;
+    real = 0;
+  }
+};
+
+// ---------------------------------------------------------------- QM coder
+
+// jaricom.c jpeg_aritab: per state, Qe << 16 | Next_Index_MPS << 8 |
+// Switch_MPS << 7 | Next_Index_LPS (ITU T.81 Table D.3; the last entry is
+// the fixed 0.5 estimate of T.851)
+constexpr uint32_t kAriTab[114] = {
+    0x5a1d0181, 0x2586020e, 0x11140310, 0x080b0412, 0x03d80514, 0x01da0617,
+    0x00e50719, 0x006f081c, 0x0036091e, 0x001a0a21, 0x000d0b23, 0x00060c09,
+    0x00030d0a, 0x00010d0c, 0x5a7f0f8f, 0x3f251024, 0x2cf21126, 0x207c1227,
+    0x17b91328, 0x1182142a, 0x0cef152b, 0x09a1162d, 0x072f172e, 0x055c1830,
+    0x04061931, 0x03031a33, 0x02401b34, 0x01b11c36, 0x01441d38, 0x00f51e39,
+    0x00b71f3b, 0x008a203c, 0x0068213e, 0x004e223f, 0x003b2320, 0x002c0921,
+    0x5ae125a5, 0x484c2640, 0x3a0d2741, 0x2ef12843, 0x261f2944, 0x1f332a45,
+    0x19a82b46, 0x15182c48, 0x11772d49, 0x0e742e4a, 0x0bfb2f4b, 0x09f8304d,
+    0x0861314e, 0x0706324f, 0x05cd3330, 0x04de3432, 0x040f3532, 0x03633633,
+    0x02d43734, 0x025c3835, 0x01f83936, 0x01a43a37, 0x01603b38, 0x01253c39,
+    0x00f63d3a, 0x00cb3e3b, 0x00ab3f3d, 0x008f203d, 0x5b1241c1, 0x4d044250,
+    0x412c4351, 0x37d84452, 0x2fe84553, 0x293c4654, 0x23794756, 0x1edf4857,
+    0x1aa94957, 0x174e4a48, 0x14244b48, 0x119c4c4a, 0x0f6b4d4a, 0x0d514e4b,
+    0x0bb64f4d, 0x0a40304d, 0x583251d0, 0x4d1c5258, 0x438e5359, 0x3bdd545a,
+    0x34ee555b, 0x2eae565c, 0x299a575d, 0x25164756, 0x557059d8, 0x4ca95a5f,
+    0x44d95b60, 0x3e225c61, 0x38245d63, 0x32b45e63, 0x2e17565d, 0x56a860df,
+    0x4f466165, 0x47e56266, 0x41cf6367, 0x3c3d6468, 0x375e5d63, 0x52316669,
+    0x4c0f676a, 0x4639686b, 0x415e6367, 0x56276ae9, 0x50e76b6c, 0x4b85676d,
+    0x55976d6e, 0x504f6b6f, 0x5a106fee, 0x55226d70, 0x59eb6ff0, 0x5a1d7171};
+
+// jdarith.c's decoder registers and its arith_decode (T.81 D.2), reading
+// the data at p; at a marker, or where the data ends, zero data.
+struct Arith {
+  const uint8_t* p;
+  const uint8_t* end;
+  int64_t c = 0, a = 0;
+  int ct = -16;  // -16: two initial bytes to read; -1: the scan's error
+  bool at_marker = false;
+
+  int byte() {
+    if (at_marker) return 0;
+    if (p >= end) {
+      at_marker = true;
+      return 0;
+    }
+    if (*p != 0xFF) return *p++;
+    const uint8_t* after;
+    if (marker_code(p, end, &after) == 0) {  // FF (FF...) 00: data FF
+      p = after;
+      return 0xFF;
+    }
+    at_marker = true;  // p stays at the marker
+    return 0;
+  }
+  int decode(uint8_t* st) {
+    while (a < 0x8000) {
+      if (--ct < 0) {
+        c = (c << 8) | byte();
+        if ((ct += 8) < 0 && ++ct == 0) a = 0x8000;
+      }
+      a <<= 1;
+    }
+    int sv = *st;
+    uint32_t qe = kAriTab[sv & 0x7F];
+    const uint8_t nl = qe & 0xFF;
+    qe >>= 8;
+    const uint8_t nm = qe & 0xFF;
+    qe >>= 8;
+    int64_t temp = a - qe;
+    a = temp;
+    temp <<= ct;
+    if (c >= temp) {
+      c -= temp;
+      if (a < qe) {
+        a = qe;
+        *st = static_cast<uint8_t>((sv & 0x80) ^ nm);
+      } else {
+        a = qe;
+        *st = static_cast<uint8_t>((sv & 0x80) ^ nl);
+        sv ^= 0x80;
+      }
+    } else if (a < 0x8000) {
+      if (a < qe) {
+        *st = static_cast<uint8_t>((sv & 0x80) ^ nl);
+        sv ^= 0x80;
+      } else {
+        *st = static_cast<uint8_t>((sv & 0x80) ^ nm);
+      }
+    }
+    return sv >> 7;
   }
 };
 
@@ -269,197 +439,189 @@ constexpr int64_t fix(double x) {
   return static_cast<int64_t>(x * (1 << kConstBits) + 0.5);
 }
 
-// jidctint.c jpeg_idct_islow: 8x8 coefficients (natural order) x quant
-// table -> 8x8 samples.
+// libjpeg-turbo's x86-64 SIMD IDCTs (simd/x86_64/jidctint-avx2.asm,
+// jidctred-sse2.asm), which cv2's build runs at scales 1, 1/2 and 1/4. They
+// compute jidctint.c / jidctred.c's sums, but in SIMD lanes: coefficients
+// are dequantised to 16 bits (pmullw), the even and odd inputs are summed
+// in 16 bits (paddw), products are taken in pairs (pmaddwd), pass 1's
+// outputs are saturated to 16 bits (packssdw), and the samples to 8 bits
+// (packsswb, then + 128) where the C code wraps (RANGE_MASK). On valid
+// data the two agree; on damaged data only this does.
+
+inline int16_t w16(int64_t x) { return static_cast<int16_t>(x); }
+inline int16_t sat16(int64_t x) {
+  return static_cast<int16_t>(x < -32768 ? -32768 : (x > 32767 ? 32767 : x));
+}
+inline int32_t w32(int64_t x) { return static_cast<int32_t>(x); }
+// descale, then packssdw to 16 bits
+inline int16_t pack_descale(int64_t x, int n) {
+  return sat16(w32(w32(x) + (int32_t{1} << (n - 1))) >> n);
+}
+// descale, packssdw, packsswb, paddb CENTERJSAMPLE
+inline uint8_t sample_descale(int64_t x, int n) {
+  const int v = pack_descale(x, n);
+  return static_cast<uint8_t>((v < -128 ? -128 : (v > 127 ? 127 : v)) + 128);
+}
+
+// One 8-point jpeg_idct_islow pass over inputs i[0..7] (16-bit lanes) ->
+// its eight 32-bit sums before the descale.
+inline void islow_pass(const int16_t* i, int64_t* o) {
+  const int64_t z2 = i[2], z3 = i[6];
+  const int64_t tmp3 = z2 * (fix(0.541196100) + fix(0.765366865)) +
+                       z3 * fix(0.541196100);
+  const int64_t tmp2 = z2 * fix(0.541196100) +
+                       z3 * (fix(0.541196100) - fix(1.847759065));
+  const int64_t tmp0 = int64_t{w16(i[0] + i[4])} * (1 << kConstBits);
+  const int64_t tmp1 = int64_t{w16(i[0] - i[4])} * (1 << kConstBits);
+  const int64_t tmp10 = w32(tmp0 + tmp3), tmp13 = w32(tmp0 - tmp3);
+  const int64_t tmp11 = w32(tmp1 + tmp2), tmp12 = w32(tmp1 - tmp2);
+  const int64_t in7 = i[7], in5 = i[5], in3 = i[3], in1 = i[1];
+  const int64_t z3s = w16(in7 + in3), z4s = w16(in5 + in1);
+  const int64_t f117 = fix(1.175875602);
+  const int64_t z3o = z3s * (f117 - fix(1.961570560)) + z4s * f117;
+  const int64_t z4o = z3s * f117 + z4s * (f117 - fix(0.390180644));
+  const int64_t f089 = fix(0.899976223), f256 = fix(2.562915447);
+  const int64_t t0 = w32(in7 * (fix(0.298631336) - f089) + in1 * -f089 + z3o);
+  const int64_t t3 = w32(in7 * -f089 + in1 * (fix(1.501321110) - f089) + z4o);
+  const int64_t t1 = w32(in5 * (fix(2.053119869) - f256) + in3 * -f256 + z4o);
+  const int64_t t2 = w32(in5 * -f256 + in3 * (fix(3.072711026) - f256) + z3o);
+  o[0] = tmp10 + t3, o[7] = tmp10 - t3;
+  o[1] = tmp11 + t2, o[6] = tmp11 - t2;
+  o[2] = tmp12 + t1, o[5] = tmp12 - t1;
+  o[3] = tmp13 + t0, o[4] = tmp13 - t0;
+}
+
+// jsimd_idct_islow_avx2: 8x8 coefficients (natural order) x quant table ->
+// 8x8 samples.
 inline void idct_islow(const int16_t* in, const uint16_t* q, uint8_t* out,
                        int stride) {
-  int ws[64];
-  for (int c = 0; c < 8; ++c) {
-    const int16_t* i = in + c;
-    const uint16_t* qq = q + c;
-    int* w = ws + c;
-    if (!i[8] && !i[16] && !i[24] && !i[32] && !i[40] && !i[48] && !i[56]) {
-      const int dc = (i[0] * qq[0]) * (1 << kPass1Bits);
-      for (int r = 0; r < 8; ++r) w[r * 8] = dc;
-      continue;
+  int16_t ws[64];  // pass 1's output, transposed: ws[c * 8 + r]
+  bool ac = false;
+  for (int k = 8; k < 64 && !ac; ++k) ac = in[k] != 0;
+  if (!ac) {  // rows 1-7 all zero: the DC, shifted in 16 bits
+    for (int c = 0; c < 8; ++c) {
+      const int16_t dc = w16(int64_t{w16(in[c] * q[c])} * (1 << kPass1Bits));
+      for (int r = 0; r < 8; ++r) ws[c * 8 + r] = dc;
     }
-    int64_t z2 = i[16] * qq[16], z3 = i[48] * qq[48];
-    int64_t z1 = (z2 + z3) * fix(0.541196100);
-    const int64_t tmp2 = z1 + z3 * -fix(1.847759065);
-    const int64_t tmp3 = z1 + z2 * fix(0.765366865);
-    z2 = i[0] * qq[0];
-    z3 = i[32] * qq[32];
-    const int64_t tmp0e = (z2 + z3) * (1 << kConstBits);
-    const int64_t tmp1e = (z2 - z3) * (1 << kConstBits);
-    const int64_t tmp10 = tmp0e + tmp3, tmp13 = tmp0e - tmp3;
-    const int64_t tmp11 = tmp1e + tmp2, tmp12 = tmp1e - tmp2;
-    int64_t t0 = i[56] * qq[56], t1 = i[40] * qq[40];
-    int64_t t2 = i[24] * qq[24], t3 = i[8] * qq[8];
-    z1 = t0 + t3;
-    z2 = t1 + t2;
-    z3 = t0 + t2;
-    int64_t z4 = t1 + t3;
-    const int64_t z5 = (z3 + z4) * fix(1.175875602);
-    t0 *= fix(0.298631336);
-    t1 *= fix(2.053119869);
-    t2 *= fix(3.072711026);
-    t3 *= fix(1.501321110);
-    z1 *= -fix(0.899976223);
-    z2 *= -fix(2.562915447);
-    z3 = z3 * -fix(1.961570560) + z5;
-    z4 = z4 * -fix(0.390180644) + z5;
-    t0 += z1 + z3;
-    t1 += z2 + z4;
-    t2 += z2 + z3;
-    t3 += z1 + z4;
-    const int n = kConstBits - kPass1Bits;
-    w[0] = static_cast<int>(descale(tmp10 + t3, n));
-    w[56] = static_cast<int>(descale(tmp10 - t3, n));
-    w[8] = static_cast<int>(descale(tmp11 + t2, n));
-    w[48] = static_cast<int>(descale(tmp11 - t2, n));
-    w[16] = static_cast<int>(descale(tmp12 + t1, n));
-    w[40] = static_cast<int>(descale(tmp12 - t1, n));
-    w[24] = static_cast<int>(descale(tmp13 + t0, n));
-    w[32] = static_cast<int>(descale(tmp13 - t0, n));
+  } else {
+    for (int c = 0; c < 8; ++c) {
+      int16_t col[8];
+      bool col_ac = false;
+      for (int r = 0; r < 8; ++r) {
+        col[r] = w16(in[r * 8 + c] * q[r * 8 + c]);
+        col_ac = col_ac || (r && col[r]);
+      }
+      if (!col_ac) {  // the pass's sums reduce to the DC << PASS1_BITS
+        const int16_t dc = sat16(int64_t{col[0]} * (1 << kPass1Bits));
+        for (int r = 0; r < 8; ++r) ws[c * 8 + r] = dc;
+        continue;
+      }
+      int64_t o[8];
+      islow_pass(col, o);
+      for (int r = 0; r < 8; ++r) {
+        ws[c * 8 + r] = pack_descale(o[r], kConstBits - kPass1Bits);
+      }
+    }
   }
-  const int n = kConstBits + kPass1Bits + 3;
   for (int r = 0; r < 8; ++r) {
-    const int* w = ws + r * 8;
-    uint8_t* o = out + r * stride;
-    if (!w[1] && !w[2] && !w[3] && !w[4] && !w[5] && !w[6] && !w[7]) {
-      const uint8_t v = idct_limit(descale(w[0], kPass1Bits + 3));
-      std::memset(o, v, 8);
+    int16_t row[8];
+    bool row_ac = false;
+    for (int c = 0; c < 8; ++c) {
+      row[c] = ws[c * 8 + r];
+      row_ac = row_ac || (c && row[c]);
+    }
+    uint8_t* dst = out + r * stride;
+    if (!row_ac) {  // every sample is the descaled DC
+      std::memset(dst, sample_descale(int64_t{row[0]} * (1 << kConstBits),
+                                      kConstBits + kPass1Bits + 3),
+                  8);
       continue;
     }
-    int64_t z2 = w[2], z3 = w[6];
-    int64_t z1 = (z2 + z3) * fix(0.541196100);
-    const int64_t tmp2 = z1 + z3 * -fix(1.847759065);
-    const int64_t tmp3 = z1 + z2 * fix(0.765366865);
-    const int64_t tmp0e = (int64_t{w[0]} + w[4]) * (1 << kConstBits);
-    const int64_t tmp1e = (int64_t{w[0]} - w[4]) * (1 << kConstBits);
-    const int64_t tmp10 = tmp0e + tmp3, tmp13 = tmp0e - tmp3;
-    const int64_t tmp11 = tmp1e + tmp2, tmp12 = tmp1e - tmp2;
-    int64_t t0 = w[7], t1 = w[5], t2 = w[3], t3 = w[1];
-    z1 = t0 + t3;
-    z2 = t1 + t2;
-    z3 = t0 + t2;
-    int64_t z4 = t1 + t3;
-    const int64_t z5 = (z3 + z4) * fix(1.175875602);
-    t0 *= fix(0.298631336);
-    t1 *= fix(2.053119869);
-    t2 *= fix(3.072711026);
-    t3 *= fix(1.501321110);
-    z1 *= -fix(0.899976223);
-    z2 *= -fix(2.562915447);
-    z3 = z3 * -fix(1.961570560) + z5;
-    z4 = z4 * -fix(0.390180644) + z5;
-    t0 += z1 + z3;
-    t1 += z2 + z4;
-    t2 += z2 + z3;
-    t3 += z1 + z4;
-    o[0] = idct_limit(descale(tmp10 + t3, n));
-    o[7] = idct_limit(descale(tmp10 - t3, n));
-    o[1] = idct_limit(descale(tmp11 + t2, n));
-    o[6] = idct_limit(descale(tmp11 - t2, n));
-    o[2] = idct_limit(descale(tmp12 + t1, n));
-    o[5] = idct_limit(descale(tmp12 - t1, n));
-    o[3] = idct_limit(descale(tmp13 + t0, n));
-    o[4] = idct_limit(descale(tmp13 - t0, n));
+    int64_t o[8];
+    islow_pass(row, o);
+    for (int c = 0; c < 8; ++c) {
+      dst[c] = sample_descale(o[c], kConstBits + kPass1Bits + 3);
+    }
   }
 }
 
-// jidctred.c jpeg_idct_4x4: 8x8 coefficients -> 4x4 samples.
+// One 4-point jpeg_idct_4x4 pass over i[0..7] (i[4] unused) -> four sums.
+inline void red4_pass(const int16_t* i, int64_t* o) {
+  const int64_t tmp0 = int64_t{i[0]} * (1 << (kConstBits + 1));
+  const int64_t tmp2 = int64_t{i[2]} * fix(1.847759065) +
+                       int64_t{i[6]} * -fix(0.765366865);
+  const int64_t tmp10 = w32(tmp0 + tmp2), tmp12 = w32(tmp0 - tmp2);
+  const int64_t z1 = i[7], z2 = i[5], z3 = i[3], z4 = i[1];
+  const int64_t t2 = w32(z4 * fix(2.562915447) + z3 * fix(0.899976223) +
+                         z2 * -fix(0.601344887) + z1 * -fix(0.509795579));
+  const int64_t t0 = w32(z4 * fix(1.061594337) + z3 * -fix(2.172734803) +
+                         z2 * fix(1.451774981) + z1 * -fix(0.211164243));
+  o[0] = tmp10 + t2, o[3] = tmp10 - t2;
+  o[1] = tmp12 + t0, o[2] = tmp12 - t0;
+}
+
+// jsimd_idct_4x4_sse2: 8x8 coefficients -> 4x4 samples.
 inline void idct_4x4(const int16_t* in, const uint16_t* q, uint8_t* out,
                      int stride) {
-  int ws[32];
-  for (int c = 0; c < 8; ++c) {
-    if (c == 4) continue;  // column 4 is not used by the second pass
-    const int16_t* i = in + c;
-    const uint16_t* qq = q + c;
-    int* w = ws + c;
-    if (!i[8] && !i[16] && !i[24] && !i[40] && !i[48] && !i[56]) {
-      const int dc = (i[0] * qq[0]) * (1 << kPass1Bits);
-      for (int r = 0; r < 4; ++r) w[r * 8] = dc;
-      continue;
-    }
-    const int64_t tmp0 = int64_t{i[0] * qq[0]} * (1 << (kConstBits + 1));
-    const int64_t tmp2 = int64_t{i[16] * qq[16]} * fix(1.847759065) +
-                         int64_t{i[48] * qq[48]} * -fix(0.765366865);
-    const int64_t tmp10 = tmp0 + tmp2, tmp12 = tmp0 - tmp2;
-    const int64_t z1 = i[56] * qq[56], z2 = i[40] * qq[40];
-    const int64_t z3 = i[24] * qq[24], z4 = i[8] * qq[8];
-    const int64_t o0 = z1 * -fix(0.211164243) + z2 * fix(1.451774981) +
-                       z3 * -fix(2.172734803) + z4 * fix(1.061594337);
-    const int64_t o2 = z1 * -fix(0.509795579) + z2 * -fix(0.601344887) +
-                       z3 * fix(0.899976223) + z4 * fix(2.562915447);
-    const int n = kConstBits - kPass1Bits + 1;
-    w[0] = static_cast<int>(descale(tmp10 + o2, n));
-    w[24] = static_cast<int>(descale(tmp10 - o2, n));
-    w[8] = static_cast<int>(descale(tmp12 + o0, n));
-    w[16] = static_cast<int>(descale(tmp12 - o0, n));
+  int16_t ws[8][4];  // pass 1: ws[column][row]
+  bool ac = false;
+  for (int r = 1; r < 8 && !ac; ++r) {
+    if (r == 4) continue;
+    for (int c = 0; c < 8 && !ac; ++c) ac = in[r * 8 + c] != 0;
   }
-  const int n = kConstBits + kPass1Bits + 3 + 1;
-  for (int r = 0; r < 4; ++r) {
-    const int* w = ws + r * 8;
-    uint8_t* o = out + r * stride;
-    if (!w[1] && !w[2] && !w[3] && !w[5] && !w[6] && !w[7]) {
-      const uint8_t v = idct_limit(descale(w[0], kPass1Bits + 3));
-      std::memset(o, v, 4);
+  for (int c = 0; c < 8; ++c) {
+    if (!ac) {  // rows 1-3, 5-7 all zero
+      const int16_t dc = w16(int64_t{w16(in[c] * q[c])} * (1 << kPass1Bits));
+      for (int r = 0; r < 4; ++r) ws[c][r] = dc;
       continue;
     }
-    const int64_t tmp0 = int64_t{w[0]} * (1 << (kConstBits + 1));
-    const int64_t tmp2 =
-        int64_t{w[2]} * fix(1.847759065) + int64_t{w[6]} * -fix(0.765366865);
-    const int64_t tmp10 = tmp0 + tmp2, tmp12 = tmp0 - tmp2;
-    const int64_t z1 = w[7], z2 = w[5], z3 = w[3], z4 = w[1];
-    const int64_t o0 = z1 * -fix(0.211164243) + z2 * fix(1.451774981) +
-                       z3 * -fix(2.172734803) + z4 * fix(1.061594337);
-    const int64_t o2 = z1 * -fix(0.509795579) + z2 * -fix(0.601344887) +
-                       z3 * fix(0.899976223) + z4 * fix(2.562915447);
-    o[0] = idct_limit(descale(tmp10 + o2, n));
-    o[3] = idct_limit(descale(tmp10 - o2, n));
-    o[1] = idct_limit(descale(tmp12 + o0, n));
-    o[2] = idct_limit(descale(tmp12 - o0, n));
+    int16_t col[8];
+    for (int r = 0; r < 8; ++r) col[r] = w16(in[r * 8 + c] * q[r * 8 + c]);
+    int64_t o[4];
+    red4_pass(col, o);
+    for (int r = 0; r < 4; ++r) {
+      ws[c][r] = pack_descale(o[r], kConstBits - kPass1Bits + 1);
+    }
+  }
+  for (int r = 0; r < 4; ++r) {
+    int16_t row[8];
+    for (int c = 0; c < 8; ++c) row[c] = ws[c][r];
+    int64_t o[4];
+    red4_pass(row, o);
+    uint8_t* dst = out + r * stride;
+    for (int c = 0; c < 4; ++c) {
+      dst[c] = sample_descale(o[c], kConstBits + kPass1Bits + 3 + 1);
+    }
   }
 }
 
-// jidctred.c jpeg_idct_2x2: 8x8 coefficients -> 2x2 samples.
+// jsimd_idct_2x2_sse2: 8x8 coefficients -> 2x2 samples. Pass 1 keeps
+// column 0 in 32 bits (its even part) and packs the odd columns to 16.
 inline void idct_2x2(const int16_t* in, const uint16_t* q, uint8_t* out,
                      int stride) {
-  int ws[16];
+  int32_t ws[8][2];  // pass 1: ws[column][row], columns 0, 1, 3, 5, 7
   for (int c = 0; c < 8; ++c) {
     if (c == 2 || c == 4 || c == 6) continue;
-    const int16_t* i = in + c;
-    const uint16_t* qq = q + c;
-    int* w = ws + c;
-    if (!i[8] && !i[24] && !i[40] && !i[56]) {
-      const int dc = (i[0] * qq[0]) * (1 << kPass1Bits);
-      w[0] = w[8] = dc;
-      continue;
-    }
-    const int64_t tmp10 = int64_t{i[0] * qq[0]} * (1 << (kConstBits + 2));
-    const int64_t tmp0 = int64_t{i[56] * qq[56]} * -fix(0.720959822) +
-                         int64_t{i[40] * qq[40]} * fix(0.850430095) +
-                         int64_t{i[24] * qq[24]} * -fix(1.272758580) +
-                         int64_t{i[8] * qq[8]} * fix(3.624509785);
+    auto dq = [&](int r) { return int64_t{w16(in[r * 8 + c] * q[r * 8 + c])}; };
+    const int64_t tmp10 = dq(0) * (1 << (kConstBits + 2));
+    const int64_t tmp0 = w32(dq(1) * fix(3.624509785) +
+                             dq(3) * -fix(1.272758580) +
+                             dq(5) * fix(0.850430095) +
+                             dq(7) * -fix(0.720959822));
     const int n = kConstBits - kPass1Bits + 2;
-    w[0] = static_cast<int>(descale(tmp10 + tmp0, n));
-    w[8] = static_cast<int>(descale(tmp10 - tmp0, n));
+    ws[c][0] = w32(w32(tmp10 + tmp0) + (int32_t{1} << (n - 1))) >> n;
+    ws[c][1] = w32(w32(tmp10 - tmp0) + (int32_t{1} << (n - 1))) >> n;
   }
-  const int n = kConstBits + kPass1Bits + 3 + 2;
   for (int r = 0; r < 2; ++r) {
-    const int* w = ws + r * 8;
-    uint8_t* o = out + r * stride;
-    if (!w[1] && !w[3] && !w[5] && !w[7]) {
-      o[0] = o[1] = idct_limit(descale(w[0], kPass1Bits + 3));
-      continue;
-    }
-    const int64_t tmp10 = int64_t{w[0]} * (1 << (kConstBits + 2));
-    const int64_t tmp0 =
-        int64_t{w[7]} * -fix(0.720959822) + int64_t{w[5]} * fix(0.850430095) +
-        int64_t{w[3]} * -fix(1.272758580) + int64_t{w[1]} * fix(3.624509785);
-    o[0] = idct_limit(descale(tmp10 + tmp0, n));
-    o[1] = idct_limit(descale(tmp10 - tmp0, n));
+    const int64_t tmp10 = w32(int64_t{ws[0][r]} * (1 << (kConstBits + 2)));
+    const int64_t tmp0 = w32(int64_t{sat16(ws[1][r])} * fix(3.624509785) +
+                             int64_t{sat16(ws[3][r])} * -fix(1.272758580) +
+                             int64_t{sat16(ws[5][r])} * fix(0.850430095) +
+                             int64_t{sat16(ws[7][r])} * -fix(0.720959822));
+    uint8_t* dst = out + r * stride;
+    const int n = kConstBits + kPass1Bits + 3 + 2;
+    dst[0] = sample_descale(tmp10 + tmp0, n);
+    dst[1] = sample_descale(tmp10 - tmp0, n);
   }
 }
 
@@ -504,19 +666,27 @@ inline uint8_t clamp255(int v) {
 
 struct Component {
   int id = 0, h = 1, v = 1, tq = 0;
-  int td = 0, ta = 0;  // Huffman tables of the current scan
-  int bw = 0, bh = 0;  // blocks held (whole interleaved MCUs)
+  int td = 0, ta = 0;  // entropy tables of the current scan
+  int bw = 0, bh = 0;  // blocks held (whole interleaved MCUs); samples
+                       // in a lossless frame
   int wib = 0, hib = 0;  // blocks a scan of this component alone covers
   int dc_pred = 0;
+  int pt = 0;  // a lossless component's point transform (its scan's Al)
   bool latched = false;
   uint16_t q[64] = {};
-  int8_t coef_bits[64];  // -1 never coded, else Al of the last scan
+  int8_t coef_bits[64];  // zigzag: -1 never coded, else Al of the last scan
+  int8_t prev_bits[64];  // coef_bits before its latest scan (jdphuff.c)
   std::vector<int16_t> coef;
+  std::vector<uint16_t> samples;  // lossless: the undifferenced samples
 };
 
 inline int ceil_div(int64_t a, int64_t b) {
   return static_cast<int>((a + b - 1) / b);
 }
+
+// Positions of the zigzag coefficients 1-9 that block smoothing estimates
+// (jdcoefct.c Q01_POS ... Q30_POS).
+constexpr int kSmoothPos[10] = {0, 1, 8, 16, 9, 2, 3, 10, 17, 24};
 
 class Decoder {
  public:
@@ -528,6 +698,12 @@ class Decoder {
   // Set before read(): the colour space to decode as, whatever the
   // markers say (-1: jdapimin.c's guess).
   int forced_colour = -1;
+
+  Decoder() {  // DAC's defaults (jdmarker.c get_soi)
+    std::memset(dc_l_, 0, sizeof(dc_l_));
+    std::memset(dc_u_, 1, sizeof(dc_u_));
+    std::memset(ac_k_, 5, sizeof(ac_k_));
+  }
 
   // A tables-only stream (a TIFF's JPEGTables): its DQT and DHT segments
   // are kept for the abbreviated streams read() parses after it, as
@@ -570,52 +746,65 @@ class Decoder {
   int components() const { return ncomp_; }
   int h_sampling(int c) const { return comp_[c].h; }
   int v_sampling(int c) const { return comp_[c].v; }
+  // libjpeg decodes a lossless file at full size whatever the scale asked.
+  bool scalable() const { return !lossless_; }
 
-  // Parse `data`; with `decode` also decode every scan. Without it, stops
+  // Parse `data` as libjpeg reads a file (past its end, the fake EOIs of
+  // jdatasrc.c); with `decode` also decode every scan. Without it, stops
   // at the first scan of a sequential file and walks the scan headers of a
-  // progressive one (to refuse unrefined files), skipping their data.
+  // progressive one (whose errors cv2 reports), skipping their data.
   // Returns kOk, kCorrupt, or kRefused with `kind` set.
   int read(const uint8_t* data, size_t n, bool decode) {
     const uint8_t* p = data;
     const uint8_t* end = data + n;
-    if (n < 4 || p[0] != 0xFF || p[1] != 0xD8) return kCorrupt;
+    if (n < 2 || p[0] != 0xFF || p[1] != 0xD8) return kCorrupt;
     p += 2;
     bool seen_sof = false, seen_sos = false;
+    std::vector<uint8_t> tail;
     while (true) {
-      // next marker: skip anything up to 0xFF, then fill bytes
-      while (p < end && *p != 0xFF) ++p;
-      while (p < end && *p == 0xFF) ++p;
-      if (p >= end) break;
-      const int m = *p++;
+      p = next_marker(p, end);  // jdmarker.c next_marker: garbage skipped
+      const uint8_t* after;
+      const int m = marker_code(p, end, &after);
+      p = after;
       if (m == 0xD9) break;                               // EOI
       if ((m >= 0xD0 && m <= 0xD7) || m == 0x01) continue;  // standalone
-      if (end - p < 2) break;
-      const int len = (p[0] << 8) | p[1];
-      if (len < 2) return kCorrupt;
-      if (end - p < len) break;
-      const uint8_t* seg = p + 2;
+      if ((m >= 0xC5 && m <= 0xC8) || (m >= 0xCD && m <= 0xCF) ||
+          m == 0xDE || m == 0xDF) {
+        return refuse(kHierarchical);  // JERR_SOF_UNSUPPORTED, DHP / EXP
+      }
+      const bool known = (m >= 0xC0 && m <= 0xCF) || m == 0xDA ||
+                         m == 0xDB || m == 0xDC || m == 0xDD ||
+                         (m >= 0xE0 && m <= 0xEF) || m == 0xFE;
+      if (!known) return kCorrupt;  // SOI again, JPGn, RESn
+      // the segment, its bytes past the data being the fake EOIs
+      int len;
+      const uint8_t* seg = segment(data, n, p, &len, &tail);
+      const int adv = std::max(len, 2);  // a bogus length skips nothing
+      // past the data the stream goes on as FF D9 FF D9 ...: a segment
+      // that ends one byte into a fake EOI leaves its D9, which a scan
+      // reads as data before the next fake EOI
+      const bool d9_next = end - p < adv && ((p - end) + adv) % 2 == 1;
+      p = (end - p >= adv) ? p + adv : end;
+      const bool appn = (m >= 0xE0 && m <= 0xEF) || m == 0xFE;
+      if (len < 2) {
+        if (appn) continue;  // skip_variable: nothing to skip
+        return kCorrupt;
+      }
       const int slen = len - 2;
-      p += len;
-      if (m == 0xC0 || m == 0xC1 || m == 0xC2) {
+      if (m == 0xC0 || m == 0xC1 || m == 0xC2 || m == 0xC3 || m == 0xC9 ||
+          m == 0xCA || m == 0xCB) {
         if (seen_sof) return kCorrupt;
         seen_sof = true;
         const int st = read_sof(m, seg, slen);
         if (st != kOk) return st;
-      } else if (m == 0xC3) {
-        return refuse(kLossless);
-      } else if (m >= 0xC5 && m <= 0xC7) {
-        return refuse(kHierarchical);
-      } else if ((m >= 0xC9 && m <= 0xCB) || (m >= 0xCD && m <= 0xCF) ||
-                 m == 0xCC) {
-        return refuse(kArithmetic);
-      } else if (m == 0xDE || m == 0xDF) {
-        return refuse(kHierarchical);
       } else if (m == 0xC4) {
         if (!read_dht(seg, slen)) return kCorrupt;
       } else if (m == 0xDB) {
         if (!read_dqt(seg, slen)) return kCorrupt;
+      } else if (m == 0xCC) {
+        if (!read_dac(seg, slen)) return kCorrupt;
       } else if (m == 0xDD) {
-        if (slen < 2) return kCorrupt;
+        if (slen != 2) return kCorrupt;
         restart_interval_ = (seg[0] << 8) | seg[1];
       } else if (m == 0xE0) {
         if (slen >= 5 && !std::memcmp(seg, "JFIF", 5)) saw_jfif_ = true;
@@ -631,52 +820,72 @@ class Decoder {
         }
       } else if (m == 0xDA) {
         if (!seen_sof) return kCorrupt;
+        Scan scan;
+        if (!read_sos(seg, slen, &scan)) return kCorrupt;
         if (!seen_sos) {
           seen_sos = true;
-          const int st = check_frame();
+          const int st = check_frame(scan);
           if (st != kOk) return st;
           if (!decode && !progressive) return kOk;
         }
-        Scan scan;
-        if (!read_sos(seg, slen, &scan)) return kCorrupt;
         if (decode) {
-          p = decode_scan(scan, p, end);
+          static const uint8_t kD9[1] = {0xD9};
+          const uint8_t* q = d9_next ? kD9 : p;
+          const int st = decode_scan(scan, &q, d9_next ? kD9 + 1 : end);
+          if (!d9_next) p = q;
+          if (st != kOk) return st;
+          // a single-scan file is output from that scan; what follows it is
+          // read only by jpeg_finish_decompress, after cv2 has the image
+          if (!multi_scan_) return kOk;
         } else {
-          p = skip_entropy(p, end);
+          p = next_marker(p, end);
         }
       }
     }
     if (!seen_sof || !seen_sos) return kCorrupt;
-    if (progressive) {
-      for (int c = 0; c < ncomp_; ++c) {
-        for (int k = 0; k < 64; ++k) {
-          if (comp_[c].coef_bits[k] != 0) return refuse(kUnrefined);
-        }
-      }
-    }
     return kOk;
   }
 
-  // Output size at scale 1/denom (jdmaster.c jpeg_core_output_dimensions).
-  int out_width(int denom) const { return ceil_div(width, denom); }
-  int out_height(int denom) const { return ceil_div(height, denom); }
+  // Output size at scale 1/denom (jdmaster.c jpeg_core_output_dimensions;
+  // a lossless frame is never scaled).
+  int out_width(int denom) const {
+    return lossless_ ? width : ceil_div(width, denom);
+  }
+  int out_height(int denom) const {
+    return lossless_ ? height : ceil_div(height, denom);
+  }
 
   // After read(decode = true): the RGB image at scale 1/denom, one row at a
   // time, as `sink(y, row)` with row (out_width, 3); (out_width,
   // components) of raw samples for kRaw.
   template <class Sink>
   void output(int denom, Sink&& sink) const {
-    const int smin = 8 / denom;
+    if (lossless_) denom = 1;
+    const int smin = lossless_ ? 1 : 8 / denom;
     const int ow = out_width(denom), oh = out_height(denom);
+    int8_t latch[4][10], prev_latch[4][10];
+    const bool smooth = smoothing_ok(latch, prev_latch);
     Plane pl[4];
     for (int c = 0; c < ncomp_; ++c) {
       const Component& cp = comp_[c];
+      Plane& P = pl[c];
+      if (lossless_) {  // samples << Pt, upsampled by replication
+        P.dw = ceil_div(int64_t{width} * cp.h, hmax_);
+        P.dh = ceil_div(int64_t{height} * cp.v, vmax_);
+        P.stride = cp.bw;
+        P.px.resize(static_cast<size_t>(cp.bw) * cp.bh);
+        for (size_t i = 0; i < P.px.size(); ++i) {
+          P.px[i] = static_cast<uint8_t>(cp.samples[i] << cp.pt);
+        }
+        P.hr = hmax_ / cp.h;
+        P.vr = vmax_ / cp.v;
+        continue;
+      }
       int s = smin;  // jpeg_calc_output_dimensions' DCT size rule
       while (s < 8 && (hmax_ * smin) % (cp.h * s * 2) == 0 &&
              (vmax_ * smin) % (cp.v * s * 2) == 0) {
         s *= 2;
       }
-      Plane& P = pl[c];
       P.dw = ceil_div(int64_t{width} * cp.h * s, hmax_ * 8);
       P.dh = ceil_div(int64_t{height} * cp.v * s, vmax_ * 8);
       P.stride = cp.bw * s;
@@ -692,6 +901,10 @@ class Decoder {
       auto idct = s == 8 ? idct_islow
                          : s == 4 ? idct_4x4 : s == 2 ? idct_2x2 : idct_1x1;
       for (int by = 0; by < nby; ++by) {
+        if (smooth) {
+          smooth_row(cp, by, latch[c], prev_latch[c], idct, s, &P);
+          continue;
+        }
         for (int bx = 0; bx < nbx; ++bx) {
           idct(&cp.coef[(static_cast<size_t>(by) * cp.bw + bx) * 64], cp.q,
                &P.px[static_cast<size_t>(by) * s * P.stride + bx * s],
@@ -769,10 +982,17 @@ class Decoder {
 
   Component comp_[4];
   int ncomp_ = 0, hmax_ = 1, vmax_ = 1, mcux_ = 0, mcuy_ = 0;
+  int precision_ = 8;
+  bool lossless_ = false, arith_ = false;
+  bool multi_scan_ = false;  // jdinput.c has_multiple_scans
   int restart_interval_ = 0;
+  int next_restart_ = 0;  // the RSTn expected next (jdmarker.c)
+  int scans_ = 0;         // scans read (libjpeg's input_scan_number)
+  int last_good_row_ = 0;  // jdcoefct.c last_good_iMCU_row
   Huffman dc_[4], ac_[4];
   uint16_t qt_[4][64] = {};
   bool qt_defined_[4] = {};
+  uint8_t dc_l_[16], dc_u_[16], ac_k_[16];  // DAC: L, U, Kx per table
   bool saw_jfif_ = false, saw_adobe_ = false, seen_exif_ = false;
   int adobe_transform_ = -1;
   int eobrun_ = 0;
@@ -780,6 +1000,23 @@ class Decoder {
   int refuse(int k) {
     kind = k;
     return kRefused;
+  }
+
+  // The body of the segment whose length bytes are at p (its length in
+  // *len): in the data, or in `tail` where it runs past the data's end,
+  // whose bytes are then the fake EOIs (FF D9 ...) the source gives there.
+  static const uint8_t* segment(const uint8_t* data, size_t n,
+                                const uint8_t* p, int* len,
+                                std::vector<uint8_t>* tail) {
+    const size_t at = static_cast<size_t>(p - data);
+    auto byte = [&](size_t i) -> uint8_t {
+      return i < n ? data[i] : ((i - n) & 1 ? 0xD9 : 0xFF);
+    };
+    *len = (byte(at) << 8) | byte(at + 1);
+    if (at + std::max(*len, 2) <= n) return p + 2;
+    tail->resize(static_cast<size_t>(std::max(*len - 2, 0)));
+    for (size_t i = 0; i < tail->size(); ++i) (*tail)[i] = byte(at + 2 + i);
+    return tail->data();
   }
 
   // The orientation (1-8) in the TIFF IFD0 of an APP1 "Exif\0\0" body,
@@ -822,15 +1059,25 @@ class Decoder {
     return 1;
   }
 
+  // jdmarker.c get_sof and jdinput.c initial_setup's checks, and the 8-bit
+  // API's precision (8, or 2-8 for a lossless frame, whose samples come
+  // out unscaled).
   int read_sof(int m, const uint8_t* s, int n) {
     if (n < 6) return kCorrupt;
-    if (s[0] != 8) return refuse(kPrecision);
-    progressive = m == 0xC2;
+    progressive = m == 0xC2 || m == 0xCA;
+    lossless_ = m == 0xC3 || m == 0xCB;
+    arith_ = m >= 0xC9;
+    precision_ = s[0];
     height = (s[1] << 8) | s[2];
     width = (s[3] << 8) | s[4];
     ncomp_ = s[5];
+    if (width == 0 || height == 0 || ncomp_ == 0) return kCorrupt;
+    if (n != 6 + 3 * ncomp_) return kCorrupt;
+    if (m == 0xCB) return refuse(kArithLossless);
+    if (lossless_ ? precision_ < 2 || precision_ > 8 : precision_ != 8) {
+      return refuse(kPrecision);
+    }
     if (ncomp_ != 1 && ncomp_ != 3 && ncomp_ != 4) return refuse(kComponents);
-    if (n < 6 + 3 * ncomp_ || width == 0 || height == 0) return kCorrupt;
     for (int c = 0; c < ncomp_; ++c) {
       Component& cp = comp_[c];
       cp.id = s[6 + 3 * c];
@@ -843,6 +1090,7 @@ class Decoder {
       hmax_ = std::max(hmax_, cp.h);
       vmax_ = std::max(vmax_, cp.v);
       std::memset(cp.coef_bits, -1, sizeof(cp.coef_bits));
+      std::memset(cp.prev_bits, 0, sizeof(cp.prev_bits));
     }
     // jdsample.c: every ratio to the largest factor is integral
     // (JERR_FRACT_SAMPLE_NOTIMPL); jdinput.c: an interleaved MCU holds at
@@ -857,33 +1105,42 @@ class Decoder {
     return kOk;
   }
 
-  // jdapimin.c default_decompress_parms' colour space guess; the buffers
-  // are allocated here, once the frame is known.
-  int check_frame() {
+  // At the first scan: jdapimin.c default_decompress_parms' colour space,
+  // jdcolor.c's refusal of a lossless conversion, the MCU geometry.
+  int check_frame(const Scan& first) {
     if (ncomp_ == 1) {
       colour = kGrey;
     } else if (ncomp_ == 3) {
       bool rgb = false;
+      const bool rgb_ids =
+          comp_[0].id == 'R' && comp_[1].id == 'G' && comp_[2].id == 'B';
       if (saw_jfif_) {
         rgb = false;
       } else if (saw_adobe_) {
         rgb = adobe_transform_ == 0;
       } else {
-        rgb = comp_[0].id == 'R' && comp_[1].id == 'G' && comp_[2].id == 'B';
+        // without markers a lossless frame is taken as RGB whatever its ids
+        rgb = rgb_ids || lossless_;
       }
       colour = rgb ? kRGB : kYCbCr;
     } else {  // 4: an Adobe transform other than 0 is taken as YCCK
       colour = saw_adobe_ && adobe_transform_ != 0 ? kYCCK : kCMYK;
     }
     if (forced_colour >= 0) colour = forced_colour;
-    mcux_ = ceil_div(width, 8 * hmax_);
-    mcuy_ = ceil_div(height, 8 * vmax_);
+    if (lossless_ &&
+        (colour == kGrey || colour == kYCbCr || colour == kYCCK)) {
+      return refuse(kLosslessColour);
+    }
+    multi_scan_ = first.n < ncomp_ || progressive;
+    const int unit = lossless_ ? 1 : 8;
+    mcux_ = ceil_div(width, unit * hmax_);
+    mcuy_ = ceil_div(height, unit * vmax_);
     for (int c = 0; c < ncomp_; ++c) {
       Component& cp = comp_[c];
       cp.bw = mcux_ * cp.h;
       cp.bh = mcuy_ * cp.v;
-      cp.wib = ceil_div(ceil_div(int64_t{width} * cp.h, hmax_), 8);
-      cp.hib = ceil_div(ceil_div(int64_t{height} * cp.v, vmax_), 8);
+      cp.wib = ceil_div(ceil_div(int64_t{width} * cp.h, hmax_), unit);
+      cp.hib = ceil_div(ceil_div(int64_t{height} * cp.v, vmax_), unit);
     }
     return kOk;
   }
@@ -891,12 +1148,14 @@ class Decoder {
   void allocate() {
     for (int c = 0; c < ncomp_; ++c) {
       Component& cp = comp_[c];
-      if (cp.coef.empty()) {
-        cp.coef.assign(static_cast<size_t>(cp.bw) * cp.bh * 64, 0);
-      }
+      const size_t n = static_cast<size_t>(cp.bw) * cp.bh;
+      if (lossless_ && cp.samples.empty()) cp.samples.assign(n, 0);
+      if (!lossless_ && cp.coef.empty()) cp.coef.assign(n * 64, 0);
     }
   }
 
+  // jdmarker.c get_dht (a DC table's symbols are checked where a scan
+  // uses it, as jpeg_make_d_derived_tbl checks them)
   bool read_dht(const uint8_t* s, int n) {
     int o = 0;
     while (o < n) {
@@ -906,10 +1165,6 @@ class Decoder {
       int total = 0;
       for (int i = 0; i < 16; ++i) total += s[o + 1 + i];
       if (total > 256 || n - o < 17 + total) return false;
-      // a DC symbol is a bit count: libjpeg refuses one above 15
-      for (int i = 0; i < total && !tc; ++i) {
-        if (s[o + 17 + i] > 15) return false;
-      }
       Huffman& t = tc ? ac_[th] : dc_[th];
       if (!t.build(s + o + 1, s + o + 17)) return false;
       o += 17 + total;
@@ -917,27 +1172,55 @@ class Decoder {
     return true;
   }
 
+  // jdmarker.c get_dqt: any precision nibble but 0 is 16-bit; a table cut
+  // short is filled with 1s
   bool read_dqt(const uint8_t* s, int n) {
-    int o = 0;
-    while (o < n) {
+    int o = 0, length = n;
+    while (length > 0) {
+      --length;
       const int pq = s[o] >> 4, tq = s[o] & 15;
-      if (pq > 1 || tq > 3 || n - o < 1 + 64 * (pq + 1)) return false;
-      for (int k = 0; k < 64; ++k) {
-        qt_[tq][kNatural[k]] =
-            pq ? static_cast<uint16_t>((s[o + 1 + 2 * k] << 8) |
-                                       s[o + 2 + 2 * k])
-               : s[o + 1 + k];
+      ++o;
+      if (tq > 3) return false;
+      uint16_t* q = qt_[tq];
+      int count = 64;
+      if (length < (pq ? 128 : 64)) {
+        for (int k = 0; k < 64; ++k) q[k] = 1;
+        count = pq ? length >> 1 : length;
       }
+      for (int k = 0; k < count; ++k) {
+        q[kNatural[k]] = pq ? static_cast<uint16_t>((s[o] << 8) | s[o + 1])
+                            : s[o];
+        o += pq ? 2 : 1;
+      }
+      length -= pq ? 2 * count : count;
       qt_defined_[tq] = true;
-      o += 1 + 64 * (pq + 1);
     }
-    return true;
+    return length == 0;
   }
 
+  // jdmarker.c get_dac
+  bool read_dac(const uint8_t* s, int n) {
+    int o = 0;
+    for (; n - o >= 2; o += 2) {
+      const int index = s[o], val = s[o + 1];
+      if (index >= 32) return false;
+      if (index >= 16) {
+        ac_k_[index - 16] = static_cast<uint8_t>(val);
+      } else {
+        dc_l_[index] = static_cast<uint8_t>(val & 15);
+        dc_u_[index] = static_cast<uint8_t>(val >> 4);
+        if (dc_l_[index] > dc_u_[index]) return false;
+      }
+    }
+    return o == n;
+  }
+
+  // jdmarker.c get_sos, and the checks each entropy decoder's start_pass
+  // makes of the scan's parameters
   bool read_sos(const uint8_t* s, int n, Scan* scan) {
     if (n < 1) return false;
     scan->n = s[0];
-    if (scan->n < 1 || scan->n > ncomp_ || n < 4 + 2 * scan->n) return false;
+    if (scan->n < 1 || scan->n > 4 || n != 4 + 2 * scan->n) return false;
     for (int i = 0; i < scan->n; ++i) {
       const int id = s[1 + 2 * i];
       int c = 0;
@@ -946,22 +1229,34 @@ class Decoder {
       scan->comps[i] = c;
       comp_[c].td = s[2 + 2 * i] >> 4;
       comp_[c].ta = s[2 + 2 * i] & 15;
-      if (comp_[c].td > 3 || comp_[c].ta > 3) return false;
     }
     const uint8_t* t = s + 1 + 2 * scan->n;
     scan->ss = t[0];
     scan->se = t[1];
     scan->ah = t[2] >> 4;
     scan->al = t[2] & 15;
+    ++scans_;
+    next_restart_ = 0;
+    if (lossless_) {  // jdlossls.c: psv 1-7, Se 0, Ah 0, Pt < P
+      if (scan->ss < 1 || scan->ss > 7 || scan->se != 0 || scan->ah != 0 ||
+          scan->al >= precision_) {
+        return false;
+      }
+      return true;  // no quantisation tables
+    }
     if (progressive) {
       if (scan->ss == 0 ? scan->se != 0
                         : (scan->se < scan->ss || scan->se > 63 ||
                            scan->n != 1)) {
         return false;
       }
+      if (scan->ah != 0 && scan->al != scan->ah - 1) return false;
       if (scan->al > 13) return false;
       for (int i = 0; i < scan->n; ++i) {
         Component& cp = comp_[scan->comps[i]];
+        for (int k = std::min(scan->ss, 1); k <= std::max(scan->se, 9); ++k) {
+          cp.prev_bits[k] = scans_ > 1 ? cp.coef_bits[k] : 0;
+        }
         for (int k = scan->ss; k <= scan->se; ++k) {
           cp.coef_bits[k] = static_cast<int8_t>(scan->al);
         }
@@ -983,56 +1278,115 @@ class Decoder {
     return true;
   }
 
-  static const uint8_t* skip_entropy(const uint8_t* p, const uint8_t* end) {
-    while (p + 1 < end) {
-      if (p[0] == 0xFF && p[1] != 0 && !(p[1] >= 0xD0 && p[1] <= 0xD7) &&
-          p[1] != 0xFF) {
-        return p;
-      }
-      ++p;
-    }
-    return end;
-  }
-
   // A table the file did not define: libjpeg-turbo's standard one
-  // (jstdhuff.c) for indices 0 and 1.
-  bool table(Huffman* set, int i, bool ac) {
-    if (set[i].defined) return true;
-    if (i > 1) return false;
-    return ac ? set[i].build(kStdAcBits[i], kStdAcVals[i])
-              : set[i].build(kStdDcBits[i], kStdDcVals);
+  // (jstdhuff.c) for indices 0 and 1. `dc_max`: the largest DC category
+  // jpeg_make_d_derived_tbl allows (0: an AC table).
+  bool table(Huffman* set, int i, bool ac, int dc_max) {
+    if (i > 3) return false;
+    if (!set[i].defined) {
+      if (i > 1) return false;
+      if (!(ac ? set[i].build(kStdAcBits[i], kStdAcVals[i])
+               : set[i].build(kStdDcBits[i], kStdDcVals))) {
+        return false;
+      }
+    }
+    return ac || set[i].maxval <= dc_max;
   }
 
   static int16_t* block(Component& cp, int bx, int by) {
     return &cp.coef[(static_cast<size_t>(by) * cp.bw + bx) * 64];
   }
 
-  const uint8_t* decode_scan(const Scan& sc, const uint8_t* p,
-                             const uint8_t* end) {
+  // The iMCU row (jdcoefct.c input_iMCU_row) of MCU m of a scan.
+  int imcu_row(const Scan& sc, int64_t m) const {
+    if (sc.n > 1) return static_cast<int>(m / mcux_);
+    const Component& cp = comp_[sc.comps[0]];
+    return static_cast<int>(m / cp.wib / cp.v);
+  }
+
+  int decode_scan(const Scan& sc, const uint8_t** p, const uint8_t* end) {
     allocate();
+    if (lossless_) return decode_lossless(sc, p, end);
+    if (arith_) return decode_arith(sc, p, end);
+    return decode_huffman(sc, p, end);
+  }
+
+  // jdmarker.c read_restart_marker and jpeg_resync_to_restart: past the
+  // expected RSTn (at_marker cleared), or left at the marker where it is
+  // one of the next two or not a restart at all.
+  void read_restart_marker(const uint8_t** p, const uint8_t* end,
+                           bool* at_marker) {
+    if (!*at_marker) {
+      *p = next_marker(*p, end);
+      *at_marker = true;
+    }
+    const uint8_t* after;
+    int m = marker_code(*p, end, &after);
+    const int want = next_restart_;
+    next_restart_ = (next_restart_ + 1) & 7;
+    if (m == 0xD0 + want) {
+      *p = after;
+      *at_marker = false;
+      return;
+    }
+    for (;;) {
+      int action;
+      if (m < 0xC0) {
+        action = 2;
+      } else if (m < 0xD0 || m > 0xD7) {
+        action = 3;
+      } else if (m == 0xD0 + ((want + 1) & 7) ||
+                 m == 0xD0 + ((want + 2) & 7)) {
+        action = 3;
+      } else if (m == 0xD0 + ((want - 1) & 7) ||
+                 m == 0xD0 + ((want - 2) & 7)) {
+        action = 2;
+      } else {
+        action = 1;
+      }
+      if (action == 1) {  // taken as the one expected
+        *p = after;
+        *at_marker = false;
+        return;
+      }
+      if (action == 3) return;
+      *p = next_marker(after, end);  // skip it and look at the next
+      m = marker_code(*p, end, &after);
+    }
+  }
+
+  // Huffman scans (jdhuff.c decode_mcu, jdphuff.c decode_mcu_*).
+  int decode_huffman(const Scan& sc, const uint8_t** p, const uint8_t* end) {
     for (int i = 0; i < sc.n; ++i) {
       Component& cp = comp_[sc.comps[i]];
-      const bool dc = !progressive || sc.ss == 0;
+      const bool dc = !progressive || (sc.ss == 0 && sc.ah == 0);
       const bool ac = !progressive || sc.ss > 0;
-      if ((dc && sc.ah == 0 && !table(dc_, cp.td, false)) ||
-          (ac && !table(ac_, cp.ta, true))) {
-        return skip_entropy(p, end);
+      if ((dc && !table(dc_, cp.td, false, 15)) ||
+          (ac && !table(ac_, cp.ta, true, 0))) {
+        return kCorrupt;
       }
       cp.dc_pred = 0;
     }
     eobrun_ = 0;
-    Bits bits{p, end};
+    Bits bits{*p, end};
     const bool single = sc.n == 1;
     Component& c0 = comp_[sc.comps[0]];
     const int64_t mcus = single ? int64_t{c0.wib} * c0.hib
                                 : int64_t{mcux_} * mcuy_;
     const int per_row = single ? c0.wib : mcux_;
+    int restarts_left = restart_interval_;
     for (int64_t m = 0; m < mcus; ++m) {
-      if (restart_interval_ && m > 0 && m % restart_interval_ == 0) {
-        restart(&bits);
+      if (!bits.insufficient) last_good_row_ = imcu_row(sc, m);
+      if (restart_interval_ && restarts_left == 0) {  // process_restart
+        bits.discard();
+        read_restart_marker(&bits.p, end, &bits.at_marker);
         for (int i = 0; i < sc.n; ++i) comp_[sc.comps[i]].dc_pred = 0;
         eobrun_ = 0;
+        restarts_left = restart_interval_;
+        if (!bits.at_marker) bits.insufficient = false;
       }
+      if (restart_interval_) --restarts_left;
+      if (bits.insufficient) continue;  // the segment's data ran out
       const int mx = static_cast<int>(m % per_row);
       const int my = static_cast<int>(m / per_row);
       if (single) {
@@ -1049,21 +1403,8 @@ class Decoder {
         }
       }
     }
-    return skip_entropy(bits.p, end);
-  }
-
-  // Byte-align, then read the RSTn marker (jdhuff.c process_restart).
-  static void restart(Bits* b) {
-    b->buf = 0;
-    b->cnt = 0;
-    const uint8_t* p = b->p;
-    while (p + 1 < b->end) {
-      if (p[0] == 0xFF && p[1] != 0 && p[1] != 0xFF) break;
-      ++p;
-    }
-    if (p + 1 < b->end && p[1] >= 0xD0 && p[1] <= 0xD7) p += 2;
-    b->p = p;
-    b->at_marker = false;
+    *p = bits.at_marker ? bits.p : next_marker(bits.p, end);
+    return kOk;
   }
 
   void decode_block(const Scan& sc, Component& cp, int16_t* blk, Bits* b) {
@@ -1162,6 +1503,498 @@ class Decoder {
         }
       }
       --eobrun_;
+    }
+  }
+
+
+  // Arithmetic-coded scans (jdarith.c). Statistics areas are per table.
+  struct ArithState {
+    uint8_t dc[16][64];
+    uint8_t ac[16][256];
+    uint8_t fixed[4] = {113, 0, 0, 0};
+    int last_dc[4] = {}, dc_context[4] = {};
+  };
+
+  int decode_arith(const Scan& sc, const uint8_t** p, const uint8_t* end) {
+    const bool dc_stats = !progressive || (sc.ss == 0 && sc.ah == 0);
+    const bool ac_stats = !progressive || sc.ss > 0;
+    for (int i = 0; i < sc.n; ++i) {
+      const Component& cp = comp_[sc.comps[i]];
+      if ((dc_stats && cp.td > 15) || (ac_stats && cp.ta > 15)) {
+        return kCorrupt;  // JERR_NO_ARITH_TABLE
+      }
+    }
+    std::unique_ptr<ArithState> st(new ArithState());
+    auto reset = [&]() {  // start_pass / process_restart
+      for (int i = 0; i < sc.n; ++i) {
+        const Component& cp = comp_[sc.comps[i]];
+        if (dc_stats) {
+          std::memset(st->dc[cp.td], 0, 64);
+          st->last_dc[i] = 0;
+          st->dc_context[i] = 0;
+        }
+        if (ac_stats) std::memset(st->ac[cp.ta], 0, 256);
+      }
+    };
+    reset();
+    Arith ar{*p, end};
+    const bool single = sc.n == 1;
+    Component& c0 = comp_[sc.comps[0]];
+    const int64_t mcus = single ? int64_t{c0.wib} * c0.hib
+                                : int64_t{mcux_} * mcuy_;
+    const int per_row = single ? c0.wib : mcux_;
+    int restarts_left = restart_interval_;
+    for (int64_t m = 0; m < mcus; ++m) {
+      last_good_row_ = imcu_row(sc, m);  // never short of data
+      if (restart_interval_) {
+        if (restarts_left == 0) {
+          read_restart_marker(&ar.p, end, &ar.at_marker);
+          reset();
+          ar.c = 0;
+          ar.a = 0;
+          ar.ct = -16;
+          restarts_left = restart_interval_;
+        }
+        --restarts_left;
+      }
+      const bool dc_refine = progressive && sc.ss == 0 && sc.ah != 0;
+      if (ar.ct == -1 && !dc_refine) continue;  // an error: do nothing
+      const int mx = static_cast<int>(m % per_row);
+      const int my = static_cast<int>(m / per_row);
+      bool stop = false;
+      for (int i = 0; i < sc.n && !stop; ++i) {
+        Component& cp = comp_[sc.comps[i]];
+        const int bh = single ? 1 : cp.v, bw = single ? 1 : cp.h;
+        for (int v = 0; v < bh && !stop; ++v) {
+          for (int h = 0; h < bw && !stop; ++h) {
+            int16_t* blk = single ? block(cp, mx, my)
+                                  : block(cp, mx * cp.h + h, my * cp.v + v);
+            stop = !arith_block(sc, i, cp, blk, &ar, st.get());
+          }
+        }
+      }
+    }
+    *p = ar.at_marker ? ar.p : next_marker(ar.p, end);
+    return kOk;
+  }
+
+  // One block's coefficients of an arithmetic scan; false once the scan's
+  // error (ct -1: a magnitude or spectral overflow) stops the MCU.
+  bool arith_block(const Scan& sc, int i, const Component& cp, int16_t* blk,
+                   Arith* ar, ArithState* st) {
+    if (progressive && sc.ss == 0 && sc.ah != 0) {  // decode_mcu_DC_refine
+      if (ar->decode(st->fixed)) blk[0] = static_cast<int16_t>(blk[0] |
+                                                               (1 << sc.al));
+      return true;
+    }
+    const bool dc = !progressive || sc.ss == 0;
+    const bool ac = !progressive || sc.ss > 0;
+    if (dc) {  // decode_mcu / decode_mcu_DC_first
+      const int tbl = cp.td;
+      uint8_t* s = st->dc[tbl] + st->dc_context[i];
+      if (ar->decode(s) == 0) {
+        st->dc_context[i] = 0;
+      } else {
+        const int sign = ar->decode(s + 1);
+        s += 2 + sign;
+        int m = ar->decode(s);
+        if (m != 0) {
+          s = st->dc[tbl] + 20;
+          while (ar->decode(s)) {
+            if ((m <<= 1) == 0x8000) {
+              ar->ct = -1;
+              return false;
+            }
+            s += 1;
+          }
+        }
+        if (m < ((1 << dc_l_[tbl]) >> 1)) {
+          st->dc_context[i] = 0;
+        } else if (m > ((1 << dc_u_[tbl]) >> 1)) {
+          st->dc_context[i] = 12 + sign * 4;
+        } else {
+          st->dc_context[i] = 4 + sign * 4;
+        }
+        int v = m;
+        s += 14;
+        while (m >>= 1) {
+          if (ar->decode(s)) v |= m;
+        }
+        v += 1;
+        if (sign) v = -v;
+        st->last_dc[i] = (st->last_dc[i] + v) & 0xffff;
+      }
+      blk[0] = static_cast<int16_t>(progressive
+                                        ? st->last_dc[i] * (1 << sc.al)
+                                        : st->last_dc[i]);
+    }
+    if (!ac) return true;
+    const int tbl = cp.ta;
+    const int ss = progressive ? sc.ss : 1, se = progressive ? sc.se : 63;
+    const int al = progressive ? sc.al : 0;
+    if (progressive && sc.ah != 0) {  // decode_mcu_AC_refine
+      const int p1 = 1 << al, m1 = -1 * (1 << al);
+      int kex = se;
+      for (; kex > 0; --kex) {
+        if (blk[kNatural[kex]]) break;
+      }
+      for (int k = ss; k <= se; ++k) {
+        uint8_t* s = st->ac[tbl] + 3 * (k - 1);
+        if (k > kex && ar->decode(s)) break;  // EOB
+        for (;;) {
+          int16_t* coef = blk + kNatural[k];
+          if (*coef) {  // previously nonzero
+            if (ar->decode(s + 2)) {
+              *coef = static_cast<int16_t>(*coef + (*coef < 0 ? m1 : p1));
+            }
+            break;
+          }
+          if (ar->decode(s + 1)) {  // newly nonzero
+            *coef = static_cast<int16_t>(ar->decode(st->fixed) ? m1 : p1);
+            break;
+          }
+          s += 3;
+          if (++k > se) {
+            ar->ct = -1;
+            return false;
+          }
+        }
+      }
+      return true;
+    }
+    // decode_mcu's AC part / decode_mcu_AC_first
+    for (int k = ss; k <= se; ++k) {
+      uint8_t* s = st->ac[tbl] + 3 * (k - 1);
+      if (ar->decode(s)) break;  // EOB
+      while (ar->decode(s + 1) == 0) {
+        s += 3;
+        if (++k > se) {
+          ar->ct = -1;
+          return false;
+        }
+      }
+      const int sign = ar->decode(st->fixed);
+      s += 2;
+      int m = ar->decode(s);
+      if (m != 0 && ar->decode(s)) {
+        m <<= 1;
+        s = st->ac[tbl] + (k <= ac_k_[tbl] ? 189 : 217);
+        while (ar->decode(s)) {
+          if ((m <<= 1) == 0x8000) {
+            ar->ct = -1;
+            return false;
+          }
+          s += 1;
+        }
+      }
+      int v = m;
+      s += 14;
+      while (m >>= 1) {
+        if (ar->decode(s)) v |= m;
+      }
+      v += 1;
+      if (sign) v = -v;
+      blk[kNatural[k]] = static_cast<int16_t>(
+          static_cast<int>(static_cast<unsigned>(v) << al));
+    }
+    return true;
+  }
+
+  // Lossless scans: jddiffct.c decompress_data over jdlhuff.c decode_mcus,
+  // then jdlossls.c's undifferencing of each row.
+  int decode_lossless(const Scan& sc, const uint8_t** p, const uint8_t* end) {
+    for (int i = 0; i < sc.n; ++i) {
+      if (!table(dc_, comp_[sc.comps[i]].td, false, 16)) return kCorrupt;
+    }
+    const bool single = sc.n == 1;
+    Component& c0 = comp_[sc.comps[0]];
+    const int per_row = single ? c0.wib : mcux_;
+    if (restart_interval_ % per_row) return kCorrupt;  // JERR_BAD_RESTART
+    const int restart_rows = restart_interval_ / per_row;
+    Bits bits{*p, end};
+    // one iMCU row of differences per component: v rows of bw samples
+    std::vector<int> diff[4];
+    for (int i = 0; i < sc.n; ++i) {
+      Component& cp = comp_[sc.comps[i]];
+      diff[i].assign(static_cast<size_t>(cp.v) * cp.bw, 0);
+      cp.pt = sc.al;
+    }
+    bool first_row[4];  // predict_undifference[ci] is the first-row one
+    auto start_pass = [&]() {
+      for (int i = 0; i < 4; ++i) first_row[i] = true;
+    };
+    start_pass();
+    int rows_left = restart_rows;
+    const int initial = 1 << (precision_ - sc.al - 1);
+    for (int r = 0; r < mcuy_; ++r) {
+      const bool last = r == mcuy_ - 1;
+      const int mcu_rows =
+          !single ? 1
+                  : (!last ? c0.v : (c0.hib % c0.v ? c0.hib % c0.v : c0.v));
+      for (int y = 0; y < mcu_rows; ++y) {
+        if (restart_interval_) {
+          if (rows_left == 0) {  // process_restart
+            bits.discard();
+            read_restart_marker(&bits.p, end, &bits.at_marker);
+            if (!bits.at_marker) bits.insufficient = false;
+            start_pass();
+            rows_left = restart_rows;
+          }
+        }
+        if (bits.insufficient) {  // zero differences, the predictor reset
+          for (int i = 0; i < sc.n; ++i) {
+            const Component& cp = comp_[sc.comps[i]];
+            const int rows = single ? 1 : cp.v;
+            for (int k = 0; k < rows; ++k) {
+              std::fill_n(&diff[i][static_cast<size_t>(y + k) * cp.bw],
+                          single ? cp.wib : cp.bw, 0);
+            }
+          }
+          start_pass();
+        } else {
+          for (int mx = 0; mx < per_row; ++mx) {
+            for (int i = 0; i < sc.n; ++i) {
+              const Component& cp = comp_[sc.comps[i]];
+              const int bh = single ? 1 : cp.v, bw = single ? 1 : cp.h;
+              for (int v = 0; v < bh; ++v) {
+                for (int h = 0; h < bw; ++h) {
+                  int s = bits.decode(dc_[cp.td]);
+                  if (s == 16) {
+                    s = 32768;
+                  } else if (s) {
+                    s = extend(bits.get(s), s);
+                  }
+                  const int row = single ? y : v;
+                  const int col = single ? mx : mx * cp.h + h;
+                  diff[i][static_cast<size_t>(row) * cp.bw + col] = s;
+                }
+              }
+            }
+          }
+        }
+        if (restart_interval_) --rows_left;
+      }
+      // undifference each component's rows of this iMCU row
+      for (int i = 0; i < sc.n; ++i) {
+        Component& cp = comp_[sc.comps[i]];
+        const int rows =
+            !last ? cp.v : (cp.hib % cp.v ? cp.hib % cp.v : cp.v);
+        for (int y = 0; y < rows; ++y) {
+          const int gy = r * cp.v + y;
+          undifference(sc.ss, &diff[i][static_cast<size_t>(y) * cp.bw],
+                       gy ? &cp.samples[static_cast<size_t>(gy - 1) * cp.bw]
+                          : nullptr,
+                       &cp.samples[static_cast<size_t>(gy) * cp.bw], cp.wib,
+                       initial, &first_row[sc.comps[i]]);
+        }
+      }
+    }
+    *p = bits.at_marker ? bits.p : next_marker(bits.p, end);
+    return kOk;
+  }
+
+  // jdlossls.c jpeg_undifference_first_row and jpeg_undifference1-7.
+  static void undifference(int psv, const int* diff, const uint16_t* prev,
+                           uint16_t* out, int width, int initial,
+                           bool* first_row) {
+    if (*first_row) {
+      int ra = (diff[0] + initial) & 0xFFFF;
+      out[0] = static_cast<uint16_t>(ra);
+      for (int x = 1; x < width; ++x) {
+        ra = (diff[x] + ra) & 0xFFFF;
+        out[x] = static_cast<uint16_t>(ra);
+      }
+      *first_row = false;
+      return;
+    }
+    int rb = prev[0];
+    int ra = (diff[0] + rb) & 0xFFFF;
+    out[0] = static_cast<uint16_t>(ra);
+    for (int x = 1; x < width; ++x) {
+      const int rc = rb;
+      rb = prev[x];
+      int pred;
+      switch (psv) {
+        case 1: pred = ra; break;
+        case 2: pred = rb; break;
+        case 3: pred = rc; break;
+        case 4: pred = ra + rb - rc; break;
+        case 5: pred = ra + ((rb - rc) >> 1); break;
+        case 6: pred = rb + ((ra - rc) >> 1); break;
+        default: pred = (ra + rb) >> 1; break;
+      }
+      ra = (diff[x] + pred) & 0xFFFF;
+      out[x] = static_cast<uint16_t>(ra);
+    }
+  }
+
+  // jdcoefct.c smoothing_ok: whether the progressive file is block-
+  // smoothed, with each component's coefficient bits 0-9 latched from the
+  // last scan and from the one before (prev_latch).
+  bool smoothing_ok(int8_t latch[4][10], int8_t prev_latch[4][10]) const {
+    if (!progressive) return false;
+    bool useful = false;
+    for (int c = 0; c < ncomp_; ++c) {
+      const Component& cp = comp_[c];
+      if (!cp.latched) return false;
+      for (int k = 0; k < 10; ++k) {
+        if (cp.q[kSmoothPos[k]] == 0) return false;
+      }
+      if (cp.coef_bits[0] < 0) return false;
+      latch[c][0] = cp.coef_bits[0];
+      for (int k = 1; k < 10; ++k) {
+        prev_latch[c][k] = scans_ > 1 ? cp.prev_bits[k] : -1;
+        latch[c][k] = cp.coef_bits[k];
+        if (cp.coef_bits[k] != 0) useful = true;
+      }
+    }
+    return useful;
+  }
+
+  // jdcoefct.c decompress_smooth_data for block row `by` of component cp:
+  // each block's first AC coefficients (and, where no AC is known, its DC)
+  // estimated from the DC values around it, then its IDCT into P.
+  template <class Idct>
+  void smooth_row(const Component& cp, int by, const int8_t* latch,
+                  const int8_t* prev_latch, Idct idct, int s,
+                  Plane* P) const {
+    const int total = mcuy_;
+    const int r = by / cp.v;  // the output iMCU row
+    const int last = total - 1;
+    const int block_rows =
+        r < last ? cp.v : (cp.hib % cp.v ? cp.hib % cp.v : cp.v);
+    const int br = by - r * cp.v;
+    const int ibr = r * block_rows + br;  // libjpeg's image_block_row
+    const int ibrs = block_rows * total;
+    const int8_t* bits = r > last_good_row_ ? prev_latch : latch;
+    // bits[0] of the previous-scan latch is never set: only 1-9 are read
+    bool change_dc = true;
+    for (int k = 1; k < 10; ++k) change_dc = change_dc && bits[k] == -1;
+    const uint16_t* q = cp.q;
+    const int64_t q00 = q[0], q01 = q[1], q10 = q[8], q20 = q[16],
+                  q11 = q[9], q02 = q[2], q03 = q[3], q12 = q[10],
+                  q21 = q[17], q30 = q[24];
+    auto row_of = [&](int y) {
+      return &cp.coef[static_cast<size_t>(y) * cp.bw * 64];
+    };
+    const int16_t* cur = row_of(by);
+    const int16_t* prev = ibr > 0 ? row_of(by - 1) : cur;
+    const int16_t* pprev = ibr > 1 ? row_of(by - 2) : prev;
+    const int16_t* next = ibr < ibrs - 1 ? row_of(by + 1) : cur;
+    const int16_t* nnext = ibr < ibrs - 2 ? row_of(by + 2) : next;
+    const int16_t* rows[5] = {pprev, prev, cur, next, nnext};
+    int dc[5][5];  // rows -2..2 x the sliding columns -2..2
+    for (int y = 0; y < 5; ++y) {
+      for (int x = 0; x < 5; ++x) dc[y][x] = rows[y][0];
+    }
+    const int last_col = cp.wib - 1;
+    auto predict = [](int64_t num, int64_t qk, int al) {
+      int pred;
+      if (num >= 0) {
+        pred = static_cast<int>(((qk << 7) + num) / (qk << 8));
+        if (al > 0 && pred >= (1 << al)) pred = (1 << al) - 1;
+      } else {
+        pred = static_cast<int>(((qk << 7) - num) / (qk << 8));
+        if (al > 0 && pred >= (1 << al)) pred = (1 << al) - 1;
+        pred = -pred;
+      }
+      return static_cast<int16_t>(pred);
+    };
+    int16_t ws[64];
+    for (int bx = 0; bx <= last_col; ++bx) {
+      std::memcpy(ws, cur + static_cast<size_t>(bx) * 64, sizeof(ws));
+      if (bx == 0 && bx < last_col) {
+        for (int y = 0; y < 5; ++y) dc[y][3] = dc[y][4] = rows[y][64];
+      }
+      if (bx + 1 < last_col) {
+        for (int y = 0; y < 5; ++y) {
+          dc[y][4] = rows[y][static_cast<size_t>(bx + 2) * 64];
+        }
+      }
+      // DCnn of libjpeg: row (nn - 1) / 5, column (nn - 1) % 5
+#define DC(nn) static_cast<int64_t>(dc[((nn) - 1) / 5][((nn) - 1) % 5])
+      int al;
+      if ((al = bits[1]) != 0 && ws[1] == 0) {
+        const int64_t num = q00 * (change_dc
+            ? (-DC(1) - DC(2) + DC(4) + DC(5) - 3 * DC(6) + 13 * DC(7) -
+               13 * DC(9) + 3 * DC(10) - 3 * DC(11) + 38 * DC(12) -
+               38 * DC(14) + 3 * DC(15) - 3 * DC(16) + 13 * DC(17) -
+               13 * DC(19) + 3 * DC(20) - DC(21) - DC(22) + DC(24) + DC(25))
+            : (-7 * DC(11) + 50 * DC(12) - 50 * DC(14) + 7 * DC(15)));
+        ws[1] = predict(num, q01, al);
+      }
+      if ((al = bits[2]) != 0 && ws[8] == 0) {
+        const int64_t num = q00 * (change_dc
+            ? (-DC(1) - 3 * DC(2) - 3 * DC(3) - 3 * DC(4) - DC(5) - DC(6) +
+               13 * DC(7) + 38 * DC(8) + 13 * DC(9) - DC(10) + DC(16) -
+               13 * DC(17) - 38 * DC(18) - 13 * DC(19) + DC(20) + DC(21) +
+               3 * DC(22) + 3 * DC(23) + 3 * DC(24) + DC(25))
+            : (-7 * DC(3) + 50 * DC(8) - 50 * DC(18) + 7 * DC(23)));
+        ws[8] = predict(num, q10, al);
+      }
+      if ((al = bits[3]) != 0 && ws[16] == 0) {
+        const int64_t num = q00 * (change_dc
+            ? (DC(3) + 2 * DC(7) + 7 * DC(8) + 2 * DC(9) - 5 * DC(12) -
+               14 * DC(13) - 5 * DC(14) + 2 * DC(17) + 7 * DC(18) +
+               2 * DC(19) + DC(23))
+            : (-DC(3) + 13 * DC(8) - 24 * DC(13) + 13 * DC(18) - DC(23)));
+        ws[16] = predict(num, q20, al);
+      }
+      if ((al = bits[4]) != 0 && ws[9] == 0) {
+        const int64_t num = q00 * (change_dc
+            ? (-DC(1) + DC(5) + 9 * DC(7) - 9 * DC(9) - 9 * DC(17) +
+               9 * DC(19) + DC(21) - DC(25))
+            : (DC(10) + DC(16) - 10 * DC(17) + 10 * DC(19) - DC(2) -
+               DC(20) + DC(22) - DC(24) + DC(4) - DC(6) + 10 * DC(7) -
+               10 * DC(9)));
+        ws[9] = predict(num, q11, al);
+      }
+      if ((al = bits[5]) != 0 && ws[2] == 0) {
+        const int64_t num = q00 * (change_dc
+            ? (2 * DC(7) - 5 * DC(8) + 2 * DC(9) + DC(11) + 7 * DC(12) -
+               14 * DC(13) + 7 * DC(14) + DC(15) + 2 * DC(17) - 5 * DC(18) +
+               2 * DC(19))
+            : (-DC(11) + 13 * DC(12) - 24 * DC(13) + 13 * DC(14) -
+               DC(15)));
+        ws[2] = predict(num, q02, al);
+      }
+      if (change_dc) {
+        if ((al = bits[6]) != 0 && ws[3] == 0) {
+          const int64_t num = q00 * (DC(7) - DC(9) + 2 * DC(12) -
+                                     2 * DC(14) + DC(17) - DC(19));
+          ws[3] = predict(num, q03, al);
+        }
+        if ((al = bits[7]) != 0 && ws[10] == 0) {
+          const int64_t num = q00 * (DC(7) - 3 * DC(8) + DC(9) - DC(17) +
+                                     3 * DC(18) - DC(19));
+          ws[10] = predict(num, q12, al);
+        }
+        if ((al = bits[8]) != 0 && ws[17] == 0) {
+          const int64_t num = q00 * (DC(7) - DC(9) - 3 * DC(12) +
+                                     3 * DC(14) + DC(17) - DC(19));
+          ws[17] = predict(num, q21, al);
+        }
+        if ((al = bits[9]) != 0 && ws[24] == 0) {
+          const int64_t num = q00 * (DC(7) + 2 * DC(8) + DC(9) - DC(17) -
+                                     2 * DC(18) - DC(19));
+          ws[24] = predict(num, q30, al);
+        }
+        // the DC itself, through a Gaussian-like kernel
+        const int64_t num = q00 * (
+            -2 * DC(1) - 6 * DC(2) - 8 * DC(3) - 6 * DC(4) - 2 * DC(5) -
+            6 * DC(6) + 6 * DC(7) + 42 * DC(8) + 6 * DC(9) - 6 * DC(10) -
+            8 * DC(11) + 42 * DC(12) + 152 * DC(13) + 42 * DC(14) -
+            8 * DC(15) - 6 * DC(16) + 6 * DC(17) + 42 * DC(18) +
+            6 * DC(19) - 6 * DC(20) - 2 * DC(21) - 6 * DC(22) - 8 * DC(23) -
+            6 * DC(24) - 2 * DC(25));
+        ws[0] = predict(num, q00, 0);
+      }
+#undef DC
+      idct(ws, q, &P->px[static_cast<size_t>(by) * s * P->stride + bx * s],
+           P->stride);
+      for (int y = 0; y < 5; ++y) {
+        for (int x = 0; x < 4; ++x) dc[y][x] = dc[y][x + 1];
+      }
     }
   }
 

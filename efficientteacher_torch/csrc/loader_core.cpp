@@ -51,7 +51,7 @@ constexpr int kOk = 0;
 constexpr int kErrOpen = -1;       // file missing or unreadable
 constexpr int kErrDecode = -2;     // corrupt or truncated data
 constexpr int kErrSize = -3;       // dims differ from what the caller expects
-constexpr int kErrUnsupported = -4;  // a JPEG kind the decoder refuses
+constexpr int kErrUnsupported = -4;  // a JPEG kind libjpeg refuses
 constexpr int kErrArgs = -5;       // bad sizes
 
 constexpr int kCoefBits = 11;
@@ -235,7 +235,8 @@ int decode_resize_impl(const char* path, int expect_w, int expect_h,
   oriented(o, dec.width, dec.height, &fw, &fh);
   if (denom == 0) {
     denom = 1;
-    while (denom < 8 && fw >= new_w * denom * 2 && fh >= new_h * denom * 2) {
+    while (dec.scalable() && denom < 8 && fw >= new_w * denom * 2 &&
+           fh >= new_h * denom * 2) {
       denom *= 2;
     }
   }
@@ -294,19 +295,19 @@ int decode_resize(const char* path, int expect_w, int expect_h, int new_w,
 extern "C" {
 
 // The header of the JPEG at `path`: info = {w, h (as stored), EXIF
-// orientation (1-8), refusal kind (etjpeg::Kind, 0 when it decodes)}.
+// orientation (1-8), refusal kind (etjpeg::Kind, 0 when it decodes), 1
+// when the decoder scales it (0: a lossless file, read at full size)}.
 // Returns kErrUnsupported for a kind the decoder refuses, without reading
 // any entropy-coded data. A sequential file is parsed from its first
 // 64 KiB when its headers fit there; a progressive one is walked to the end
-// (its scans decide whether every coefficient is refined).
+// (an error in a later scan's headers makes cv2.imread fail).
 int et_jpeg_info(const char* path, int* info) {
   std::vector<uint8_t> data;
   bool whole;
   if (!read_file(path, 1 << 16, &data, &whole)) return kErrOpen;
   etjpeg::Decoder dec;
   int st = dec.read(data.data(), data.size(), false);
-  if (!whole && !(st == etjpeg::kOk && !dec.progressive) &&
-      !(st == etjpeg::kRefused && dec.kind != etjpeg::kUnrefined)) {
+  if (!whole && (st != etjpeg::kOk || dec.progressive)) {
     if (!read_file(path, 0, &data, &whole)) return kErrOpen;
     dec = etjpeg::Decoder();
     st = dec.read(data.data(), data.size(), false);
@@ -315,6 +316,7 @@ int et_jpeg_info(const char* path, int* info) {
   info[1] = dec.height;
   info[2] = dec.orientation;
   info[3] = dec.kind;
+  info[4] = dec.scalable() ? 1 : 0;
   return status_code(st);
 }
 
@@ -431,10 +433,9 @@ int et_tiff_decode(const uint8_t* data, int64_t n, const int64_t* offsets,
     const int st = etraster::tiff_decode(
         data, static_cast<size_t>(n), offsets, counts, nchunks, compression,
         L, tables, static_cast<size_t>(ntables), out);
-    return st == etraster::kOk             ? kOk
-           : st == etraster::kArgs         ? kErrArgs
-           : st == etraster::kJpegRefused  ? kErrUnsupported
-                                           : kErrDecode;
+    return st == etraster::kOk     ? kOk
+           : st == etraster::kArgs ? kErrArgs
+                                   : kErrDecode;
   });
 }
 

@@ -22,10 +22,12 @@
 //                   end-of-bitmap escapes (FillUniColor: skipped pixels
 //                   take palette entry 0; its RLE4 loop fills only to a
 //                   row's end, whatever the escape)
-//   lzw_decode      TIFF LZW (tif_lzw.c: MSB first, 9-12 bit codes, the
-//                   code width grows one code early)
+//   lzw_decode      TIFF LZW (tif_lzw.c LZWDecode: MSB first, 9-12 bit
+//                   codes, the code width grows one code early; a stream
+//                   that fails keeps what it decoded, zeros after)
 //   lzw_encode      the same code stream as tif_lzw.c LZWEncode writes
-//   packbits_decode tif_packbits.c PackBitsDecode
+//   packbits_decode tif_packbits.c PackBitsDecode (a run cut short is
+//                   dropped; zeros after)
 //   fax::Decoder    tif_fax3.c: CCITT modified Huffman, Group 3 (1-D and
 //                   2-D) and Group 4, with libtiff's recovery from damage
 //   thunder_decode  tif_thunder.c ThunderDecodeRow
@@ -371,13 +373,19 @@ class BmpReader {
 
 constexpr int kLzwClear = 256, kLzwEoi = 257, kLzwFirst = 258;
 constexpr int kLzwMaxBits = 12;
+// tif_lzw.c CSIZE: the decoder's table, past the 4096 entries a 12-bit
+// code reaches; when it fills without a Clear, the next code fails
+constexpr int kLzwTable = (1 << kLzwMaxBits) - 1 + 1024;
 
-// TIFF LZW stream -> at most `cap` bytes into dst; returns the bytes
-// written, or kCorrupt for a code the table does not hold.
+// TIFF LZW stream -> at most `cap` bytes into dst, as tif_lzw.c
+// LZWDecode (libtiff 4.7) decodes it: a stream that starts without a
+// Clear, a code not yet in the table, a full table, data that end without
+// EOI, or an EOI before `cap` bytes fail. Returns the bytes written; where
+// it fails, *failed is set and the bytes after those decoded are zero.
 inline int64_t lzw_decode(const uint8_t* src, size_t n, uint8_t* dst,
-                          size_t cap) {
-  std::vector<int> prefix(1 << kLzwMaxBits), length(1 << kLzwMaxBits);
-  std::vector<uint8_t> suffix(1 << kLzwMaxBits), first(1 << kLzwMaxBits);
+                          size_t cap, bool* failed) {
+  std::vector<int> prefix(kLzwTable), length(kLzwTable);
+  std::vector<uint8_t> suffix(kLzwTable), first(kLzwTable);
   for (int i = 0; i < 256; ++i) {
     prefix[i] = -1, suffix[i] = first[i] = static_cast<uint8_t>(i);
     length[i] = 1;
@@ -385,13 +393,20 @@ inline int64_t lzw_decode(const uint8_t* src, size_t n, uint8_t* dst,
   size_t out = 0, pos = 0;
   uint64_t acc = 0;  // bits not yet taken, MSB first, `have` of them
   int have = 0;
-  int nbits = 9, next = kLzwFirst, prev = -1;
+  // next: the free entry; -1 before the first Clear and once the table
+  // is full (LZWPreDecode's dec_free_entp = dec_codetab - 1)
+  int nbits = 9, next = -1, prev = -1;
+  auto fail = [&]() {
+    std::memset(dst + out, 0, cap - out);
+    *failed = true;
+    return static_cast<int64_t>(out);
+  };
   for (;;) {
     while (have < nbits && pos < n) {
       acc = (acc << 8) | src[pos++];
       have += 8;
     }
-    if (have < nbits) break;  // the data ends without EOI
+    if (have < nbits) return fail();  // "not terminated with EOI code"
     const int code = static_cast<int>((acc >> (have - nbits)) &
                                       ((1u << nbits) - 1));
     have -= nbits;
@@ -401,11 +416,11 @@ inline int64_t lzw_decode(const uint8_t* src, size_t n, uint8_t* dst,
       continue;
     }
     int entry;
-    if (prev < 0) {
-      if (code > 255) return kCorrupt;
+    if (prev < 0) {  // the first code after a Clear
+      if (next < 0 || code > 255) return fail();
       entry = code;
     } else {
-      if (code > next || next >= (1 << kLzwMaxBits)) return kCorrupt;
+      if (next < 0 || code > next) return fail();  // not yet in the table
       // the new entry: prev + the first byte of code's string (of prev's
       // own where code is the entry being made)
       prefix[next] = prev;
@@ -415,6 +430,7 @@ inline int64_t lzw_decode(const uint8_t* src, size_t n, uint8_t* dst,
       entry = code;
       ++next;
       if (next >= (1 << nbits) - 1 && nbits < kLzwMaxBits) ++nbits;
+      if (next >= kLzwTable) next = -1;
     }
     const int len = length[entry];
     if (out + len > cap) {  // more data than the strip holds: keep what fits
@@ -430,7 +446,9 @@ inline int64_t lzw_decode(const uint8_t* src, size_t n, uint8_t* dst,
     }
     out += len;
     prev = code;
+    if (out == cap) return static_cast<int64_t>(out);
   }
+  if (out < cap) *failed = true;  // "Not enough data at scanline"
   return static_cast<int64_t>(out);
 }
 
@@ -482,17 +500,20 @@ inline void lzw_encode(const uint8_t* src, size_t n,
   if (acc_bits) dst->push_back(static_cast<uint8_t>(acc << (8 - acc_bits)));
 }
 
-// PackBits -> at most `cap` bytes; returns the bytes written.
+// PackBits -> at most `cap` bytes, as tif_packbits.c PackBitsDecode: a
+// run the data cut short is dropped whole; fewer than `cap` bytes fail
+// (*failed) with zeros after. Returns the bytes written.
 inline int64_t packbits_decode(const uint8_t* src, size_t n, uint8_t* dst,
-                               size_t cap) {
+                               size_t cap, bool* failed) {
   size_t i = 0, out = 0;
   while (i < n && out < cap) {
     const int c = static_cast<int8_t>(src[i++]);
     if (c >= 0) {
       const size_t k = std::min<size_t>(static_cast<size_t>(c) + 1,
-                                        std::min(n - i, cap - out));
+                                        cap - out);
+      if (n - i < k) break;  // "Terminating ... due to lack of data"
       std::memcpy(dst + out, src + i, k);
-      i += static_cast<size_t>(c) + 1;
+      i += k;
       out += k;
     } else if (c != -128) {
       if (i >= n) break;
@@ -500,6 +521,10 @@ inline int64_t packbits_decode(const uint8_t* src, size_t n, uint8_t* dst,
       std::memset(dst + out, src[i++], k);
       out += k;
     }
+  }
+  if (out < cap) {
+    std::memset(dst + out, 0, cap - out);
+    *failed = true;
   }
   return static_cast<int64_t>(out);
 }
@@ -1126,8 +1151,6 @@ struct TiffLayout {
   int jpeg_colour, jpeg_h, jpeg_v;
 };
 
-enum { kJpegRefused = -4 };
-
 // YCbCr blocks of one chunk -> (rows, cw, 3) pixels of (Y, Cb, Cr), each
 // pixel with its block's chroma (tif_getimage.c putcontig8bitYCbCr*tile:
 // partial blocks at the right and at the foot are cut).
@@ -1174,8 +1197,8 @@ inline void ycbcr_predictor(uint8_t* raw, size_t n, const TiffLayout& L) {
 // One JPEG chunk (an abbreviated stream after `tables`, libtiff's
 // JPEGPreDecode and JPEGDecode) -> px (rows, cw, per_chunk), as libjpeg
 // gives it to libtiff; with px null only its headers are read and checked.
-// kCorrupt where libtiff's checks fail (cv2.imread then returns nothing),
-// kJpegRefused for a JPEG kind the decoder refuses.
+// kCorrupt where libtiff's checks fail or libjpeg refuses the stream's
+// kind (cv2.imread then returns nothing).
 inline int jpeg_chunk(const etjpeg::Decoder* tables, const uint8_t* src,
                       size_t n, const TiffLayout& L, int rows,
                       bool last_strip, int* want_h, int* want_v,
@@ -1184,7 +1207,6 @@ inline int jpeg_chunk(const etjpeg::Decoder* tables, const uint8_t* src,
   if (tables) d.preload(*tables);
   d.forced_colour = L.jpeg_colour;
   const int st = d.read(src, n, px != nullptr);
-  if (st == etjpeg::kRefused) return kJpegRefused;
   if (st != etjpeg::kOk || d.components() != L.per_chunk) return kCorrupt;
   if (*want_h == 0) {  // the first chunk decides
     *want_h = d.h_sampling(0);
@@ -1210,7 +1232,8 @@ inline int jpeg_chunk(const etjpeg::Decoder* tables, const uint8_t* src,
 
 // Every strip or tile of a TIFF's first image -> out (h, w, spp) bytes
 // (two per sample with kRaw16). Chunk k is `counts[k]` bytes at
-// `offsets[k]` of `data`, compressed by `compression`: 1 none, 5 LZW,
+// `offsets[k]` of `data`, compressed by `compression`: 1 none, 8 Deflate
+// (inflated by the caller; a count ~k: zlib failed after k bytes), 5 LZW,
 // 32773 PackBits, 2 / 32771 CCITT modified Huffman, 3 Group 3, 4 Group 4,
 // 32809 ThunderScan, 7 JPEG (`tables`: the JPEGTables stream, or null),
 // or 0 for a scheme
@@ -1251,12 +1274,15 @@ inline int tiff_decode(const uint8_t* data, size_t n, const int64_t* offsets,
       for (int cx = 0; cx < across; ++cx, ++k) {
         const int rows = L.tiled ? L.ch : std::min(L.ch, L.h - cy * L.ch);
         // TIFFFillStrip: a chunk of no bytes, or past the file, fails
-        if (offsets[k] < 0 || counts[k] <= 0 ||
-            static_cast<uint64_t>(offsets[k]) + counts[k] > n) {
+        // (Deflate's chunks come inflated, a count ~k marking a failure)
+        const bool short_inflate = compression == 8 && counts[k] < 0;
+        const int64_t stored = short_inflate ? ~counts[k] : counts[k];
+        if (offsets[k] < 0 || stored < 0 || (stored == 0 && !short_inflate) ||
+            static_cast<uint64_t>(offsets[k]) + stored > n) {
           return kCorrupt;
         }
         const uint8_t* src = data + offsets[k];
-        const size_t count = static_cast<size_t>(counts[k]);
+        const size_t count = static_cast<size_t>(stored);
         if (!out) {
           if (compression != 7) continue;
           const int st = jpeg_chunk(tables ? &jt : nullptr, src, count, L,
@@ -1283,36 +1309,41 @@ inline int tiff_decode(const uint8_t* data, size_t n, const int64_t* offsets,
                                        (row_bytes / L.sub_v))
                   : need;
           std::fill(raw.begin(), raw.begin() + need, 0);
-          int64_t got = static_cast<int64_t>(std::min(count, limit));
-          if (compression == 1) {
-            std::memcpy(raw.data(), src, static_cast<size_t>(got));
+          // a strip whose decode fails is put as it decoded, zeros after
+          // (TIFFReadRGBAStrip runs with stop_on_error 0), and without
+          // the predictor, which libtiff applies after a decode succeeds
+          bool failed = false;
+          if (compression == 1 || compression == 8) {
+            // none (DumpModeDecode: too few bytes decode nothing), or
+            // Deflate inflated by the caller (a count ~k: zlib failed
+            // after k bytes, ZIPDecode keeping them)
+            failed = short_inflate || count < limit;
+            if (compression == 8 || count >= limit) {
+              std::memcpy(raw.data(), src, std::min(count, limit));
+            }
           } else if (compression == 5) {
-            got = lzw_decode(src, count, raw.data(), limit);
+            lzw_decode(src, count, raw.data(), limit, &failed);
           } else if (compression == 32773) {
-            got = packbits_decode(src, count, raw.data(), limit);
+            packbits_decode(src, count, raw.data(), limit, &failed);
           } else if (compression == 2 || compression == 3 ||
                      compression == 4 || compression == 32771) {
             fax::Decoder(src, count, compression, L.flags & kFaxMsbFirst,
                          L.g3_2d != 0, static_cast<uint64_t>(offsets[k]),
                          L.cw, &fax_state)
                 .decode(raw.data(), rows, row_bytes);
-            got = static_cast<int64_t>(limit);
           } else if (compression == 32809) {
             thunder_decode(src, count, raw.data(), rows, row_bytes, L.w);
-            got = static_cast<int64_t>(limit);
-          } else if (compression == 0) {
-            got = static_cast<int64_t>(limit);
-          } else {
+          } else if (compression != 0) {
             return kArgs;
           }
-          if (got < static_cast<int64_t>(limit)) return kCorrupt;
+          const bool predict = (L.flags & kPredictor) && !failed;
           if (ycc) {
-            if (L.flags & kPredictor) ycbcr_predictor(raw.data(), limit, L);
+            if (predict) ycbcr_predictor(raw.data(), limit, L);
             ycbcr_unblock(raw.data(), L, rows, px.data());
           } else {
             const int st = unpack_rows(
                 raw.data(), rows, row_bytes, L.cw, L.per_chunk, L.bits,
-                L.flags & kBigEndian, L.flags & kPredictor,
+                L.flags & kBigEndian, predict,
                 raw16 ? kRaw16Bytes
                       : (L.flags & kDiv257) ? kDiv257Round : kHighByte,
                 px.data(), px_row);

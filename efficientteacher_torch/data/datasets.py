@@ -38,8 +38,8 @@ set (`data/parallel_loader.py`). The native sizes come from the image
 headers (JAX decodes each image to take its size); a file cv2.imread
 reads nothing of is dropped, as in JAX (ROADMAP F10: a header of a kind
 cv2 refuses raises OSError), and a kind cv2 reads and the port does not
-(the JPEG kinds of ROADMAP Q1.9c, the TIFF kinds of Q1.9d) raises when
-the dataset is built, naming the file. A `.webp` takes the plain route on the prescale path too, as
+(the TIFF kinds of ROADMAP Q1.9d) raises when the dataset is built,
+naming the file. A `.webp` takes the plain route on the prescale path too, as
 JAX's `load_image` sends only JPEGs to its native core.
 
 Albumentations is off: the JAX dataset applies it only when the package
@@ -140,9 +140,8 @@ def verify_image_label(img_file: str, label_file: Optional[str], nc: int,
     Returns (labels (N, 5+2*np) float32, (w, h)) or None for a file that
     is missing, corrupt, of a kind cv2.imread reads nothing of, or under
     10 px. Raises NotImplementedError for an image kind cv2 reads and the
-    port does not (`JpegUnsupported` for the JPEG kinds of ROADMAP Q1.9c,
-    `TiffUnsupported` for the TIFF kinds of Q1.9d): the dataset fails when
-    it is built."""
+    port does not (`TiffUnsupported` for the TIFF kinds of ROADMAP Q1.9d):
+    the dataset fails when it is built."""
     ncol = 5 + 2 * num_keypoints
     try:
         w, h = image_io.image_size(img_file)

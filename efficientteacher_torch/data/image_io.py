@@ -5,12 +5,15 @@ calls of detect.
 What is read, each bit-equal to `cv2.imread(path)[..., ::-1]` (cv2 5.0.0):
 
 * JPEG, through the loader core's own decoder (`csrc/jpeg_decode.h`,
-  `utils/native_loader.py`): baseline, extended and progressive Huffman
-  files; grey, YCbCr, RGB, CMYK and YCCK; every sampling set libjpeg
+  `utils/native_loader.py`): baseline, extended, progressive and 8-bit
+  lossless Huffman files and sequential and progressive arithmetic-coded
+  ones; grey, YCbCr, RGB, CMYK and YCCK; every sampling set libjpeg
   decodes (4:4:4, 4:2:2, 4:2:0, 4:4:0, 4:1:1, ...), at scale 1 and at the
-  reduced scales. Arithmetic coding, 12-bit, lossless, hierarchical files
-  and progressive scans that leave coefficients unrefined raise
-  `JpegUnsupported` (ROADMAP Q1.9c).
+  reduced scales; truncated and damaged data and the block smoothing of
+  progressive files whose scans leave coefficients unrefined, as libjpeg
+  decodes them. The kinds libjpeg refuses as cv2 calls it (12-bit,
+  hierarchical, arithmetic lossless, lossless grey or YCbCr) raise
+  OSError, as cv2.imread returns None.
 * PNG: every bit depth and colour type, Adam7 interlacing; 16-bit samples
   as their high byte (libpng's png_set_strip_16), grey of 1-4 bits scaled
   to 0-255, alpha and tRNS dropped, no ancillary chunk applied (cv2 sets
@@ -243,8 +246,8 @@ def _refuse(path: str, ext: str):
 def image_size(path: str):
     """(w, h) of the image at `path` from its header, orientation applied.
     Raises NotImplementedError for a kind cv2 reads and this module does
-    not (`native_loader.JpegUnsupported`, `TiffUnsupported`), OSError for
-    a file that is missing, corrupt, or of a kind cv2 reads nothing of."""
+    not (`tiff_io.TiffUnsupported`), OSError for a file that is missing,
+    corrupt, or of a kind cv2 reads nothing of."""
     ext = suffix(path)
     if ext in JPEG_SUFFIXES:
         w, h, orientation = nl.jpeg_info(path)

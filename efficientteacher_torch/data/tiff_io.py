@@ -35,6 +35,11 @@ alpha. What that interface does, and so what this module does:
   libjpeg's fancy upsampling, every other photometric as its raw
   components). Predictor 1 and 2 (libtiff applies it with LZW and Deflate
   only); strips and tiles; either byte order; BigTIFF.
+* A strip or tile whose data fail part way is put as libtiff's RGBA
+  interface (stop_on_error 0) puts it: what LZW, PackBits or Deflate
+  decoded before the fault and zeros after, without the predictor (ZIPDecode
+  keeps what zlib wrote before a stream error: `_inflate`); an
+  uncompressed one too short is all zeros (DumpModeDecode).
 * SampleFormat 2 (signed) read as unsigned, as libtiff's RGBA interface
   reads it; FillOrder 2: every codec's bits reversed first, but JPEG's
   (libjpeg reads bytes) and the fax codecs' (which read them so).
@@ -54,14 +59,14 @@ samples; 2-bit samples, 4-bit ones but a palette's, 10-64-bit samples, a
 16-bit palette, the floating-point predictor, RGB of fewer than 3
 colours, samples below 8 bits with alpha or in planes; CMYK, YCbCr and
 CIELab in layouts other than those above; a strip or tile of no
-bytes or past the file, and a JPEG stream libtiff refuses (its size,
-sampling or component count); and a non-square image of Orientation 5-8
-(cv2 5.0.0's imread asserts; ROADMAP F9).
+bytes or past the file, and a JPEG stream libtiff or libjpeg refuses
+(its size, sampling or component count, a 12-bit or hierarchical
+stream); and a non-square image of Orientation 5-8 (cv2 5.0.0's imread
+asserts; ROADMAP F9).
 
 `TiffUnsupported` is left only for kinds cv2 reads and this module does
-not (ROADMAP Q1.9d): SGILog compression of LogL / LogLuv, ThunderScan in
-tiles, and a JPEG-in-TIFF stream of a kind the loader core's decoder
-refuses (arithmetic coding, 12-bit, lossless, unrefined progressive).
+not (ROADMAP Q1.9d): SGILog compression of LogL / LogLuv and ThunderScan
+in tiles.
 
 Headers and IFDs are parsed here and Deflate is Python's zlib; LZW,
 PackBits, ThunderScan, the fax codecs, the JPEG streams, the predictor,
@@ -392,13 +397,40 @@ def _subsampled(lay: _Layout):
     return None if sub == (1, 1) else sub
 
 
+def _inflate(chunk: bytes, size: int):
+    """(bytes, ok) of one Deflate chunk as tif_zip.c ZIPDecode inflates it
+    into a strip of `size` bytes: it stops at `size`; data that end early,
+    a bad stream or a failed check fail, keeping what zlib wrote before
+    (decompressobj's flush returns that output where decompress would
+    raise)."""
+    try:
+        out = zlib.decompressobj().decompress(chunk, size)
+    except zlib.error:
+        out = None
+    if out is not None and len(out) == size:
+        return out, True
+    d = zlib.decompressobj()
+    try:
+        out = d.decompress(chunk, 1)
+    except zlib.error:
+        return b"", False
+    try:
+        out += d.flush()
+    except zlib.error:
+        pass
+    return out[:size], False
+
+
 def _inflated(lay: _Layout, data: bytes, per_chunk: int):
     """Deflate's chunks, inflated by zlib (which releases the interpreter
-    lock), end to end: (bytes, [(offset, count)])."""
+    lock), end to end: (bytes, [(offset, count)]), a count ~k marking a
+    chunk whose inflate failed after k bytes (`_inflate`)."""
     parts, chunks, at = [], [], 0
     down, across = -(-lay.h // lay.ch), -(-lay.w // lay.cw)
     sub = _subsampled(lay)
     for k, (offset, count) in enumerate(lay.chunks):
+        if offset < 0 or count <= 0 or offset + count > len(data):
+            raise OSError(f"{lay.path}: corrupt or truncated TIFF data")
         cy = (k // across) % down
         rows = lay.ch if lay.tiled else min(lay.ch, lay.h - cy * lay.ch)
         if sub:
@@ -406,13 +438,9 @@ def _inflated(lay: _Layout, data: bytes, per_chunk: int):
                 sub[0] * sub[1] + 2)
         else:
             size = rows * ((lay.cw * per_chunk * lay.bits + 7) // 8)
-        try:
-            part = zlib.decompressobj().decompress(
-                data[offset:offset + count], size)
-        except zlib.error as e:
-            raise OSError(f"{lay.path}: TIFF Deflate data: {e}") from None
+        part, ok = _inflate(data[offset:offset + count], size)
         parts.append(part)
-        chunks.append((at, len(part)))
+        chunks.append((at, len(part) if ok else ~len(part)))
         at += len(part)
     return b"".join(parts), chunks
 
@@ -449,7 +477,7 @@ def _decode(lay: _Layout, data: bytes, check_only: bool = False):
         data = data.translate(_REVERSED)   # TIFFReverseBits before decoding
     if compression in (8, 32946) and not check_only:
         data, chunks = _inflated(lay, data, per_chunk)
-        compression = 1
+        compression = 8
     jpeg = None
     if compression == 7:
         # TIFFRGBAImageBegin sets JPEGCOLORMODE_RGB for contiguous YCbCr:
@@ -463,9 +491,6 @@ def _decode(lay: _Layout, data: bytes, check_only: bool = False):
                               lay.cw, lay.ch, lay.tiled, planes, per_chunk,
                               lay.bits, flags, lay.g3_2d,
                               _subsampled(lay) or (0, 0), jpeg, check_only)
-    except nl.JpegUnsupported as e:
-        raise TiffUnsupported(f"{lay.path}: TIFF with {e} is not read "
-                              f"({_TODO})") from None
     except OSError:
         raise OSError(f"{lay.path}: corrupt or truncated TIFF data") \
             from None

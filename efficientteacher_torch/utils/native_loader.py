@@ -3,12 +3,12 @@ built at first use by `ops/_build.host_library`).
 
 Counterpart of `efficientteacher_tpu/utils/native_loader.py`. The core
 decodes JPEG itself (`csrc/jpeg_decode.h`, no libjpeg), bit-equal to
-cv2.imread on every colour space and sampling set libjpeg decodes; the
-kinds it refuses (arithmetic coding, 12-bit, lossless, hierarchical,
-unrefined progressive scans: ROADMAP Q1.9c) raise `JpegUnsupported` from
-`jpeg_info`, which the datasets call for every file when they are built
-(`data/image_io.py`); the kinds libjpeg refuses too raise OSError, and the
-datasets drop them as JAX's drop cv2's None. Unlike the JAX binding it
+cv2.imread on every JPEG kind libjpeg reads as cv2 calls it (Huffman and
+arithmetic, sequential, progressive and 8-bit lossless, every colour space
+and sampling set, damaged and truncated data, block smoothing); the kinds
+libjpeg refuses (`_REFUSED`) raise OSError from `jpeg_info`, which the
+datasets call for every file when they are built (`data/image_io.py`), and
+the datasets drop them as JAX's drop cv2's None. Unlike the JAX binding it
 never falls back. It also runs the per-pixel stages of PNG, BMP and TIFF
 (`csrc/raster_decode.h`: `png_decode`, `to_rgb`, `bmp_decode`,
 `tiff_decode` with the CCITT, JPEG-in-TIFF and YCbCr blocks,
@@ -71,27 +71,21 @@ _SIGNATURES = {
 _ERRORS = {-1: "cannot open the file",
            -2: "corrupt or truncated image data",
            -3: "its size differs from the labels cache's",
-           -4: "a JPEG kind the loader core refuses",
+           -4: "a JPEG kind libjpeg refuses too",
            -5: "bad sizes"}
-# csrc/jpeg_decode.h etjpeg::Kind
-_REFUSED = {1: "arithmetic coding (ROADMAP Q1.9c)",
-            2: "a sample precision other than 8 bits (ROADMAP Q1.9c)",
-            3: "lossless coding (ROADMAP Q1.9c)",
-            4: "hierarchical coding (ROADMAP Q1.9c)",
-            5: "neither 1, 3 nor 4 components (libjpeg decodes no such "
-               "colour space for cv2 either)",
+# csrc/jpeg_decode.h etjpeg::Kind: the kinds libjpeg refuses as cv2.imread
+# calls it (cv2 returns nothing); the file is corrupt to the datasets
+# (OSError), which drop it as JAX's do (ROADMAP F10)
+_REFUSED = {1: "arithmetic-coded lossless frames (SOF11)",
+            2: "a sample precision the 8-bit API does not read (8, or 2-8 "
+               "lossless)",
+            3: "a lossless colour conversion (grey or YCbCr to BGR)",
+            4: "hierarchical or differential frames (SOF5-7, SOF13-15, DHP, "
+               "EXP) or the JPG marker",
+            5: "neither 1, 3 nor 4 components",
             6: "sampling factors libjpeg does not decode (a ratio that is "
-               "not integral, or more than 10 blocks in an MCU)",
-            7: "progressive scans that leave coefficients unrefined (libjpeg "
-               "would block-smooth them; ROADMAP Q1.9c)"}
-# the kinds libjpeg refuses too: cv2.imread returns nothing, the file is
-# corrupt to the datasets (OSError), which drop it as JAX's do
-_CV2_REFUSES = (5, 6)
+               "not integral, or more than 10 blocks in an MCU)"}
 PRESCALE, ORIENT = 1, 2
-
-
-class JpegUnsupported(NotImplementedError):
-    """A JPEG of a kind the core's decoder refuses (`_REFUSED`)."""
 
 
 @functools.cache
@@ -116,22 +110,25 @@ def _canvas(canvas: np.ndarray):
     return canvas.ctypes.data, canvas.shape[0], canvas.shape[1]
 
 
+def _jpeg_header(path: str):
+    """(w, h, orientation, scalable) of the JPEG's headers (scalable: 0 for
+    a lossless file, which libjpeg reads at full size whatever the scale).
+    Raises OSError for a file that is missing, not a JPEG, or of a kind
+    libjpeg refuses (`_REFUSED`)."""
+    info = np.zeros(5, np.int32)
+    code = _lib().et_jpeg_info(os.fsencode(path), info.ctypes.data)
+    if code == -4:
+        raise OSError(f"{path}: JPEG with {_REFUSED[int(info[3])]}")
+    _check(code, path)
+    return int(info[0]), int(info[1]), int(info[2]), bool(info[4])
+
+
 def jpeg_info(path: str):
     """(w, h, orientation) from the JPEG's headers: the size as stored and
     the EXIF orientation (1-8; 1 without a well-formed Exif block). Raises
-    `JpegUnsupported` for a kind the decoder refuses and libjpeg reads,
     OSError for a file that is missing, not a JPEG, or of a kind libjpeg
-    refuses too (`_CV2_REFUSES`)."""
-    info = np.zeros(4, np.int32)
-    code = _lib().et_jpeg_info(os.fsencode(path), info.ctypes.data)
-    if code == -4 and int(info[3]) in _CV2_REFUSES:
-        raise OSError(f"{path}: JPEG with {_REFUSED[int(info[3])]}")
-    if code == -4:
-        raise JpegUnsupported(
-            f"{path}: JPEG with {_REFUSED.get(int(info[3]), info[3])} is not "
-            "read by the loader core (csrc/jpeg_decode.h)")
-    _check(code, path)
-    return int(info[0]), int(info[1]), int(info[2])
+    refuses (`_REFUSED`)."""
+    return _jpeg_header(path)[:3]
 
 
 def oriented_size(w: int, h: int, orientation: int):
@@ -141,9 +138,12 @@ def oriented_size(w: int, h: int, orientation: int):
 
 def jpeg_decode(path: str, denom: int = 1, orient: bool = True):
     """The JPEG at `path` as RGB uint8 (h, w, 3), decoded at scale 1/denom
-    (1, 2, 4, 8: cv2.imread's IMREAD_REDUCED_COLOR_*), with the EXIF
-    orientation applied when `orient` (cv2.imread's default)."""
-    w, h, o = jpeg_info(path)
+    (1, 2, 4, 8: cv2.imread's IMREAD_REDUCED_COLOR_*; a lossless file comes
+    at full size, as libjpeg gives it), with the EXIF orientation applied
+    when `orient` (cv2.imread's default)."""
+    w, h, o, scalable = _jpeg_header(path)
+    if not scalable:
+        denom = 1
     ow, oh = -(-w // denom), -(-h // denom)
     if orient:
         ow, oh = oriented_size(ow, oh, o)
@@ -333,7 +333,9 @@ def tiff_decode(data, chunks, compression: int, w: int, h: int, cw: int,
     """The strips or tiles of a TIFF image -> (h, w, per_chunk * planes)
     uint8 samples ((h, w, spp, 2) with TIFF_RAW16: each 16-bit sample's
     low then high byte): `chunks` (offset, byte count) into `data`,
-    compressed by `compression` (1 none, 5 LZW, 32773 PackBits, 2 / 32771
+    compressed by `compression` (1 none, 8 Deflate already inflated: a
+    count ~k marks a chunk whose inflate failed after k bytes, 5 LZW,
+    32773 PackBits, 2 / 32771
     CCITT modified Huffman, 3 Group 3 (`g3_2d`: two-dimensional), 4 Group
     4, 7 JPEG, 0 none that decodes: zeros), in the file's order (plane,
     then chunk rows, then across); `flags` of `TIFF_*`; `subsampling`
@@ -360,9 +362,6 @@ def tiff_decode(data, chunks, compression: int, w: int, h: int, cw: int,
                                  None if tab is None else tab.ctypes.data,
                                  0 if tab is None else tab.size,
                                  None if out is None else out.ctypes.data)
-    if code == -4:
-        raise JpegUnsupported("a JPEG-in-TIFF stream of a kind the loader "
-                              "core refuses (csrc/jpeg_decode.h)")
     _check(code, "TIFF")
     return out
 

@@ -425,8 +425,9 @@ def test_loader_core_builds_and_reads_on_the_card_machine(card, tmp_path):
     on the fixtures of test_torch_image_formats.py, the WebP decoders on
     those of test_torch_webp.py, the TIFF kinds of ROADMAP Q1.9c (fax,
     JPEG-in-TIFF, CMYK, CIELab, YCbCr) on those of
-    test_torch_tiff_kinds.py, and the core's writers round-trip (the
-    lossless WebP one exactly)."""
+    test_torch_tiff_kinds.py, the damaged and rare JPEGs and damaged TIFF
+    strips on those of test_torch_jpeg_damaged.py, and the core's writers
+    round-trip (the lossless WebP one exactly)."""
     import subprocess
 
     from efficientteacher_torch.data import image_io
@@ -435,6 +436,8 @@ def test_loader_core_builds_and_reads_on_the_card_machine(card, tmp_path):
     from test_torch_image_formats import \
         check_fixtures as check_format_fixtures
     from test_torch_jpeg import check_fixtures
+    from test_torch_jpeg_damaged import \
+        check_fixtures as check_damaged_fixtures
     from test_torch_tiff_kinds import check_fixtures as check_tiff_fixtures
     from test_torch_webp import check_fixtures as check_webp_fixtures
 
@@ -456,6 +459,7 @@ def test_loader_core_builds_and_reads_on_the_card_machine(card, tmp_path):
     assert check_format_fixtures(tmp_path / "format_fixtures") == []
     assert check_webp_fixtures(tmp_path / "webp_fixtures") == []
     assert check_tiff_fixtures(tmp_path / "tiff_fixtures") == []
+    assert check_damaged_fixtures(tmp_path / "damaged_fixtures") == []
     image_io.imwrite(str(tmp_path / "a.webp"), img)
     assert np.array_equal(image_io.imread(str(tmp_path / "a.webp")),
                           img[..., ::-1])

@@ -10,7 +10,9 @@ module's own baseline encoder `encode_baseline`, since cv2 writes five)
 equals cv2 at every scale, and the sets libjpeg refuses raise;
 the EXIF orientation is applied as cv2.imread applies it; the writer's
 files decode identically in cv2 and in the core; each kind the decoder
-refuses raises when a dataset is built, naming the file.
+once refused is read as cv2 reads it, or, where libjpeg refuses it too,
+leaves the dataset (tests/test_torch_jpeg_damaged.py holds the damaged
+and rare kinds at every scale).
 
 `FIXTURES` are a few small files written once with cv2.imwrite (quality
 75, the sampling / progressive / restart options their names give, seeded
@@ -763,6 +765,10 @@ def _segment(data: bytes, marker: int) -> int:
 
 
 def _unsupported(kind: str, tmp_path) -> bytes:
+    """A file of each kind the decoder once refused: real files from the
+    tests' writers (tests/jpeg_writers.py), cv2's and Pillow's."""
+    import jpeg_writers as jw
+
     cv2 = _cv2()
     rng = np.random.default_rng(4)
     img = _image(rng, 24, 40, True)
@@ -783,24 +789,28 @@ def _unsupported(kind: str, tmp_path) -> bytes:
         scans = [i for i in range(len(data) - 1)
                  if data[i] == 0xFF and data[i + 1] == 0xDA]
         return data[:scans[3]] + b"\xff\xd9"  # the first three scans only
+    planes = [img[..., c] for c in range(3)]
+    if kind == "arithmetic":  # SOF9, the tests' QM coder
+        return jw.encode(planes, [(1, 1)] * 3, arith=True, adobe=0)
+    if kind == "lossless":  # SOF3 RGB, predictor 1
+        return jw.encode_lossless(planes)
+    if kind == "hierarchical":  # DHP, a baseline frame, EXP, SOF5
+        return jw.encode_hierarchical(planes[0])
+    if kind == "precision_12":  # SOF1 of 12-bit samples
+        return jw.encode([p.astype(np.int64) * 16 for p in planes],
+                         [(1, 1)] * 3, precision=12)
     data = bytearray(cv2.imencode(".jpg", img)[1].tobytes())
     sof = _segment(data, 0xC0)
-    if kind in ("arithmetic", "lossless", "hierarchical"):
-        data[sof + 1] = {"arithmetic": 0xC9, "lossless": 0xC3,
-                         "hierarchical": 0xC5}[kind]
-    elif kind == "precision_12":
-        data[sof + 1], data[sof + 4] = 0xC1, 12
-    elif kind == "components_2":
-        n = struct.unpack(">H", data[sof + 2:sof + 4])[0]
-        body = bytes(data[sof + 4:sof + 9]) + b"\x02" + b"".join(
-            bytes([c, 0x11, 0]) for c in (1, 2))
-        data[sof:sof + 2 + n] = b"\xff\xc0" + struct.pack(
-            ">H", len(body) + 2) + body
-    return bytes(data)
+    n = struct.unpack(">H", data[sof + 2:sof + 4])[0]
+    body = bytes(data[sof + 4:sof + 9]) + b"\x02" + b"".join(
+        bytes([c, 0x11, 0]) for c in (1, 2))
+    data[sof:sof + 2 + n] = b"\xff\xc0" + struct.pack(
+        ">H", len(body) + 2) + body
+    return bytes(data)   # components_2
 
 
 UNSUPPORTED = {"arithmetic": "arithmetic coding",
-               "precision_12": "precision other than 8",
+               "precision_12": "precision",
                "lossless": "lossless", "hierarchical": "hierarchical",
                "components_2": "neither 1, 3 nor 4 components",
                "sampling_fractional": "sampling factors",
@@ -808,15 +818,21 @@ UNSUPPORTED = {"arithmetic": "arithmetic coding",
                "unrefined_progressive": "unrefined"}
 # kinds the decoder refused before it read them: their cases hold that the
 # dataset now builds and reads them as cv2.imread does
-READ_NOW = ("cmyk", "rgb", "sampling_411", "sampling_440")
+READ_NOW = ("cmyk", "rgb", "sampling_411", "sampling_440", "arithmetic",
+            "lossless", "unrefined_progressive")
 # kinds libjpeg refuses too (cv2.imread returns None): the file leaves the
 # dataset, as it leaves JAX's (ROADMAP F10)
 CV2_REFUSES_TOO = ("components_2", "sampling_fractional",
-                   "sampling_11_blocks")
+                   "sampling_11_blocks", "precision_12", "hierarchical")
 
 
-@pytest.mark.parametrize("kind", sorted(UNSUPPORTED) + sorted(READ_NOW))
+@pytest.mark.parametrize("kind", sorted(UNSUPPORTED) + sorted(
+    set(READ_NOW) - set(UNSUPPORTED)))
 def test_unsupported_kinds_raise_at_dataset_build(kind, tmp_path):
+    """Every kind the decoder once refused is now read as cv2 reads it or,
+    where libjpeg refuses it too, dropped as JAX's dataset drops it: no
+    JPEG kind cv2 reads raises."""
+    assert (kind in READ_NOW) != (kind in CV2_REFUSES_TOO)
     good = tmp_path / "images" / "good.jpg"
     good.parent.mkdir()
     nl.jpeg_write(str(good), np.full((24, 40, 3), 90, np.uint8), 90)
@@ -834,17 +850,9 @@ def test_unsupported_kinds_raise_at_dataset_build(kind, tmp_path):
         with pytest.raises(OSError, match=UNSUPPORTED[kind]):
             image_io.image_size(str(bad))
         return
-    if kind in READ_NOW:
-        ds = port_ds.LoadImagesAndLabels(str(lst), img_size=32, nc=8)
-        assert list(map(tuple, ds.shapes)) == [(40, 24), (40, 24)]
-        np.testing.assert_array_equal(image_io.imread(str(bad)),
-                                      _cv2_read(bad))
-        return
-    with pytest.raises(nl.JpegUnsupported, match=UNSUPPORTED[kind]) as err:
-        port_ds.LoadImagesAndLabels(str(lst), img_size=32, nc=8)
-    assert str(bad) in str(err.value)
-    with pytest.raises(NotImplementedError):  # what the datasets let through
-        image_io.image_size(str(bad))
+    ds = port_ds.LoadImagesAndLabels(str(lst), img_size=32, nc=8)
+    assert list(map(tuple, ds.shapes)) == [(40, 24), (40, 24)]
+    np.testing.assert_array_equal(image_io.imread(str(bad)), _cv2_read(bad))
 
 
 # -- every sampling set ---------------------------------------------------
@@ -1044,8 +1052,11 @@ def test_every_sampling_set_is_cv2_imread(name, tmp_path):
 
 def test_damaged_files_raise_and_never_crash(tmp_path):
     """Seeded damage to the fixtures (bytes overwritten, truncation,
-    garbage inserted): every read returns an image or raises OSError /
-    JpegUnsupported; none takes the process down."""
+    garbage inserted): every read returns an image or raises OSError; none
+    takes the process down. A file cut short reads as cv2.imread reads it
+    (ROADMAP F12: the data after the cut read as zero bits, the MCUs after
+    it skipped)."""
+    cv2 = _cv2()
     rng = np.random.default_rng(0)
     sources = [Path(p).read_bytes()
                for p in write_fixtures(tmp_path / "fx").values()]
@@ -1070,8 +1081,12 @@ def test_damaged_files_raise_and_never_crash(tmp_path):
             assert img.shape[2] == 3 and img.shape[:2] == \
                 image_io.image_size(path)[::-1]
             outcomes.add("read")
-        except nl.JpegUnsupported:
-            outcomes.add("refused")
         except OSError:
+            img = None
             outcomes.add("corrupt")
-    assert outcomes == {"read", "refused", "corrupt"}
+        if kind == 1:
+            want = cv2.imread(path)
+            assert (img is None) == (want is None), at
+            if img is not None:
+                np.testing.assert_array_equal(img, want[:, :, ::-1])
+    assert outcomes == {"read", "corrupt"}
