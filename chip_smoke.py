@@ -152,7 +152,18 @@ read just after:
     K1, K2 and the count held as on the other splits (`jpeg kinds:
     cli.val`), the lossless files equal to their sources and the
     arithmetic ones to the same coefficients Huffman-coded; their decode
-    img/s.
+    img/s. The last TIFF kinds cv2 reads (ROADMAP Q1.9d) too: their
+    fixtures in tests/test_torch_tiff_kinds.py, and the val split written
+    a sixth time, cycling through SGILog LogL (strips), SGILog LogLuv
+    (tiles), SGILog24 LogLuv and ThunderScan in tiles (which libtiff reads
+    as palette entry 0) with its own PNG copy: cli.val on both equal, K1,
+    K2 and the count held as on the other splits (`q1.9d tiff: cli.val`).
+
+`[serve]` also draws the fixed label cases of tests/text_cases.py (every
+printable ASCII character, the COCO names with confidences in their
+detect.py colours, labels cut at each edge, Latin, Cyrillic and Hebrew)
+with `utils/draw.py` (cv2 5.0's putText face: Rubik at 14 px, weight 400)
+and requires cv2 5.0.0's digests, then times drawing one image's labels.
 
 It times the forward, the NMS, the selection engine against `torch.topk`,
 the training steps and their phases (CUDA events), and each kernel
@@ -4227,6 +4238,34 @@ def serve_leg(torch, dev, card, lists, tmp):
           f"{e_detect['bound_ms']:.6f} ms ({e_detect['bound_by']}, "
           f"{e_detect['bound_ms'] / e_detect['ms']:.2%} of it) | {card}")
 
+    # -- label text against cv2's digests; what drawing one image costs --
+    from efficientteacher_torch.utils import draw
+
+    sys.path.insert(0, str(Path(__file__).resolve().parent / "tests"))
+    import text_cases
+
+    t0 = time.perf_counter()
+    bad = text_cases.check_port(draw)
+    t_cases = (time.perf_counter() - t0) * 1e3
+    require(not bad, f"label text differs from cv2's digests: {bad}")
+    names = list(cfg.Dataset.names)
+    canvases = [(np.ascontiguousarray(img0), dets[p])
+                for p, _, img0, _ in LoadImages(str(source), IMG)]
+    n_labels = sum(len(d) for _, d in canvases)
+    t0 = time.perf_counter()
+    for img0, rows in canvases:
+        for row in rows:
+            c = int(row[5])
+            draw.box_label(img0, row[:4], f"{names[c]} {row[4]:.2f}",
+                           draw.color_of(c))
+    t_draw = (time.perf_counter() - t0) * 1e3 / len(canvases)
+    print(f"[serve] label text == cv2 5.0.0's digests on "
+          f"{len(text_cases.DIGESTS)} cases ({', '.join(text_cases.DIGESTS)})"
+          f" in {t_cases:.1f} ms; drawing an image's boxes and labels (Rubik"
+          f" 14 px): {t_draw:.3f} ms/img for {n_labels / len(canvases):.1f} "
+          f"labels/img, {t_draw / e2e:.1%} of cli.detect's {e2e:.2f} ms/img "
+          f"| {card}")
+
     # -- AutoShape on the same paths, one batch ---------------------------
     paths = list(dets)
     shaper = autoshape.AutoShape(model, list(cfg.Dataset.names), IMG)
@@ -4497,7 +4536,7 @@ def format_file(path: Path, kind: str, rgb) -> Path:
     if kind.startswith("webp"):
         return webp_file(path, kind, rgb)
     import test_torch_tiff_kinds as tiffk
-    if kind in tiffk.KINDS:
+    if kind in tiffk.KINDS + tiffk.Q19D_KINDS:
         path = path.with_suffix(".tif")
         path.write_bytes(tiffk.write_kind(kind, rgb))
         return path
@@ -4594,7 +4633,8 @@ def formats_leg(torch, dev, card, lists, tmp):
     t0 = time.perf_counter()
     val = Path(lists["val"]).read_text().split()
     pairs = (("png", "formats"), ("webp_png", "webp"),
-             ("tiffkinds_png", "tiffkinds"), ("jpegkinds_png", "jpegkinds"))
+             ("tiffkinds_png", "tiffkinds"), ("jpegkinds_png", "jpegkinds"),
+             ("q19d_png", "q19d"))
     # the JPEG kinds' files, by the tests' numpy writers in 8 processes:
     # the split's, each arithmetic file's Huffman twin, one of each kind at
     # 640x480 for the rates
@@ -4629,7 +4669,8 @@ def formats_leg(torch, dev, card, lists, tmp):
         label = Path(src).parent.parent / "labels" / f"{stem}.txt"
         out = []
         for (copy_name, name), kinds in zip(pairs, (
-                FORMAT_KINDS, WEBP_KINDS, tiffk_fx.SPLIT_KINDS, jk)):
+                FORMAT_KINDS, WEBP_KINDS, tiffk_fx.SPLIT_KINDS, jk,
+                tiffk_fx.Q19D_KINDS)):
             kind = kinds[i % len(kinds)]
             if name == "jpegkinds":
                 path = tmp / name / "images" / f"{stem}.jpg"
@@ -4658,7 +4699,8 @@ def formats_leg(torch, dev, card, lists, tmp):
     lossless = [(a, b) for a, b in zip(files["formats"], files["png"])
                 if image_io.suffix(a) not in image_io.JPEG_SUFFIXES] + [
         (a, b) for a, b in zip(files["webp"], files["webp_png"])] + [
-        (a, b) for a, b in zip(files["tiffkinds"], files["tiffkinds_png"])]
+        (a, b) for a, b in zip(files["tiffkinds"], files["tiffkinds_png"])] \
+        + list(zip(files["q19d"], files["q19d_png"]))
     same = sum(np.array_equal(image_io.imread(a), image_io.imread(b))
                for a, b in lossless)
     require(same == len(lossless), f"{len(lossless) - same} files decode "
@@ -4696,8 +4738,8 @@ def formats_leg(torch, dev, card, lists, tmp):
             "the same coefficients Huffman-coded")
     print(f"[formats] val split ({len(val)} images at {NATIVE_WH}) written "
           f"as PNG and as {kinds_used} in {t_write:.1f} s; the "
-          f"{len(lossless)} lossless, WebP and new TIFF files decode as "
-          f"their PNG copies, the {src_same} VP8L ones (EXIF-turned too) "
+          f"{len(lossless)} lossless, WebP, TIFF-kind and Q1.9d files "
+          f"decode as their PNG copies, the {src_same} VP8L ones (EXIF-turned too) "
           f"and the {tiff_same} FillOrder 2 / signed TIFFs as their "
           f"sources; the {jpeg_same} JPEG-kind files as their PNG copies, "
           f"the {ll_same} lossless ones as their sources, the {twin_same} "
@@ -4722,9 +4764,10 @@ def formats_leg(torch, dev, card, lists, tmp):
     save_checkpoint(ckpt, params=v["params"], batch_stats=v["batch_stats"])
     results, entries = {}, []
     label = {"formats": "formats", "webp": "webp", "tiffkinds": "tiff",
-             "jpegkinds": "jpeg kinds"}
+             "jpegkinds": "jpeg kinds", "q19d": "q1.9d tiff"}
     for name in ("png", "formats", "webp_png", "webp", "tiffkinds_png",
-                 "tiffkinds", "jpegkinds_png", "jpegkinds"):
+                 "tiffkinds", "jpegkinds_png", "jpegkinds", "q19d_png",
+                 "q19d"):
         argv = ["--cfg", str(MAIN_YAML), "--weights", str(ckpt),
                 "--batch-size", str(T_BATCH), "Dataset.val",
                 str(splits[name])]
@@ -4743,11 +4786,13 @@ def formats_leg(torch, dev, card, lists, tmp):
     require(results["png"] == results["formats"]
             and results["webp_png"] == results["webp"]
             and results["tiffkinds_png"] == results["tiffkinds"]
-            and results["jpegkinds_png"] == results["jpegkinds"],
+            and results["jpegkinds_png"] == results["jpegkinds"]
+            and results["q19d_png"] == results["q19d"],
             f"cli.val differs between a split and its PNG copy: {results}")
     print(f"[formats] cli.val: the formats split's results == the PNG "
-          f"split's, the WebP split's, the TIFF kinds' and the JPEG kinds' "
-          f"== their PNG copies' ({shift[1]:.0f} candidates/img on the "
+          f"split's, the WebP split's, the TIFF kinds', the JPEG kinds' "
+          f"and the Q1.9d TIFF kinds' == their PNG copies' "
+          f"({shift[1]:.0f} candidates/img on the "
           f"calibration batch)")
 
     # -- cli.detect over .bmp / .tif / .png / .webp sources ------------

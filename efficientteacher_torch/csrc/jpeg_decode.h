@@ -1172,27 +1172,23 @@ class Decoder {
     return true;
   }
 
-  // jdmarker.c get_dqt: any precision nibble but 0 is 16-bit; a table cut
-  // short is filled with 1s
+  // libjpeg-turbo's jdmarker.c get_dqt: any precision nibble but 0 is
+  // 16-bit; a table is always read whole, so one the segment cuts short
+  // leaves its length negative (JERR_BAD_LENGTH)
   bool read_dqt(const uint8_t* s, int n) {
     int o = 0, length = n;
     while (length > 0) {
       --length;
       const int pq = s[o] >> 4, tq = s[o] & 15;
       ++o;
-      if (tq > 3) return false;
+      if (tq > 3 || length < (pq ? 128 : 64)) return false;
       uint16_t* q = qt_[tq];
-      int count = 64;
-      if (length < (pq ? 128 : 64)) {
-        for (int k = 0; k < 64; ++k) q[k] = 1;
-        count = pq ? length >> 1 : length;
-      }
-      for (int k = 0; k < count; ++k) {
+      for (int k = 0; k < 64; ++k) {
         q[kNatural[k]] = pq ? static_cast<uint16_t>((s[o] << 8) | s[o + 1])
                             : s[o];
         o += pq ? 2 : 1;
       }
-      length -= pq ? 2 * count : count;
+      length -= pq ? 128 : 64;
       qt_defined_[tq] = true;
     }
     return length == 0;
@@ -1226,6 +1222,9 @@ class Decoder {
       int c = 0;
       while (c < ncomp_ && comp_[c].id != id) ++c;
       if (c == ncomp_) return false;
+      for (int j = 0; j < i; ++j) {  // a component twice: JERR_BAD_COMPONENT_ID
+        if (scan->comps[j] == c) return false;
+      }
       scan->comps[i] = c;
       comp_[c].td = s[2 + 2 * i] >> 4;
       comp_[c].ta = s[2 + 2 * i] & 15;
@@ -1279,12 +1278,14 @@ class Decoder {
   }
 
   // A table the file did not define: libjpeg-turbo's standard one
-  // (jstdhuff.c) for indices 0 and 1. `dc_max`: the largest DC category
-  // jpeg_make_d_derived_tbl allows (0: an AC table).
+  // (jstdhuff.c) for indices 0 and 1 in a sequential file (its
+  // jinit_huff_decoder installs them for Motion-JPEG; the progressive
+  // decoder does not: JERR_NO_HUFF_TABLE). `dc_max`: the largest DC
+  // category jpeg_make_d_derived_tbl allows (0: an AC table).
   bool table(Huffman* set, int i, bool ac, int dc_max) {
     if (i > 3) return false;
     if (!set[i].defined) {
-      if (i > 1) return false;
+      if (i > 1 || progressive) return false;
       if (!(ac ? set[i].build(kStdAcBits[i], kStdAcVals[i])
                : set[i].build(kStdDcBits[i], kStdDcVals))) {
         return false;

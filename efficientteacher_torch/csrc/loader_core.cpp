@@ -6,7 +6,8 @@
 // WebP (webp_decode.h) and WebP writers (webp_encode.h), the
 // host augmentation's pixel
 // operations (pixel_ops.h: cv2's warpAffine / warpPerspective, HSV, grey
-// and 3x3 filter), and a JPEG writer for test data. Plain C
+// and 3x3 filter), label text as cv2.putText draws it (text_render.h), and
+// a JPEG writer for test data. Plain C
 // ABI, built with the host compiler (no CUDA, no libjpeg) by
 // ops/_build.host_library and bound with ctypes by utils/native_loader.py.
 //
@@ -42,6 +43,7 @@
 #include "jpeg_encode.h"
 #include "pixel_ops.h"
 #include "raster_decode.h"
+#include "text_render.h"
 #include "webp_decode.h"
 #include "webp_encode.h"
 
@@ -173,6 +175,13 @@ bool read_file(const char* path, size_t limit, std::vector<uint8_t>* out,
   return true;
 }
 
+// cv2.imread picks its decoder by signature: a JPEG file must begin FF D8
+// FF (JpegDecoder's), else cv2 reads nothing of it
+bool jpeg_signature(const std::vector<uint8_t>& data) {
+  return data.size() >= 3 && data[0] == 0xFF && data[1] == 0xD8 &&
+         data[2] == 0xFF;
+}
+
 int status_code(int st) {
   return st == etjpeg::kOk ? kOk
          : st == etjpeg::kRefused ? kErrUnsupported : kErrDecode;
@@ -222,6 +231,7 @@ int decode_resize_impl(const char* path, int expect_w, int expect_h,
   std::vector<uint8_t> data;
   bool whole;
   if (!read_file(path, 0, &data, &whole)) return kErrOpen;
+  if (!jpeg_signature(data)) return kErrDecode;
   etjpeg::Decoder dec;
   const int st = dec.read(data.data(), data.size(), true);
   if (st != etjpeg::kOk) return status_code(st);
@@ -305,6 +315,7 @@ int et_jpeg_info(const char* path, int* info) {
   std::vector<uint8_t> data;
   bool whole;
   if (!read_file(path, 1 << 16, &data, &whole)) return kErrOpen;
+  if (!jpeg_signature(data)) return kErrDecode;
   etjpeg::Decoder dec;
   int st = dec.read(data.data(), data.size(), false);
   if (!whole && (st != etjpeg::kOk || dec.progressive)) {
@@ -611,6 +622,24 @@ int et_webp_encode(const uint8_t* rgb, int w, int h, int quality,
   std::memcpy(dst, out.data(), out.size());
   *written = static_cast<int64_t>(out.size());
   return kOk;
+}
+
+// cv2.putText(img, text, org, FONT_HERSHEY_SIMPLEX, 0.5, color, 1) of the
+// code points cps[0..n) into img (h, w, 3), rows `stride` bytes apart, in
+// color[0..3) (the canvas's channel order), with the TrueType font `font`
+// (font_n bytes: cv2's Rubik; text_render.h).
+int et_put_text(const uint8_t* font, int64_t font_n, uint8_t* img, int h,
+                int w, int stride, const uint32_t* cps, int n, int org_x,
+                int org_y, const int* color) {
+  ettext::Font f;
+  if (h < 0 || w < 0 || n < 0 ||
+      !ettext::open_font(f, font, static_cast<size_t>(font_n))) {
+    return kErrArgs;
+  }
+  return guarded([&] {
+    ettext::put_text(f, img, h, w, stride, cps, n, org_x, org_y, color);
+    return kOk;
+  });
 }
 
 }  // extern "C"

@@ -31,6 +31,9 @@
 //   fax::Decoder    tif_fax3.c: CCITT modified Huffman, Group 3 (1-D and
 //                   2-D) and Group 4, with libtiff's recovery from damage
 //   thunder_decode  tif_thunder.c ThunderDecodeRow
+//   sgilog_decode   tif_luv.c's SGILog and SGILog24 decoders with the
+//                   8-bit conversions libtiff's RGBA interface asks for
+//                   (L16toGry, Luv32toRGB, Luv24toRGB and uvcode.h)
 //   tiff_decode     every strip or tile of an image into its place (the
 //                   JPEG-in-TIFF streams through jpeg_decode.h, YCbCr
 //                   blocks spread to their pixels)
@@ -1122,6 +1125,227 @@ inline void thunder_decode(const uint8_t* src, size_t n, uint8_t* out,
   }
 }
 
+// ------------------------------------------------------------- SGILog
+
+// tif_luv.c as libtiff's RGBA interface drives it: SGILOGDATAFMT_8BIT, so
+// a LogL pixel decodes to one grey byte (L16toGry) and a LogLuv pixel to
+// three RGB bytes (Luv32toRGB, Luv24toRGB), in double as libtiff computes
+// them. Rows are decoded one by one from the chunk's bytes (LogL16Decode,
+// LogLuvDecode32: a run-length byte plane per byte of the pixel, high byte
+// first; LogLuvDecode24: three bytes a pixel). A row whose data run out
+// ends the chunk: it and the rows after it stay zero.
+
+enum SgiLogKind { kLogL16 = 1, kLogLuv32 = 2, kLogLuv24 = 3 };
+
+namespace sgilog {
+
+// uvcode.h's uv_row (ustart, nus, ncum) of libtiff 4.7.1: the (u', v')
+// cells of LogLuv24's 14-bit colour index
+struct UvRow {
+  float ustart;
+  int16_t nus, ncum;
+};
+constexpr int kUvNvs = 163, kUvNdivs = 16289;
+constexpr float kUvSqsiz = 0.0035f, kUvVstart = 0.01694f;
+constexpr double kUNeu = 0.210526316, kVNeu = 0.473684211;
+constexpr double kLn2 = 0.69314718055994530942;  // M_LN2
+constexpr double kUvScale = 410.;
+inline const UvRow* uv_row() {
+  static const UvRow rows[kUvNvs] = {
+    {0.247663f, 4, 0}, {0.243779f, 6, 4}, {0.241684f, 7, 10},
+    {0.237874f, 9, 17}, {0.235906f, 10, 26}, {0.232153f, 12, 36},
+    {0.228352f, 14, 48}, {0.226259f, 15, 62}, {0.222371f, 17, 77},
+    {0.22041f, 18, 94}, {0.21471f, 21, 112}, {0.212714f, 22, 133},
+    {0.210721f, 23, 155}, {0.204976f, 26, 178}, {0.202986f, 27, 204},
+    {0.199245f, 29, 231}, {0.195525f, 31, 260}, {0.19356f, 32, 291},
+    {0.189878f, 34, 323}, {0.186216f, 36, 357}, {0.186216f, 36, 393},
+    {0.182592f, 38, 429}, {0.179003f, 40, 467}, {0.175466f, 42, 507},
+    {0.172001f, 44, 549}, {0.172001f, 44, 593}, {0.168612f, 46, 637},
+    {0.168612f, 46, 683}, {0.163575f, 49, 729}, {0.158642f, 52, 778},
+    {0.158642f, 52, 830}, {0.158642f, 52, 882}, {0.153815f, 55, 934},
+    {0.153815f, 55, 989}, {0.149097f, 58, 1044}, {0.149097f, 58, 1102},
+    {0.142746f, 62, 1160}, {0.142746f, 62, 1222}, {0.142746f, 62, 1284},
+    {0.13827f, 65, 1346}, {0.13827f, 65, 1411}, {0.13827f, 65, 1476},
+    {0.132166f, 69, 1541}, {0.132166f, 69, 1610}, {0.126204f, 73, 1679},
+    {0.126204f, 73, 1752}, {0.126204f, 73, 1825}, {0.120381f, 77, 1898},
+    {0.120381f, 77, 1975}, {0.120381f, 77, 2052}, {0.120381f, 77, 2129},
+    {0.112962f, 82, 2206}, {0.112962f, 82, 2288}, {0.112962f, 82, 2370},
+    {0.10745f, 86, 2452}, {0.10745f, 86, 2538}, {0.10745f, 86, 2624},
+    {0.10745f, 86, 2710}, {0.100343f, 91, 2796}, {0.100343f, 91, 2887},
+    {0.100343f, 91, 2978}, {0.095126f, 95, 3069}, {0.095126f, 95, 3164},
+    {0.095126f, 95, 3259}, {0.095126f, 95, 3354}, {0.088276f, 100, 3449},
+    {0.088276f, 100, 3549}, {0.088276f, 100, 3649}, {0.088276f, 100, 3749},
+    {0.081523f, 105, 3849}, {0.081523f, 105, 3954}, {0.081523f, 105, 4059},
+    {0.081523f, 105, 4164}, {0.074861f, 110, 4269}, {0.074861f, 110, 4379},
+    {0.074861f, 110, 4489}, {0.074861f, 110, 4599}, {0.06829f, 115, 4709},
+    {0.06829f, 115, 4824}, {0.06829f, 115, 4939}, {0.06829f, 115, 5054},
+    {0.063573f, 119, 5169}, {0.063573f, 119, 5288}, {0.063573f, 119, 5407},
+    {0.063573f, 119, 5526}, {0.057219f, 124, 5645}, {0.057219f, 124, 5769},
+    {0.057219f, 124, 5893}, {0.057219f, 124, 6017}, {0.050985f, 129, 6141},
+    {0.050985f, 129, 6270}, {0.050985f, 129, 6399}, {0.050985f, 129, 6528},
+    {0.050985f, 129, 6657}, {0.044859f, 134, 6786}, {0.044859f, 134, 6920},
+    {0.044859f, 134, 7054}, {0.044859f, 134, 7188}, {0.040571f, 138, 7322},
+    {0.040571f, 138, 7460}, {0.040571f, 138, 7598}, {0.040571f, 138, 7736},
+    {0.036339f, 142, 7874}, {0.036339f, 142, 8016}, {0.036339f, 142, 8158},
+    {0.036339f, 142, 8300}, {0.032139f, 146, 8442}, {0.032139f, 146, 8588},
+    {0.032139f, 146, 8734}, {0.032139f, 146, 8880}, {0.027947f, 150, 9026},
+    {0.027947f, 150, 9176}, {0.027947f, 150, 9326}, {0.023739f, 154, 9476},
+    {0.023739f, 154, 9630}, {0.023739f, 154, 9784}, {0.023739f, 154, 9938},
+    {0.019504f, 158, 10092}, {0.019504f, 158, 10250},
+    {0.019504f, 158, 10408}, {0.016976f, 161, 10566},
+    {0.016976f, 161, 10727}, {0.016976f, 161, 10888},
+    {0.016976f, 161, 11049}, {0.012639f, 165, 11210},
+    {0.012639f, 165, 11375}, {0.012639f, 165, 11540},
+    {0.009991f, 168, 11705}, {0.009991f, 168, 11873},
+    {0.009991f, 168, 12041}, {0.009016f, 170, 12209},
+    {0.009016f, 170, 12379}, {0.009016f, 170, 12549},
+    {0.006217f, 173, 12719}, {0.006217f, 173, 12892},
+    {0.005097f, 175, 13065}, {0.005097f, 175, 13240},
+    {0.005097f, 175, 13415}, {0.003909f, 177, 13590},
+    {0.003909f, 177, 13767}, {0.00234f, 177, 13944}, {0.002389f, 170, 14121},
+    {0.001068f, 164, 14291}, {0.001653f, 157, 14455},
+    {0.000717f, 150, 14612}, {0.001614f, 143, 14762}, {0.00027f, 136, 14905},
+    {0.000484f, 129, 15041}, {0.001103f, 123, 15170},
+    {0.001242f, 115, 15293}, {0.001188f, 109, 15408},
+    {0.001011f, 103, 15517}, {0.000709f, 97, 15620}, {0.000301f, 89, 15717},
+    {0.002416f, 82, 15806}, {0.003251f, 76, 15888}, {0.003246f, 69, 15964},
+    {0.004141f, 62, 16033}, {0.005963f, 55, 16095}, {0.008839f, 47, 16150},
+    {0.01049f, 40, 16197}, {0.016994f, 31, 16237}, {0.023659f, 21, 16268}
+  };
+  return rows;
+}
+
+inline double logl16_to_y(int p16) {
+  const int le = p16 & 0x7fff;
+  if (!le) return 0.;
+  const double y = std::exp(kLn2 / 256. * (le + .5) - kLn2 * 64.);
+  return !(p16 & 0x8000) ? y : -y;
+}
+
+inline double logl10_to_y(int p10) {
+  if (p10 == 0) return 0.;
+  return std::exp(kLn2 / 64. * (p10 + .5) - kLn2 * 12.);
+}
+
+inline int uv_decode(double* up, double* vp, int c) {
+  if (c < 0 || c >= kUvNdivs) return -1;
+  const UvRow* rows = uv_row();
+  int lower = 0, upper = kUvNvs;
+  while (upper - lower > 1) {
+    const int vi = (lower + upper) >> 1;
+    const int ui = c - rows[vi].ncum;
+    if (ui > 0) {
+      lower = vi;
+    } else if (ui < 0) {
+      upper = vi;
+    } else {
+      lower = vi;
+      break;
+    }
+  }
+  const int vi = lower, ui = c - rows[vi].ncum;
+  *up = rows[vi].ustart + (ui + .5) * kUvSqsiz;
+  *vp = kUvVstart + (vi + .5) * kUvSqsiz;
+  return 0;
+}
+
+inline uint8_t gamma2(double v) {
+  return static_cast<uint8_t>(v <= 0. ? 0 : v >= 1. ? 255
+                                             : static_cast<int>(256. * std::sqrt(v)));
+}
+
+// (L, u, v) -> XYZ as LogLuv32toXYZ / LogLuv24toXYZ end, then XYZtoRGB24
+inline void luv_to_rgb(double l, double u, double v, uint8_t* rgb) {
+  float xyz[3] = {0.f, 0.f, 0.f};
+  if (l > 0.) {
+    const double s = 1. / (6. * u - 16. * v + 12.);
+    const double x = 9. * u * s, y = 4. * v * s;
+    xyz[0] = static_cast<float>(x / y * l);
+    xyz[1] = static_cast<float>(l);
+    xyz[2] = static_cast<float>((1. - x - y) / y * l);
+  }
+  const double r = 2.690 * xyz[0] + -1.276 * xyz[1] + -0.414 * xyz[2];
+  const double g = -1.022 * xyz[0] + 1.978 * xyz[1] + 0.044 * xyz[2];
+  const double b = 0.061 * xyz[0] + -0.224 * xyz[1] + 1.163 * xyz[2];
+  rgb[0] = gamma2(r);
+  rgb[1] = gamma2(g);
+  rgb[2] = gamma2(b);
+}
+
+inline void luv32_to_rgb(uint32_t p, uint8_t* rgb) {
+  const double l = logl16_to_y(static_cast<int32_t>(p) >> 16);
+  const double u = 1. / kUvScale * ((p >> 8 & 0xff) + .5);
+  const double v = 1. / kUvScale * ((p & 0xff) + .5);
+  luv_to_rgb(l, u, v, rgb);
+}
+
+inline void luv24_to_rgb(uint32_t p, uint8_t* rgb) {
+  const double l = logl10_to_y(p >> 14 & 0x3ff);
+  double u = 0., v = 0.;
+  if (l > 0. && uv_decode(&u, &v, static_cast<int>(p & 0x3fff)) < 0) {
+    u = kUNeu;
+    v = kVNeu;
+  }
+  luv_to_rgb(l, u, v, rgb);
+}
+
+}  // namespace sgilog
+
+// `rows` rows of `width` pixels, `row_bytes` apart in `out`, from one
+// SGILog chunk of `kind`.
+inline void sgilog_decode(const uint8_t* src, size_t n, uint8_t* out,
+                          int rows, size_t row_bytes, int width, int kind) {
+  const uint8_t* bp = src;
+  int64_t cc = static_cast<int64_t>(n);
+  std::vector<uint32_t> tp(static_cast<size_t>(width));
+  const int top = kind == kLogL16 ? 8 : 24;
+  for (int y = 0; y < rows; ++y) {
+    uint8_t* op = out + static_cast<size_t>(y) * row_bytes;
+    const int64_t npixels = width;
+    int64_t i = 0;
+    if (kind == kLogLuv24) {
+      for (; i < npixels && cc >= 3; ++i) {
+        tp[i] = static_cast<uint32_t>(bp[0]) << 16 | bp[1] << 8 | bp[2];
+        bp += 3;
+        cc -= 3;
+      }
+      if (i != npixels) return;
+      for (int64_t k = 0; k < npixels; ++k) {
+        sgilog::luv24_to_rgb(tp[k], op + 3 * k);
+      }
+      continue;
+    }
+    std::fill(tp.begin(), tp.end(), 0u);
+    for (int shft = top; shft >= 0; shft -= 8) {
+      for (i = 0; i < npixels && cc > 0;) {
+        if (*bp >= 128) {  // a run
+          if (cc < 2) break;
+          int rc = *bp++ + (2 - 128);
+          const uint32_t b = static_cast<uint32_t>(*bp++) << shft;
+          cc -= 2;
+          while (rc-- && i < npixels) tp[i++] |= b;
+        } else {  // literal bytes (a count of 0 is a no-op)
+          int rc = *bp++;
+          while (--cc && rc-- && i < npixels) {
+            tp[i++] |= static_cast<uint32_t>(*bp++) << shft;
+          }
+        }
+      }
+      if (i != npixels) return;
+    }
+    for (int64_t k = 0; k < npixels; ++k) {
+      if (kind == kLogL16) {
+        const double v = sgilog::logl16_to_y(static_cast<int16_t>(tp[k]));
+        op[k] = v <= 0. ? 0 : v >= 1. ? 255
+                                      : static_cast<uint8_t>(
+                                            static_cast<int>(256. * std::sqrt(v)));
+      } else {
+        sgilog::luv32_to_rgb(tp[k], op + 3 * k);
+      }
+    }
+  }
+}
+
 // ---------------------------------------------------------------- TIFF
 
 // Sample stage flags of tiff_decode
@@ -1235,8 +1459,9 @@ inline int jpeg_chunk(const etjpeg::Decoder* tables, const uint8_t* src,
 // `offsets[k]` of `data`, compressed by `compression`: 1 none, 8 Deflate
 // (inflated by the caller; a count ~k: zlib failed after k bytes), 5 LZW,
 // 32773 PackBits, 2 / 32771 CCITT modified Huffman, 3 Group 3, 4 Group 4,
-// 32809 ThunderScan, 7 JPEG (`tables`: the JPEGTables stream, or null),
-// or 0 for a scheme
+// 32809 ThunderScan, 34676 SGILog (LogL with one sample per pixel, else
+// LogLuv) and 34677 SGILog24, both decoded to 8-bit samples (`bits` 8),
+// 7 JPEG (`tables`: the JPEGTables stream, or null), or 0 for a scheme
 // libtiff has no decoder of (its samples stay zero, as libtiff's buffer
 // does). CCITT never fails: damaged data decodes as libtiff decodes it.
 // With `out` null, only what libtiff checks before it decodes a chunk is
@@ -1333,6 +1558,11 @@ inline int tiff_decode(const uint8_t* data, size_t n, const int64_t* offsets,
                 .decode(raw.data(), rows, row_bytes);
           } else if (compression == 32809) {
             thunder_decode(src, count, raw.data(), rows, row_bytes, L.w);
+          } else if (compression == 34676 || compression == 34677) {
+            sgilog_decode(src, count, raw.data(), rows, row_bytes, L.cw,
+                          compression == 34677 ? kLogLuv24
+                          : L.per_chunk == 1  ? kLogL16
+                                              : kLogLuv32);
           } else if (compression != 0) {
             return kArgs;
           }

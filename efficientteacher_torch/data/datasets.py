@@ -37,9 +37,7 @@ are uint8 CPU tensors, in pinned memory when the loader's `pin_memory` is
 set (`data/parallel_loader.py`). The native sizes come from the image
 headers (JAX decodes each image to take its size); a file cv2.imread
 reads nothing of is dropped, as in JAX (ROADMAP F10: a header of a kind
-cv2 refuses raises OSError), and a kind cv2 reads and the port does not
-(the TIFF kinds of ROADMAP Q1.9d) raises when the dataset is built,
-naming the file. A `.webp` takes the plain route on the prescale path too, as
+cv2 refuses raises OSError); every kind cv2 reads is read. A `.webp` takes the plain route on the prescale path too, as
 JAX's `load_image` sends only JPEGs to its native core.
 
 Albumentations is off: the JAX dataset applies it only when the package
@@ -139,9 +137,7 @@ def verify_image_label(img_file: str, label_file: Optional[str], nc: int,
     """Validate one image/label pair (reference verify_image_label).
     Returns (labels (N, 5+2*np) float32, (w, h)) or None for a file that
     is missing, corrupt, of a kind cv2.imread reads nothing of, or under
-    10 px. Raises NotImplementedError for an image kind cv2 reads and the
-    port does not (`TiffUnsupported` for the TIFF kinds of ROADMAP Q1.9d):
-    the dataset fails when it is built."""
+    10 px."""
     ncol = 5 + 2 * num_keypoints
     try:
         w, h = image_io.image_size(img_file)

@@ -25,8 +25,8 @@ What is read, each bit-equal to `cv2.imread(path)[..., ::-1]` (cv2 5.0.0):
   BI_BITFIELDS (alpha dropped); BI_RLE8 / BI_RLE4; bottom-up and top-down.
 * TIFF (`data/tiff_io.py`): the first IFD as libtiff's RGBA interface gives
   it to cv2: every photometric and codec it reads (JPEG-in-TIFF, CCITT,
-  CMYK, YCbCr, CIELab among them); the kinds cv2 reads and the port does
-  not raise `tiff_io.TiffUnsupported` (ROADMAP Q1.9d).
+  CMYK, YCbCr, CIELab, SGILog among them); no kind is refused that cv2
+  reads.
 * WebP (`data/webp_io.py`): VP8L and VP8 bitstreams, simple or VP8X with
   ALPH, EXIF or an animation (its first frame on the canvas), through
   the loader core's decoders (`csrc/webp_decode.h`); no kind is refused.
@@ -245,9 +245,9 @@ def _refuse(path: str, ext: str):
 
 def image_size(path: str):
     """(w, h) of the image at `path` from its header, orientation applied.
-    Raises NotImplementedError for a kind cv2 reads and this module does
-    not (`tiff_io.TiffUnsupported`), OSError for a file that is missing,
-    corrupt, or of a kind cv2 reads nothing of."""
+    Raises NotImplementedError for a suffix that is no image format,
+    OSError for a file that is missing, corrupt, or of a kind cv2 reads
+    nothing of."""
     ext = suffix(path)
     if ext in JPEG_SUFFIXES:
         w, h, orientation = nl.jpeg_info(path)

@@ -4,8 +4,7 @@
 `LoadImages` takes files, directories, globs and `.txt` lists, as the
 datasets' `parse_data_path` expands them (every suffix of `IMG_FORMATS`),
 reads each image with the port's `image_io.imread` (bit-equal to
-cv2.imread on JPEG, PNG, BMP, TIFF and WebP; the TIFF kinds of ROADMAP
-Q1.9d raise) and letterboxes it with `augment.letterbox` (cv2's INTER_LINEAR,
+cv2.imread on JPEG, PNG, BMP, TIFF and WebP) and letterboxes it with `augment.letterbox` (cv2's INTER_LINEAR,
 in the loader core). A file cv2.imread reads nothing of (OSError here) is
 skipped, as JAX's skips it. Each item is what JAX's yields: (path,
 letterboxed RGB uint8, the image as read in cv2's BGR order, (ratio,

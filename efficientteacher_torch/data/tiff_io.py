@@ -26,8 +26,13 @@ alpha. What that interface does, and so what this module does:
   foot; in planes only 1 x 1.
 * CIELab of 8 or 16 bits: TIFFCIELab16ToXYZ and TIFFXYZToRGB in float
   with tif_getimage.c's display_sRGB, the WhitePoint or D50.
+* LogL and LogLuv compressed by SGILog (34676; LogLuv also by SGILog24,
+  34677): tif_luv.c's decoders asked for 8-bit output, as the RGBA
+  interface asks (L16toGry's grey, Luv32toRGB's and Luv24toRGB's RGB,
+  uvcode.h's table; csrc/raster_decode.h), in strips or tiles.
 * Compression none, LZW, Deflate (8 and 32946), PackBits, ThunderScan (4
-  bits), CCITT modified Huffman (2, and 32771 word-aligned), Group 3
+  bits; in tiles libtiff decodes nothing, and cv2 reads zero samples),
+  CCITT modified Huffman (2, and 32771 word-aligned), Group 3
   (one- and two-dimensional) and Group 4 with libtiff's recovery from
   damaged data (csrc/raster_decode.h), and JPEG (7): each strip or tile a
   stream after JPEGTables, decoded by the loader core's JPEG decoder as
@@ -53,8 +58,9 @@ A file cv2.imread reads nothing of raises OSError (from `tiff_size` too),
 so that the datasets drop it as JAX's drop cv2's None: a codec cv2's
 libtiff is built without (old-style JPEG, PixarLog, JBIG, LERC, LZMA,
 Zstandard, WebP) or that refuses the layout (NeXT, ThunderScan but at 4
-bits, SGILog but of LogL / LogLuv, CCITT but at 1 bit, JPEG but at 8);
-photometrics 4, 9, 10, LogL and LogLuv uncompressed; float or void
+bits, SGILog but of one-sample LogL or three-sample LogLuv, SGILog24 of
+LogL, LogLuv in planes, CCITT but at 1 bit, JPEG but at 8); photometrics
+4, 9, 10, LogL and LogLuv not SGILog-compressed; float or void
 samples; 2-bit samples, 4-bit ones but a palette's, 10-64-bit samples, a
 16-bit palette, the floating-point predictor, RGB of fewer than 3
 colours, samples below 8 bits with alpha or in planes; CMYK, YCbCr and
@@ -64,12 +70,11 @@ bytes or past the file, and a JPEG stream libtiff or libjpeg refuses
 stream); and a non-square image of Orientation 5-8 (cv2 5.0.0's imread
 asserts; ROADMAP F9).
 
-`TiffUnsupported` is left only for kinds cv2 reads and this module does
-not (ROADMAP Q1.9d): SGILog compression of LogL / LogLuv and ThunderScan
-in tiles.
+Every kind cv2 reads is read: no TIFF is refused that cv2.imread reads.
 
 Headers and IFDs are parsed here and Deflate is Python's zlib; LZW,
-PackBits, ThunderScan, the fax codecs, the JPEG streams, the predictor,
+PackBits, ThunderScan, SGILog, the fax codecs, the JPEG streams, the
+predictor,
 bit unpacking and the maps run in the loader core (`csrc/raster_decode.h`,
 `csrc/jpeg_decode.h`).
 """
@@ -88,7 +93,7 @@ from ..utils import native_loader as nl
 # returns nothing); the rest it knows no decoder of, and reads as zeros.
 _NEXT, _THUNDERSCAN, _SGILOG, _SGILOG24 = 32766, 32809, 34676, 34677
 _READ_COMPRESSION = {1, 5, 8, 32946, 32773, 2, 3, 4, 32771, 7,
-                     _THUNDERSCAN}
+                     _THUNDERSCAN, _SGILOG, _SGILOG24}
 _FAX = {2, 3, 4, 32771}
 _NOT_CONFIGURED = {6: "old-style JPEG", 32909: "PixarLog", 34661: "JBIG",
                    34887: "LERC", 34925: "LZMA", 50000: "Zstandard",
@@ -102,6 +107,9 @@ _PHOTOMETRIC = {0: "MinIsWhite", 1: "MinIsBlack", 2: "RGB", 3: "Palette",
 _YCBCR_SUBSAMPLING = {(1, 1), (1, 2), (2, 1), (2, 2), (4, 1), (4, 2), (4, 4)}
 _TYPES = {1: "B", 2: "B", 3: "H", 4: "I", 5: "II", 6: "b", 7: "B", 8: "h",
           9: "i", 10: "ii", 11: "f", 12: "d", 16: "Q", 17: "q", 18: "Q"}
+# TIFFDataWidth
+_WIDTHS = {1: 1, 2: 1, 6: 1, 7: 1, 3: 2, 8: 2, 4: 4, 9: 4, 11: 4, 13: 4,
+           5: 8, 10: 8, 12: 8, 16: 8, 17: 8, 18: 8}
 _UNASSOCIATED = 2
 # libtiff's defaults: YCbCrCoefficients, the ReferenceBlackWhite of YCbCr,
 # and the D50 WhitePoint (tif_aux.c, in float)
@@ -111,11 +119,6 @@ _D50 = np.array([96.4250, 100.0, 82.4680], np.float32)
 _D50_WHITE = np.array([_D50[0] / (_D50[0] + _D50[1] + _D50[2]),
                        _D50[1] / (_D50[0] + _D50[1] + _D50[2])], np.float32)
 _REVERSED = bytes(int(f"{b:08b}"[::-1], 2) for b in range(256))
-_TODO = "ROADMAP Q1.9d"
-
-
-class TiffUnsupported(NotImplementedError):
-    """A TIFF of a kind this module does not read (module docstring)."""
 
 
 def exif_orientation(tiff: bytes) -> int:
@@ -174,12 +177,21 @@ class _Ifd:
             raise OSError(f"{path}: TIFF IFD past the end of the file")
         n = self._u(data, ifd, count_fmt)
         self.tags = {}
+        # what EstimateStripByteCounts counts: the header and IFD bytes and
+        # the tag values stored out of line; None for a type of no width
+        self.dir_bytes = (8 + 2 + 12 * n + 4) if version == 42 else (
+            16 + 8 + 20 * n + 8)
         for e in range(n):
             o = ifd + csize + entry * e
             if o + entry > len(data):
                 raise OSError(f"{path}: TIFF IFD truncated")
             tag, typ = struct.unpack(self.bo + "HH", data[o:o + 4])
             cnt = self._u(data, o + 4, "I" if version == 42 else "Q")
+            width = _WIDTHS.get(typ, 0)
+            if width == 0:
+                self.dir_bytes = None
+            elif self.dir_bytes is not None and width * cnt > inline:
+                self.dir_bytes += width * cnt
             fmt = _TYPES.get(typ)
             if fmt is None:
                 continue
@@ -216,8 +228,8 @@ def _rationals(vals) -> np.ndarray:
 class _Layout:
     """What the decode of one TIFF needs, checked against what is read.
     `route`: "read", or "zeros" for a compression libtiff has no decoder of
-    (its strips read as zero samples); `refusal` names why the file is not
-    read, `cv2_reads` whether cv2.imread reads it all the same."""
+    (its strips read as zero samples); `refusal` names why cv2.imread
+    reads nothing of the file."""
 
     def __init__(self, path: str, data: bytes):
         t = _Ifd(path, data)
@@ -265,13 +277,18 @@ class _Layout:
             else _YCBCR_BLACK_WHITE
         self.white_point = _rationals(t.all(318)) if len(t.all(318)) >= 4 \
             else _D50_WHITE
-        self.cv2_reads = True
         self.refusal = self._refusal(t)
         if self.refusal:
             return
-        self.route = "read" if self.compression in _READ_COMPRESSION \
-            else "zeros"
+        if self.compression in (_SGILOG, _SGILOG24):
+            # the RGBA interface's "little white lies": tif_luv.c decodes
+            # to 8-bit grey (LogL) or RGB (LogLuv) samples
+            self.photometric = 1 if photometric == _LOGL else 2
+            self.bits, self.colour, self.alpha = 8, self.spp, 0
         self.tiled = 322 in t.tags
+        # libtiff decodes no ThunderScan tile: cv2 reads zero samples
+        self.route = "read" if self.compression in _READ_COMPRESSION and not (
+            self.compression == _THUNDERSCAN and self.tiled) else "zeros"
         if self.tiled:
             self.cw, self.ch = t.get(322), t.get(323, 0)
             offsets, counts = t.all(324), t.all(325)
@@ -282,6 +299,8 @@ class _Layout:
         planes = 1 if self.contig else self.spp
         need = -(-self.w // max(self.cw, 1)) * -(-self.h // max(self.ch, 1)) \
             * planes
+        if not self.tiled:
+            counts = self._strip_counts(t, len(data), offsets, counts, need)
         if not self.cw or not self.ch or len(offsets) < need or \
                 len(counts) != len(offsets):
             raise OSError(f"{path}: TIFF without its strips or tiles")
@@ -291,23 +310,32 @@ class _Layout:
             raise OSError(f"{path}: TIFF palette without its colormap")
 
     def _refusal(self, t) -> str:
-        """Why this module does not read the file ("" when it does), in
-        the order cv2.imread's readHeader and libtiff's RGBA interface
-        (TIFFRGBAImageOK, the codec's setup, the put routine's choice)
-        refuse a file. Every refusal but those of `cv2_reads` is one of
-        cv2's too."""
+        """Why cv2.imread reads nothing of the file ("" when it reads
+        it), in the order cv2.imread's readHeader and libtiff's RGBA
+        interface (TIFFRGBAImageOK, the codec's setup, the put routine's
+        choice) refuse a file."""
         p, c, bits = self.photometric, self.compression, self.bits
         sample_format = t.get(339, 1)
+        if c in (_SGILOG, _SGILOG24) and (p, self.spp) in (
+                (_LOGL, 1), (_LOGLUV, 3)) and not (c == _SGILOG24
+                                                   and p == _LOGL):
+            # readHeader takes three-sample LogLuv for HDR and checks little
+            # of it; libtiff's RGBA interface asks tif_luv.c for 8 bits
+            if (p == _LOGL and (bits not in (1, 8, 16)
+                                or sample_format not in (1, 2))) or (
+                    p == _LOGLUV and (bits not in (1, 2, 4, 8, 16)
+                                      or sample_format not in (1, 2, 4, 5,
+                                                               6))):
+                return (f"SGILog {_PHOTOMETRIC[p]} of {bits}-bit samples "
+                        f"of format {sample_format}")
+            return "" if self.contig else "LogLuv in planes"
         if sample_format not in (1, 2):   # signed samples read as unsigned
             return f"sample format {sample_format} (float or void samples)"
         if bits not in (1, 4, 8, 16) or (bits == 4 and p != 3):
             return f"{bits or 'mixed'}-bit samples"
         if c in (_SGILOG, _SGILOG24):
-            if (p, self.spp) in ((_LOGL, 1), (_LOGLUV, 3)) and not (
-                    c == _SGILOG24 and p == _LOGL):
-                self.cv2_reads = False
-                return f"SGI LogLuv compression ({c}) of {_PHOTOMETRIC[p]}"
-            return f"SGI LogLuv compression ({c}) of photometric {p}"
+            return f"SGI LogLuv compression ({c}) of photometric {p} in " \
+                   f"{self.spp} samples"
         if p not in (0, 1, 2, 3, 5, 6, 8):
             return f"photometric {_PHOTOMETRIC.get(p, p)}"
         if c in _NOT_CONFIGURED:
@@ -317,9 +345,6 @@ class _Layout:
             return "NeXT compression at other than 2 bits"
         if c == _THUNDERSCAN and bits != 4:
             return f"ThunderScan compression at {bits} bits"
-        if c == _THUNDERSCAN and 322 in t.tags:
-            self.cv2_reads = False
-            return "ThunderScan compression in tiles"
         if c in _FAX and bits != 1:
             return f"CCITT compression ({c}) of {bits}-bit samples"
         if c == 7 and bits != 8:
@@ -361,15 +386,62 @@ class _Layout:
         return (self.h, self.w) if self.orientation >= 5 else (self.w,
                                                                self.h)
 
+    def _scanline(self) -> int:
+        """TIFFScanlineSize64: a row's bytes, for subsampled YCbCr a
+        block row's over the vertical subsampling."""
+        sub = _subsampled(self)
+        if sub:
+            blocks = -(-self.w // sub[0]) * (sub[0] * sub[1] + 2)
+            return (blocks * self.bits + 7) // 8 // sub[1]
+        spp = self.spp if self.planar == 1 else 1
+        return (self.w * spp * self.bits + 7) // 8
+
+    def _strip_counts(self, t, size, offsets, counts, nstrips):
+        """The StripByteCounts libtiff's TIFFReadDirectory goes by: the
+        tag's, or EstimateStripByteCounts' where the tag is missing (one
+        strip, or one a plane), looks bad for one strip (ByteCountLooksBad:
+        0, past the file's end, or short of the rows, uncompressed), or
+        differs between strips 0 and 1 of three or more uncompressed
+        contiguous ones."""
+        contig = self.planar == 1
+        if 279 not in t.tags:
+            one = nstrips == 1 if contig else nstrips == self.spp
+            return self._estimate(t, size, offsets, nstrips) if one else ()
+        if nstrips == 1 and counts and offsets and offsets[0]:
+            bc, off = counts[0], offsets[0]
+            if bc == 0 or self.compression == 1 and (
+                    off <= size and bc > size - off
+                    or bc < self._scanline() * self.h):
+                return self._estimate(t, size, offsets, nstrips)
+        if (contig and nstrips > 2 and self.compression == 1
+                and len(counts) >= 2 and counts[0] != counts[1]
+                and counts[0] and counts[1]):
+            return self._estimate(t, size, offsets, nstrips)
+        return counts
+
+    def _estimate(self, t, size, offsets, nstrips):
+        """tif_dirread.c EstimateStripByteCounts."""
+        if self.compression == 1:
+            per_plane = nstrips if self.planar == 1 else nstrips // self.spp
+            return (self._scanline() * (self.h // per_plane),) * nstrips
+        if t.dir_bytes is None or not offsets:
+            raise OSError(f"{self.path}: TIFF tag of an unknown type (cv2."
+                          f"imread reads none either)")
+        space = max(size - t.dir_bytes, 0)
+        if self.planar == 2:
+            space //= self.spp
+        counts = [space] * nstrips
+        last = offsets[nstrips - 1] if len(offsets) >= nstrips else 0
+        if last + space > size:
+            counts[-1] = 0 if last >= size else size - last
+        return tuple(counts)
+
 
 def _layout(path: str, data: bytes) -> _Layout:
     lay = _Layout(path, data)
-    if lay.refusal and lay.cv2_reads:
+    if lay.refusal:
         raise OSError(f"{path}: TIFF with {lay.refusal} (cv2.imread reads "
                       f"none either)")
-    if lay.refusal:
-        raise TiffUnsupported(f"{path}: TIFF with {lay.refusal} is not read "
-                              f"({_TODO})")
     if 5 <= lay.orientation <= 8 and lay.w != lay.h:
         raise OSError(f"{path}: a non-square TIFF of Orientation "
                       f"{lay.orientation} (cv2.imread reads none)")
@@ -378,8 +450,8 @@ def _layout(path: str, data: bytes) -> _Layout:
 
 def tiff_size(path: str):
     """(w, h) of the TIFF at `path`, its Orientation applied; raises
-    OSError for a file cv2.imread reads nothing of, TiffUnsupported for a
-    kind cv2 reads and this module does not. What libtiff checks before it
+    OSError for a file cv2.imread reads nothing of. What libtiff checks
+    before it
     decodes a chunk is checked here too (every chunk in the file, the
     headers of JPEG-in-TIFF's streams), so that the datasets drop such a
     file when they are built, as JAX's drop cv2's None."""

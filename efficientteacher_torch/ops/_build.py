@@ -114,8 +114,8 @@ def library() -> Built:
 
 HOST_FLAGS = ("-O3", "-std=c++17", "-shared", "-fPIC", "-ffp-contract=off")
 HOST_SOURCES = ("loader_core.cpp", "jpeg_decode.h", "jpeg_encode.h",
-                "pixel_ops.h", "raster_decode.h", "webp_decode.h",
-                "webp_encode.h")
+                "pixel_ops.h", "raster_decode.h", "text_render.h",
+                "webp_decode.h", "webp_encode.h")
 
 
 def _compile(cmd, so: Path, what: str) -> tuple:

@@ -2,26 +2,39 @@
 cv2 calls of JAX's `detect.py` and `Detections.render`
 (`cv2.rectangle(img, p1, p2, color, 2)`, `cv2.circle(img, p, 3, color,
 -1)` and `cv2.putText(img, label, org, FONT_HERSHEY_SIMPLEX, 0.5, color,
-1)`).
+1)`). Every pixel is what cv2 5.0.0 draws on the same canvas
+(`tests/test_torch_loaders_detect.py`, `tests/test_torch_text.py`).
 
-Boxes and points are pixel for pixel what cv2 draws on the same canvas
-(`tests/test_torch_loaders_detect.py` holds them against cv2). cv2 draws a
-thickness-2 rectangle as four 3-pixel bands centred on its edges, with a
-1-pixel round cap at each corner: the box [x0 - 1, x1 + 1] x [y0 - 1,
-y1 + 1] less its four corner pixels and less the inside [x0 + 2, x1 - 2] x
-[y0 + 2, y1 - 2]. A filled circle of radius 3 is `_DISC`. Both are clipped
-to the canvas.
+cv2 draws a thickness-2 rectangle as four 3-pixel bands centred on its
+edges, with a 1-pixel round cap at each corner: the box [x0 - 1, x1 + 1] x
+[y0 - 1, y1 + 1] less its four corner pixels and less the inside [x0 + 2,
+x1 - 2] x [y0 + 2, y1 - 2]. A filled circle of radius 3 is `_DISC`. Both
+are clipped to the canvas.
 
-Label text: cv2's Hershey glyph table is not available without cv2, so
-the label is drawn in a 3 x 5 pixel font, 4 pixels per character, inside
-the box cv2's text of the same label would take (cv2's glyphs are at
-least 4 pixels wide at scale 0.5). Those pixels are the one place where a
-canvas differs from cv2's (ROADMAP Queue 3, F8).
+Label text: cv2 5.0 draws no Hershey strokes. Probes of cv2.putText showed
+that FONT_HERSHEY_SIMPLEX at scale 0.5 and thickness 1 is its built-in
+TrueType font Rubik at 14 px and weight 400 (thickness 2 is heavier), that
+the text is anti-aliased (197 colours, black included, in "person 0.87"
+drawn white on black; LINE_AA the same as LINE_8) and blended over the
+canvas glyph by glyph, and that an integer shift of `org` shifts the
+pixels exactly. The port draws it from the same font (`assets/fonts/
+Rubik.ttf`, extracted from cv2 by `scripts/extract_rubik.py`) with the
+renderer of `csrc/text_render.h`, whose header lists every rule the
+probes fixed. A character outside Rubik's cmap is drawn as '?'; cv2 draws
+CJK and Greek from a second built-in font that the port does not carry
+(ROADMAP F8's remainder).
 """
 
 from __future__ import annotations
 
+import functools
+from pathlib import Path
+
 import numpy as np
+
+from . import native_loader
+
+FONT = Path(__file__).resolve().parents[1] / "assets" / "fonts" / "Rubik.ttf"
 
 # cv2.circle(img, c, 3, color, -1): rows dy = -3..3, columns dx = -3..3
 _DISC = np.array([[0, 0, 0, 1, 0, 0, 0],
@@ -32,33 +45,10 @@ _DISC = np.array([[0, 0, 0, 1, 0, 0, 0],
                   [0, 1, 1, 1, 1, 1, 0],
                   [0, 0, 0, 1, 0, 0, 0]], bool)
 
-# 3 x 5 glyphs, rows top to bottom, '#' set
-_FONT_ROWS = {
-    "0": "### #.# #.# #.# ###", "1": ".#. ##. .#. .#. ###",
-    "2": "### ..# ### #.. ###", "3": "### ..# .## ..# ###",
-    "4": "#.# #.# ### ..# ..#", "5": "### #.. ### ..# ###",
-    "6": "### #.. ### #.# ###", "7": "### ..# .#. .#. .#.",
-    "8": "### #.# ### #.# ###", "9": "### #.# ### ..# ###",
-    "a": ".#. #.# ### #.# #.#", "b": "##. #.# ##. #.# ##.",
-    "c": ".## #.. #.. #.. .##", "d": "##. #.# #.# #.# ##.",
-    "e": "### #.. ##. #.. ###", "f": "### #.. ##. #.. #..",
-    "g": ".## #.. #.# #.# .##", "h": "#.# #.# ### #.# #.#",
-    "i": "### .#. .#. .#. ###", "j": "..# ..# ..# #.# .#.",
-    "k": "#.# #.# ##. #.# #.#", "l": "#.. #.. #.. #.. ###",
-    "m": "#.# ### ### #.# #.#", "n": "##. #.# #.# #.# #.#",
-    "o": ".#. #.# #.# #.# .#.", "p": "##. #.# ##. #.. #..",
-    "q": ".#. #.# #.# ##. .##", "r": "##. #.# ##. #.# #.#",
-    "s": ".## #.. .#. ..# ##.", "t": "### .#. .#. .#. .#.",
-    "u": "#.# #.# #.# #.# ###", "v": "#.# #.# #.# #.# .#.",
-    "w": "#.# #.# ### ### #.#", "x": "#.# #.# .#. #.# #.#",
-    "y": "#.# #.# .#. .#. .#.", "z": "### ..# .#. #.. ###",
-    ".": "... ... ... ... .#.", "-": "... ... ### ... ...",
-    "_": "... ... ... ... ###", ":": "... .#. ... .#. ...",
-    "/": "..# ..# .#. #.. #..", " ": "... ... ... ... ...",
-}
-_FONT = {ch: np.array([[c == "#" for c in row] for row in rows.split()])
-         for ch, rows in _FONT_ROWS.items()}
-_UNKNOWN = np.ones((5, 3), bool)
+
+@functools.cache
+def _font() -> np.ndarray:
+    return np.frombuffer(FONT.read_bytes(), np.uint8)
 
 
 def color_of(c: int):
@@ -97,13 +87,13 @@ def circle(img: np.ndarray, center, color) -> None:
 
 
 def text(img: np.ndarray, label: str, org, color) -> None:
-    """The label at `org` (its baseline's left end, as cv2.putText's
-    origin), in the 3 x 5 font (module docstring), in place."""
-    x, y = int(org[0]), int(org[1])
-    color = np.asarray(color, img.dtype)
-    for i, ch in enumerate(label):
-        glyph = _FONT.get(ch.lower(), _UNKNOWN)
-        _paint(img, glyph, y - 6, x + 1 + 4 * i, color)
+    """cv2.putText(img, label, org, FONT_HERSHEY_SIMPLEX, 0.5, color, 1)
+    on the uint8 (h, w, 3) canvas, in place: `org` is the baseline's left
+    end, `color` one value per channel in the canvas's order."""
+    canvas = img if img.flags.c_contiguous else np.ascontiguousarray(img)
+    native_loader.put_text(canvas, label, org, color, _font())
+    if canvas is not img:
+        img[...] = canvas
 
 
 def box_label(img: np.ndarray, xyxy, label: str, color) -> None:

@@ -15,7 +15,8 @@ never falls back. It also runs the per-pixel stages of PNG, BMP and TIFF
 `tiff_colour` for CMYK, YCbCr and CIELab, `lzw_encode`),
 decodes WebP's two bitstreams, VP8L and VP8 with its ALPH chunk
 (`csrc/webp_decode.h`: `webp_decode`; `data/webp_io.py` parses the
-container), and writes either (`csrc/webp_encode.h`: `webp_encode`).
+container), writes either (`csrc/webp_encode.h`: `webp_encode`), and draws
+label text as cv2.putText does (`csrc/text_render.h`: `put_text`).
 Images are RGB uint8, (h, w, 3), C-contiguous. Each call releases the
 interpreter lock while it runs (ctypes does), so loader threads decode in
 parallel.
@@ -67,6 +68,8 @@ _SIGNATURES = {
     "et_gray": (_P, _I, _I, _I, _P, _I),
     # img, h, w, stride, kernel (9 ints), divisor, out
     "et_filter3x3": (_P, _I, _I, _I, _P, _I, _P),
+    # font, font_n, img, h, w, stride, cps, n, org_x, org_y, color (3 ints)
+    "et_put_text": (_P, _L, _P, _I, _I, _I, _P, _I, _I, _I, _P),
 }
 _ERRORS = {-1: "cannot open the file",
            -2: "corrupt or truncated image data",
@@ -430,3 +433,17 @@ def webp_encode(rgb: np.ndarray, quality=None) -> bytes:
                                  out.ctypes.data, cap, ctypes.byref(n)),
            "WebP writer")
     return out[:n.value].tobytes()
+
+
+def put_text(canvas: np.ndarray, label: str, org, color,
+             font: np.ndarray) -> None:
+    """cv2.putText(canvas, label, org, FONT_HERSHEY_SIMPLEX, 0.5, color, 1)
+    into `canvas` (h, w, 3) uint8, C-contiguous, in place, with the bytes
+    of cv2's TrueType font `font` (`csrc/text_render.h`); `color` one value
+    per channel in the canvas's order."""
+    ptr, h, w = _canvas(canvas)
+    cps = np.array([ord(ch) for ch in label], np.uint32)
+    col = np.array([int(v) for v in color[:3]], np.int32)
+    _check(_lib().et_put_text(font.ctypes.data, font.size, ptr, h, w, w * 3,
+                              cps.ctypes.data, cps.size, int(org[0]),
+                              int(org[1]), col.ctypes.data), "putText")

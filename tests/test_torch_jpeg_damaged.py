@@ -399,6 +399,59 @@ def test_new_kinds_through_the_letterbox(kind, tmp_path):
         np.testing.assert_array_equal(got, want, err_msg=str(denom))
 
 
+# -- header damage ----------------------------------------------------------------
+
+def _header_end(data: bytes) -> int:
+    """The end of the first SOS header."""
+    i = data.find(b"\xff\xda")
+    return i + 2 + int.from_bytes(data[i + 2:i + 4], "big")
+
+
+def header_damaged(rng, sources):
+    """One of `sources` with its headers damaged: 1-3 bytes overwritten,
+    1-7 bytes of garbage inserted, or cut, anywhere from the third byte
+    (the end of cv2's signature) to the end of the first SOS header."""
+    src = sources[int(rng.integers(0, len(sources)))]
+    end = _header_end(src)
+    b = bytearray(src)
+    mode = int(rng.integers(0, 3))
+    if mode == 0:
+        for _ in range(int(rng.integers(1, 4))):
+            b[int(rng.integers(2, end))] = int(rng.integers(0, 256))
+    elif mode == 1:
+        at = int(rng.integers(2, end))
+        b[at:at] = rng.integers(0, 256, int(rng.integers(1, 8)),
+                                np.uint8).tobytes()
+    else:
+        b = b[:int(rng.integers(2, end + 1))]
+    return bytes(b)
+
+
+@pytest.mark.parametrize("seed", range(3))
+def test_header_damage_is_cv2s(seed, tmp_path):
+    """Seeded damage to the headers of cv2's baseline, progressive,
+    restart-interval and 4:4:4 files: the port reads each as cv2.imread
+    does, or fails where it fails. The cases that once differed: a broken
+    third signature byte (cv2 finds no decoder), a quantisation table the
+    segment cuts short (libjpeg-turbo reads it whole and fails on the
+    length), a component twice in a scan, and a progressive file that
+    lost a Huffman table (only the sequential decoder falls back on the
+    standard ones)."""
+    cv2 = _cv2()
+    rng = np.random.default_rng(seed)
+    sources = []
+    for h, w in ((21, 35), (48, 64)):
+        img = smooth(rng, h, w)[..., ::-1]
+        for params in ([], [cv2.IMWRITE_JPEG_PROGRESSIVE, 1],
+                       [cv2.IMWRITE_JPEG_RST_INTERVAL, 2],
+                       [cv2.IMWRITE_JPEG_SAMPLING_FACTOR,
+                        cv2.IMWRITE_JPEG_SAMPLING_FACTOR_444]):
+            sources.append(cv2.imencode(".jpg", img, params)[1].tobytes())
+    for i in range(300):
+        path = _write(tmp_path, f"{i}.jpg", header_damaged(rng, sources))
+        assert_reads_as_cv2(path, (1, 2) if i % 4 else (1, 2, 4, 8), what=i)
+
+
 # -- F11: TIFF strips whose data fail part way ----------------------------------
 
 TIFF_CODECS = {"lzw": (5, 1), "lzw_predictor": (5, 2), "deflate": (8, 1),
@@ -458,6 +511,69 @@ def test_short_uncompressed_strip_is_zeros(tmp_path):
     assert assert_reads_as_cv2(path, (1,))
     got = image_io.imread(str(path))
     assert not got[16:].any() and np.array_equal(got[:16], img[:16])
+
+
+def _with_counts(data: bytes, counts) -> bytes:
+    """A little-endian one-IFD TIFF with its StripByteCounts replaced by
+    `counts` (as many as it had), or, with `counts` None, retagged as a
+    private tag libtiff ignores (the IFD keeps its size)."""
+    import struct
+
+    data = bytearray(data)
+    ifd = struct.unpack("<I", data[4:8])[0]
+    for e in range(struct.unpack("<H", data[ifd:ifd + 2])[0]):
+        o = ifd + 2 + 12 * e
+        tag, _, n = struct.unpack("<HHI", data[o:o + 8])
+        if tag != 279:
+            continue
+        if counts is None:
+            data[o:o + 2] = struct.pack("<H", 65000)
+        elif n == 1:
+            data[o + 8:o + 12] = struct.pack("<I", counts[0])
+        else:
+            at = struct.unpack("<I", data[o + 8:o + 12])[0]
+            data[at:at + 4 * n] = struct.pack(f"<{n}I", *counts)
+    return bytes(data)
+
+
+@pytest.mark.parametrize("rule", ["strips_0_1_differ", "one_strip_bad",
+                                  "missing"])
+def test_strip_byte_counts_as_libtiff_estimates(rule, tmp_path):
+    """TIFFReadDirectory's EstimateStripByteCounts (F11's remainder):
+    uncompressed contiguous strips whose counts 0 and 1 differ (three or
+    more strips) are all rows * (h // strips) bytes long; a single strip
+    whose count is 0, runs past the file or is short of its rows takes its
+    rows' bytes (a compressed one of count 0: the file less its header and
+    IFD); a missing StripByteCounts is estimated for one strip (one a
+    plane) and refuses the file otherwise."""
+    rng = np.random.default_rng(len(rule))
+    from test_torch_image_formats import tiff_bytes
+
+    for i in range(40):
+        h, w = int(rng.integers(3, 40)), int(rng.integers(1, 30))
+        spp = (1, 3)[i % 2]
+        img = rng.integers(0, 256, (h, w, spp), dtype=np.uint8)
+        comp = 1 if rule == "strips_0_1_differ" else (1, 5, 32773, 8)[i % 4]
+        rows = h if rule == "one_strip_bad" else int(rng.integers(1, h))
+        planar = 2 if rule == "missing" and i % 3 == 0 and spp == 3 else 1
+        data = tiff_bytes(img, compression=comp, rows_per_strip=rows,
+                          planar=planar, photometric=1 if spp == 1 else 2)
+        tail = b"\0" * int(rng.integers(0, 2)) * 300
+        n = -(-h // rows) * (spp if planar == 2 else 1)
+        sizes = [rows * w * spp] * n
+        if rule == "strips_0_1_differ" and n > 1:
+            k = int(rng.integers(0, 2))
+            sizes[k] = max(1, sizes[k] + int(rng.integers(-20, 40)))
+        elif rule == "one_strip_bad":
+            sizes = [(0, 10 ** 6, max(1, sizes[0] - 9))[i % 3]]
+        path = _write(tmp_path, f"{i}.tif",
+                      _with_counts(data, None if rule == "missing" else
+                                   sizes) + tail)
+        if cv2_read(path) is None:
+            with pytest.raises(OSError):
+                image_io.image_size(str(path))
+        else:
+            assert assert_reads_as_cv2(path, (1,), what=(rule, i))
 
 
 def test_jpeg_in_tiff_of_the_new_kinds(tmp_path):

@@ -12,10 +12,9 @@ as the port computes on the CPU, so the label files compare as text.
 The sources are JPEG, PNG and WebP (lossless and lossy). Tolerances: the
 .txt and .xml files are equal; the crops handed to the writers are
 bit-equal; the .webp canvases read back equal to what was written; the
-annotated canvases are bit-equal outside the label text boxes
-(cv2.getTextSize's box, widened by 2 px: the port draws its labels in its
-own font, ROADMAP F8); the port's quality-95 JPEG of a canvas decodes to
-a PSNR against it within 0.5 dB of cv2.imwrite's."""
+annotated canvases, label text included, are bit-equal; the port's
+quality-95 JPEG of a canvas decodes to a PSNR against it within 0.5 dB of
+cv2.imwrite's."""
 
 import importlib.util
 import sys
@@ -110,20 +109,6 @@ def test_boxes_and_points_bit_equal_to_cv2(seed):
         np.testing.assert_array_equal(got, want)
 
 
-def _text_box_mask(shape, rows, names):
-    """True inside each row's cv2 label box (getTextSize, +2 px)."""
-    mask = np.zeros(shape[:2], bool)
-    for row in rows:
-        c = int(row[5])
-        label = f"{names[c] if c < len(names) else c} {row[4]:.2f}"
-        (tw, th), base = cv2.getTextSize(label, cv2.FONT_HERSHEY_SIMPLEX,
-                                         0.5, 1)
-        x, y = int(row[0]), int(row[1]) - 4
-        mask[max(y - th - 2, 0):max(y + base + 3, 0),
-             max(x - 2, 0):max(x + tw + 3, 0)] = True
-    return mask
-
-
 @pytest.fixture(scope="module")
 def detect_run(tmp_path_factory):
     root = tmp_path_factory.mktemp("detect")
@@ -199,7 +184,7 @@ def test_detect_label_files_equal_jax(detect_run):
 
 
 def test_detect_crops_and_canvases_equal_jax(detect_run):
-    out_dir, jax_dir, dets, writes, names = detect_run
+    out_dir, jax_dir, dets, writes, _ = detect_run
     port = {p.relative_to(out_dir): img for p, img in writes["port"]}
     jax = {p.relative_to(jax_dir): img for p, img in writes["jax"]}
     assert sorted(port) == sorted(jax)
@@ -207,15 +192,12 @@ def test_detect_crops_and_canvases_equal_jax(detect_run):
     assert len(crops) >= 20
     for k in crops:
         np.testing.assert_array_equal(port[k], jax[k])
-    masked = 0
+    labels = 0
     for path, det in dets.items():
         k = Path(Path(path).name)
-        got, want = port[k], jax[k]
-        assert got.shape == want.shape
-        mask = _text_box_mask(got.shape, det, names)
-        masked += mask.mean()
-        np.testing.assert_array_equal(got[~mask], want[~mask])
-    assert masked / len(dets) < 0.5
+        np.testing.assert_array_equal(port[k], jax[k])
+        labels += len(det)
+    assert labels >= 20
 
 
 def test_detect_webp_canvases_read_back(detect_run):

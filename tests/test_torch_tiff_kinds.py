@@ -2,7 +2,9 @@
 data/tiff_io.py`, `csrc/raster_decode.h`, `csrc/jpeg_decode.h`) against
 cv2.imread (cv2 5.0.0, its libtiff 4.7.1 built in): JPEG-in-TIFF, CCITT
 modified Huffman, Group 3 and Group 4, CMYK, CIELab, YCbCr in every
-subsampling libtiff draws, signed samples and FillOrder 2; the files cv2
+subsampling libtiff draws, signed samples and FillOrder 2; and Q1.9d's:
+SGILog LogL and LogLuv, SGILog24 LogLuv (well-formed and damaged, every
+depth and sample format cv2 takes) and ThunderScan in tiles; the files cv2
 reads nothing of (ROADMAP F10: the port raises OSError, the datasets drop
 them as JAX's do) and those it reads as zero samples (a compression
 libtiff has no decoder of); and the port's datasets and LoadImages on a
@@ -261,6 +263,112 @@ def fax_tiff(bilevel: np.ndarray, scheme: int, rows: int = 0,
                      rows_per_strip=rows)
 
 
+# -- SGILog (Q1.9d) -------------------------------------------------------------
+
+# libtiff's XYZtoRGB24 primaries: RGB = M XYZ
+_XYZ_TO_RGB = np.array([[2.690, -1.276, -0.414], [-1.022, 1.978, 0.044],
+                        [0.061, -0.224, 1.163]])
+
+
+def sgilog_codes(rgb: np.ndarray, kind: str) -> np.ndarray:
+    """(h, w) uint32 SGILog pixels of about `rgb` (the inverse of libtiff's
+    2.0 gamma and primaries): 16-bit LogL ("l16"), 32-bit LogLuv (L16, u
+    and v bytes, "luv32") or 24-bit LogLuv (L10 and a 14-bit (u', v') cell
+    index, "luv24"; the index a coarse stand-in for uvcode.h's, some of
+    them past its 16289 cells, which decode to the neutral colour)."""
+    lin = (rgb.astype(np.float64) / 256.0) ** 2
+    xyz = lin @ np.linalg.inv(_XYZ_TO_RGB).T
+    y = np.maximum(xyz[..., 1], 1e-9)
+    den = np.maximum(xyz[..., 0] + 15 * xyz[..., 1] + 3 * xyz[..., 2], 1e-9)
+    u, v = 4 * xyz[..., 0] / den, 9 * xyz[..., 1] / den
+    if kind == "l16":
+        le = np.floor(256 * (np.log2(y) + 64)).clip(0, 0x7fff)
+        return np.where(xyz[..., 1] > 0, le, 0).astype(np.uint32)
+    if kind == "luv32":
+        le = np.floor(256 * (np.log2(y) + 64)).clip(1, 0x7fff).astype(
+            np.uint32)
+        ue = np.floor(410 * u).clip(0, 255).astype(np.uint32)
+        ve = np.floor(410 * v).clip(0, 255).astype(np.uint32)
+        return le << 16 | ue << 8 | ve
+    le = np.floor(64 * (np.log2(y) + 12)).clip(1, 1023).astype(np.uint32)
+    vi = np.floor((v - 0.01694) / 0.0035).clip(0, 162)
+    ui = np.floor(u / 0.0035).clip(0, 180)
+    return le << 14 | (vi * 101 + ui).astype(np.uint32) % 16384
+
+
+def sgilog_chunk(codes: np.ndarray, kind: str, seg: int = 32) -> bytes:
+    """Rows of SGILog pixels as one chunk: 24-bit pixels as 3 bytes each;
+    16- and 32-bit ones as tif_luv.c's byte planes (high byte first, per
+    row), each cut in `seg`-byte pieces, a constant one a run (a byte of
+    126 + its length, then the value), any other literal (its length,
+    then its bytes)."""
+    h, w = codes.shape
+    if kind == "luv24":
+        b = np.stack([codes >> 16, codes >> 8, codes], -1) & 0xff
+        return b.astype(np.uint8).tobytes()
+    nb = 2 if kind == "l16" else 4
+    planes = np.stack([(codes >> (8 * (nb - 1 - k))) & 0xff
+                       for k in range(nb)], 1).astype(np.uint8)
+    planes = planes.reshape(h * nb, w)
+    parts = []
+    for x in range(0, w, seg):
+        p = planes[:, x:x + seg]
+        n = p.shape[1]
+        run = (p == p[:, :1]).all(1) & (n >= 2)
+        block = np.zeros((len(p), n + 1), np.int16)
+        block[:, 0] = np.where(run, 126 + n, n)
+        block[:, 1:] = p
+        block[run, 2:] = -1   # a run is two bytes
+        parts.append(block)
+    out = np.concatenate(parts, 1).ravel()
+    return out[out >= 0].astype(np.uint8).tobytes()
+
+
+def sgilog_tiff(codes: np.ndarray, kind: str, rows: int = 0, tile=None,
+                bits: int = 16, seg: int = 32, tags=()) -> bytes:
+    """A LogL (kind "l16") or LogLuv TIFF of SGILog pixels `codes`,
+    Compression 34676 (34677 for "luv24"), in strips of `rows` rows (0:
+    one) or tiles (tw, th)."""
+    h, w = codes.shape
+    chunks = []
+    if tile:
+        tw, th = tile
+        for y in range(0, h, th):
+            for x in range(0, w, tw):
+                full = np.zeros((th, tw), np.uint32)
+                part = codes[y:y + th, x:x + tw]
+                full[:part.shape[0], :part.shape[1]] = part
+                chunks.append(sgilog_chunk(full, kind, seg))
+    else:
+        rows = rows or h
+        chunks = [sgilog_chunk(codes[y:y + rows], kind, seg)
+                  for y in range(0, h, rows)]
+    spp = 1 if kind == "l16" else 3
+    return tiff_file((h, w, spp), chunks, bits,
+                     32844 if kind == "l16" else 32845,
+                     34677 if kind == "luv24" else 34676,
+                     rows_per_strip=rows, tile=tile, tags=tags)
+
+
+def thunderscan_tiles(rgb: np.ndarray, tile=(16, 16)) -> bytes:
+    """A 4-bit palette TIFF of `rgb`'s grey levels, ThunderScan in tiles
+    (raw-pixel codes): libtiff decodes no ThunderScan tile, so cv2 reads
+    palette entry 0 everywhere."""
+    h, w = rgb.shape[:2]
+    idx = (rgb.astype(np.int64).sum(2) // 48).clip(0, 15)
+    tw, th = tile
+    chunks = []
+    for y in range(0, h, th):
+        for x in range(0, w, tw):
+            full = np.zeros((th, tw), np.int64)
+            part = idx[y:y + th, x:x + tw]
+            full[:part.shape[0], :part.shape[1]] = part
+            chunks.append((0xC0 | full).astype(np.uint8).tobytes())
+    ramp = list(np.arange(16) * 4369)
+    return tiff_file((h, w, 1), chunks, 4, 3, 32809, tile=tile,
+                     tags=[(320, 3, ramp + ramp[::-1] + ramp)])
+
+
 # -- the kinds, written without cv2 or Pillow --------------------------------
 
 def write_kind(kind: str, rgb: np.ndarray) -> bytes:
@@ -304,6 +412,15 @@ def write_kind(kind: str, rgb: np.ndarray) -> bytes:
         return fill_order_2(tiff_bytes(rgb, compression=comp,
                                        rows_per_strip=8,
                                        tags=[(266, 3, [2])]))
+    if kind == "tifsgilogl":   # LogL, strips of 8 rows
+        return sgilog_tiff(sgilog_codes(rgb, "l16"), "l16", rows=8)
+    if kind == "tifsgiloguv":   # LogLuv, 16 x 16 tiles
+        return sgilog_tiff(sgilog_codes(rgb, "luv32"), "luv32",
+                           tile=(16, 16))
+    if kind == "tifsgilog24":   # LogLuv, SGILog24, strips of 8 rows
+        return sgilog_tiff(sgilog_codes(rgb, "luv24"), "luv24", rows=8)
+    if kind == "tifthundertiles":
+        return thunderscan_tiles(rgb)
     if kind in ("tifrle", "tifg3", "tifg3noeol"):
         grey = rgb.astype(np.int64).sum(2)
         bilevel = grey < 3 * 128
@@ -317,6 +434,8 @@ def write_kind(kind: str, rgb: np.ndarray) -> bytes:
 SPLIT_KINDS = ("tifjpeg", "tifycc22", "tifcmyk", "tiflab", "tiffill2_lzw",
                "tifg3", "tifjpegtiles", "tifycc42_lzw", "tiflab16",
                "tifsigned")
+# the last kinds cv2 reads (ROADMAP Q1.9d): chip_smoke.py's Q1.9d split
+Q19D_KINDS = ("tifsgilogl", "tifsgiloguv", "tifsgilog24", "tifthundertiles")
 KINDS = SPLIT_KINDS + ("tifjpegself", "tifycc21", "tifycc41", "tifycc44",
                        "tifycc12", "tifycc11", "tifcmykplanar",
                        "tiffill2_none", "tiffill2_packbits",
@@ -649,6 +768,8 @@ def test_colour_space_tags_and_edges(tmp_path):
 # samples, through the photometric (black RGB, white MinIsWhite, palette
 # entry 0, a YCbCr or CMYK colour)
 ZERO_KINDS = {"c9_rgb": dict(compression=9),
+              "thunderscan_tiles": dict(compression=32809, photometric=3,
+                                        bits=4, spp=1, tile=(16, 16)),
               "c10_grey": dict(compression=10, photometric=1, spp=1),
               "c32908_white": dict(compression=32908, photometric=0, bits=1,
                                    spp=1),
@@ -674,19 +795,17 @@ NONE_KINDS = {"old_jpeg": dict(compression=6), "pixarlog":
               "logluv": dict(photometric=32845),
               "void": dict(tags=[(339, 3, [4, 4, 4])]),
               "float_8": dict(tags=[(339, 3, [3, 3, 3])])}
-# what cv2 reads and the port does not (ROADMAP Q1.9d): TiffUnsupported
-TODO_KINDS = {"thunderscan_tiles": dict(compression=32809, photometric=3,
-                                        bits=4, spp=1, tile=(16, 16)),
-              "sgilog_logl": dict(compression=34676, photometric=32844,
-                                  bits=16, spp=1),
-              "sgilog_logluv": dict(compression=34676, photometric=32845,
-                                    bits=16),
-              "sgilog24_logluv": dict(compression=34677, photometric=32845,
-                                      bits=16)}
+# SGILog of random bytes (ROADMAP Q1.9d): read as libtiff decodes them
+SGILOG_KINDS = {"sgilog_logl": dict(compression=34676, photometric=32844,
+                                    bits=16, spp=1),
+                "sgilog_logluv": dict(compression=34676, photometric=32845,
+                                      bits=16),
+                "sgilog24_logluv": dict(compression=34677,
+                                        photometric=32845, bits=16)}
 
 
 def route_file(kind: str) -> bytes:
-    spec = dict({**ZERO_KINDS, **NONE_KINDS, **TODO_KINDS}[kind])
+    spec = dict({**ZERO_KINDS, **NONE_KINDS, **SGILOG_KINDS}[kind])
     bits, spp = spec.pop("bits", 8), spec.pop("spp", 3)
     rng = np.random.default_rng(len(kind))
     samples = rng.integers(0, 1 << bits, (23, 37, spp))
@@ -697,7 +816,7 @@ def route_file(kind: str) -> bytes:
 
 
 @pytest.mark.parametrize("kind", sorted(ZERO_KINDS) + sorted(NONE_KINDS)
-                         + sorted(TODO_KINDS))
+                         + sorted(SGILOG_KINDS))
 def test_routes_follow_cv2(kind, tmp_path):
     path = tmp_path / f"{kind}.tif"
     path.write_bytes(route_file(kind))
@@ -711,9 +830,7 @@ def test_routes_follow_cv2(kind, tmp_path):
             image_io.image_size(str(path))
         assert port_ds.verify_image_label(str(path), None, 8) is None
         return
-    assert _cv2_read(path) is not None
-    with pytest.raises(tiff_io.TiffUnsupported, match="ROADMAP Q1.9d"):
-        image_io.image_size(str(path))
+    _equal_to_cv2(path)
 
 
 def thunderscan_row(width: int, rng) -> bytes:
@@ -764,6 +881,120 @@ def test_thunderscan_reads_as_cv2(fill, tmp_path):
         _equal_to_cv2(path)
 
 
+@pytest.mark.parametrize("kind", Q19D_KINDS)
+def test_q19d_kinds_read_as_cv2_imread(kind, tmp_path):
+    """The kinds chip_smoke.py writes its Q1.9d split in."""
+    for h, w in SIZES:
+        _equal_to_cv2(_write(tmp_path, kind, h, w))
+
+
+def _cut(data: bytes, rng) -> bytes:
+    return data[:int(rng.integers(0, len(data)))]
+
+
+def _flip(data: bytes, rng) -> bytes:
+    b = bytearray(data)
+    for _ in range(3):
+        b[int(rng.integers(0, len(b)))] ^= 1 << int(rng.integers(0, 8))
+    return bytes(b)
+
+
+@pytest.mark.parametrize("kind", ["l16", "luv32", "luv24"])
+def test_sgilog_reads_as_cv2(kind, tmp_path):
+    """SGILog LogL and LogLuv, SGILog24 LogLuv, each in strips and tiles,
+    runs and literals of several lengths, FillOrder 2, and damaged chunks
+    (cut short, bits flipped, random bytes): a row whose data run out ends
+    its chunk, zeros after, as libtiff's decoders leave it."""
+    rng = np.random.default_rng(len(kind))
+    for trial in range(24):
+        h, w = int(rng.integers(1, 40)), int(rng.integers(1, 60))
+        rgb = smooth(rng, h, w)
+        rgb[rng.random((h, w)) < 0.05] = 0   # LogL 0 and black pixels
+        codes = sgilog_codes(rgb, kind)
+        if trial % 4 == 3:
+            codes = rng.integers(0, 1 << 32, (h, w), dtype=np.uint64) \
+                .astype(np.uint32)
+        seg = int(rng.integers(1, 40))
+        tile = (16, 16) if trial % 3 == 2 else None
+        rows = int(rng.integers(1, h + 1))
+        data = sgilog_tiff(codes, kind, rows=0 if tile else rows, tile=tile,
+                           seg=seg)
+        path = tmp_path / f"s{trial}.tif"
+        path.write_bytes(data)
+        _equal_to_cv2(path)
+        if trial % 2 == 0:   # the same file, FillOrder 2
+            spp = 1 if kind == "l16" else 3
+            chunks = [sgilog_chunk(codes[y:y + rows], kind, seg)
+                      .translate(_REV) for y in range(0, h, rows)]
+            path.write_bytes(tiff_file(
+                (h, w, spp), chunks, 16, 32844 if kind == "l16" else 32845,
+                34677 if kind == "luv24" else 34676, rows_per_strip=rows,
+                tags=[(266, 3, [2])]))
+            _equal_to_cv2(path)
+        damage = (_cut, _flip, lambda d, r: r.integers(
+            0, 256, int(r.integers(1, 2 * len(d) + 2)), np.uint8).tobytes())
+        chunks = [damage[trial % 3](sgilog_chunk(codes[y:y + rows], kind,
+                                                 seg), rng) or b"\x80"
+                  for y in range(0, h, rows)]
+        path.write_bytes(tiff_file(
+            (h, w, 1 if kind == "l16" else 3), chunks, 16,
+            32844 if kind == "l16" else 32845,
+            34677 if kind == "luv24" else 34676, rows_per_strip=rows))
+        _equal_to_cv2(path)
+
+
+@pytest.mark.parametrize("kind", ["l16", "luv32", "luv24"])
+def test_sgilog_depths_and_sample_formats_follow_cv2(kind, tmp_path):
+    """cv2 reads SGILog LogL of 1, 8 or 16 bits, uint or int, and LogLuv
+    of 1, 2, 4, 8 or 16 bits of any sample format but IEEE float (its
+    readHeader takes three-sample LogLuv for HDR and checks little): the
+    port reads what cv2 reads, equal to it, and raises OSError for the
+    rest, which the datasets drop."""
+    codes = sgilog_codes(smooth(np.random.default_rng(3), 6, 9), kind)
+    for bits in (1, 2, 4, 8, 16, 32):
+        for fmt in range(8):
+            path = tmp_path / f"b{bits}f{fmt}.tif"
+            path.write_bytes(sgilog_tiff(codes, kind, rows=4, bits=bits,
+                                         tags=[(339, 3, [fmt] * (
+                                             1 if kind == "l16" else 3))]))
+            if _cv2_read(path) is None:
+                with pytest.raises(OSError, match="cv2.imread reads none"):
+                    image_io.image_size(str(path))
+            else:
+                _equal_to_cv2(path)
+    path = tmp_path / "planes.tif"   # LogLuv in planes: refused
+    spp = 1 if kind == "l16" else 3
+    path.write_bytes(tiff_file((6, 9, spp), [sgilog_chunk(codes, kind)] * spp,
+                               16, 32844 if kind == "l16" else 32845,
+                               34677 if kind == "luv24" else 34676, planar=2))
+    if kind == "l16":
+        _equal_to_cv2(path)
+    else:
+        assert _cv2_read(path) is None
+        with pytest.raises(OSError, match="LogLuv in planes"):
+            image_io.image_size(str(path))
+
+
+def test_thunderscan_tiles_read_as_palette_zero(tmp_path):
+    """libtiff decodes no ThunderScan tile: whatever the tiles hold, cv2
+    reads palette entry 0 everywhere, and so does the port."""
+    rng = np.random.default_rng(9)
+    for trial in range(12):
+        tw, th = (16, 16) if trial % 2 else (32, 16)
+        w, h = int(rng.integers(1, 70)), int(rng.integers(1, 40))
+        n = -(-w // tw) * -(-h // th)
+        chunks = [rng.integers(0, 256, int(rng.integers(1, 300)),
+                               np.uint8).tobytes() if trial % 3 else
+                  b"".join(thunderscan_row(w, rng) for _ in range(th))
+                  for _ in range(n)]
+        cmap = rng.integers(0, 65536, 48)
+        path = tmp_path / f"t{trial}.tif"
+        path.write_bytes(tiff_file((h, w, 1), chunks, 4, 3, 32809,
+                                   tile=(tw, th), tags=[(320, 3, list(cmap))]))
+        want = _equal_to_cv2(path)
+        assert (want == cmap.reshape(3, 16)[:, 0] >> 8).all()
+
+
 # -- a split against the JAX package ---------------------------------------------
 
 MIXED = [("tifjpeg", 48, 64), ("tifycc22", 41, 37), ("tifcmyk", 40, 40),
@@ -771,7 +1002,9 @@ MIXED = [("tifjpeg", 48, 64), ("tifycc22", 41, 37), ("tifcmyk", 40, 40),
          ("zero:jpeg2000_rgb", 30, 30), ("zero:c32908_white", 30, 30),
          ("none:lzma", 30, 30), ("none:old_jpeg", 30, 30),
          ("none:logl", 30, 30), ("pil:ccitt_4", 41, 64),
-         ("pil:jpeg_CMYK", 41, 64), ("tifsigned", 35, 35)]
+         ("pil:jpeg_CMYK", 41, 64), ("tifsigned", 35, 35),
+         ("tifsgilogl", 33, 41), ("tifsgiloguv", 40, 35),
+         ("tifsgilog24", 38, 44), ("tifthundertiles", 30, 30)]
 
 
 def write_mixed(root: Path, nc: int = 8) -> Path:
@@ -852,7 +1085,8 @@ FIXTURE_KINDS = (
     ["kind:" + k for k in ("tifjpeg", "tifjpegtiles", "tifycc22", "tifycc21",
                            "tifycc42_lzw", "tifycc44", "tifcmyk", "tiflab",
                            "tiflab16", "tifsigned", "tiffill2_lzw",
-                           "tiffill2_deflate", "tifrle", "tifg3")]
+                           "tiffill2_deflate", "tifrle", "tifg3")
+                          + Q19D_KINDS]
     + ["pil:" + k for k in ("jpeg_RGB", "jpeg_YCbCr", "jpeg_CMYK", "ccitt_2",
                             "ccitt_3", "ccitt_3_2d", "ccitt_4", "cmyk_raw",
                             "cmyk_lzw", "lab_raw", "ycbcr_raw")]
@@ -1158,6 +1392,71 @@ FIXTURES = {
         "AAABcBBAACAAAAuwAAABwBAwABAAAAAQAAAAAAAAAIAAAAKAAAACAAAAANAAAA",
         ((11, 13, 3), "75264721926332b8086fe3e7850e34a8"
                       "3ad42190a1f4e2731fc3b587adfa80de")),
+    "kind:tifsgilogl": (
+        "SUkqADwBAAANPj4+Pj4+Pj4+Pj09PQ1PcYhpc5jF86QV372DDT4+Pj09Pj4+Pj09PT"
+        "4NS0Y0+++L5LRYuz2UBw09PT09PT4+PT08PD09DcfW3LaOEWfhJVAyJscNPT4+Pj49"
+        "Pj08PDw9PQ3dBExqD+oagrdevWRKDT09Pj4+Pj49PT0+Pj4NyeNwgRM0ef6//RxRAg"
+        "09PT0+Pj4+Pj4+Pj4+DaJV9ScCQVcwRkpJeS8NPTw9Pj49PT4+PT09PQ3h+oQ8Htnp"
+        "V1K4ovWyDT08PT4+PT0+PT08PT0N27aGgDWU0SnYE8RO5A09PT0+Pj09PTw9PD0+Dc"
+        "YByHtE0/J8/wD9bgINPT09Pj4+PT09PT09PQ3dTeeTgBPfQxJcpPTnDT09Pj4+PT09"
+        "PT09Pj4NrZ4poVqdOYriwupVIQoAAAEEAAEAAAANAAAAAQEEAAEAAAALAAAAAgEDAA"
+        "EAAAAQAAAAAwEDAAEAAAB0hwAABgEDAAEAAABMgAAAEQEEAAIAAAC6AQAAFQEDAAEA"
+        "AAABAAAAFgEEAAEAAAAIAAAAFwEEAAIAAADCAQAAHAEDAAEAAAABAAAAAAAAAAgAAA"
+        "DoAAAA4AAAAFQAAAA=",
+        ((11, 13, 3), "2db58647f9701f8b690aee99bb9d5a1b"
+                      "603f80e01fe9eaa7d86a7b0dd57bbb6f")),
+    "kind:tifsgiloguv": (
+        "SUkqABwDAAAQPT4+Pj4+Pj4+PTw8PAAAABC4dXpKRSxrn0OTvrf5AAAAEG5UWWVhUU"
+        "hOTktVamMAAAAQxcLLz8XL0sW2qY2SrgAAABA9PT09PT49Pj09PT0+AAAAEJCPp77p"
+        "AvsoyXyJ7g8AAAAQXVJaXldJS1JRVGNuXwAAABDCq7PDxM/Rzs7GuMLOAAAAED09Pj"
+        "49PT09PT09Pj4AAAAQ4KwUMuivnNFxVOhhYgAAABBDR09NRT9AQUhfZmFXAAAAEMy3"
+        "u8bHzM7Z2tHR09UAAAAQPj4+Pj49PT09PT09PgAAABBTH57VPrK3dg4eWcc0AAAAEE"
+        "ZOTEZBP0BMcHljV1cAAAAQ0cfM0MPD0dPIvcbNzQAAABA9PT4+PT09PT09PT0+AAAA"
+        "EOymXKPsa3Utcox0x10AAAAQXmxcT1BVVXGHel1SUgAAABDKytXVvbvOvre8wMvPAA"
+        "AAEDw9Pj09PT08PT0+Pj4AAAAQ/D8g/jMaCP+g9Q01VgAAABBncmZYXVlWa3NqVkpO"
+        "AAAAEMrS0s27tLSjp73Exs0AAAAQPT0+PT09PT09Pj49PQAAABBk8Hj+GVBpRNxLL+"
+        "2mAAAAEFRfV0dJSkpcZFhLSFMAAAAQ1NXLw8PBrpqnwMKvqgAAABA9Pj4+PT0+PT4+"
+        "PT09AAAAEM4HTxNqpi3/OGvAgYUAAAAQXmlbSUlQUVpcUlRcXAAAABDOz8rGwL+/ub"
+        "e/uq+mAAAAED09PT09PT4+Pj49PT0AAAAQk4HMvE2qjnZIWJ296QAAABBqdHJpaWhe"
+        "XVpSXnJoAAAAEMXJxristsjLv7q3xMUAAAAQPj09PT09Pj49Pj09PQAAABAe9uO5eL"
+        "1NKv1KxrfuAAAAEFRTW1xqcmZmWEhNZGoAAAAQysy8p67Fz87AvbC3zgAAABA+Pj4+"
+        "Pj09PT4+Pj09AAAAEG1IITIG4vXtAU4u6rEAAAAQVkpEREtUWVhMQkRPYwAAABDLxL"
+        "WzuMLLz8rEtKvHAAAAjgCOAI4AjgCOAI4AjgCOAI4AjgCOAI4AjgCOAI4AjgCOAI4A"
+        "jgCOAAsAAAEEAAEAAAANAAAAAQEEAAEAAAALAAAAAgEDAAMAAACmAwAAAwEDAAEAAA"
+        "B0hwAABgEDAAEAAABNgAAAFQEDAAEAAAADAAAAHAEDAAEAAAABAAAAQgEEAAEAAAAQ"
+        "AAAAQwEEAAEAAAAQAAAARAEEAAEAAAAIAAAARQEEAAEAAAAUAwAAAAAAABAAEAAQAA"
+        "==",
+        ((11, 13, 3), "0ee30a49d799a51ae30968992ec22374"
+                      "31c8a6b64efa3cb210b216ce8f29069b")),
+    "kind:tifsgilog24": (
+        "SUkqALUBAACbtGGnc4Sntkuktx2kdL2i9eCmuDip9EqkMFiZLMmL5OyLZo6PrgmZM4"
+        "uY7TOab5ab8/CetFCgNwqft9WitxCctw+X9LSYsMye85eg9xmeNjya8LmhcYijNK+e"
+        "tQ6a9jiZ9wSdOceXOjGVd36et+imOEmmOQ2lN9Kh9RSp9kKtd22j89ybM9ubd86XeD"
+        "uQ9SyR8gqVtL6cdq+jdq+e9emadfOl+KuqOKKe8lOWsYyXdxKS8s+XMOWY8guXcyac"
+        "dkal9xCP9fCT9/CiN+if9q+TMZKRr/uQr/mP60yaLICfcmWg9FCjdKyldqiWeKWfOK"
+        "2nteWf8+CRs+KVMxiWrfiUaH6d7BGksyOi836e7luabTOc9xigdyCk9eihNKyWsxia"
+        "crei8rmf8SujsGKmsrmcMYuYLmmYbAuZNF6YNZOc9Mib8TWU7aiasGqo9YSndk2ksr"
+        "6lsYqZ8GSb9GOetFyh9eKfdkaeMfWbrAuXrg6b9GSk9x6itrmf8yKksk2cbsObcM2e"
+        "9yGm9kmktEiiL+yjL4egcLueM4Wfdeae9xSgNXik9EKi74eerTGbNSMKAAABBAABAA"
+        "AADQAAAAEBBAABAAAACwAAAAIBAwADAAAAMwIAAAMBAwABAAAAdYcAAAYBAwABAAAA"
+        "TYAAABEBBAACAAAAOQIAABUBAwABAAAAAwAAABYBBAABAAAACAAAABcBBAACAAAAQQ"
+        "IAABwBAwABAAAAAQAAAAAAAAAQABAAEAAIAAAAQAEAADgBAAB1AAAA",
+        ((11, 13, 3), "dd14742e79356a5d615b36a1c703d3b6"
+                      "620afac0201f26e6339cba6fc7c316b2")),
+    "kind:tifthundertiles": (
+        "SUkqAAgBAADIyMnJycjHx8jJyMjJwMDAyMfIyMjIycjIyMjJysDAwMjHx8fGyMnJx8"
+        "bHyMnAwMDHyMnIx8jJyMXFx8jIwMDAxsnKyMfIycjFxsjIyMDAwMbHyMfGx8nHxsfI"
+        "yMfAwMDGxsfIx8fHyMfHxsbGwMDAx8fIycnIyMnJyMfGx8DAwMjHx8fIycnIyMnJx8"
+        "fAwMDJyMfGx8nKyMfJycfHwMDAycnIyMfHycjHyMnHx8DAwMDAwMDAwMDAwMDAwMDA"
+        "wMDAwMDAwMDAwMDAwMDAwMDAwMDAwMDAwMDAwMDAwMDAwMDAwMDAwMDAwMDAwMDAwM"
+        "DAwMDAwMDAwMDAwMDAwMDADAAAAQQAAQAAAA0AAAABAQQAAQAAAAsAAAACAQMAAQAA"
+        "AAQAAAADAQMAAQAAACmAAAAGAQMAAQAAAAMAAAAVAQMAAQAAAAEAAAAcAQMAAQAAAA"
+        "EAAABAAQMAMAAAAJ4BAABCAQQAAQAAABAAAABDAQQAAQAAABAAAABEAQQAAQAAAAgA"
+        "AABFAQQAAQAAAAABAAAAAAAAAAARESIiMzNERFVVZmZ3d4iImZmqqru7zMzd3e7u//"
+        "///+7u3d3MzLu7qqqZmYiId3dmZlVVREQzMyIiEREAAAAAEREiIjMzRERVVWZmd3eI"
+        "iJmZqqq7u8zM3d3u7v//",
+        ((11, 13, 3), "b4832714f4a49186a88d3a7b645c0e38"
+                      "50fe8a65960fca7717f96d1510460773")),
     "pil:jpeg_RGB": (
         "SUkqAOQAAAD/2P/AABEIAAsADQNSEQBHEQBCEQD/2gAMA1IARwBCAAA/ALggknsrpo"
         "444JxiNJZcBOvP1qu6fabNxLbMlunyrsHc981PBHPYHz/OSe6VMrG3CqnTA7ZpYdFi"
