@@ -161,9 +161,18 @@ read just after:
 
 `[serve]` also draws the fixed label cases of tests/text_cases.py (every
 printable ASCII character, the COCO names with confidences in their
-detect.py colours, labels cut at each edge, Latin, Cyrillic and Hebrew)
-with `utils/draw.py` (cv2 5.0's putText face: Rubik at 14 px, weight 400)
+detect.py colours, labels cut at each edge, Latin, Cyrillic and Hebrew,
+CJK, Greek and Hangul from cv2's second font) with `utils/draw.py` (cv2
+5.0's putText faces: Rubik at 14 px, weight 400, and WenQuanYi Micro Hei)
 and requires cv2 5.0.0's digests, then times drawing one image's labels.
+
+`[video]` (after `[serve]`, on its checkpoint) decodes the video fixtures
+of tests/video_fixtures/ with `data/video_io.py` (MPEG-4 Part 2 and MJPEG
+in MP4 and AVI, a rotated one, two cut short, two refused) to cv2 5.0.0's
+per-frame digests and times each at 1 thread, then runs cli.detect on the
+48-frame 1280x720 clip with --nosave --save-txt: K1 once per frame, each
+frame's NMS and every K1 call held against the plain versions, ms/frame
+and its host share (`video: cli.detect` on the kernels line).
 
 It times the forward, the NMS, the selection engine against `torch.topk`,
 the training steps and their phases (CUDA events), and each kernel
@@ -4434,14 +4443,126 @@ def serve_leg(torch, dev, card, lists, tmp):
 
 
 def serve_phase(torch, dev, card, lists):
-    """The [serve] leg; its kernels-line entries."""
+    """The [serve] leg, then the [video] leg on its checkpoint; their
+    kernels-line entries."""
     import tempfile
 
     with tempfile.TemporaryDirectory() as tmp:
         t0 = time.perf_counter()
         entries = serve_leg(torch, dev, card, lists, tmp)
         print(f"[time] serve {time.perf_counter() - t0:.1f} s | {card}")
+        t0 = time.perf_counter()
+        entries += video_leg(torch, dev, card, Path(tmp))
+        print(f"[time] video {time.perf_counter() - t0:.1f} s | {card}")
     return entries
+
+
+# -- [video] ------------------------------------------------------------------
+
+VIDEO_DIR = Path(__file__).resolve().parent / "tests" / "video_fixtures"
+VIDEO_DETECT = "mp4v_1280x720.mp4"      # cli.detect's clip: 48 frames
+
+
+def video_leg(torch, dev, card, tmp):
+    """[video]: the committed fixtures (tests/video_fixtures/, made by
+    scripts/make_video_fixtures.py: mp4v MP4 1280x720, XVID and MJPG AVI,
+    a 90-degree display matrix, two AVIs cut inside a frame, 4MV with
+    resync markers, MPEG quantisation, and two streams the port refuses)
+    decoded by `data/video_io.py` and held to cv2 5.0.0's per-frame
+    digests, frames/s per kind at 1 thread; then cli.detect on the
+    1280x720 clip with --nosave --save-txt, [serve]'s seeded YOLOv5l
+    checkpoint at 640 in bf16: K1 once per frame, each frame's NMS held
+    against the plain NMS on its decoded tensor and every K1 call against
+    the plain version; ms/frame and its host share."""
+    import hashlib
+
+    import numpy as np
+
+    from efficientteacher_torch.cli import detect as cli_detect
+    from efficientteacher_torch.data import video_io
+    from efficientteacher_torch.eval import validator
+    from efficientteacher_torch.ops import nms as nms_module
+    from efficientteacher_torch.ops.nms_cuda import greedy_nms_keep_cuda
+    from efficientteacher_torch.ops.select_cuda import (count_ge_cuda,
+                                                        threshold_compact_cuda)
+
+    table = json.loads((VIDEO_DIR / "digests.json").read_text())
+    rates = {}
+    for name, entry in table.items():
+        path = str(VIDEO_DIR / name)
+        if "refused" in entry:
+            try:
+                list(video_io.frames(path))
+                refused = False
+            except NotImplementedError as e:
+                refused = entry["refused"] in str(e)
+            require(refused, f"{name}: not refused naming {entry['refused']}")
+            continue
+        frames = list(video_io.frames(path))
+        got = [hashlib.sha256(f.tobytes()).hexdigest() for f in frames]
+        require(got == entry["sha256"], f"{name}: {len(got)} frames, "
+                f"{sum(a != b for a, b in zip(got, entry['sha256']))} differ "
+                f"from cv2's {len(entry['sha256'])} digests")
+        t0 = time.perf_counter()
+        n = sum(1 for _ in video_io.frames(path))
+        rates[name] = (n / (time.perf_counter() - t0), frames[0].shape)
+    n_checked = sum(len(e["sha256"]) for e in table.values()
+                    if "refused" not in e)
+    print(f"[video] {len(table)} fixtures: every frame == cv2 5.0.0's "
+          f"digest ({n_checked} frames), "
+          f"{sum('refused' in e for e in table.values())} refused naming "
+          f"their ROADMAP item")
+    print("[time] video decode, frames/s at 1 thread: " + "; ".join(
+        f"{n} ({s[1]}x{s[0]}) {r:.1f}" for n, (r, s) in rates.items())
+        + f" | {card}")
+
+    wrappers = {"greedy_nms_keep": greedy_nms_keep_cuda,
+                "threshold_compact": threshold_compact_cuda,
+                "count_ge": count_ge_cuda}
+    for w in wrappers.values():
+        w.launches = 0
+    clip = VIDEO_DIR / VIDEO_DETECT
+    n_frames = table[VIDEO_DETECT]["frames"]
+    with _Recorded([validator]) as rec, \
+            K1Recorder(torch, nms_module, _Every()) as k1rec:
+        out_dir, dets, speed = cli_detect.main([
+            "--cfg", str(MAIN_YAML), "--weights", str(tmp / "serve.ckpt"),
+            "--source", str(clip), "--save-dir", str(tmp / "video"),
+            "--nosave", "--save-txt", "--img-size", str(IMG)])
+    launches = {k: w.launches for k, w in wrappers.items()}
+    require(list(dets) == [f"{clip}#{i}" for i in range(n_frames)]
+            and len(rec.records) == n_frames,
+            f"cli.detect served {len(dets)} frames in {len(rec.records)} "
+            f"forwards")
+    require(launches == {"greedy_nms_keep": n_frames, "threshold_compact": 0,
+                         "count_ge": 0}, f"cli.detect launches {launches}")
+    for i, r in enumerate(rec.records):
+        require(_same_nms(torch, *r), f"cli.detect frame {i}: NMS != the "
+                f"plain NMS")
+    for call in k1rec.calls:
+        k1_entry(torch, call, "video: cli.detect", 0, timed=False)
+    files = sorted(p.name for p in out_dir.iterdir())
+    require(files == [clip.stem + ".txt"], f"cli.detect wrote {files}")
+    dense = max(k1rec.calls, key=lambda c: int(c[1].sum()))
+    entry = k1_entry(torch, dense, "video: cli.detect, per frame",
+                     launches["greedy_nms_keep"])
+    entry["valid_per_img_mean"] = float(np.mean(
+        [int(c[1].sum()) for c in k1rec.calls]))
+    n_det = [len(d) for d in dets.values()]
+    e2e = sum(speed.values())
+    print(f"[video] cli.detect {VIDEO_DETECT} --nosave --save-txt: "
+          f"{n_frames} frames, detections/frame {np.mean(n_det):.1f} (min "
+          f"{min(n_det)}, max {max(n_det)}); each frame's NMS == the plain "
+          f"NMS, every K1 call == the plain version; launches {launches} "
+          f"(K1 once per frame); wrote {files}")
+    print(f"[time] video: cli.detect {e2e:.2f} ms/frame end to end (decode "
+          f"+ letterbox {speed['read']:.2f}, forward + NMS + copy "
+          f"{speed['infer']:.2f}, labels {speed['write']:.2f}: host share "
+          f"{(speed['read'] + speed['write']) / e2e:.1%}); K1 (1, "
+          f"{dense[0].shape[1]}), {int(dense[1].sum())} valid rows: "
+          f"{entry['ms']:.4f} ms, plain {entry['plain_ms']:.4f} ms, bound "
+          f"{entry['bound_ms']:.6f} ms ({entry['bound_by']}) | {card}")
+    return [entry]
 
 # -- [formats] ----------------------------------------------------------------
 

@@ -5,8 +5,9 @@ detect.py:34-...).
         --weights best.ckpt --source img_or_dir [--conf-thres 0.25 \
         --iou-thres 0.45 --save-dir runs/detect] [key value ...]
 
-Reads images, directories, globs and `.txt` lists (`data/loaders.py
-LoadImages`; video raises), letterboxes each image, runs the eval forward
+Reads images, directories, globs, `.txt` lists and video files frame by
+frame (`data/loaders.py LoadImages`), letterboxes each image, runs the
+eval forward
 and the single-label NMS at max_nms 2048 (the greedy-NMS kernel on the
 card) one image at a time, scales the detections back to the image's
 pixels, and writes into `<save-dir>/exp[N]`: the annotated image under
@@ -15,7 +16,12 @@ its source's name and suffix (`utils/draw.py`, written by
 cv2.imwrite's, `.tif` / `.tiff` as cv2 writes them, `.webp` lossless as
 cv2.imwrite's default, its pixels read back equal), and with --save-txt the
 YOLO-format labels, --save-crop the detections' crops, --save-xml
-PASCAL-VOC annotations, as JAX's detect.py writes them. Keypoint models
+PASCAL-VOC annotations, as JAX's detect.py writes them. A video frame
+("clip.mp4#7") writes under its file's stem, each frame over the one
+before, as JAX's does; its annotated canvas would go to "clip.mp4", which
+no image writer takes: without --nosave the run stops at the first frame
+(NotImplementedError), where JAX's stops on cv2.imwrite's error (ROADMAP
+F13: the reference writes a video with cv2.VideoWriter). Keypoint models
 (`Dataset.np`) carry their points through the NMS with the obj-only gate
 and draw them. --visualize writes each image's pyramid feature maps
 (`utils/plots.feature_visualization`, needs matplotlib).
@@ -129,6 +135,9 @@ def main(argv=None):
     t0 = time.perf_counter()
     for img_path, rgb, img0, _ in LoadImages(opt.source, opt.img_size):
         t1 = time.perf_counter()
+        # a video frame's files are its file's (JAX's split("#")[0])
+        source = Path(img_path.split("#")[0])
+        stem = source.stem
         x = torch.from_numpy(rgb).to(device)[None]
         if opt.visualize:
             from ..utils.plots import feature_visualization
@@ -139,7 +148,7 @@ def main(argv=None):
                 feats = model.neck(model.backbone(xin))
             feature_visualization(
                 [f.permute(0, 2, 3, 1).float().cpu().numpy() for f in feats],
-                save_dir / f"{Path(img_path).stem}_features.png")
+                save_dir / f"{stem}_features.png")
         out = infer(x)
         det = out.detections[0][out.valid[0]].cpu().numpy()
         t2 = time.perf_counter()
@@ -149,7 +158,6 @@ def main(argv=None):
                 det[:, 6:6 + 2 * npk] = _scale_landmarks_to_native(
                     det[:, 6:6 + 2 * npk], size, img0.shape[:2])
         print(f"{img_path}: {len(det)} detections")
-        stem = Path(img_path).stem
         h0, w0 = img0.shape[:2]
         if opt.save_txt:
             _write_txt(save_dir / (stem + ".txt"), det, h0, w0)
@@ -174,7 +182,7 @@ def main(argv=None):
                 for k in range(npk):
                     draw.circle(img0, (row[6 + 2 * k], row[7 + 2 * k]),
                                 color)
-            imwrite(str(save_dir / Path(img_path).name), img0)
+            imwrite(str(save_dir / source.name), img0)
         results[img_path] = det
         t3 = time.perf_counter()
         speed["read"] += t1 - t0

@@ -7,7 +7,8 @@
 // host augmentation's pixel
 // operations (pixel_ops.h: cv2's warpAffine / warpPerspective, HSV, grey
 // and 3x3 filter), label text as cv2.putText draws it (text_render.h), and
-// a JPEG writer for test data. Plain C
+// a JPEG writer for test data, and the frames of MPEG-4 Part 2 and MJPEG
+// video (mpeg4_decode.h, mjpeg_decode.h, video_dsp.h). Plain C
 // ABI, built with the host compiler (no CUDA, no libjpeg) by
 // ops/_build.host_library and bound with ctypes by utils/native_loader.py.
 //
@@ -27,8 +28,9 @@
 //      (Dataset.native_loader False);
 //   4. output is RGB, the order the datasets yield, with no swizzle.
 // Every entry writes into buffers the caller owns; none keeps state
-// between calls, so Python threads may call it at once (ctypes releases
-// the interpreter lock for the call).
+// between calls but a video decoder's handle (et_video_*), which one
+// thread at a time uses, so Python threads may call it at once (ctypes
+// releases the interpreter lock for the call).
 
 #include <algorithm>
 #include <cmath>
@@ -41,6 +43,8 @@
 
 #include "jpeg_decode.h"
 #include "jpeg_encode.h"
+#include "mjpeg_decode.h"
+#include "mpeg4_decode.h"
 #include "pixel_ops.h"
 #include "raster_decode.h"
 #include "text_render.h"
@@ -299,6 +303,12 @@ int decode_resize(const char* path, int expect_w, int expect_h, int new_w,
                               dstride, denom, orient);
   });
 }
+
+// a video stream's decoder: one of the two is set
+struct VideoHandle {
+  etmpeg4::Decoder* mpeg4;
+  etmjpeg::Decoder* mjpeg;
+};
 
 }  // namespace
 
@@ -627,17 +637,88 @@ int et_webp_encode(const uint8_t* rgb, int w, int h, int quality,
 // cv2.putText(img, text, org, FONT_HERSHEY_SIMPLEX, 0.5, color, 1) of the
 // code points cps[0..n) into img (h, w, 3), rows `stride` bytes apart, in
 // color[0..3) (the canvas's channel order), with the TrueType font `font`
-// (font_n bytes: cv2's Rubik; text_render.h).
-int et_put_text(const uint8_t* font, int64_t font_n, uint8_t* img, int h,
-                int w, int stride, const uint32_t* cps, int n, int org_x,
-                int org_y, const int* color) {
-  ettext::Font f;
+// (font_n bytes: cv2's Rubik) and the fallback font `uni` (uni_n bytes:
+// cv2's WenQuanYi Micro Hei; uni_n 0: none; text_render.h).
+int et_put_text(const uint8_t* font, int64_t font_n, const uint8_t* uni,
+                int64_t uni_n, uint8_t* img, int h, int w, int stride,
+                const uint32_t* cps, int n, int org_x, int org_y,
+                const int* color) {
+  ettext::Font f, u;
   if (h < 0 || w < 0 || n < 0 ||
-      !ettext::open_font(f, font, static_cast<size_t>(font_n))) {
+      !ettext::open_font(f, font, static_cast<size_t>(font_n)) ||
+      (uni_n > 0 && !ettext::open_font(u, uni, static_cast<size_t>(uni_n)))) {
     return kErrArgs;
   }
   return guarded([&] {
-    ettext::put_text(f, img, h, w, stride, cps, n, org_x, org_y, color);
+    ettext::put_text(f, uni_n > 0 ? &u : nullptr, img, h, w, stride, cps, n,
+                     org_x, org_y, color);
+    return kOk;
+  });
+}
+
+// A video decoder of one stream: codec 1 MPEG-4 Part 2 (flags: 1 the
+// container's fourcc is one FFmpeg takes for Xvid, 2 it is DIVX; `extra`
+// is the decoder's extradata, or null), 2 MJPEG (flags: the container's
+// frame height, 0 for none). Null for another codec.
+void* et_video_open(int codec, const uint8_t* extra, int64_t n, int flags) {
+  if (codec == 1) {
+    auto* d = new (std::nothrow) etmpeg4::Decoder(flags & 1, flags & 2);
+    if (d && extra && n > 0) d->headers(extra, static_cast<int>(n));
+    return d ? new (std::nothrow) VideoHandle{d, nullptr} : nullptr;
+  }
+  if (codec == 2) {
+    auto* d = new (std::nothrow) etmjpeg::Decoder(flags);
+    return d ? new (std::nothrow) VideoHandle{nullptr, d} : nullptr;
+  }
+  return nullptr;
+}
+
+void et_video_close(void* handle) {
+  auto* h = static_cast<VideoHandle*>(handle);
+  if (!h) return;
+  delete h->mpeg4;
+  delete h->mjpeg;
+  delete h;
+}
+
+// Decode one packet. 1: a picture, whose size goes to info[0..2) and which
+// et_video_bgr converts; 0: no picture; -2: FFmpeg fails on the packet (the
+// reader stops there); -4: a tool not decoded, info[2] says which
+// (etmpeg4::Tool, etmjpeg::Kind).
+int et_video_decode(void* handle, const uint8_t* data, int64_t n, int* info) {
+  auto* h = static_cast<VideoHandle*>(handle);
+  if (!h || n < 0 || n > (int64_t{1} << 30)) return kErrArgs;
+  return guarded([&] {
+    int r, w, ht, tool;
+    if (h->mpeg4) {
+      r = h->mpeg4->decode(data, static_cast<int>(n));
+      w = h->mpeg4->width();
+      ht = h->mpeg4->height();
+      tool = h->mpeg4->tool();
+    } else {
+      r = h->mjpeg->decode(data, static_cast<int>(n));
+      w = h->mjpeg->width();
+      ht = h->mjpeg->height();
+      tool = h->mjpeg->kind();
+    }
+    info[0] = w;
+    info[1] = ht;
+    info[2] = tool;
+    return r;
+  });
+}
+
+// The last picture as BGR24 (info[1] rows of info[0] * 3 bytes), the
+// conversion cv2's FFmpeg backend asks swscale for.
+int et_video_bgr(void* handle, uint8_t* out) {
+  auto* h = static_cast<VideoHandle*>(handle);
+  if (!h) return kErrArgs;
+  return guarded([&] {
+    if (h->mpeg4) {
+      h->mpeg4->to_bgr(out, h->mpeg4->width() * 3);
+    } else {
+      h->mjpeg->to_bgr(out, h->mjpeg->width() * 3);
+    }
     return kOk;
   });
 }

@@ -127,8 +127,27 @@ inline bool open_font(Font& f, const uint8_t* data, size_t n) {
   return f.cmap_sub != 0 && f.ascent > 0;
 }
 
-inline int glyph_index(const Font& f, uint32_t cp) {  // format 4 (Rubik's)
+// stbtt_FindGlyphIndex for the subtables of cv2's fonts: format 4
+// (Rubik's) and 12 (WenQuanYi's last Unicode one, which stb picks)
+inline int glyph_index(const Font& f, uint32_t cp) {
   const size_t t = f.cmap_sub;
+  if (u16at(f, t) == 12) {
+    const uint32_t ngroups = u32at(f, t + 12);
+    uint32_t lo = 0, hi = ngroups;
+    while (lo < hi) {  // stb's binary search over the sorted groups
+      const uint32_t mid = lo + ((hi - lo) >> 1);
+      const size_t g = t + 16 + 12 * size_t(mid);
+      const uint32_t start = u32at(f, g), end = u32at(f, g + 4);
+      if (cp < start) {
+        hi = mid;
+      } else if (cp > end) {
+        lo = mid + 1;
+      } else {
+        return static_cast<int>(u32at(f, g + 8) + cp - start);
+      }
+    }
+    return 0;
+  }
   if (u16at(f, t) != 4 || cp > 0xffff) return 0;
   const uint32_t segx2 = u16at(f, t + 6);
   const size_t ends = t + 14, starts = ends + segx2 + 2;
@@ -544,16 +563,19 @@ inline bool glyph_shape(const Font& f, int g, int coord, Shape* s,
     return true;
   }
   if (depth > 8) return false;
-  // composite: components at their (varied) offsets; Rubik's carry no
-  // scale or matrix, which this reader refuses
+  // composite: components at their (varied) offsets, through
+  // stbtt_GetGlyphShape's matrix in float: a scaled component (WenQuanYi's
+  // X_AND_Y_SCALE, F2.14) has its points x' = m * (a x + c y + e) with m
+  // the scale's magnitude, as stb computes it, truncated to short
   struct Comp {
     int glyph, dx, dy;
+    float a, b, c, d;
   };
   std::vector<Comp> comps;
   uint32_t more = 1;
   while (more && c.p < c.end) {
     const uint32_t flags = c.u16();
-    Comp k{static_cast<int>(c.u16()), 0, 0};
+    Comp k{static_cast<int>(c.u16()), 0, 0, 1.0f, 0.0f, 0.0f, 1.0f};
     if (flags & 1) {
       k.dx = c.s16();
       k.dy = c.s16();
@@ -561,7 +583,18 @@ inline bool glyph_shape(const Font& f, int g, int coord, Shape* s,
       k.dx = c.s8();
       k.dy = c.s8();
     }
-    if (!(flags & 2) || (flags & (8 | 0x40 | 0x80))) return false;
+    if (!(flags & 2)) return false;  // point matching: stb asserts
+    if (flags & 8) {
+      k.a = k.d = static_cast<float>(c.s16()) / 16384.0f;
+    } else if (flags & 0x40) {
+      k.a = static_cast<float>(c.s16()) / 16384.0f;
+      k.d = static_cast<float>(c.s16()) / 16384.0f;
+    } else if (flags & 0x80) {
+      k.a = static_cast<float>(c.s16()) / 16384.0f;
+      k.b = static_cast<float>(c.s16()) / 16384.0f;
+      k.c = static_cast<float>(c.s16()) / 16384.0f;
+      k.d = static_cast<float>(c.s16()) / 16384.0f;
+    }
     comps.push_back(k);
     more = flags & 0x20;
   }
@@ -571,13 +604,27 @@ inline bool glyph_shape(const Font& f, int g, int coord, Shape* s,
   Shape part;
   for (int k = 0; k < n; ++k) {
     if (!glyph_shape(f, comps[k].glyph, coord, &part, depth + 1)) return false;
-    const int tx = comps[k].dx + (ax[k] >> 8), ty = comps[k].dy + (ay[k] >> 8);
+    const Comp& m = comps[k];
+    const float e = static_cast<float>(m.dx + (ax[k] >> 8));
+    const float ff = static_cast<float>(m.dy + (ay[k] >> 8));
+    const float sm = std::sqrt(m.a * m.a + m.b * m.b);
+    const float sn = std::sqrt(m.c * m.c + m.d * m.d);
+    auto tx = [&](int x, int y) {
+      return static_cast<int16_t>(sm * (m.a * static_cast<float>(x) +
+                                        m.c * static_cast<float>(y) + e));
+    };
+    auto ty = [&](int x, int y) {
+      return static_cast<int16_t>(sn * (m.b * static_cast<float>(x) +
+                                        m.d * static_cast<float>(y) + ff));
+    };
     for (Vertex q : part.v) {  // every point is a vertex or a control
-      q.x = static_cast<int16_t>(q.x + tx);
-      q.y = static_cast<int16_t>(q.y + ty);
+      const int x = q.x, y = q.y;
+      q.x = tx(x, y);
+      q.y = ty(x, y);
       if (q.type == kCurve) {
-        q.cx = static_cast<int16_t>(q.cx + tx);
-        q.cy = static_cast<int16_t>(q.cy + ty);
+        const int cx = q.cx, cy = q.cy;
+        q.cx = tx(cx, cy);
+        q.cy = ty(cx, cy);
         extend(s, q.cx, q.cy);
       }
       extend(s, q.x, q.y);
@@ -913,16 +960,17 @@ inline int ceil_i(float v) {
 
 // Draw the code points cps[0..n) at org (baseline's left end) into img
 // (h, w, 3), rows `stride` bytes apart, in `color` (one value per channel,
-// in the canvas's order).
-inline void put_text(const Font& f, uint8_t* img, int h, int w, int stride,
-                     const uint32_t* cps, int n, int org_x, int org_y,
-                     const int* color) {
+// in the canvas's order). A code point `f` does not map is drawn from
+// `fallback` (may be null) where that maps it, else as f's '?'.
+inline void put_text(const Font& f, const Font* fallback, uint8_t* img,
+                     int h, int w, int stride, const uint32_t* cps, int n,
+                     int org_x, int org_y, const int* color) {
   if (org_x >= w) return;  // cv2 draws nothing from the right edge on
-  const float scale = static_cast<float>(kSizePx) / f.ascent;
   const int coord = kWght400;
-  const int line = static_cast<int>(
-      std::nearbyint(static_cast<float>(f.ascent - f.descent) * scale));
-  const int fallback = glyph_index(f, '?');
+  const int line = static_cast<int>(std::nearbyint(
+      static_cast<float>(f.ascent - f.descent) *
+      (static_cast<float>(kSizePx) / f.ascent)));
+  const int question = glyph_index(f, '?');
   int pen = org_x, base = org_y;
   Shape s;
   std::vector<uint8_t> bmp;
@@ -934,9 +982,18 @@ inline void put_text(const Font& f, uint8_t* img, int h, int w, int stride,
       }
       continue;
     }
+    const Font* font = &f;
     int g = glyph_index(f, cps[i]);
-    if (g == 0) g = fallback;
-    if (!glyph_shape(f, g, coord, &s)) continue;
+    if (g == 0 && fallback) {
+      const int fg = glyph_index(*fallback, cps[i]);
+      if (fg) {
+        font = fallback;
+        g = fg;
+      }
+    }
+    if (g == 0) g = question;
+    const float scale = static_cast<float>(kSizePx) / font->ascent;
+    if (!glyph_shape(*font, g, coord, &s)) continue;
     const float adv = static_cast<float>(s.advance) * scale;
     const int adv64 = static_cast<int>(std::nearbyint(adv * 64.0f));
     if (s.has_points && !s.v.empty()) {

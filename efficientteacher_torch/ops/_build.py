@@ -114,7 +114,8 @@ def library() -> Built:
 
 HOST_FLAGS = ("-O3", "-std=c++17", "-shared", "-fPIC", "-ffp-contract=off")
 HOST_SOURCES = ("loader_core.cpp", "jpeg_decode.h", "jpeg_encode.h",
-                "pixel_ops.h", "raster_decode.h", "text_render.h",
+                "mjpeg_decode.h", "mpeg4_decode.h", "pixel_ops.h",
+                "raster_decode.h", "text_render.h", "video_dsp.h",
                 "webp_decode.h", "webp_encode.h")
 
 

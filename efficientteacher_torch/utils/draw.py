@@ -18,23 +18,29 @@ the text is anti-aliased (197 colours, black included, in "person 0.87"
 drawn white on black; LINE_AA the same as LINE_8) and blended over the
 canvas glyph by glyph, and that an integer shift of `org` shifts the
 pixels exactly. The port draws it from the same font (`assets/fonts/
-Rubik.ttf`, extracted from cv2 by `scripts/extract_rubik.py`) with the
+Rubik.ttf`, extracted from cv2 by `scripts/extract_fonts.py`) with the
 renderer of `csrc/text_render.h`, whose header lists every rule the
-probes fixed. A character outside Rubik's cmap is drawn as '?'; cv2 draws
-CJK and Greek from a second built-in font that the port does not carry
-(ROADMAP F8's remainder).
+probes fixed. A character outside Rubik's cmap comes, as in cv2, from its
+second built-in font, WenQuanYi Micro Hei (CJK, Greek, Hangul, ...;
+`assets/fonts/WenQuanYiMicroHei.ttf.gz`, the gzip member cv2 stores,
+inflated once when first drawn), at 14 px of its own ascender on the same
+baseline, advancing by its own metrics; a character neither maps is
+Rubik's '?'.
 """
 
 from __future__ import annotations
 
 import functools
+import gzip
 from pathlib import Path
 
 import numpy as np
 
 from . import native_loader
 
-FONT = Path(__file__).resolve().parents[1] / "assets" / "fonts" / "Rubik.ttf"
+FONTS = Path(__file__).resolve().parents[1] / "assets" / "fonts"
+FONT = FONTS / "Rubik.ttf"
+FALLBACK = FONTS / "WenQuanYiMicroHei.ttf.gz"
 
 # cv2.circle(img, c, 3, color, -1): rows dy = -3..3, columns dx = -3..3
 _DISC = np.array([[0, 0, 0, 1, 0, 0, 0],
@@ -49,6 +55,11 @@ _DISC = np.array([[0, 0, 0, 1, 0, 0, 0],
 @functools.cache
 def _font() -> np.ndarray:
     return np.frombuffer(FONT.read_bytes(), np.uint8)
+
+
+@functools.cache
+def _fallback() -> np.ndarray:
+    return np.frombuffer(gzip.decompress(FALLBACK.read_bytes()), np.uint8)
 
 
 def color_of(c: int):
@@ -91,7 +102,8 @@ def text(img: np.ndarray, label: str, org, color) -> None:
     on the uint8 (h, w, 3) canvas, in place: `org` is the baseline's left
     end, `color` one value per channel in the canvas's order."""
     canvas = img if img.flags.c_contiguous else np.ascontiguousarray(img)
-    native_loader.put_text(canvas, label, org, color, _font())
+    fallback = None if label.isascii() else _fallback()
+    native_loader.put_text(canvas, label, org, color, _font(), fallback)
     if canvas is not img:
         img[...] = canvas
 

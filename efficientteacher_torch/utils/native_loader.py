@@ -27,6 +27,7 @@ from __future__ import annotations
 import ctypes
 import functools
 import os
+from typing import Optional
 
 import numpy as np
 
@@ -68,8 +69,19 @@ _SIGNATURES = {
     "et_gray": (_P, _I, _I, _I, _P, _I),
     # img, h, w, stride, kernel (9 ints), divisor, out
     "et_filter3x3": (_P, _I, _I, _I, _P, _I, _P),
-    # font, font_n, img, h, w, stride, cps, n, org_x, org_y, color (3 ints)
-    "et_put_text": (_P, _L, _P, _I, _I, _I, _P, _I, _I, _I, _P),
+    # font, font_n, fallback font, its n, img, h, w, stride, cps, n, org_x,
+    # org_y, color (3 ints)
+    "et_put_text": (_P, _L, _P, _L, _P, _I, _I, _I, _P, _I, _I, _I, _P),
+    # handle, packet, n, info (w, h, tool)
+    "et_video_decode": (_P, _P, _L, _P),
+    # handle, out (h, w, 3) BGR
+    "et_video_bgr": (_P, _P),
+}
+# entries that return a handle or nothing: (argtypes, restype)
+_HANDLES = {
+    # codec (1 MPEG-4 Part 2, 2 MJPEG), extradata, n, flags
+    "et_video_open": ((_I, _P, _L, _I), _P),
+    "et_video_close": ((_P,), None),
 }
 _ERRORS = {-1: "cannot open the file",
            -2: "corrupt or truncated image data",
@@ -98,6 +110,10 @@ def _lib() -> ctypes.CDLL:
         fn = getattr(lib, name)
         fn.argtypes = list(argtypes)
         fn.restype = ctypes.c_int
+    for name, (argtypes, restype) in _HANDLES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = list(argtypes)
+        fn.restype = restype
     return lib
 
 
@@ -435,15 +451,19 @@ def webp_encode(rgb: np.ndarray, quality=None) -> bytes:
     return out[:n.value].tobytes()
 
 
-def put_text(canvas: np.ndarray, label: str, org, color,
-             font: np.ndarray) -> None:
+def put_text(canvas: np.ndarray, label: str, org, color, font: np.ndarray,
+             fallback: Optional[np.ndarray] = None) -> None:
     """cv2.putText(canvas, label, org, FONT_HERSHEY_SIMPLEX, 0.5, color, 1)
     into `canvas` (h, w, 3) uint8, C-contiguous, in place, with the bytes
-    of cv2's TrueType font `font` (`csrc/text_render.h`); `color` one value
-    per channel in the canvas's order."""
+    of cv2's TrueType font `font` and of its fallback font `fallback`
+    (`csrc/text_render.h`); `color` one value per channel in the canvas's
+    order."""
     ptr, h, w = _canvas(canvas)
-    cps = np.array([ord(ch) for ch in label], np.uint32)
+    # cv2 takes the label as a C string: it ends at the first NUL
+    cps = np.array([ord(ch) for ch in label.split("\0")[0]], np.uint32)
     col = np.array([int(v) for v in color[:3]], np.int32)
-    _check(_lib().et_put_text(font.ctypes.data, font.size, ptr, h, w, w * 3,
-                              cps.ctypes.data, cps.size, int(org[0]),
+    uni = fallback if fallback is not None else np.zeros(1, np.uint8)
+    _check(_lib().et_put_text(font.ctypes.data, font.size, uni.ctypes.data,
+                              0 if fallback is None else uni.size, ptr, h, w,
+                              w * 3, cps.ctypes.data, cps.size, int(org[0]),
                               int(org[1]), col.ctypes.data), "putText")

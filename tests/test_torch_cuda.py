@@ -956,3 +956,59 @@ def test_detect_without_a_card_raises_unless_device_cpu(card, tmp_path,
         detect.main(argv)
     _, dets, _ = detect.main(argv + ["device", "cpu"])
     assert len(dets) == 1
+
+
+def test_video_fixtures_give_cv2s_digests_on_the_card_machine(card):
+    """The port's video reader, built with that machine's compiler, gives
+    cv2 5.0.0's per-frame digests on tests/video_fixtures/ (the machine
+    has no cv2); the fixtures it refuses raise naming their ROADMAP
+    item."""
+    import hashlib
+    import json
+    from pathlib import Path
+
+    from efficientteacher_torch.data import video_io
+
+    root = Path(__file__).resolve().parent / "video_fixtures"
+    table = json.loads((root / "digests.json").read_text())
+    for name, entry in table.items():
+        if "refused" in entry:
+            with pytest.raises(NotImplementedError, match=entry["refused"]):
+                list(video_io.frames(str(root / name)))
+            continue
+        got = [hashlib.sha256(f.tobytes()).hexdigest()
+               for f in video_io.frames(str(root / name))]
+        assert got == entry["sha256"], name
+
+
+def test_detect_on_a_clip_on_the_card(card, tmp_path):
+    """cli.detect on a clip on the card: one K1 launch per frame, every
+    frame's detections equal the bf16 forward followed by the plain NMS,
+    and --nosave writes only the clip's label file."""
+    from pathlib import Path
+
+    from efficientteacher_torch.cli import detect
+    from efficientteacher_torch.data.loaders import LoadImages
+    from efficientteacher_torch.eval.validator import InferFn, _scale_to_native
+    from efficientteacher_torch.models.autoshape import attempt_load
+
+    cfg, ckpt, _ = _serve_setup(tmp_path, n=1)
+    clip = Path(__file__).resolve().parent / "video_fixtures" / \
+        "xvid_320x240.avi"
+    before = greedy_nms_keep_cuda.launches
+    out_dir, dets, _ = detect.main([
+        "--cfg", SUP_YAML, "--weights", str(ckpt), "--source", str(clip),
+        "--save-dir", str(tmp_path / "out"), "--img-size", "256",
+        "--nosave", "--save-txt", *SERVE_OVERRIDES])
+    assert greedy_nms_keep_cuda.launches == before + len(dets) == before + 30
+    assert sorted(p.name for p in out_dir.iterdir()) == ["xvid_320x240.txt"]
+    model = attempt_load(str(ckpt), cfg, device=card)
+    infer = InferFn(model, 255.0, torch.bfloat16, dict(
+        nc=80, conf_thres=0.25, iou_thres=0.45, max_det=300, max_nms=2048))
+    for path, rgb, img0, _ in LoadImages(str(clip), 256):
+        decoded = infer.forward(torch.from_numpy(rgb).to(card)[None])
+        out = infer.nms(decoded, use_kernels=False)
+        want = out.detections[0][out.valid[0]].cpu().numpy()
+        want[:, :4] = _scale_to_native(want[:, :4], (256, 256),
+                                       img0.shape[:2])
+        np.testing.assert_array_equal(dets[path], want)

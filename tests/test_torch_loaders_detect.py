@@ -81,10 +81,14 @@ def test_load_images_bit_equal_to_jax(tmp_path):
             assert p == jp and rp == jrp
             np.testing.assert_array_equal(rgb, jrgb)
             np.testing.assert_array_equal(img0, jimg0)
+    # a video path is read as cv2.VideoCapture reads it (video frames are
+    # held in tests/test_torch_video.py): bytes it opens nothing of yield
+    # nothing in both
     video = tmp_path / "clip.mp4"
     video.write_bytes(b"\0" * 16)
-    with pytest.raises(NotImplementedError, match="cv2.VideoCapture"):
-        LoadImages(str(video))
+    assert list(LoadImages(str(video))) == [] == list(
+        JaxLoadImages(str(video)))
+    assert len(LoadImages(str(video))) == 1 == len(JaxLoadImages(str(video)))
 
 
 @pytest.mark.parametrize("seed", range(3))

@@ -67,6 +67,12 @@ def cases():
         ("latin_cyrillic_hebrew", image(40, 420, 24),
          [("text", (2, 28), "Café Ünïcödé Łódź Привет שלום ½ € “ok” №5",
            (0, 255, 128))]),
+        # drawn from cv2's second font, WenQuanYi Micro Hei, beside Rubik
+        ("cjk_greek_hangul", image(100, 360, 25),
+         [("box", (8, 24, 120, 90), "行人 0.91", colour_of(0)),
+          ("box", (150, 30, 300, 96), "自行车 0.57", colour_of(1)),
+          ("text", (4, 96), "猫 0.87 狗 0.66 αβγ Ω 한국어 ☃\n"
+           "熊猫", (255, 255, 255))]),
     ]
 
 
@@ -120,4 +126,6 @@ DIGESTS = {
         "2dff40b7f7075738ee39023d298361f553e83d701f180b38f91697dee67e6762",
     "latin_cyrillic_hebrew":
         "745943ca5d15da3ec2f6100a60eb3bc51e90a7670512485fd2fc002a03f20a53",
+    "cjk_greek_hangul":
+        "a2e10faff1ca270cfd2a7bc21ea3293eee24b97977b27b7c7740123efdc48a77",
 }
