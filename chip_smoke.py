@@ -168,11 +168,14 @@ and requires cv2 5.0.0's digests, then times drawing one image's labels.
 
 `[video]` (after `[serve]`, on its checkpoint) decodes the video fixtures
 of tests/video_fixtures/ with `data/video_io.py` (MPEG-4 Part 2 and MJPEG
-in MP4 and AVI, a rotated one, two cut short, two refused) to cv2 5.0.0's
-per-frame digests and times each at 1 thread, then runs cli.detect on the
-48-frame 1280x720 clip with --nosave --save-txt: K1 once per frame, each
-frame's NMS and every K1 call held against the plain versions, ms/frame
-and its host share (`video: cli.detect` on the kernels line).
+in MP4 and AVI, a rotated one, two cut short, H.264 in MP4 and AVI from
+Baseline CAVLC to 1080p High CABAC, five refused) to cv2 5.0.0's
+per-frame digests and times each at 1 thread, then runs cli.detect with
+--nosave --save-txt on the 48-frame 1280x720 mp4v clip and on the
+24-frame 1920x1080 H.264 clip: K1 once per frame, each frame's NMS and
+every K1 call held against the plain versions, ms/frame and its host
+share (`video: cli.detect` and `video h264: cli.detect` on the kernels
+line).
 
 It times the forward, the NMS, the selection engine against `torch.topk`,
 the training steps and their phases (CUDA events), and each kernel
@@ -250,6 +253,11 @@ class SmokeFailure(Exception):
 def require(cond, what):
     if not cond:
         raise SmokeFailure(what)
+
+
+# back-to-back calls per timing of a plain version, fewer than a kernel's
+# 50 (a plain call takes ms) to keep the script under its limit
+PLAIN_LAUNCHES = 10
 
 
 def event_ms(torch, fn, launches=50, repeats=5, graph=False):
@@ -409,16 +417,19 @@ def kernel_rows(torch, flat, boxes_xyxy, taus, nc=NC):
     rows = {
         "greedy_nms_keep": (
             event_ms(torch, lambda: greedy_nms_keep_cuda(*k1), graph=True),
-            event_ms(torch, lambda: greedy_nms_keep(*k1)),
+            event_ms(torch, lambda: greedy_nms_keep(*k1),
+                     launches=PLAIN_LAUNCHES),
             bound(n_b * 2 + swept * 16, IOU_OPS * tests), None),
         "threshold_compact": (
             event_ms(torch, lambda: threshold_compact_cuda(*k2), graph=True),
-            event_ms(torch, lambda: threshold_compact(*k2)),
+            event_ms(torch, lambda: threshold_compact(*k2),
+                     launches=PLAIN_LAUNCHES),
             bound(n_k * 4 + b * cap * 8),
             event_ms(torch, lambda: torch.topk(flat, MAX_NMS, 1))),
         "count_ge": (
             event_ms(torch, lambda: count_ge_cuda(flat, taus), graph=True),
-            event_ms(torch, lambda: _count_ge(flat, taus)),
+            event_ms(torch, lambda: _count_ge(flat, taus),
+                     launches=PLAIN_LAUNCHES),
             bound(n_k * 4 + taus.numel() * 8, 2 * n_k * taus.shape[1]),
             None),
     }
@@ -716,7 +727,8 @@ def pseudo_label_load(torch, decoded, m_s):
         "pl_ms": event_ms(torch, lambda: create_pseudo_labels(
             decoded, m_s, **kw), launches=20),
         "k1": event_ms(torch, lambda: greedy_nms_keep_cuda(*k1), graph=True),
-        "k1_plain": event_ms(torch, lambda: greedy_nms_keep(*k1)),
+        "k1_plain": event_ms(torch, lambda: greedy_nms_keep(*k1),
+                             launches=PLAIN_LAUNCHES),
         "bound": bound(b * 2048 * 2 + swept * 16, IOU_OPS * tests)}
 
 
@@ -2255,8 +2267,9 @@ ZOO_YAMLS = {
     "yolov7s_simota": _CFGS / "yolov7s_coco_simota.yaml",
     "yolov6s": _CFGS / "yolov6s_coco.yaml",
     "yolov6s_repopt": _CFGS / "yolov6s_coco_repopt_finetune.yaml"}
-# the labelled images each leg trains on (the earlier legs cut to 2 steps)
-Z_IMAGES = {"yolox": 128, "yolov8": 128}
+# the labelled images each leg trains on: 2 steps each (128 at the YAMLs'
+# batch 64; the batch-128 legs take the whole labelled split)
+Z_IMAGES = {"yolox": 128, "yolov8": 128, "yolov7l": 128, "yolov6s": 128}
 Z_N = (IMG // 8) ** 2 + (IMG // 16) ** 2 + (IMG // 32) ** 2
 # steps timed warm after each leg, on its epoch's last batch
 Z_WARM = 3
@@ -2534,7 +2547,10 @@ def zoo_leg(torch, dev, card, lists, family, tmp):
     level, handlers = root.level, list(root.handlers)
     base = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
-    torch.backends.cudnn.benchmark = True
+    # cuDNN's heuristics, not its search: timing every algorithm of each
+    # family's convolutions cost 5.7-26.1 s per leg (73 s of a 418 s zoo
+    # on one H100 host), and the script must stay under its time limit
+    torch.backends.cudnn.benchmark = False
 
     def counted(what, fn):
         """fn() with the kernels' counts and the selection tiers set to 0
@@ -2652,7 +2668,8 @@ def zoo_leg(torch, dev, card, lists, family, tmp):
     loss_ms, assign_ms, assigner = loss_times(torch, trainer)
     print(f"[zoo] {family}: {len(steps)} steps at {batch}@{IMG}, ms "
           f"(synchronized) {', '.join(f'{ms:.1f}' for ms, _ in steps)} "
-          f"(cuDNN's search: the first step {steps[0][0] / 1e3:.1f} s); "
+          f"(cuDNN's heuristics, no search: the first step "
+          f"{steps[0][0] / 1e3:.1f} s); "
           f"{Z_WARM} warm steps on the last batch "
           f"{', '.join(f'{ms:.1f}' for ms in warm)}: median {step_ms:.1f} "
           f"ms, {batch / step_ms * 1e3:.1f} img/s; epoch + validation "
@@ -2987,7 +3004,8 @@ def k1_entry(torch, call, path, launches, timed=True):
     tests, swept = nms_iou_tests(torch, box_iou, boxes, valid, ref, tile,
                                  stop_at, iou)
     t = event_ms(torch, lambda: greedy_nms_keep_cuda(*args), graph=True)
-    tp = event_ms(torch, lambda: greedy_nms_keep(*args))
+    tp = event_ms(torch, lambda: greedy_nms_keep(*args),
+                  launches=PLAIN_LAUNCHES)
     b_ms, b_by = bound(keep.numel() * 2 + swept * 16, IOU_OPS * tests)
     return {"name": "greedy_nms_keep", "route": "cuda",
             "source": ZOO_SOURCES["greedy_nms_keep"][0],
@@ -3132,6 +3150,9 @@ def ssod_opts_leg(torch, dev, card, lists, tmp):
             "SSOD.extra_teachers_class_names", [extra_names], *more)
 
     cls = smoke_trainer(torch)
+    # cuDNN's search, as legs A and B have timed since they were added
+    # (the zoo before them times on its heuristics)
+    torch.backends.cudnn.benchmark = True
     t0 = time.perf_counter()
     weak = to_device(next(iter(create_target_dataloader(
         cfg_of("probe"), batch_size=T_BATCH, augment=False)))["images_ori"],
@@ -3317,6 +3338,7 @@ def cityscapes_leg(torch, dev, card, lists, tmp):
 
             self.ssod_step = run
 
+    torch.backends.cudnn.benchmark = True     # as in leg A
     t0 = time.perf_counter()
     trainer = CityTrainer(cfg, device=dev)
     check = getattr(trainer, "anchor_check", None)
@@ -4461,27 +4483,28 @@ def serve_phase(torch, dev, card, lists):
 
 VIDEO_DIR = Path(__file__).resolve().parent / "tests" / "video_fixtures"
 VIDEO_DETECT = "mp4v_1280x720.mp4"      # cli.detect's clip: 48 frames
+VIDEO_H264_DETECT = "h264_high_cabac_1080p.mp4"     # and its H.264 one: 24
 
 
 def video_leg(torch, dev, card, tmp):
     """[video]: the committed fixtures (tests/video_fixtures/, made by
     scripts/make_video_fixtures.py: mp4v MP4 1280x720, XVID and MJPG AVI,
     a 90-degree display matrix, two AVIs cut inside a frame, 4MV with
-    resync markers, MPEG quantisation, and two streams the port refuses)
-    decoded by `data/video_io.py` and held to cv2 5.0.0's per-frame
-    digests, frames/s per kind at 1 thread; then cli.detect on the
-    1280x720 clip with --nosave --save-txt, [serve]'s seeded YOLOv5l
-    checkpoint at 640 in bf16: K1 once per frame, each frame's NMS held
-    against the plain NMS on its decoded tensor and every K1 call against
-    the plain version; ms/frame and its host share."""
+    resync markers, MPEG quantisation, the H.264 clips of
+    tests/h264_writer.py (1920x1080 High CABAC, Baseline CAVLC in AVI,
+    Main CABAC with four references, High CAVLC with scaling lists, full
+    range BT.709 in avc3), and five streams the port refuses) decoded by
+    `data/video_io.py` and held to cv2 5.0.0's per-frame digests,
+    frames/s per clip at 1 thread; then cli.detect with --nosave
+    --save-txt on the 1280x720 mp4v clip and on the 1080p H.264 one,
+    [serve]'s seeded YOLOv5l checkpoint at 640 in bf16: K1 once per frame,
+    each frame's NMS held against the plain NMS on its decoded tensor and
+    every K1 call against the plain version; ms/frame and its host share
+    (`video: cli.detect` and `video h264: cli.detect` on the kernels
+    line)."""
     import hashlib
 
-    import numpy as np
-
-    from efficientteacher_torch.cli import detect as cli_detect
     from efficientteacher_torch.data import video_io
-    from efficientteacher_torch.eval import validator
-    from efficientteacher_torch.ops import nms as nms_module
     from efficientteacher_torch.ops.nms_cuda import greedy_nms_keep_cuda
     from efficientteacher_torch.ops.select_cuda import (count_ge_cuda,
                                                         threshold_compact_cuda)
@@ -4519,50 +4542,68 @@ def video_leg(torch, dev, card, tmp):
     wrappers = {"greedy_nms_keep": greedy_nms_keep_cuda,
                 "threshold_compact": threshold_compact_cuda,
                 "count_ge": count_ge_cuda}
+    return [video_detect(torch, card, tmp, table, wrappers, name, label)
+            for name, label in ((VIDEO_DETECT, "video"),
+                                (VIDEO_H264_DETECT, "video h264"))]
+
+
+def video_detect(torch, card, tmp, table, wrappers, name, label):
+    """cli.detect --nosave --save-txt on the fixture `name` with [serve]'s
+    checkpoint: one forward and one K1 launch per frame, each frame's NMS
+    against the plain NMS, every K1 call against the plain version; the
+    K1 entry `{label}: cli.detect, per frame` of the densest frame."""
+    import numpy as np
+
+    from efficientteacher_torch.cli import detect as cli_detect
+    from efficientteacher_torch.eval import validator
+    from efficientteacher_torch.ops import nms as nms_module
+
     for w in wrappers.values():
         w.launches = 0
-    clip = VIDEO_DIR / VIDEO_DETECT
-    n_frames = table[VIDEO_DETECT]["frames"]
+    clip = VIDEO_DIR / name
+    n_frames = table[name]["frames"]
     with _Recorded([validator]) as rec, \
             K1Recorder(torch, nms_module, _Every()) as k1rec:
         out_dir, dets, speed = cli_detect.main([
             "--cfg", str(MAIN_YAML), "--weights", str(tmp / "serve.ckpt"),
-            "--source", str(clip), "--save-dir", str(tmp / "video"),
-            "--nosave", "--save-txt", "--img-size", str(IMG)])
+            "--source", str(clip), "--save-dir", str(tmp / label.replace(
+                " ", "_")), "--nosave", "--save-txt", "--img-size", str(IMG)])
     launches = {k: w.launches for k, w in wrappers.items()}
     require(list(dets) == [f"{clip}#{i}" for i in range(n_frames)]
             and len(rec.records) == n_frames,
-            f"cli.detect served {len(dets)} frames in {len(rec.records)} "
-            f"forwards")
+            f"{label}: cli.detect served {len(dets)} frames in "
+            f"{len(rec.records)} forwards")
     require(launches == {"greedy_nms_keep": n_frames, "threshold_compact": 0,
-                         "count_ge": 0}, f"cli.detect launches {launches}")
+                         "count_ge": 0}, f"{label}: cli.detect launches "
+            f"{launches}")
     for i, r in enumerate(rec.records):
-        require(_same_nms(torch, *r), f"cli.detect frame {i}: NMS != the "
-                f"plain NMS")
+        require(_same_nms(torch, *r), f"{label}: cli.detect frame {i}: NMS "
+                f"!= the plain NMS")
     for call in k1rec.calls:
-        k1_entry(torch, call, "video: cli.detect", 0, timed=False)
+        k1_entry(torch, call, f"{label}: cli.detect", 0, timed=False)
     files = sorted(p.name for p in out_dir.iterdir())
-    require(files == [clip.stem + ".txt"], f"cli.detect wrote {files}")
+    require(files == [clip.stem + ".txt"], f"{label}: cli.detect wrote "
+            f"{files}")
     dense = max(k1rec.calls, key=lambda c: int(c[1].sum()))
-    entry = k1_entry(torch, dense, "video: cli.detect, per frame",
+    entry = k1_entry(torch, dense, f"{label}: cli.detect, per frame",
                      launches["greedy_nms_keep"])
     entry["valid_per_img_mean"] = float(np.mean(
         [int(c[1].sum()) for c in k1rec.calls]))
     n_det = [len(d) for d in dets.values()]
     e2e = sum(speed.values())
-    print(f"[video] cli.detect {VIDEO_DETECT} --nosave --save-txt: "
+    print(f"[video] {label}: cli.detect {name} --nosave --save-txt: "
           f"{n_frames} frames, detections/frame {np.mean(n_det):.1f} (min "
           f"{min(n_det)}, max {max(n_det)}); each frame's NMS == the plain "
           f"NMS, every K1 call == the plain version; launches {launches} "
           f"(K1 once per frame); wrote {files}")
-    print(f"[time] video: cli.detect {e2e:.2f} ms/frame end to end (decode "
-          f"+ letterbox {speed['read']:.2f}, forward + NMS + copy "
+    print(f"[time] {label}: cli.detect {e2e:.2f} ms/frame end to end "
+          f"(decode + letterbox {speed['read']:.2f}, forward + NMS + copy "
           f"{speed['infer']:.2f}, labels {speed['write']:.2f}: host share "
           f"{(speed['read'] + speed['write']) / e2e:.1%}); K1 (1, "
           f"{dense[0].shape[1]}), {int(dense[1].sum())} valid rows: "
           f"{entry['ms']:.4f} ms, plain {entry['plain_ms']:.4f} ms, bound "
           f"{entry['bound_ms']:.6f} ms ({entry['bound_by']}) | {card}")
-    return [entry]
+    return entry
 
 # -- [formats] ----------------------------------------------------------------
 

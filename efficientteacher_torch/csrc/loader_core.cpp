@@ -41,6 +41,7 @@
 #include <new>
 #include <vector>
 
+#include "h264_decode.h"
 #include "jpeg_decode.h"
 #include "jpeg_encode.h"
 #include "mjpeg_decode.h"
@@ -304,10 +305,11 @@ int decode_resize(const char* path, int expect_w, int expect_h, int new_w,
   });
 }
 
-// a video stream's decoder: one of the two is set
+// a video stream's decoder: one of the three is set
 struct VideoHandle {
   etmpeg4::Decoder* mpeg4;
   etmjpeg::Decoder* mjpeg;
+  eth264::Decoder* h264;
 };
 
 }  // namespace
@@ -659,16 +661,23 @@ int et_put_text(const uint8_t* font, int64_t font_n, const uint8_t* uni,
 // A video decoder of one stream: codec 1 MPEG-4 Part 2 (flags: 1 the
 // container's fourcc is one FFmpeg takes for Xvid, 2 it is DIVX; `extra`
 // is the decoder's extradata, or null), 2 MJPEG (flags: the container's
-// frame height, 0 for none). Null for another codec.
+// frame height, 0 for none), 3 H.264 (`extra`: an avcC record, or Annex B
+// parameter sets; packets are length-prefixed after an avcC record, else
+// Annex B). Null for another codec.
 void* et_video_open(int codec, const uint8_t* extra, int64_t n, int flags) {
   if (codec == 1) {
     auto* d = new (std::nothrow) etmpeg4::Decoder(flags & 1, flags & 2);
     if (d && extra && n > 0) d->headers(extra, static_cast<int>(n));
-    return d ? new (std::nothrow) VideoHandle{d, nullptr} : nullptr;
+    return d ? new (std::nothrow) VideoHandle{d, nullptr, nullptr} : nullptr;
   }
   if (codec == 2) {
     auto* d = new (std::nothrow) etmjpeg::Decoder(flags);
-    return d ? new (std::nothrow) VideoHandle{nullptr, d} : nullptr;
+    return d ? new (std::nothrow) VideoHandle{nullptr, d, nullptr} : nullptr;
+  }
+  if (codec == 3) {
+    auto* d = new (std::nothrow) eth264::Decoder();
+    if (d && extra && n > 0) d->headers(extra, static_cast<int>(n));
+    return d ? new (std::nothrow) VideoHandle{nullptr, nullptr, d} : nullptr;
   }
   return nullptr;
 }
@@ -678,13 +687,16 @@ void et_video_close(void* handle) {
   if (!h) return;
   delete h->mpeg4;
   delete h->mjpeg;
+  delete h->h264;
   delete h;
 }
 
 // Decode one packet. 1: a picture, whose size goes to info[0..2) and which
 // et_video_bgr converts; 0: no picture; -2: FFmpeg fails on the packet (the
 // reader stops there); -4: a tool not decoded, info[2] says which
-// (etmpeg4::Tool, etmjpeg::Kind).
+// (etmpeg4::Tool, etmjpeg::Kind, eth264::Tool). An H.264 picture goes out
+// as soon as it is decoded (the decoder refuses a stream whose output order
+// differs from its decoding order), so nothing is left to drain at the end.
 int et_video_decode(void* handle, const uint8_t* data, int64_t n, int* info) {
   auto* h = static_cast<VideoHandle*>(handle);
   if (!h || n < 0 || n > (int64_t{1} << 30)) return kErrArgs;
@@ -695,6 +707,11 @@ int et_video_decode(void* handle, const uint8_t* data, int64_t n, int* info) {
       w = h->mpeg4->width();
       ht = h->mpeg4->height();
       tool = h->mpeg4->tool();
+    } else if (h->h264) {
+      r = h->h264->decode(data, static_cast<int>(n));
+      w = h->h264->width();
+      ht = h->h264->height();
+      tool = h->h264->tool();
     } else {
       r = h->mjpeg->decode(data, static_cast<int>(n));
       w = h->mjpeg->width();
@@ -716,6 +733,8 @@ int et_video_bgr(void* handle, uint8_t* out) {
   return guarded([&] {
     if (h->mpeg4) {
       h->mpeg4->to_bgr(out, h->mpeg4->width() * 3);
+    } else if (h->h264) {
+      h->h264->to_bgr(out, h->h264->width() * 3);
     } else {
       h->mjpeg->to_bgr(out, h->mjpeg->width() * 3);
     }

@@ -203,13 +203,34 @@ inline void hpel_put(const RefPlane& ref, int sx, int sy, int dxy,
 
 // ---------------------------------------------------------------- colour
 
-// The coefficients of ff_yuv2rgb_c_init_tables for ITU-R 601 at the
-// default contrast, saturation and brightness, as the SIMD code reads them
+// ff_yuv2rgb_coeffs (crv, cbu, -cgu, -cgv) of a colorspace (AVColorSpace =
+// H.264's matrix_coefficients): cv2 sets the frame's colorspace on its
+// swscale context, so BT.709, FCC, SMPTE 240M and BT.2020 streams convert
+// with their own matrices; every other value (unspecified, 601, YCgCo,
+// ...) takes ITU-R 601, sws_getCoefficients' default.
+inline const int32_t* yuv2rgb_table(int colorspace) {
+  static const int32_t k601[4] = {104597, 132201, 25675, 53279};
+  static const int32_t k709[4] = {117489, 138438, 13975, 34925};
+  static const int32_t kFcc[4] = {104448, 132798, 24759, 53109};
+  static const int32_t k240[4] = {117579, 136230, 16907, 35559};
+  static const int32_t k2020[4] = {110013, 140363, 12277, 42626};
+  switch (colorspace) {
+    case 1: return k709;
+    case 4: return kFcc;
+    case 7: return k240;
+    case 9: case 10: return k2020;
+    default: return k601;
+  }
+}
+
+// The coefficients of ff_yuv2rgb_c_init_tables at the default contrast,
+// saturation and brightness, as the SIMD code reads them
 // (roundToInt16(x * 2^13) = (x * 2^13 + 2^15) >> 16).
 struct Yuv2RgbCoeffs {
   int y_coeff, y_offset, ub, ug, vg, vr;
-  explicit Yuv2RgbCoeffs(bool full_range) {
-    int64_t crv = 104597, cbu = 132201, cgu = -25675, cgv = -53279;
+  explicit Yuv2RgbCoeffs(bool full_range, int colorspace = 2) {
+    const int32_t* t = yuv2rgb_table(colorspace);
+    int64_t crv = t[0], cbu = t[1], cgu = -t[2], cgv = -t[3];
     int64_t cy = 1 << 16, oy = 0;
     if (!full_range) {
       cy = cy * 255 / 219;
@@ -240,8 +261,8 @@ inline int mulhi(int a, int b) { return (a * b) >> 16; }
 inline void yuv_to_bgr(const uint8_t* py, int ys, const uint8_t* pu,
                        const uint8_t* pv, int cs, int w, int h,
                        int chroma_rows_shift, bool full_range, uint8_t* out,
-                       int out_stride) {
-  const Yuv2RgbCoeffs k(full_range);
+                       int out_stride, int colorspace = 2) {
+  const Yuv2RgbCoeffs k(full_range, colorspace);
   for (int y = 0; y < h; ++y) {
     const uint8_t* yr = py + y * ys;
     const uint8_t* ur = pu + (y >> chroma_rows_shift) * cs;

@@ -10,9 +10,11 @@ cv2.imread reads nothing of (OSError here) is skipped, as JAX's skips it.
 Video files (a suffix of `VID_FORMATS`: given directly, or in a `.txt`
 list or an `a||b` source; directories and globs stay image-only) come
 after the images, frame by frame as cv2.VideoCapture reads them
-(`video_io.frames`: MP4 / MOV / M4V and AVI, MPEG-4 Part 2 and MJPEG),
-each frame's path `f"{file}#{index}"`; a codec the port does not decode
-yet raises NotImplementedError (`video_io.VideoUnsupported`). Each item is
+(`video_io.frames`: MP4 / MOV / M4V and AVI; MPEG-4 Part 2, MJPEG, and
+H.264's progressive I / P pictures in CAVLC or CABAC, 8-bit 4:2:0), each
+frame's path `f"{file}#{index}"`; a codec or tool the port does not decode
+yet raises NotImplementedError (`video_io.VideoUnsupported`) naming its
+ROADMAP item, after the frames before it. Each item is
 what JAX's yields: (path, letterboxed RGB uint8, the image as read in
 cv2's BGR order, (ratio, pad)).
 

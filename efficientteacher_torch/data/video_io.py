@@ -5,14 +5,16 @@ FFmpeg backend: FFmpeg 8, libavformat 62.12, libavcodec 62.28, libswscale
 `frames(path)` yields the BGR uint8 (h, w, 3) frames `cap.read()` returns,
 bit for bit and as many. The containers are parsed here, as FFmpeg's
 demuxers parse them; the codecs run in the loader core
-(`csrc/mpeg4_decode.h`, `csrc/mjpeg_decode.h`, `csrc/video_dsp.h`: the
-IDCT, motion compensation and swscale's YUV -> BGR24 that cv2 asks for).
+(`csrc/mpeg4_decode.h`, `csrc/mjpeg_decode.h`, `csrc/h264_decode.h`,
+`csrc/video_dsp.h`: the IDCT, motion compensation and swscale's YUV ->
+BGR24 that cv2 asks for, with the matrix and range of the stream's VUI).
 
 The container is picked from the file's first bytes, as FFmpeg probes, not
 from its suffix:
   ISO BMFF (MP4 / MOV / M4V; libavformat/mov.c): `moov` before or after
     `mdat`; the first video track; the sample tables stsd (mp4v's esds
-    DecoderSpecificInfo is the decoder's extradata), stts, ctts, stsc,
+    DecoderSpecificInfo, or avc1 / avc3's avcC, is the decoder's
+    extradata), stts, ctts, stsc,
     stsz / stz2, stco / co64, stss (a sample the file's end cuts comes as
     far as it goes, and reading ends there); an edit list of one segment
     (after any empty ones) as mov_fix_index applies it: decoding starts at the
@@ -26,8 +28,13 @@ from its suffix:
     (LIST `rec ` descended, empty chunks skipped, the AVIX parts of an
     OpenDML file over 1 GiB after the first), a chunk cut by the file's end
     delivered as far as it goes.
-Codecs: MPEG-4 Part 2 (mp4v, XVID, DIVX, DX50, FMP4, ...) and MJPEG (MJPG,
-AVI1, jpeg, ...). What cv2 reads nothing of yields nothing here (no error):
+Codecs: MPEG-4 Part 2 (mp4v, XVID, DIVX, DX50, FMP4, ...), MJPEG (MJPG,
+AVI1, jpeg, ...) and H.264 (avc1, avc3; H264, X264, AVC1, ... in AVI,
+whose chunks are Annex B access units): its progressive I and P pictures,
+CAVLC and CABAC, 8-bit 4:2:0. A picture goes out as soon as it is
+decoded, so a stream whose output order is not its decoding order is
+refused and nothing is left to drain at its end. What cv2 reads nothing
+of yields nothing here (no error):
 a file FFmpeg cannot open (an MP4 whose `moov` never came, a file that is
 no container it knows), a fourcc FFmpeg has no decoder for, a stream that
 FFmpeg fails on from its first packet. A codec or container feature cv2
@@ -67,11 +74,10 @@ _MPEG4_TAGS = {"FMP4", "DIVX", "DX50", "XVID", "MP4S", "M4S2", "MP4V",
                "QMP4", "PLV1", "GLV4", "GMP4", "MNM4", "GTM4"}
 _MJPEG_TAGS = {"MJPG", "AVI1", "AVRN", "DMB1", "JPEG", "IJPG", "ACDV",
                "SLMJ", "CJPG", "QIVG", "MJPA"}
+_H264_TAGS = {"H264", "X264", "AVC1", "DAVC", "VSSH", "AVC3", "Q264", "V264",
+               "GAVC", "UMSV", "TSHD"}
 _XVID_TAGS = {"XVID", "XVIX", "RMP4", "ZMP4", "SIPP"}
 _UNPORTED = {
-    **{t: ("H.264", Q_H264) for t in ("H264", "X264", "AVC1", "DAVC", "VSSH",
-                                      "AVC3", "Q264", "V264", "GAVC", "UMSV",
-                                      "TSHD")},
     **{t: ("HEVC", Q_OTHER) for t in ("HEVC", "H265", "X265", "HVC1",
                                       "HEV1")},
     **{t: ("VP8", Q_OTHER) for t in ("VP80",)},
@@ -93,12 +99,15 @@ _UNPORTED = {
 
 
 def _codec(fourcc: str) -> Optional[str]:
-    """'mpeg4', 'mjpeg', None (no decoder); raises for one not ported."""
+    """'mpeg4', 'mjpeg', 'h264', None (no decoder); raises for one not
+    ported."""
     t = fourcc.upper()
     if t in _MPEG4_TAGS:
         return "mpeg4"
     if t in _MJPEG_TAGS:
         return "mjpeg"
+    if t in _H264_TAGS:
+        return "h264"
     if t in _UNPORTED:
         name, item = _UNPORTED[t]
         raise VideoUnsupported(f"{name} video ({fourcc!r}) is not decoded "
@@ -108,7 +117,7 @@ def _codec(fourcc: str) -> Optional[str]:
 
 class Stream(NamedTuple):
     """The video stream of a file, as the reader decodes it."""
-    codec: str                  # 'mpeg4' or 'mjpeg'
+    codec: str                  # 'mpeg4', 'mjpeg' or 'h264'
     fourcc: str
     height: int                 # as the container states it
     extradata: bytes
@@ -268,6 +277,9 @@ def _mov_track(data, s, e, mdia, movie_scale, movie_matrix) -> Stream:
             what = {0x21: "AVC1", 0x60: "MPG2", 0x61: "MPG2", 0x62: "MPG2",
                     0x63: "MPG2", 0x64: "MPG2", 0x65: "MPG2", 0x6A: "MPG1",
                     0x23: "HEVC", 0xB1: "VP90"}.get(oti)
+            if what == "AVC1":
+                raise VideoUnsupported("H.264 in an mp4v sample entry is not "
+                                       f"read by the port yet ({Q_H264})")
             if what:
                 _codec(what)
             raise _Unreadable(f"object type {oti:#x}")
@@ -278,6 +290,15 @@ def _mov_track(data, s, e, mdia, movie_scale, movie_matrix) -> Stream:
                         "h263": "H263", "mjpb": "MJPB"}.get(fourcc, fourcc))
         if codec is None:
             raise _Unreadable(f"no decoder for {fourcc!r}")
+        if codec == "h264":
+            # the avcC box of the visual sample entry: the decoder's
+            # extradata (its parameter sets and NAL length size)
+            avcc = _child(data, entry + 8 + 78, min(
+                stsd[1], entry + struct.unpack_from(">I", data, entry)[0]),
+                "avcC")
+            if not avcc:
+                raise _Unreadable("avc1 without avcC")
+            extradata = data[avcc[0]:avcc[1]]
     # the sample table
     def table(name, fmt):
         if name not in box:
@@ -375,7 +396,10 @@ def _edit(data, elst, movie_scale, media_scale, positions, cts, durations,
         raise VideoUnsupported("an MP4 edit list of more than one segment "
                                f"is not applied by the port yet ({Q_H264})")
     dur, media = real[0]
-    end = media + dur * media_scale // movie_scale if movie_scale else media
+    # av_rescale: the edit's duration in the media's time scale, rounded to
+    # the nearest unit
+    end = media + (dur * media_scale + movie_scale // 2) // movie_scale \
+        if movie_scale else media
     # the keyframe at or before the edit's start
     first = 0
     for i, t in enumerate(cts):
@@ -563,7 +587,28 @@ _MJPEG_KINDS = {1: "progressive, arithmetic or lossless frames",
                 5: "interlaced (two-field) frames"}
 
 
+_H264_TOOLS = {1: "B slices", 2: "field or MBAFF (interlaced) coding",
+               3: "slice groups (FMO / ASO)", 4: "SP / SI slices",
+               5: "data partitioning",
+               6: "a chroma format other than 4:2:0",
+               7: "a bit depth other than 8",
+               8: "the lossless transform bypass",
+               9: "gaps in frame_num",
+               10: "damaged or cut slice data (FFmpeg conceals it)",
+               11: "a first picture that is not an IDR picture",
+               12: "an output order other than the decoding order",
+               13: "a packet that is not one whole picture",
+               14: "a left crop that is not a multiple of 64 columns (cv2 "
+                   "rescales the frame)",
+               15: "a VUI colour matrix swscale does not convert (YCgCo, "
+                   "BT.2020 constant luminance, ...)"}
+
+
 def _unsupported(stream: Stream, tool: int) -> VideoUnsupported:
+    if stream.codec == "h264":
+        return VideoUnsupported(
+            f"H.264 with {_H264_TOOLS.get(tool, tool)} is not decoded by the "
+            f"port yet ({Q_H264})")
     if stream.codec == "mpeg4":
         return VideoUnsupported(
             f"MPEG-4 Part 2 with {_MPEG4_TOOLS.get(tool, tool)} is not "
@@ -596,6 +641,8 @@ def decode(stream: Stream, data: bytes) -> Iterator[np.ndarray]:
         flags = (1 if stream.fourcc.upper() in _XVID_TAGS else 0) | \
             (2 if stream.fourcc.upper() == "DIVX" else 0)
         codec = 1
+    elif stream.codec == "h264":
+        flags, codec = 0, 3
     else:
         flags = stream.height
         codec = 2

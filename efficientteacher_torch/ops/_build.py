@@ -113,8 +113,8 @@ def library() -> Built:
 
 
 HOST_FLAGS = ("-O3", "-std=c++17", "-shared", "-fPIC", "-ffp-contract=off")
-HOST_SOURCES = ("loader_core.cpp", "jpeg_decode.h", "jpeg_encode.h",
-                "mjpeg_decode.h", "mpeg4_decode.h", "pixel_ops.h",
+HOST_SOURCES = ("loader_core.cpp", "h264_decode.h", "h264_tables.h",
+                "jpeg_decode.h", "jpeg_encode.h", "mjpeg_decode.h", "mpeg4_decode.h", "pixel_ops.h",
                 "raster_decode.h", "text_render.h", "video_dsp.h",
                 "webp_decode.h", "webp_encode.h")
 

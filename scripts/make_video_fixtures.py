@@ -13,6 +13,16 @@ with adaptive quantisation; MPEG quantisation) and two what the port
 refuses (B-VOPs, quarter-pel): their packets come from the libavcodec
 inside cv2's wheel, called through ctypes, in a plain AVI written here.
 
+The H.264 clips come from `tests/h264_writer.py`, a seeded syntax writer
+(this host's libavcodec has no H.264 encoder): a 1920x1080 High-profile
+CABAC clip coded as 1088 rows and cropped as cameras write it, a Baseline
+CAVLC clip in AVI (several slices, constrained intra prediction, POC type
+2), a Main-profile CABAC clip with four references, list modification,
+long-term references, explicit weights and deblocking offsets, a High
+CAVLC clip with SPS and PPS scaling lists and both chroma QP offsets, a
+full-range BT.709 clip with its parameter sets in band (avc3), and three
+the port refuses (a B slice, a field pair, a left crop cv2 rescales).
+
 `digests.json` maps each file to cv2.VideoCapture's frame count, shape and
 per-frame digests (of the BGR bytes), and, for the refused ones, the
 ROADMAP item the port's NotImplementedError names. Needs cv2 (5.0.0 made
@@ -27,6 +37,7 @@ import ctypes
 import hashlib
 import json
 import struct
+import sys
 from pathlib import Path
 
 import numpy as np
@@ -207,8 +218,101 @@ CLIPS = {
     "fmp4_bframes.avi": ("lavc", 64, 48, 6, {"bf": 2, "g": 12}),
     "fmp4_qpel.avi": ("lavc", 64, 48, 6, {"flags": "+qpel", "bf": 0}),
 }
+
+def _h264(**kw):
+    import h264_writer as hw
+    return hw.Config(**kw)
+
+
+# name: (seed, NAL length size (0: Annex B in AVI), sample entry, config)
+H264_CLIPS = {
+    # the scene painted (DC-predicted I_8x8) and panned 2.5 px right and
+    # 1 down per frame, 3% of the P macroblocks random syntax (the 8x8
+    # transform, every partition): pictures a detector finds objects in
+    "h264_high_cabac_1080p.mp4": (1, 4, b"avc1", dict(
+        mb_w=120, mb_h=68, frames=24, cabac=True, profile=100,
+        transform_8x8=True, crop=(0, 0, 0, 4), i_slice_prob=0.0,
+        max_slices=4, num_ref_frames=2, deblocking_control=True,
+        deblock_idcs=(0, 0, 2), nonref_prob=0.1, i_picture_prob=0.0,
+        paint="scene", pan=(10, 4), skip_prob=0.97, coef_density=0.3,
+        intra_in_p=0.1, pcm_prob=0.002, mv_range=16, far_mv_prob=0.01)),
+    "h264_baseline_cavlc.avi": (2, 0, None, dict(
+        mb_w=20, mb_h=15, frames=20, cabac=False, profile=66, poc_type=2,
+        max_slices=4, constrained_intra=True, qp=(20, 36), skip_prob=0.6,
+        coef_density=0.25, intra_in_p=0.1, num_ref_frames=1,
+        deblocking_control=True)),
+    "h264_main_cabac_refs.mp4": (3, 2, b"avc1", dict(
+        mb_w=22, mb_h=18, frames=16, cabac=True, profile=77, poc_type=1,
+        num_ref_frames=4, reorder=True, long_term=True, mmco=True,
+        weighted_pred=True, deblocking_control=True,
+        deblock_idcs=(0, 2, 2, 1), qp=(22, 36), skip_prob=0.6,
+        coef_density=0.2, max_slices=3)),
+    "h264_high_scaling_crop.mp4": (4, 4, b"avc1", dict(
+        mb_w=11, mb_h=9, frames=12, cabac=False, profile=100,
+        transform_8x8=True, sps_scaling=True, pps_scaling=True,
+        pps_count=2, chroma_qp_offset=-2, second_chroma_qp_offset=3,
+        crop=(32, 1, 1, 3), qp=(16, 40), coef_density=0.35,
+        deblocking_control=True, num_ref_frames=2)),
+    "h264_fullrange_bt709.mp4": (5, 1, b"avc3", dict(
+        mb_w=6, mb_h=4, frames=8, cabac=True, profile=100,
+        transform_8x8=True, full_range=True, matrix=1, inband=True,
+        max_slices=4, coef_density=0.15, bitstream_restriction=True)),
+    "h264_bframes.mp4": (6, 4, b"avc1", dict(
+        mb_w=8, mb_h=6, frames=6, cabac=True, profile=100,
+        transform_8x8=True, b_slice_at=4)),
+    "h264_interlaced.mp4": (7, 4, b"avc1", dict(
+        mb_w=8, mb_h=6, frames=5, cabac=False, profile=77, field_at=3)),
+    "h264_left_crop.mp4": (8, 4, b"avc1", dict(
+        mb_w=4, mb_h=3, frames=3, cabac=False, profile=66,
+        crop=(3, 0, 0, 0))),
+}
 REFUSED = {"fmp4_bframes.avi": "ROADMAP Q1.13c",
-           "fmp4_qpel.avi": "ROADMAP Q1.13c"}
+           "fmp4_qpel.avi": "ROADMAP Q1.13c",
+           "h264_bframes.mp4": "ROADMAP Q1.13b",
+           "h264_interlaced.mp4": "ROADMAP Q1.13b",
+           "h264_left_crop.mp4": "ROADMAP Q1.13b"}
+
+
+def painted(mb_w: int, mb_h: int, seed: int):
+    """The scene's first frame at the coded size as the writer's paint
+    targets: Y per 8x8, U and V per chroma 4x4 (BT.601 limited), with
+    seeded noise: chip_smoke's serving checkpoint is calibrated on noisy
+    images, and finds about as many candidates here as there at this
+    noise (none on the clean mosaic)."""
+    import cv2
+
+    w, h = 16 * mb_w, 16 * mb_h
+    yuv = cv2.cvtColor(next(scene(w, h, 1, seed)), cv2.COLOR_BGR2YUV_I420)
+    y = yuv[:h].reshape(2 * mb_h, 8, 2 * mb_w, 8).mean((1, 3))
+    u = yuv[h:h + h // 4].reshape(2 * mb_h, 4, 2 * mb_w, 4).mean((1, 3))
+    v = yuv[h + h // 4:].reshape(2 * mb_h, 4, 2 * mb_w, 4).mean((1, 3))
+    rng = np.random.default_rng(seed)
+    y = y + rng.normal(0, 24, y.shape)
+    u, v = (p + rng.normal(0, 3, p.shape) for p in (u, v))
+    return tuple(np.clip(np.rint(p), 0, 255).astype(int).tolist()
+                 for p in (y, u, v))
+
+
+def write_h264(path: Path, seed: int, length: int, entry, config: dict):
+    """A writer stream as MP4 (avc1 / avc3, NAL lengths of `length` bytes)
+    or, for length 0, Annex B chunks in AVI; a draw with a NAL unit too
+    long for its length field is drawn again."""
+    sys.path.insert(0, str(ROOT / "tests"))
+    import h264_writer as hw
+
+    config = dict(config)
+    if config.get("paint") == "scene":
+        config["paint"] = painted(config["mb_w"], config["mb_h"], seed)
+    for k in range(20):
+        stream = hw.make(hw.Config(**config), seed * 100 + k)
+        if not length:
+            hw.write_avi(path, stream)
+            return
+        if all(len(n) < (1 << (8 * length)) for au in stream.access_units
+               for n in au + stream.sps + stream.pps):
+            hw.write_mp4(path, stream, length, entry)
+            return
+    raise SystemExit(f"{path.name}: no draw fits {length}-byte lengths")
 ROT90 = (0, 65536, 0, -65536, 0, 0, 0, 0, 1 << 30)
 
 
@@ -226,7 +330,7 @@ def cv2_frames(cv2, path: Path):
 
 def digests(cv2, out: Path) -> dict:
     table = {}
-    for name in CLIPS:
+    for name in [*CLIPS, *H264_CLIPS]:
         frames = cv2_frames(cv2, out / name)
         entry = {"frames": len(frames),
                  "shape": list(frames[0].shape) if frames else None,
@@ -247,6 +351,8 @@ def main():
     out = args.out
     out.mkdir(parents=True, exist_ok=True)
     lavc = None
+    for name, (seed, length, entry, config) in H264_CLIPS.items():
+        write_h264(out / name, seed, length, entry, config)
     for seed, (name, spec) in enumerate(CLIPS.items()):
         path = out / name
         if spec[0] == "cv2":

@@ -10,8 +10,11 @@ display matrix set to 90 / 180 / 270 degrees, `moov` moved before `mdat`,
 the file cut short inside a frame (at seeded points), `moov` never written.
 The committed fixtures of `tests/video_fixtures/` (made by
 `scripts/make_video_fixtures.py`, with cv2's per-frame digests) add what
-cv2's writer never sets: 4MV with resync markers, MPEG quantisation, and
-two streams the port refuses (B-VOPs, quarter-pel).
+cv2's writer never sets: 4MV with resync markers, MPEG quantisation, two
+MPEG-4 streams the port refuses (B-VOPs, quarter-pel), and the H.264
+clips of `tests/h264_writer.py` (five decoded, three refused; cli.detect
+runs on the 1080p one). `tests/test_torch_h264.py` holds the H.264
+decoder to cv2 on writer streams.
 
 Tolerance: every frame bit-equal, the same count, the same "#idx" paths;
 an unreadable file yields nothing in both; a codec or tool the port does
@@ -230,10 +233,22 @@ def _avi_with_fourcc(src: Path, dst: Path, fourcc: bytes) -> None:
 def test_unported_codecs_raise(tmp_path):
     """A codec or container cv2 reads and the port does not decode yet
     raises NotImplementedError naming its ROADMAP item, where JAX would
-    yield frames."""
+    yield frames: H.264's kinds left for Q1.13b's second half (the refused
+    fixtures; tests/test_torch_h264.py has every kind), other codecs,
+    MKV, fragmented MP4. An Xvid stream in an AVI tagged H264 is H.264 to
+    FFmpeg: its decoder finds no slice in it, and cv2, JAX and the port
+    all yield nothing."""
     clip = write_clip(tmp_path / "x.avi", "XVID", 64, 48, 4)
-    for fourcc, item in [(b"H264", "Q1.13b"), (b"WMV3", "Q1.13d"),
-                         (b"DIV3", "Q1.13d")]:
+    renamed = tmp_path / "H264.avi"
+    _avi_with_fourcc(clip, renamed, b"H264")
+    assert cv2_frames(renamed) == []
+    assert list(video_io.frames(str(renamed))) == []
+    assert_loaders_equal(renamed)
+    for name, entry in DIGESTS.items():
+        if name.startswith("h264_") and "refused" in entry:
+            with pytest.raises(NotImplementedError, match="Q1.13b"):
+                list(LoadImages(str(FIXTURES / name), IMG))
+    for fourcc, item in [(b"WMV3", "Q1.13d"), (b"DIV3", "Q1.13d")]:
         path = tmp_path / f"{fourcc.decode()}.avi"
         _avi_with_fourcc(clip, path, fourcc)
         with pytest.raises(NotImplementedError, match=item):
@@ -345,6 +360,25 @@ def test_detect_on_a_clip_equals_jax(weights, capsys):
     assert got.read_text() == (root / "jax_nosave" / "exp" /
                                "clip.txt").read_text()
     assert sorted(p.name for p in out_dir.iterdir()) == ["clip.txt"]
+
+
+def test_detect_on_the_h264_1080p_clip_equals_jax(weights, capsys):
+    """The committed 1920x1080 High-profile CABAC clip (coded as 1088 rows,
+    cropped): --nosave --save-txt prints JAX's lines, frame by frame, and
+    writes its label file."""
+    root, _ = weights
+    clip = FIXTURES / "h264_high_cabac_1080p.mp4"
+    port, jax = _runs(root, clip, "h264", ["--nosave", "--save-txt"])
+    capsys.readouterr()
+    out_dir, dets, _ = cli_detect.main(port)
+    port_out = capsys.readouterr().out
+    _jax_detect(jax)
+    jax_out = capsys.readouterr().out
+    assert _lines(port_out) == _lines(jax_out)
+    assert len(_lines(port_out)) == DIGESTS[clip.name]["frames"] == len(dets)
+    name = f"{clip.stem}.txt"
+    assert (out_dir / name).read_text() == (root / "jax_h264" / "exp" /
+                                            name).read_text()
 
 
 def test_detect_without_nosave_stops_at_the_first_frame(weights, capsys):
